@@ -11,6 +11,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ...ops import AdamStep
+
 
 def make_schedule(step_size: float, decay: str | None, warmup: int, max_iterations: int):
     """The step size at each iteration (float32 values, as optax computes them)."""
@@ -18,9 +20,10 @@ def make_schedule(step_size: float, decay: str | None, warmup: int, max_iteratio
     if warmup:
         raise NotImplementedError("Step-size warmup is not ported yet.")
     if decay == "step-lr":
-        # MultiStepLR at ~3/8, ~5/8, ~7/8 of the run with gamma 0.1
-        boundaries = [int(max_iterations / 2.667), int(max_iterations / 1.6),
-                      int(max_iterations / 1.142)]
+        # MultiStepLR at ~3/8, ~5/8, ~7/8 of the run with gamma 0.1; boundaries that
+        # coincide (max_iterations <= 3) count once, as the JAX package's dict keys do
+        boundaries = sorted({int(max_iterations / 2.667), int(max_iterations / 1.6),
+                             int(max_iterations / 1.142)})
 
         def schedule(step):
             value = np.float32(step_size)
@@ -36,7 +39,8 @@ def make_schedule(step_size: float, decay: str | None, warmup: int, max_iteratio
 
 
 class Adam:
-    """optax.adam over one tensor, with the state held explicitly."""
+    """optax.adam over one tensor, with the state held explicitly. The update itself
+    is ``ops.adam_box_step``; this object owns the schedule and the step count."""
 
     def __init__(self, schedule, b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8):
         self.schedule, self.b1, self.b2, self.eps = schedule, b1, b2, eps
@@ -44,16 +48,14 @@ class Adam:
     def init(self, x: torch.Tensor) -> dict:
         return dict(count=0, mu=torch.zeros_like(x), nu=torch.zeros_like(x))
 
-    def step(self, x: torch.Tensor, grad: torch.Tensor, state: dict) -> torch.Tensor:
-        """Advance ``state`` in place and return the updated x."""
+    def advance(self, state: dict) -> AdamStep:
+        """Count one step in ``state`` and return its host scalars."""
         lr = self.schedule(state["count"])
-        state["mu"] = (1 - self.b1) * grad + self.b1 * state["mu"]
-        state["nu"] = (1 - self.b2) * (grad * grad) + self.b2 * state["nu"]
         state["count"] += 1
         t = np.float32(state["count"])
-        mu_hat = state["mu"] / float(np.float32(1) - np.float32(self.b1) ** t)
-        nu_hat = state["nu"] / float(np.float32(1) - np.float32(self.b2) ** t)
-        return x + (-lr) * (mu_hat / (torch.sqrt(nu_hat) + self.eps))
+        return AdamStep(lr=lr, b1=self.b1, b2=self.b2, eps=self.eps,
+                        bias1=float(np.float32(1) - np.float32(self.b1) ** t),
+                        bias2=float(np.float32(1) - np.float32(self.b2) ** t))
 
 
 def optimizer_lookup(optim_name: str, step_size: float, scheduler=None, warmup=0,

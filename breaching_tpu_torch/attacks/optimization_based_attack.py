@@ -2,11 +2,12 @@
 ``breaching_tpu/attacks/optimization_based_attack.py``).
 
 Each step computes grad_x [distance(grad_theta L(theta, x), g*) + reg(x)] by double
-backward, takes its sign (hard-signed attacks), takes an Adam step, clamps the
-candidate to the data box (kernel B4), rejects a step whose loss is not finite and
-keeps the best iterate. The step runs eagerly; nothing in it waits on the host
-except the loss readout every ``optim.callback`` steps. Restart trials run one
-after the other, each from its own initial candidate, and are then scored.
+backward; then one call of ``ops.adam_box_step`` (one kernel launch on the card)
+takes its sign (hard-signed attacks), takes an Adam step, clamps the candidate to
+the data box, rejects a step whose loss is not finite and keeps the best iterate.
+The step runs eagerly; nothing in it waits on the host except the loss readout
+every ``optim.callback`` steps. Restart trials run one after the other, each from
+its own initial candidate, and are then scored.
 """
 
 from __future__ import annotations
@@ -17,7 +18,7 @@ import time
 import numpy as np
 import torch
 
-from ..ops import box_project
+from ..ops import adam_box_step
 from .auxiliaries.objectives import CosineSimilarity, objective_lookup
 from .auxiliaries.optimizers import optimizer_lookup
 from .auxiliaries.regularizers import regularizer_lookup
@@ -110,7 +111,9 @@ class OptimizationBasedAttacker(_BaseAttacker):
             candidate = candidates[trial].clone()
             state = optimizer.init(candidate)
             best = candidate.clone()
-            best_val = torch.tensor(float("inf"), device=candidate.device)
+            # the step reads one and writes the other; they swap after every step
+            best_vals = [torch.tensor(float("inf"), device=candidate.device),
+                         torch.empty((), device=candidate.device)]
             history = stats.setdefault(f"Trial_{trial}_Val", [])
             iteration, wallclock = 0, time.time()
             while iteration < max_iterations:
@@ -120,16 +123,10 @@ class OptimizationBasedAttacker(_BaseAttacker):
                     value, task_loss = self._loss(x, rec_models, targets, labels)
                     grad, = torch.autograd.grad(value, x)
                     value = value.detach()
-                    if cfg_optim.signed:
-                        grad = torch.sign(grad)
-                    new = optimizer.step(candidate, grad, state)
-                    if cfg_optim.boxed:
-                        new = box_project(new, min_box, max_box)
-                    finite = torch.isfinite(value)
-                    improved = finite & (value < best_val)
-                    best = torch.where(improved, candidate, best)
-                    best_val = torch.where(improved, value, best_val)
-                    candidate = torch.where(finite, new, candidate)
+                    adam_box_step(candidate, grad.contiguous(), state["mu"], state["nu"], best,
+                                  min_box, max_box, value, *best_vals, optimizer.advance(state),
+                                  signed=bool(cfg_optim.signed), boxed=bool(cfg_optim.boxed))
+                    best_vals.reverse()
                     values.append(value)
                     task_losses.append(task_loss)
                     iteration += 1

@@ -1,15 +1,18 @@
 """Hand-written CUDA kernels of the attack step, with their plain PyTorch versions."""
 
-from .image import box_project, total_variation, tv_backward, tv_forward
-from .matching import axpby, fused_cosine_similarity, matching_sums
+from .image import (AdamStep, adam_box_step, box_project, sign, total_variation, tv_backward,
+                    tv_forward)
+from .matching import axpby, cosine_backward, fused_cosine_similarity, matching_sums
 
 # Every kernel wrapper; each carries a `launches` count of its kernel launches.
 KERNELS = {
     "b1_matching_sums": matching_sums,
     "b2_axpby": axpby,
+    "b2_cosine_backward": cosine_backward,
     "b3_tv_forward": tv_forward,
     "b3_tv_backward": tv_backward,
     "b4_box_project": box_project,
+    "b4_adam_box_step": adam_box_step,
 }
 
 
@@ -24,12 +27,16 @@ def launch_counts() -> dict:
 
 __all__ = [
     "KERNELS",
+    "AdamStep",
+    "adam_box_step",
     "axpby",
     "box_project",
+    "cosine_backward",
     "fused_cosine_similarity",
     "launch_counts",
     "matching_sums",
     "reset_launch_counts",
+    "sign",
     "total_variation",
     "tv_backward",
     "tv_forward",

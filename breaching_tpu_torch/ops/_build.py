@@ -30,9 +30,12 @@ _P, _I64, _I32, _F32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int, ctypes.c_f
 SIGNATURES = {
     "b1_matching_sums": [_P, _P, _I64, _P, _I32, _P, _P],
     "b2_axpby": [_P, _P, _P, _P, _P, _I64, _P],
+    "b2_cosine_backward": [_P, _P, _P, _P, _P, _I64, _I32, _P],
     "b3_tv_forward": [_P, _I64, _I32, _I32, _F32, _F32, _F32, _P, _I32, _P, _P],
     "b3_tv_backward": [_P, _P, _I64, _I32, _I32, _F32, _F32, _F32, _P, _P],
     "b4_box_project": [_P, _P, _P, _P, _I64, _I64, _I32, _P],
+    "b4_adam_box_step": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I64, _I64, _I32,
+                         _F32, _F32, _F32, _F32, _F32, _F32, _F32, _F32, _I32, _P],
 }
 
 _library = None
@@ -106,24 +109,29 @@ def check(status: int, name: str) -> None:
         raise RuntimeError(f"CUDA kernel {name} failed: cudaError_t {status}.")
 
 
-def on_cpu(name: str, *tensors) -> bool:
-    """True if every tensor lies on the CPU (the plain version runs); False if every
-    tensor is a contiguous float32 CUDA tensor on one card (the kernel runs). Raises
-    for anything else: a CUDA tensor never falls back to the plain version."""
+def launch_stream(name: str, *tensors) -> int | None:
+    """Where a wrapper's work runs. The raw handle of the current CUDA stream if every
+    tensor is a contiguous float32 tensor on one CUDA device (the kernel runs there);
+    None if every tensor lies on the CPU (the plain version runs). Raises for anything
+    else: a CUDA tensor never falls back to the plain version.
+
+    The common case, the kernel's, is decided in one pass over the tensors' devices,
+    dtypes and contiguity, and the stream handle is read without building a
+    ``torch.cuda.Stream``: at the slice's sizes this host work is the call's cost."""
+    device = tensors[0].device
+    if device.type == "cuda":
+        for t in tensors:
+            if t.device != device or t.dtype is not torch.float32 or not t.is_contiguous():
+                break
+        else:
+            return torch._C._cuda_getCurrentRawStream(device.index)
     devices = {t.device for t in tensors}
     if devices == {torch.device("cpu")}:
-        return True
-    if len(devices) != 1 or next(iter(devices)).type != "cuda":
+        return None
+    if len(devices) != 1 or device.type != "cuda":
         raise ValueError(f"{name}: tensors must all lie on the CPU or on one CUDA device, got {devices}.")
-    for t in tensors:
-        if t.dtype != torch.float32 or not t.is_contiguous():
-            raise ValueError(f"{name}: the kernel takes contiguous float32 tensors, "
-                             f"got {t.dtype} with strides {t.stride()}.")
-    return False
-
-
-def stream_of(tensor) -> int:
-    return torch.cuda.current_stream(tensor.device).cuda_stream
+    raise ValueError(f"{name}: the kernel takes contiguous float32 tensors, got "
+                     f"{[(t.dtype, t.stride()) for t in tensors]}.")
 
 
 def reduce_blocks(n: int) -> int:

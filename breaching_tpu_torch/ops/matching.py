@@ -7,6 +7,10 @@ Counterpart of ``breaching_tpu/ops/matching.py``. Kernels (``csrc/matching.cu``)
   per element over 3.35 TB/s.
 - B2 ``axpby`` replaces ``_axpby`` / Pallas ``_axpby_kernel``: a x + b y with
   scalars a, b held on the device. Bound: 12 bytes per element over 3.35 TB/s.
+- ``cosine_backward`` is B2 rebuilt for the cosine's VJP (``_cos_bwd``, which calls
+  ``_axpby``): each thread forms a and b from B1's sums and the upstream gradient in
+  registers, in ``_cos_bwd``'s order, then streams a x + b y. One launch in place of
+  the eleven scalar launches and ``axpby``. Bound: 12 bytes per element.
 
 Each wrapper runs its kernel on contiguous float32 CUDA tensors and counts the
 launch in its ``launches`` attribute; it runs the plain PyTorch version (``*_plain``)
@@ -29,7 +33,8 @@ def matching_sums(rec: torch.Tensor, data: torch.Tensor) -> torch.Tensor:
     if rec.dim() != 1 or rec.shape != data.shape:
         raise ValueError(f"matching_sums takes two flat vectors of one length, got "
                          f"{tuple(rec.shape)} and {tuple(data.shape)}.")
-    if _build.on_cpu("matching_sums", rec, data):
+    stream = _build.launch_stream("matching_sums", rec, data)
+    if stream is None:
         return matching_sums_plain(rec, data)
     n = rec.numel()
     blocks = _build.reduce_blocks(n)
@@ -37,7 +42,7 @@ def matching_sums(rec: torch.Tensor, data: torch.Tensor) -> torch.Tensor:
     sums = torch.empty(3, device=rec.device, dtype=torch.float32)
     _build.check(_build.load_library().b1_matching_sums(
         rec.data_ptr(), data.data_ptr(), n, partials.data_ptr(), blocks, sums.data_ptr(),
-        _build.stream_of(rec)), "b1_matching_sums")
+        stream), "b1_matching_sums")
     matching_sums.launches += 1
     return sums
 
@@ -54,12 +59,13 @@ def axpby(a: torch.Tensor, x: torch.Tensor, b: torch.Tensor, y: torch.Tensor) ->
     if x.dim() != 1 or x.shape != y.shape or a.numel() != 1 or b.numel() != 1:
         raise ValueError(f"axpby takes scalars a, b and flat x, y of one length, got "
                          f"{tuple(a.shape)}, {tuple(x.shape)}, {tuple(b.shape)}, {tuple(y.shape)}.")
-    if _build.on_cpu("axpby", a, x, b, y):
+    stream = _build.launch_stream("axpby", a, x, b, y)
+    if stream is None:
         return axpby_plain(a, x, b, y)
     out = torch.empty_like(x)
     _build.check(_build.load_library().b2_axpby(
         a.data_ptr(), x.data_ptr(), b.data_ptr(), y.data_ptr(), out.data_ptr(), x.numel(),
-        _build.stream_of(x)), "b2_axpby")
+        stream), "b2_axpby")
     axpby.launches += 1
     return out
 
@@ -67,8 +73,43 @@ def axpby(a: torch.Tensor, x: torch.Tensor, b: torch.Tensor, y: torch.Tensor) ->
 axpby.launches = 0
 
 
+def cosine_backward_plain(sums, g, rec, data, wrt_data=False):
+    """d/d rec of g (1 - <rec, data> / (|rec| |data| + 1e-12)), or d/d data if
+    ``wrt_data``, from sums = (<rec, data>, |rec|^2, |data|^2): ``_cos_bwd``'s scalar
+    arithmetic, then ``axpby_plain``."""
+    dot, rec_sq, data_sq = sums.unbind()
+    rec_n, data_n = torch.sqrt(rec_sq), torch.sqrt(data_sq)
+    a = (-g / (rec_n * data_n + 1e-12)).reshape(1)
+    if wrt_data:
+        b = (g * dot / (data_n ** 3 * rec_n + 1e-12)).reshape(1)
+        return axpby_plain(a, rec, b, data)
+    b = (g * dot / (rec_n ** 3 * data_n + 1e-12)).reshape(1)
+    return axpby_plain(a, data, b, rec)
+
+
+def cosine_backward(sums, g, rec, data, wrt_data=False):
+    """The cosine distance's gradient with respect to rec (or data, if ``wrt_data``),
+    times the one-element upstream gradient g, from the three sums of ``matching_sums``."""
+    if rec.dim() != 1 or rec.shape != data.shape or sums.shape != (3,) or g.numel() != 1:
+        raise ValueError(f"cosine_backward takes sums of shape (3,), a one-element g and flat rec, "
+                         f"data of one length, got {tuple(sums.shape)}, {tuple(g.shape)}, "
+                         f"{tuple(rec.shape)}, {tuple(data.shape)}.")
+    stream = _build.launch_stream("cosine_backward", sums, g, rec, data)
+    if stream is None:
+        return cosine_backward_plain(sums, g, rec, data, wrt_data)
+    out = torch.empty_like(rec)
+    _build.check(_build.load_library().b2_cosine_backward(
+        sums.data_ptr(), g.data_ptr(), rec.data_ptr(), data.data_ptr(), out.data_ptr(), rec.numel(),
+        int(wrt_data), stream), "b2_cosine_backward")
+    cosine_backward.launches += 1
+    return out
+
+
+cosine_backward.launches = 0
+
+
 class _FusedCosine(torch.autograd.Function):
-    """1 - <rec, data> / (|rec| |data| + 1e-12): B1 forward, B2 backward
+    """1 - <rec, data> / (|rec| |data| + 1e-12): B1 forward, B2's cosine backward
     (``fused_cosine_similarity`` and ``_cos_bwd`` of the JAX package)."""
 
     @staticmethod
@@ -81,16 +122,9 @@ class _FusedCosine(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         rec, data, sums = ctx.saved_tensors
-        dot, rec_sq, data_sq = sums.unbind()
-        rec_n, data_n = torch.sqrt(rec_sq), torch.sqrt(data_sq)
-        a = (-g / (rec_n * data_n + 1e-12)).reshape(1)
-        d_rec = d_data = None
-        if ctx.needs_input_grad[0]:
-            b = (g * dot / (rec_n ** 3 * data_n + 1e-12)).reshape(1)
-            d_rec = axpby(a, data, b, rec)
-        if ctx.needs_input_grad[1]:
-            b = (g * dot / (data_n ** 3 * rec_n + 1e-12)).reshape(1)
-            d_data = axpby(a, rec, b, data)
+        g = g.contiguous()
+        d_rec = cosine_backward(sums, g, rec, data) if ctx.needs_input_grad[0] else None
+        d_data = cosine_backward(sums, g, rec, data, wrt_data=True) if ctx.needs_input_grad[1] else None
         return d_rec, d_data
 
 

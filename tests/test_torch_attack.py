@@ -16,7 +16,9 @@ agreement measured on this configuration is in brackets):
   PSNR agree to 1e-4 relative [7e-7], its SSIM, near 0 here, to 1e-5 absolute
   [2e-6];
 - 5 steps of hard-signed Adam: losses within 1e-3 relative [2e-6], and at most 1%
-  of the pixels of the reconstruction more than 1e-3 apart [none]."""
+  of the pixels of the reconstruction more than 1e-3 apart [none]; the same for a
+  `dryrun=True` reconstruction and a 3-step one at 16x16, whose step sizes come from
+  step-lr boundaries that coincide (max_iterations <= 3)."""
 
 import jax
 import numpy as np
@@ -51,8 +53,8 @@ def _run_both(overrides):
     return port, ref
 
 
-def _initial(seed=3):
-    x = np.random.default_rng(seed).normal(size=(1, 3, 32, 32)).astype(np.float32)
+def _initial(seed=3, size=32):
+    x = np.random.default_rng(seed).normal(size=(1, 3, size, size)).astype(np.float32)
     return x, np.transpose(x, (0, 2, 3, 1))
 
 
@@ -120,6 +122,22 @@ def test_signed_adam_trajectory_stays_close():
                                               initial_data=torch.from_numpy(x))
     j_rec, j_stats = ref["attacker"].reconstruct(ref["payloads"], ref["shared"], ref["server"].secrets,
                                                  initial_data=x_nhwc)
+    np.testing.assert_allclose(stats["Trial_0_Val"], j_stats["Trial_0_Val"], rtol=1e-3)
+    differing = np.abs(rec["data"].numpy() - np.transpose(np.asarray(j_rec["data"]), (0, 3, 1, 2))) > 1e-3
+    assert differing.mean() <= 0.01, f"{differing.mean():.4%} of the pixels differ"
+
+
+@pytest.mark.parametrize("dryrun,iterations", [(True, 24_000), (False, 3)])
+def test_short_signed_reconstructions_match(dryrun, iterations):
+    # a dry run takes one step with max_iterations = 1: every step-lr boundary is 0
+    overrides = ["case.data.shape=[3, 16, 16]", f"attack.optim.max_iterations={iterations}"]
+    port, ref = _run_both(overrides)
+    x, x_nhwc = _initial(size=16)
+    rec, stats = port["attacker"].reconstruct(port["payloads"], port["shared"], port["server"].secrets,
+                                              initial_data=torch.from_numpy(x), dryrun=dryrun)
+    j_rec, j_stats = ref["attacker"].reconstruct(ref["payloads"], ref["shared"], ref["server"].secrets,
+                                                 initial_data=x_nhwc, dryrun=dryrun)
+    assert len(stats["Trial_0_Val"]) == len(j_stats["Trial_0_Val"]) == (1 if dryrun else iterations)
     np.testing.assert_allclose(stats["Trial_0_Val"], j_stats["Trial_0_Val"], rtol=1e-3)
     differing = np.abs(rec["data"].numpy() - np.transpose(np.asarray(j_rec["data"]), (0, 3, 1, 2))) > 1e-3
     assert differing.mean() <= 0.01, f"{differing.mean():.4%} of the pixels differ"

@@ -10,7 +10,12 @@ Tolerances, each with its reason:
 - sums over n float32 terms in two orders: 1e-5 of the sum of |terms|;
 - elementwise arithmetic done the same way by kernel and plain version: 2^-22 of
   the largest |value| (one rounding);
-- the box clamp does no arithmetic: exact.
+- the box clamp does no arithmetic: exact;
+- the fused kernels b2_cosine_backward and b4_adam_box_step round every product,
+  sum, quotient and square root as their plain versions do (no fused
+  multiply-add, IEEE division and square root; the plain Adam step divides by
+  device tensors, not by host scalars, which CUDA would turn into products with
+  a reciprocal): bit for bit, signed zeros included, NaN in the same places.
 """
 
 import numpy as np
@@ -32,6 +37,12 @@ def cuda():
 
 def _randn(shape, seed, device):
     return torch.from_numpy(np.random.default_rng(seed).normal(size=shape).astype(np.float32)).to(device)
+
+
+def _same_bits(got, want):
+    nan = torch.isnan(want)
+    return torch.equal(torch.isnan(got), nan) and torch.equal(got[~nan].view(torch.int32),
+                                                              want[~nan].view(torch.int32))
 
 
 @pytest.mark.cuda
@@ -74,3 +85,105 @@ def test_kernels_refuse_non_contiguous_input(cuda):
     x = _randn((1, 3, 32, 32), 5, cuda).transpose(2, 3)
     with pytest.raises(ValueError):
         ops.tv_forward(x)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,offset", [(2_904_970, 0), (1_000_003, 0), (1_000_003, 1)])
+@pytest.mark.parametrize("wrt_data", [False, True])
+def test_b2_cosine_backward_matches_plain(cuda, n, offset, wrt_data):
+    r, d = _randn(n + offset, 6, cuda)[offset:], _randn(n + offset, 7, cuda)[offset:]
+    sums, g = ops.matching_sums(r, d), torch.tensor(0.37, device=cuda)
+    before = ops.cosine_backward.launches
+    got = ops.cosine_backward(sums, g, r, d, wrt_data)
+    assert ops.cosine_backward.launches == before + 1
+    assert _same_bits(got, matching.cosine_backward_plain(sums, g, r, d, wrt_data))
+
+
+def _adam_inputs(shape, cuda):
+    grad = _randn(shape, 8, cuda)
+    grad.view(-1)[::997] = float("nan")
+    grad.view(-1)[1::499] = -0.0
+    grad.view(-1)[2::499] = 0.0
+    return dict(x=_randn(shape, 9, cuda) * 2, grad=grad, mu=_randn(shape, 10, cuda) * 0.1,
+                nu=_randn(shape, 11, cuda) ** 2 * 0.01, best=_randn(shape, 12, cuda))
+
+
+def _adam_run(step_fn, inputs, values, lo, hi, signed):
+    """Three steps from `inputs` with the two best-value buffers swapped after each;
+    the state after every step."""
+    st = {k: v.clone() for k, v in inputs.items()}
+    vals = [torch.tensor(float("inf"), device=lo.device), torch.empty((), device=lo.device)]
+    states = []
+    for t, value in enumerate(values, start=1):
+        step = ops.AdamStep(lr=0.1, b1=0.9, b2=0.999, eps=1e-8, bias1=1 - 0.9 ** t, bias2=1 - 0.999 ** t)
+        step_fn(st["x"], st["grad"], st["mu"], st["nu"], st["best"], lo, hi,
+                torch.tensor(value, device=lo.device), *vals, step, signed=signed)
+        vals.reverse()
+        states.append({**{k: v.clone() for k, v in st.items()}, "best_val": vals[0].reshape(1).clone()})
+    return states
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(1, 3, 32, 32), (2, 3, 331, 1007)])
+@pytest.mark.parametrize("signed", [True, False])
+def test_b4_adam_box_step_matches_plain(cuda, shape, signed):
+    lo, hi = torch.tensor([-1.0, -2.0, 0.0], device=cuda), torch.tensor([1.0, 0.5, 2.0], device=cuda)
+    inputs = _adam_inputs(shape, cuda)
+    before = ops.adam_box_step.launches
+    got = _adam_run(ops.adam_box_step, inputs, [0.5], lo, hi, signed)[0]
+    assert ops.adam_box_step.launches == before + 1
+    want = _adam_run(image.adam_box_step_plain, inputs, [0.5], lo, hi, signed)[0]
+    for key in ("x", "mu", "nu", "best", "best_val"):
+        assert _same_bits(got[key], want[key]), key
+    assert bool(torch.isnan(got["x"]).any())  # a NaN gradient, or its sign, gives a NaN candidate
+
+
+@pytest.mark.cuda
+def test_b4_adam_box_step_swaps_best_values_over_three_steps(cuda):
+    # the loss improves, does not, then improves: the best iterate is taken, kept, taken
+    lo, hi = torch.tensor([-1.0, -2.0, 0.0], device=cuda), torch.tensor([1.0, 0.5, 2.0], device=cuda)
+    inputs = _adam_inputs((1, 3, 32, 32), cuda)
+    got = _adam_run(ops.adam_box_step, inputs, [0.5, 0.7, 0.3], lo, hi, True)
+    want = _adam_run(image.adam_box_step_plain, inputs, [0.5, 0.7, 0.3], lo, hi, True)
+    assert [s["best_val"].item() for s in got] == [0.5, 0.5, torch.tensor(0.3).item()]
+    assert torch.equal(got[1]["best"], got[0]["best"])
+    for g, w in zip(got, want):
+        for key in ("x", "mu", "nu", "best", "best_val"):
+            assert _same_bits(g[key], w[key]), key
+
+
+@pytest.mark.cuda
+def test_kernels_launch_on_the_current_stream(cuda):
+    # the side stream first sleeps: a kernel that lands on it has not run when the
+    # default stream (which does not wait for it) reads the candidate back
+    lo, hi = torch.tensor([-1.0, -2.0, 0.0], device=cuda), torch.tensor([1.0, 0.5, 2.0], device=cuda)
+    st = _adam_inputs((1, 3, 32, 32), cuda)
+    vals = [torch.tensor(float("inf"), device=cuda), torch.empty((), device=cuda)]
+    value = torch.tensor(0.5, device=cuda)
+    before = st["x"].cpu()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        torch.cuda._sleep(100_000_000)
+        ops.adam_box_step(st["x"], st["grad"], st["mu"], st["nu"], st["best"], lo, hi, value, *vals,
+                          ops.AdamStep(0.1, 0.9, 0.999, 1e-8, 0.1, 0.001), signed=False)
+    seen = st["x"].cpu()
+    side.synchronize()
+    assert torch.equal(seen, before)
+    assert not torch.equal(st["x"].cpu(), before)
+
+
+@pytest.mark.cuda
+def test_new_kernels_refuse_what_they_do_not_take(cuda):
+    x = _randn((1, 3, 32, 32), 13, cuda)
+    lo, hi = torch.zeros(3, device=cuda), torch.ones(3, device=cuda)
+    one = torch.zeros((), device=cuda)
+    step = ops.AdamStep(0.1, 0.9, 0.999, 1e-8, 0.1, 0.001)
+    with pytest.raises(ValueError):  # float64 gradient
+        ops.adam_box_step(x, x.double(), x.clone(), x.clone(), x.clone(), lo, hi, one, one.clone(),
+                          one.clone(), step)
+    with pytest.raises(ValueError):  # one buffer for the best value read and written
+        ops.adam_box_step(x, x.clone(), x.clone(), x.clone(), x.clone(), lo, hi, one, one, one, step)
+    r = _randn(1000, 14, cuda)
+    with pytest.raises(ValueError):  # the sums on the CPU
+        ops.cosine_backward(torch.zeros(3), one, r, r.clone())

@@ -81,10 +81,24 @@ def test_fused_cosine_value_and_gradients_match_pallas():
     _close(got_d, g_d, 1e-5)
 
 
+@pytest.mark.parametrize("wrt_data", [False, True])
+def test_cosine_backward_plain_matches_cos_bwd(wrt_data):
+    # jax.vjp of the fused cosine runs _cos_bwd: _matching_sums and _axpby in interpret mode
+    r, d = _vec(7001, 13), _vec(7001, 14)
+    _, vjp = jax.vjp(jax_fused_cosine, jnp.asarray(r), jnp.asarray(d))
+    want = vjp(jnp.float32(0.37))[1 if wrt_data else 0]
+    rt, dt = torch.from_numpy(r), torch.from_numpy(d)
+    sums = matching.matching_sums_plain(rt, dt)
+    got = matching.cosine_backward_plain(sums, torch.tensor(0.37), rt, dt, wrt_data)
+    # the sums differ by their summation order (1e-5, above); the rest is the same arithmetic
+    _close(got, want, 1e-5)
+
+
 @pytest.mark.parametrize("data_requires_grad", [False, True])
 def test_fused_cosine_computes_the_data_gradient_only_when_needed(monkeypatch, data_requires_grad):
     calls = []
-    monkeypatch.setattr(matching, "axpby", lambda *args: calls.append(1) or matching.axpby_plain(*args))
+    monkeypatch.setattr(matching, "cosine_backward",
+                        lambda *args, **kwargs: calls.append(1) or matching.cosine_backward_plain(*args, **kwargs))
     r = torch.from_numpy(_vec(100, 6)).requires_grad_(True)
     d = torch.from_numpy(_vec(100, 7)).requires_grad_(data_requires_grad)
     torch.autograd.grad(ops.fused_cosine_similarity(r, d), (r, d) if data_requires_grad else (r,))
