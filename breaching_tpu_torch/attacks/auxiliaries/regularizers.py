@@ -1,8 +1,8 @@
 """Input-space regularizers (counterpart of ``breaching_tpu/attacks/auxiliaries/regularizers.py``).
 
-Total variation runs through kernel B3 (``ops.total_variation``), whose backward
-is the closed-form sign-divergence gradient of the JAX package's ``_tv_p1q1`` and
-``_make_tv_general``. Images are NCHW.
+Total variation runs through ``ops.total_variation``: one launch of the fused B3
+kernel gives the scaled value and its gradient, the closed-form sign-divergence
+gradient of the JAX package's ``_tv_p1q1`` and ``_make_tv_general``. Images are NCHW.
 """
 
 from __future__ import annotations
@@ -24,6 +24,7 @@ class TotalVariation:
         self.outer_exp = float(outer_exp)
         self.eps = float(eps)
         self.double_opponents = bool(double_opponents)
+        self._scales = {}  # device -> the scale as a one-element tensor, read by the kernel
 
     def initialize(self, models, shared_data=None, labels=None):
         pass
@@ -33,7 +34,10 @@ class TotalVariation:
         if self.double_opponents:
             x = torch.cat([x, x[:, 0:1] - x[:, 1:2], x[:, 0:1] - x[:, 2:3], x[:, 1:2] - x[:, 2:3]],
                           dim=1)
-        return total_variation(x, self.inner_exp, self.outer_exp, self.eps) * self.scale
+        scale = self._scales.get(x.device)
+        if scale is None:
+            scale = self._scales[x.device] = torch.full((1,), self.scale, dtype=x.dtype, device=x.device)
+        return total_variation(x, self.inner_exp, self.outer_exp, self.eps, scale)
 
     def __repr__(self):
         return (f"Total Variation, scale={self.scale}. p={self.inner_exp} q={self.outer_exp}. "

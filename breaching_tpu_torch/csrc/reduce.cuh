@@ -1,10 +1,12 @@
-// Block-level sums shared by the reduction kernels (B1 matching sums, B3 TV forward).
+// Block-level sums shared by the reduction kernels: B1 matching sums and B3 TV
+// forward reduce in two launches, the fused TV value and gradient (csrc/image.cu)
+// in one.
 //
-// A reduction runs in two launches so that no float atomics are needed and the
-// result is the same from run to run: every block of the first launch writes its
-// K partial sums to scratch (partials[block * K + k]), then `sum_partials` (one
-// block) adds them up in a fixed order. The number of blocks is a function of the
-// input length only, so the order of additions is too.
+// No float atomics, and the result is the same from run to run: every block writes
+// its K partial sums to scratch (partials[block * K + k]), then one block adds them
+// up in a fixed order (`sum_partials`, a second launch; in the fused kernel, the
+// block that finishes last). The number of blocks is a function of the input shape
+// only, so the order of additions is too.
 #pragma once
 
 #include <cuda_runtime.h>

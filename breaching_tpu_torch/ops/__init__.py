@@ -1,7 +1,7 @@
 """Hand-written CUDA kernels of the attack step, with their plain PyTorch versions."""
 
 from .image import (AdamStep, adam_box_step, box_project, sign, total_variation, tv_backward,
-                    tv_forward)
+                    tv_forward, tv_value_and_grad)
 from .matching import axpby, cosine_backward, fused_cosine_similarity, matching_sums
 
 # Every kernel wrapper; each carries a `launches` count of its kernel launches.
@@ -10,7 +10,7 @@ KERNELS = {
     "b2_axpby": axpby,
     "b2_cosine_backward": cosine_backward,
     "b3_tv_forward": tv_forward,
-    "b3_tv_backward": tv_backward,
+    "b3_tv_value_and_grad": tv_value_and_grad,
     "b4_box_project": box_project,
     "b4_adam_box_step": adam_box_step,
 }
@@ -40,4 +40,5 @@ __all__ = [
     "total_variation",
     "tv_backward",
     "tv_forward",
+    "tv_value_and_grad",
 ]

@@ -32,7 +32,7 @@ SIGNATURES = {
     "b2_axpby": [_P, _P, _P, _P, _P, _I64, _P],
     "b2_cosine_backward": [_P, _P, _P, _P, _P, _I64, _I32, _P],
     "b3_tv_forward": [_P, _I64, _I32, _I32, _F32, _F32, _F32, _P, _I32, _P, _P],
-    "b3_tv_backward": [_P, _P, _I64, _I32, _I32, _F32, _F32, _F32, _P, _P],
+    "b3_tv_value_and_grad": [_P, _P, _I64, _I32, _I32, _F32, _F32, _F32, _P, _P, _P, _P],
     "b4_box_project": [_P, _P, _P, _P, _I64, _I64, _I32, _P],
     "b4_adam_box_step": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I64, _I64, _I32,
                          _F32, _F32, _F32, _F32, _F32, _F32, _F32, _F32, _I32, _P],

@@ -1,13 +1,16 @@
-"""Image-space kernels B3 (total variation, forward and backward) and B4 (box clamp).
+"""Image-space kernels B3 (total variation) and B4 (box clamp).
 
 Counterpart of ``breaching_tpu/ops/image.py``, on NCHW batches (the JAX package
 is NHWC, so the TV stencil runs along dims 3 and 2 here). Kernels
 (``csrc/image.cu``):
 
 - B3 ``tv_forward`` replaces ``fused_total_variation`` / Pallas ``_tv_kernel``;
-  bound 4 bytes per element over 3.35 TB/s. ``tv_backward`` is the gradient the
-  TPU kernel lacks, the sign-divergence formula of ``regularizers._tv_p1q1_bwd``
-  and ``_make_tv_general``; bound 8 bytes per element.
+  bound 4 bytes per element over 3.35 TB/s. Off the attack step since
+  ``tv_value_and_grad``.
+- ``tv_value_and_grad`` is B3 rebuilt for the attack step: the TV's value times a
+  scale and its gradient, the sign-divergence formula of ``regularizers._tv_p1q1_bwd``
+  and ``_make_tv_general`` that the TPU kernel lacks, in one launch; bound 8 bytes
+  per element. ``tv_backward`` is its gradient alone.
 - B4 ``box_project`` replaces ``box_project`` / Pallas ``_box_kernel``; bound 8 bytes
   per element.
 - ``adam_box_step`` is B4 rebuilt as the attack's whole step tail: the hard sign,
@@ -88,53 +91,107 @@ def tv_backward_plain(images, upstream, inner_exp=1.0, outer_exp=1.0, eps=1e-8):
     H, W = images.shape[-2:]
     col = torch.arange(W, device=images.device) < (W - 1)
     row = (torch.arange(H, device=images.device) < (H - 1)).reshape(H, 1)
-    dx = (torch.roll(images, -1, dims=3) - images) * col
-    dy = (torch.roll(images, -1, dims=2) - images) * row
-    px = cheap_pow(dx.abs() + eps, inner_exp)
-    py = cheap_pow(dy.abs() + eps, inner_exp)
-    outer = outer_exp * cheap_pow(px + py, outer_exp - 1.0)
-    gx = outer * inner_exp * cheap_pow(dx.abs() + eps, inner_exp - 1.0) * sign(dx) * col
-    gy = outer * inner_exp * cheap_pow(dy.abs() + eps, inner_exp - 1.0) * sign(dy) * row
+    dx = torch.roll(images, -1, dims=3) - images
+    dy = torch.roll(images, -1, dims=2) - images
+    if inner_exp == 1.0 and outer_exp == 1.0:
+        # regularizers._tv_p1q1_bwd: the sign of the unmasked difference, masked (an
+        # infinite wrapped difference gives 0 there, where the general form gives NaN)
+        gx, gy = sign(dx) * col, sign(dy) * row
+    else:  # regularizers._make_tv_general
+        dx, dy = dx * col, dy * row
+        px = cheap_pow(dx.abs() + eps, inner_exp)
+        py = cheap_pow(dy.abs() + eps, inner_exp)
+        outer = outer_exp * cheap_pow(px + py, outer_exp - 1.0)
+        gx = outer * inner_exp * cheap_pow(dx.abs() + eps, inner_exp - 1.0) * sign(dx) * col
+        gy = outer * inner_exp * cheap_pow(dy.abs() + eps, inner_exp - 1.0) * sign(dy) * row
     grad = (torch.roll(gx, 1, dims=3) - gx) + (torch.roll(gy, 1, dims=2) - gy)
-    return grad * (upstream.reshape(()) / images.numel())
+    # divide by a tensor: CUDA divides by a host scalar as a product with its reciprocal
+    n = torch.full((), images.numel(), dtype=images.dtype, device=images.device)
+    return grad * (upstream.reshape(()) / n)
 
 
 def tv_backward(images, upstream, inner_exp=1.0, outer_exp=1.0, eps=1e-8):
-    """d tv_forward / d images times the one-element tensor ``upstream``."""
-    _check_images("tv_backward", images)
-    if upstream.numel() != 1:
-        raise ValueError(f"tv_backward takes a one-element upstream gradient, got {tuple(upstream.shape)}.")
-    stream = _build.launch_stream("tv_backward", images, upstream)
+    """d tv_forward / d images times the one-element tensor ``upstream``: the gradient
+    of ``tv_value_and_grad``."""
+    return tv_value_and_grad(images, upstream, inner_exp, outer_exp, eps)[1]
+
+
+def tv_value_and_grad_plain(images, scale, inner_exp=1.0, outer_exp=1.0, eps=1e-8):
+    return (tv_forward_plain(images, inner_exp, outer_exp, eps) * scale.reshape(()),
+            tv_backward_plain(images, scale, inner_exp, outer_exp, eps))
+
+
+# The kernel's workspace: its ticket counter and up to 1024 block partials
+# (csrc/image.cu TVWorkspace), zeroed once and left zeroed by every launch. One per
+# device and stream, since launches on two streams may overlap; kept for good, since
+# a captured CUDA graph holds its address.
+_TV_WORKSPACE_WORDS = 1 + 1024
+_tv_workspaces = {}  # (device index, stream handle) -> workspace
+_tv_spares = {}  # device index -> workspaces zeroed outside graph capture, not yet taken
+
+
+def _tv_workspace(device, stream):
+    key = (device.index, stream)
+    workspace = _tv_workspaces.get(key)
+    if workspace is None:
+        # a stream first seen while it is being captured takes a workspace zeroed before:
+        # a zeroing captured into the graph would run only when the graph is replayed
+        spares = _tv_spares.setdefault(device.index, [])
+        if not spares:
+            if torch.cuda.is_current_stream_capturing():
+                raise RuntimeError("tv_value_and_grad: run it once on this device before capturing a "
+                                   "CUDA graph, so that its workspace is zeroed outside the capture.")
+            spares.extend(torch.zeros(8, _TV_WORKSPACE_WORDS, dtype=torch.int32, device=device).unbind())
+            torch.cuda.current_stream(device).synchronize()  # zeroed before any stream takes one
+        workspace = _tv_workspaces[key] = spares.pop()
+    return workspace
+
+
+def tv_value_and_grad(images, scale, inner_exp=1.0, outer_exp=1.0, eps=1e-8):
+    """(scale * tv_forward(images), scale * d tv_forward / d images) of an NCHW batch,
+    for a one-element tensor ``scale``: a 0-dim value and a gradient of the images' shape."""
+    _check_images("tv_value_and_grad", images)
+    if scale.numel() != 1:
+        raise ValueError(f"tv_value_and_grad takes a one-element scale, got {tuple(scale.shape)}.")
+    stream = _build.launch_stream("tv_value_and_grad", images, scale)
     if stream is None:
-        return tv_backward_plain(images, upstream, inner_exp, outer_exp, eps)
-    out = torch.empty_like(images)
+        return tv_value_and_grad_plain(images, scale, inner_exp, outer_exp, eps)
+    value = torch.empty((), device=images.device, dtype=torch.float32)
+    grad = torch.empty_like(images)
     h, w = images.shape[-2:]
-    _build.check(_build.load_library().b3_tv_backward(
-        images.data_ptr(), upstream.data_ptr(), images.numel(), h, w, inner_exp, outer_exp, eps,
-        out.data_ptr(), stream), "b3_tv_backward")
-    tv_backward.launches += 1
-    return out
+    _build.check(_build.load_library().b3_tv_value_and_grad(
+        images.data_ptr(), scale.data_ptr(), images.numel(), h, w, inner_exp, outer_exp, eps,
+        _tv_workspace(images.device, stream).data_ptr(), value.data_ptr(), grad.data_ptr(), stream),
+        "b3_tv_value_and_grad")
+    tv_value_and_grad.launches += 1
+    return value, grad
 
 
-tv_backward.launches = 0
+tv_value_and_grad.launches = 0
 
 
 class _TotalVariation(torch.autograd.Function):
+    """scale * TV: value and gradient from one ``tv_value_and_grad`` call in the forward;
+    the backward scales the saved gradient."""
+
     @staticmethod
-    def forward(ctx, images, inner_exp, outer_exp, eps):
-        ctx.save_for_backward(images)
-        ctx.exps = (inner_exp, outer_exp, eps)
-        return tv_forward(images, inner_exp, outer_exp, eps)
+    def forward(ctx, images, scale, inner_exp, outer_exp, eps):
+        value, grad = tv_value_and_grad(images, scale, inner_exp, outer_exp, eps)
+        ctx.save_for_backward(grad)
+        return value
 
     @staticmethod
     def backward(ctx, g):
-        images, = ctx.saved_tensors
-        return tv_backward(images, g.reshape(1).contiguous(), *ctx.exps), None, None, None
+        grad, = ctx.saved_tensors
+        return grad * g, None, None, None, None
 
 
-def total_variation(images, inner_exp=1.0, outer_exp=1.0, eps=1e-8):
-    """Differentiable TV of an NCHW batch through kernel B3 (forward and backward)."""
-    return _TotalVariation.apply(images, float(inner_exp), float(outer_exp), float(eps))
+def total_variation(images, inner_exp=1.0, outer_exp=1.0, eps=1e-8, scale=None):
+    """Differentiable ``scale`` * TV of an NCHW batch through ``tv_value_and_grad``;
+    ``scale`` is a one-element tensor on the images' device, 1 if None."""
+    if scale is None:
+        scale = torch.ones(1, dtype=images.dtype, device=images.device)
+    return _TotalVariation.apply(images, scale, float(inner_exp), float(outer_exp), float(eps))
 
 
 def box_project_plain(x, lo, hi):

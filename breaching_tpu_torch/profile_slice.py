@@ -9,8 +9,9 @@ shapes through the entry points: one warm-up attack, an attack of N steps
 profiler off and on (wall clock around the synchronised attack; the difference
 is the profiler's cost), device-busy milliseconds per step (the sum of the
 kernels' device times; one stream, so they do not overlap), the idle share of
-the unprofiled step, kernel launches per step, and device time per step of the
-kernels that take most of it. Needs a CUDA device.
+the unprofiled step, kernel launches per step, device time per step of the
+kernels that take most of it, and device time and launches per step of each of
+the port's own kernels (``csrc/``). Needs a CUDA device.
 """
 
 from __future__ import annotations
@@ -61,12 +62,16 @@ def main():
     kernels = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
     busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
     top = sorted(kernels, key=lambda e: e.self_device_time_total, reverse=True)[:12]
+    # the port's kernels by name, without the return type that templates carry
+    port = {e.key.removeprefix("void ").split("(")[0]: e for e in kernels if "breaching::" in e.key}
     print(json.dumps(dict(
         device=torch.cuda.get_device_name(0), iterations=steps,
         ms_per_step=wall_ms / steps, profiled_ms_per_step=profiled_ms / steps,
         device_busy_ms_per_step=busy_ms / steps, idle_share=1.0 - busy_ms / wall_ms,
         launches_per_step=sum(e.count for e in kernels) / steps,
-        top_kernels_us_per_step={e.key[:90]: e.self_device_time_total / steps for e in top})))
+        top_kernels_us_per_step={e.key[:90]: e.self_device_time_total / steps for e in top},
+        port_kernels_us_per_step={k: e.self_device_time_total / steps for k, e in port.items()},
+        port_launches_per_step={k: e.count / steps for k, e in port.items()})))
 
 
 if __name__ == "__main__":

@@ -10,18 +10,22 @@ Phases, one line each on standard output:
      its seconds;
   3. each kernel against its plain PyTorch version on the card, at the slice's
      shapes and at ragged shapes, with the tolerance stated (the fused
-     kernels bit for bit, NaN positions included);
+     kernels bit for bit, NaN positions included); the fused TV kernel also at
+     1x3x224x224, with NaN and infinite pixels at the boundary, twice in a row
+     and in a replayed CUDA graph;
   4. the attack gradient of the slice on the card against the same computation on
-     the CPU, through the plain versions;
+     the CPU, through the plain versions (and whether the card gives the same
+     bits twice, which is reported, not required);
   5. the slice end to end through the entry points: Inverting Gradients with the
      fused cosine objective on ConvNet-64 / CIFAR-10 shapes, a bounded number of
      iterations; loss at the start and end, PSNR, SSIM, it/s and every kernel's
-     launch count;
+     launch count (the fused TV kernel once per step, the B3 forward never);
   6. each kernel's time beside its bound, the plain version's time and one
      PyTorch call of the same function (for a fused kernel, the library call of
      the kernel it grew from), each as time per call (200 calls between two
      events), device time (the 200 calls captured in a CUDA graph and replayed)
-     and host time per call (the 200 calls enqueued, no wait).
+     and host time per call (the 200 calls enqueued, no wait); the fused TV
+     kernel also at 1x3x224x224.
 Then one JSON line with the kernels, and as the last line
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 
@@ -52,18 +56,21 @@ KERNELS = {  # name -> (source, what it replaces in the JAX package)
     "b2_cosine_backward": ("breaching_tpu_torch/csrc/matching.cu",
                            "breaching_tpu/ops/matching.py:104 (_axpby inside _cos_bwd, :135-146)"),
     "b3_tv_forward": ("breaching_tpu_torch/csrc/image.cu", "breaching_tpu/ops/image.py:47"),
-    "b3_tv_backward": ("breaching_tpu_torch/csrc/image.cu",
-                       "breaching_tpu/attacks/auxiliaries/regularizers.py:40-49,75-87 (the JAX VJP; "
-                       "no pallas_call)"),
+    "b3_tv_value_and_grad": ("breaching_tpu_torch/csrc/image.cu",
+                             "breaching_tpu/ops/image.py:47 (_tv_kernel) with the JAX VJP "
+                             "breaching_tpu/attacks/auxiliaries/regularizers.py:40-49,75-87"),
     "b4_box_project": ("breaching_tpu_torch/csrc/image.cu", "breaching_tpu/ops/image.py:75"),
     "b4_adam_box_step": ("breaching_tpu_torch/csrc/image.cu",
                          "breaching_tpu/ops/image.py:75 (_box_kernel) with the fused update chain "
                          "breaching_tpu/attacks/optimization_based_attack.py:206-217,401-466"),
 }
-# The kernels the slice's attack step runs; b2_axpby and b4_box_project stay as the
-# counterparts of the JAX package's _axpby and ops.box_project, checked and timed.
-SLICE_KERNELS = ("b1_matching_sums", "b2_cosine_backward", "b3_tv_forward", "b3_tv_backward",
-                 "b4_adam_box_step")
+# The kernels the slice's attack step runs; b2_axpby, b3_tv_forward and b4_box_project
+# stay as the counterparts of the JAX package's _axpby, fused_total_variation and
+# ops.box_project, checked and timed.
+SLICE_KERNELS = ("b1_matching_sums", "b2_cosine_backward", "b3_tv_value_and_grad", "b4_adam_box_step")
+BIG = (1, 3, 224, 224)  # the image batch of slice 2 (ResNet-18 at ImageNet shapes)
+# (p, q) whose powers p, p-1, q, q-1 cheap_pow forms exactly: the fused TV gradient bit for bit
+TV_EXACT = ((1.0, 1.0), (2.0, 1.0), (1.5, 2.0))
 
 
 class CheckFailed(Exception):
@@ -147,24 +154,90 @@ def check_kernels(ops, n_params, image_shape):
             # a mean of n float32 terms summed in two orders: 1e-5 relative
             report("b3_tv_forward", f"{shape} p={p} q={q}", got, want, 1e-5 * abs(want.item()),
                    slice_shape and p == 1.0)
-            g = torch.tensor([0.37], device=dev)
-            got = ops.tv_backward(x, g, p, q, 1e-8)
-            want = image.tv_backward_plain(x, g, p, q, 1e-8)
-            xr = x.clone().requires_grad_(True)
-            auto, = torch.autograd.grad(image.tv_forward_plain(xr, p, q, 1e-8) * 0.37, xr)
-            # same closed form as the plain version: a few roundings apart
-            tol = 1e-6 * want.abs().max().item()
-            report("b3_tv_backward", f"{shape} p={p} q={q}", got, want, tol, slice_shape and p == 1.0)
-            # autograd differentiates pow and the mean by other formulas: 1e-4 relative
-            tol = 1e-4 * auto.abs().max().item()
-            report("b3_tv_backward vs autograd", f"{shape} p={p} q={q}", got, auto, tol, False)
         lo = torch.tensor([-1.9, -2.0, -1.7], device=dev)
         hi = torch.tensor([2.1, 2.1, 2.0], device=dev)
         got, want = ops.box_project(x * 2, lo, hi), image.box_project_plain(x * 2, lo, hi)
         report("b4_box_project", str(shape), got, want, 0.0, slice_shape)
         for signed in (True, False):
             check_adam_box_step(ops, image, report_exact, randn, shape, lo, hi, signed, slice_shape)
+    check_tv_value_and_grad(ops, image, report, report_exact, randn, image_shape)
     return worst
+
+
+def check_tv_value_and_grad(ops, image, report, report_exact, randn, image_shape):
+    """b3_tv_value_and_grad against its plain version: the gradient bit for bit for the
+    exponents cheap_pow forms exactly (one rounding of the largest |value| otherwise),
+    the value to 1e-5 relative; at the slice's shape, at 1x3x224x224 and at ragged
+    shapes; with NaN and +-inf pixels at the boundary; repeated and graph-replayed."""
+    name = "b3_tv_value_and_grad"
+    scale = torch.tensor([0.2], device=DEVICE)
+
+    def run(x, p, q):
+        return ops.tv_value_and_grad(x, scale, p, q, 1e-8), image.tv_value_and_grad_plain(x, scale, p, q, 1e-8)
+
+    for shape in (image_shape, BIG, (2, 3, 331, 1007), (2, 3, 17, 23), (1, 6, 33, 31),
+                  (1, 6, 9, 1), (1, 3, 1, 7)):
+        x = randn(*shape)
+        record = shape == image_shape
+        for p, q in TV_EXACT + ((2.0, 0.5),):
+            (value, grad), (want_value, want) = run(x, p, q)
+            # a mean of n float32 terms summed in two orders: 1e-5 relative
+            report(name, f"{shape} p={p} q={q} value", value, want_value, 1e-5 * abs(want_value.item()),
+                   record and p == q == 1.0)
+            if (p, q) in TV_EXACT:
+                report_exact(name, f"{shape} p={p} q={q} gradient", grad, want, record and p == q == 1.0)
+            else:  # pow(., -0.5) is rsqrtf in PyTorch, powf in the kernel
+                report(name, f"{shape} p={p} q={q} gradient", grad, want,
+                       2.0 ** -22 * want.abs().max().item(), False)
+            if shape in (image_shape, (2, 3, 331, 1007)) and (p, q) in ((1.0, 1.0), (2.0, 0.5)):
+                xr = x.clone().requires_grad_(True)
+                auto, = torch.autograd.grad(image.tv_forward_plain(xr, p, q, 1e-8) * 0.2, xr)
+                # autograd differentiates pow and the mean by other formulas: 1e-4 relative
+                report(f"{name} vs autograd", f"{shape} p={p} q={q}", grad, auto,
+                       1e-4 * auto.abs().max().item(), False)
+
+    # C1: the plain version's rolls carry a NaN to the wrapped boundary column and row
+    for shape in (image_shape, (2, 3, 17, 23)):
+        H, W = shape[-2:]
+        places = {"last column": (H // 2, W - 1), "last row": (H - 1, W // 2), "column 0": (H // 2, 0),
+                  "row 0": (0, W // 2), "corner": (H - 1, W - 1)}
+        cases, nan_cases = 0, 0
+        for place, (h, w) in places.items():
+            for planted in (float("nan"), float("inf"), float("-inf")):
+                for p, q in ((1.0, 1.0), (2.0, 1.0)):
+                    x = randn(*shape)
+                    x[-1, -1, h, w] = planted
+                    (value, grad), (want_value, want) = run(x, p, q)
+                    nan = torch.isnan(want)
+                    same = torch.equal(torch.isnan(grad), nan) and torch.equal(
+                        grad[~nan].view(torch.int32), want[~nan].view(torch.int32))
+                    require(same, f"{name} gradient at {shape}, {planted} at the {place}, p={p} q={q}: "
+                                  f"{int(torch.isnan(grad).sum())} NaN, the plain version {int(nan.sum())}")
+                    require(str(value.item()) == str(want_value.item()),
+                            f"{name} value at {shape}, {planted} at the {place}: {value.item()} against "
+                            f"{want_value.item()}")
+                    cases, nan_cases = cases + 1, nan_cases + bool(nan.any())
+        print(f"check {name} {shape} non-finite pixels at the boundary: {cases} cases ({nan_cases} with NaN "
+              f"in the gradient), gradient bits and NaN positions equal, values non-finite alike ok", flush=True)
+
+    # the same bits twice; a graph replayed on new images (the ticket counter resets)
+    x, other = randn(*BIG), randn(*BIG)
+    first, second = ops.tv_value_and_grad(x, scale), ops.tv_value_and_grad(x, scale)
+    wants = [first, ops.tv_value_and_grad(other, scale)]
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        static = ops.tv_value_and_grad(x, scale)
+    replays = []
+    for source in (x.clone(), other):
+        x.copy_(source)
+        graph.replay()
+        replays.append(tuple(t.clone() for t in static))
+    same = [torch.equal(a.view(torch.int32), b.view(torch.int32))
+            for got, want in [(second, first), *zip(replays, wants)] for a, b in zip(got, want)]
+    print(f"check {name} {BIG} repeated launch and two graph replays: "
+          f"{'ok' if all(same) else 'FAILED'}", flush=True)
+    require(all(same), f"{name} gives other bits when repeated or replayed: {same}")
 
 
 def check_adam_box_step(ops, image, report_exact, randn, shape, lo, hi, signed, slice_shape):
@@ -222,6 +295,12 @@ def check_reference(breaching):
     (plain versions), same weights, data and candidate."""
     x0 = torch.randn(1, 3, 32, 32, generator=torch.Generator().manual_seed(5))
     v_gpu, g_gpu = attack_gradient(breaching, DEVICE, x0)
+    v_again, g_again = attack_gradient(breaching, DEVICE, x0)
+    # not a check: cuDNN's backward need not give the same bits twice
+    print(f"reference: the card's loss and gradient computed twice: loss bits "
+          f"{'equal' if v_again == v_gpu else 'differ'}, gradient bits "
+          f"{'equal' if torch.equal(g_again.view(torch.int32), g_gpu.view(torch.int32)) else 'differ'} "
+          f"(max |difference| {(g_again - g_gpu).abs().max().item():.3e})", flush=True)
     v_cpu, g_cpu = attack_gradient(breaching, "cpu", x0)
     # float32 on both sides, convolutions and sums in other orders; the gradient
     # passes through a double backward: 1e-4 relative on the value, 1e-3 on the gradient
@@ -261,6 +340,8 @@ def run_slice(breaching, ops):
     require(losses[-1] < losses[0], "the attack's loss did not fall")
     for name in SLICE_KERNELS:
         require(launches[name] > 0, f"kernel {name} was not launched on the slice")
+    require(launches["b3_tv_value_and_grad"] == len(losses) and launches["b3_tv_forward"] == 0,
+            f"TV was not one fused launch per step: {launches}")
     return launches
 
 
@@ -307,8 +388,10 @@ def time_kernels(ops, n, image_shape):
                                None, 12 * n + 16, 3 * n),
         "b3_tv_forward": (lambda: ops.tv_forward(x), lambda: image.tv_forward_plain(x), None,
                           4 * m + 4, 8 * m),
-        "b3_tv_backward": (lambda: ops.tv_backward(x, g), lambda: image.tv_backward_plain(x, g), None,
-                           8 * m + 4, 30 * m),
+        # reads x and the scale, writes the value and the gradient; about 20 operations
+        # per element at p = q = 1
+        "b3_tv_value_and_grad": (lambda: ops.tv_value_and_grad(x, g), lambda: image.tv_value_and_grad_plain(x, g),
+                                 None, 8 * m + 8, 20 * m),
         "b4_box_project": (lambda: ops.box_project(x, lo, hi), lambda: image.box_project_plain(x, lo, hi),
                            (lambda: torch.clamp(x, lo4, hi4), "torch.clamp"), 8 * m + 24, 2 * m),
         # reads x, g, mu, nu, value, best_val, lo, hi; writes x, mu, nu, best (improved) and
@@ -316,8 +399,23 @@ def time_kernels(ops, n, image_shape):
         "b4_adam_box_step": (lambda: ops.adam_box_step(*step_args), lambda: image.adam_box_step_plain(*step_args),
                              None, 32 * m + 36, 15 * m),
     }
-    # each fused kernel's second yardstick: the library call of the kernel it grew from
-    grew_from = {"b2_cosine_backward": "b2_axpby", "b4_adam_box_step": "b4_box_project"}
+    # the fused TV kernel and B3 forward also at the shape slice 2 (ResNet-18, ImageNet)
+    # gives them
+    big = torch.randn(*BIG, generator=gen).to(dev)
+    cases[f"b3_tv_value_and_grad {BIG}"] = (
+        lambda: ops.tv_value_and_grad(big, g), lambda: image.tv_value_and_grad_plain(big, g),
+        None, 8 * big.numel() + 8, 20 * big.numel())
+    cases[f"b3_tv_forward {BIG}"] = (
+        lambda: ops.tv_forward(big), lambda: image.tv_forward_plain(big), None,
+        4 * big.numel() + 4, 8 * big.numel())
+    # each fused kernel's second yardstick: the library call of the kernel it grew from;
+    # for the fused TV kernel, B3 forward alone, the half of the pair it replaced that the
+    # tree keeps (the whole pair, from the parent commit: python3 -m breaching_tpu_torch.timing)
+    seconds = {"b2_cosine_backward": (*cases["b2_axpby"][2], "grew_from_library"),
+               "b4_adam_box_step": (*cases["b4_box_project"][2], "grew_from_library")}
+    for at in ("", f" {BIG}"):
+        seconds["b3_tv_value_and_grad" + at] = (cases["b3_tv_forward" + at][0], "b3_tv_forward alone",
+                                                "replaced_half")
     timings = {}
     for name, (kernel, plain, library, nbytes, flops) in cases.items():
         bound_ms, bound_by = bound(nbytes, flops)
@@ -326,10 +424,10 @@ def time_kernels(ops, n, image_shape):
         row = dict(ms=ms, device_ms=device_ms, host_ms=host_ms, plain_ms=plain_ms,
                    plain_device_ms=plain_device_ms, plain_host_ms=plain_host_ms,
                    library_ms=None, bound_ms=bound_ms, bound_by=bound_by)
-        yardstick = cases[grew_from[name]][2] if name in grew_from else library
+        yardstick = seconds.get(name, None if library is None else (*library, "library"))
         if yardstick is not None:
             lib_ms, lib_device_ms, lib_host_ms = time_ms(yardstick[0])
-            prefix = "grew_from_library" if name in grew_from else "library"
+            prefix = yardstick[2]
             row.update({f"{prefix}_call": yardstick[1], f"{prefix}_ms": lib_ms,
                         f"{prefix}_device_ms": lib_device_ms, f"{prefix}_host_ms": lib_host_ms})
         timings[name] = row
@@ -372,6 +470,8 @@ def main():
     for name, (source, replaces) in KERNELS.items():
         rows.append(dict(name=name, route="cuda", source=source, replaces=replaces,
                          launches=launches[name], max_abs_err=errors[name], **timings[name]))
+        if f"{name} {BIG}" in timings:
+            rows[-1]["at_1x3x224x224"] = timings[f"{name} {BIG}"]
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))

@@ -15,7 +15,10 @@ Tolerances, each with its reason:
   sum, quotient and square root as their plain versions do (no fused
   multiply-add, IEEE division and square root; the plain Adam step divides by
   device tensors, not by host scalars, which CUDA would turn into products with
-  a reciprocal): bit for bit, signed zeros included, NaN in the same places.
+  a reciprocal): bit for bit, signed zeros included, NaN in the same places;
+- b3_tv_value_and_grad: its gradient likewise bit for bit where p, p-1, q and q-1
+  are powers cheap_pow forms exactly, else one rounding; its value, a sum in
+  another order, 1e-5 relative, and non-finite where the plain version's is.
 """
 
 import numpy as np
@@ -187,3 +190,113 @@ def test_new_kernels_refuse_what_they_do_not_take(cuda):
     r = _randn(1000, 14, cuda)
     with pytest.raises(ValueError):  # the sums on the CPU
         ops.cosine_backward(torch.zeros(3), one, r, r.clone())
+
+
+TV_SHAPES = [(1, 3, 32, 32), (1, 3, 224, 224), (2, 3, 17, 23), (1, 6, 33, 31), (1, 6, 9, 1), (1, 3, 1, 7)]
+TV_EXACT = [(1.0, 1.0), (2.0, 1.0), (1.5, 2.0)]  # p, p-1, q, q-1 in {0, 0.5, 1, 1.5, 2}
+
+
+def _assert_tv_value(got, want):
+    got, want = got.item(), want.item()
+    if want == want and abs(want) != float("inf"):
+        assert abs(got - want) <= 1e-5 * abs(want), (got, want)
+    else:
+        assert str(got) == str(want), (got, want)  # nan with nan, inf with inf
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", TV_SHAPES)
+@pytest.mark.parametrize("p,q", TV_EXACT + [(2.0, 0.5)])
+def test_b3_tv_value_and_grad_matches_plain(cuda, shape, p, q):
+    x, scale = _randn(shape, 15, cuda), torch.tensor([0.2], device=cuda)
+    before = ops.tv_value_and_grad.launches
+    value, grad = ops.tv_value_and_grad(x, scale, p, q)
+    assert ops.tv_value_and_grad.launches == before + 1
+    want_value, want = image.tv_value_and_grad_plain(x, scale, p, q)
+    assert value.shape == () and grad.shape == x.shape
+    _assert_tv_value(value, want_value)
+    if (p, q) in TV_EXACT:
+        assert _same_bits(grad, want)
+    else:
+        assert (grad - want).abs().max().item() <= ONE_ROUNDING * want.abs().max().item()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(1, 3, 32, 32), (2, 3, 17, 23)])
+@pytest.mark.parametrize("place", ["last column", "last row", "column 0", "row 0", "corner"])
+@pytest.mark.parametrize("planted", [float("nan"), float("inf"), float("-inf")])
+@pytest.mark.parametrize("p,q", [(1.0, 1.0), (2.0, 1.0)])
+def test_b3_tv_gradient_non_finite_at_the_boundary_matches_plain(cuda, shape, place, planted, p, q):
+    # the plain version's rolls carry a NaN to the wrapped boundary column and row
+    x, scale = _randn(shape, 16, cuda), torch.tensor([0.2], device=cuda)
+    H, W = shape[-2:]
+    h, w = {"last column": (H // 2, W - 1), "last row": (H - 1, W // 2), "column 0": (H // 2, 0),
+            "row 0": (0, W // 2), "corner": (H - 1, W - 1)}[place]
+    x[-1, -1, h, w] = planted
+    want = image.tv_backward_plain(x, scale, p, q)
+    got = ops.tv_backward(x, scale, p, q)
+    assert torch.equal(torch.isnan(got), torch.isnan(want)), "NaN positions differ"
+    assert _same_bits(got, want)
+    assert bool(torch.isnan(want).any()) == (planted != planted or p != 1.0)
+    value, grad = ops.tv_value_and_grad(x, scale, p, q)
+    assert _same_bits(grad, want)
+    _assert_tv_value(value, image.tv_forward_plain(x, p, q) * scale.reshape(()))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(1, 3, 224, 224), (2, 3, 331, 1007)])
+def test_b3_tv_value_and_grad_repeats_its_bits(cuda, shape):
+    # (2, 3, 331, 1007) has 7,938 tiles on 1,024 blocks: the partials' order is fixed,
+    # whichever block finishes last
+    x, scale = _randn(shape, 17, cuda), torch.tensor([0.2], device=cuda)
+    first = ops.tv_value_and_grad(x, scale)
+    values = torch.stack([ops.tv_value_and_grad(x, scale)[0] for _ in range(1000)])
+    assert _same_bits(values, first[0].expand(1000))
+    assert _same_bits(ops.tv_value_and_grad(x, scale)[1], first[1])
+
+
+@pytest.mark.cuda
+def test_b3_tv_value_and_grad_replays_in_a_cuda_graph(cuda):
+    # the second replay reads new images: its value is written only if the first
+    # replay's last block set the ticket counter back to 0
+    x, scale = _randn((1, 3, 224, 224), 18, cuda), torch.tensor([0.2], device=cuda)
+    other = _randn((1, 3, 224, 224), 19, cuda)
+    wants = [ops.tv_value_and_grad(x, scale), ops.tv_value_and_grad(other, scale)]
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        value, grad = ops.tv_value_and_grad(x, scale)
+    for source, (want_value, want_grad) in zip((x.clone(), other), wants):
+        x.copy_(source)
+        graph.replay()
+        torch.cuda.synchronize()
+        assert _same_bits(value, want_value) and _same_bits(grad, want_grad)
+
+
+@pytest.mark.cuda
+def test_b3_tv_value_and_grad_launches_on_the_current_stream(cuda):
+    # the side stream sleeps, then writes the images: a kernel that ran on another
+    # stream would have read them before the write
+    x, scale = _randn((1, 3, 32, 32), 20, cuda), torch.tensor([0.2], device=cuda)
+    new = _randn((1, 3, 32, 32), 21, cuda)
+    want_value, want = image.tv_value_and_grad_plain(new, scale)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        torch.cuda._sleep(100_000_000)
+        x.copy_(new)
+        value, grad = ops.tv_value_and_grad(x, scale)
+    torch.cuda.synchronize()
+    assert _same_bits(grad, want)
+    _assert_tv_value(value, want_value)
+
+
+@pytest.mark.cuda
+def test_b3_tv_value_and_grad_refuses_what_it_does_not_take(cuda):
+    x, scale = _randn((1, 3, 32, 32), 22, cuda), torch.tensor([0.2], device=cuda)
+    with pytest.raises(ValueError):  # not contiguous
+        ops.tv_value_and_grad(x.transpose(2, 3), scale)
+    with pytest.raises(ValueError):  # float64
+        ops.tv_value_and_grad(x.double(), scale.double())
+    with pytest.raises(ValueError):  # the scale on the CPU
+        ops.tv_value_and_grad(x, scale.cpu())
