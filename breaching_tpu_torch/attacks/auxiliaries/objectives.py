@@ -4,12 +4,18 @@ The simulated user gradient is ``torch.autograd.grad(..., create_graph=True)`` o
 the task loss through ``torch.func.functional_call``, so the attack's gradient
 with respect to the candidate is a double backward, which cuDNN runs for the
 convolutions. Gradients are tuples of tensors in the order of the parameter dict.
+
+``trials`` computes the objective for T trials at once (restarts, and the fleet of
+``reconstruct_fleet``): the user gradient of every trial is
+``torch.func.vmap(torch.func.grad(task loss))`` over the candidates' leading trial
+axis with the parameters shared, and the distance is reduced per trial, so that one
+``torch.autograd.grad`` of the trials' sum gives each trial's attack gradient.
 """
 
 from __future__ import annotations
 
 import torch
-from torch.func import functional_call
+from torch.func import functional_call, grad as func_grad, vmap
 
 from ...ops import fused_cosine_similarity
 
@@ -46,8 +52,31 @@ class GradientLoss:
             objective = objective + self.task_regularization * task_loss
         return objective, task_loss.detach()
 
+    def trials(self, params, buffers, target_grads, candidates, labels):
+        """The objective of T trials at once, for candidates (T, N, C, H, W), labels
+        (T, N) and ``target_grads`` with a leading trial axis (T, ...) in the order of
+        ``params``: (T,) values, differentiable with respect to the candidates, and
+        (T,) task losses. BatchNorm runs in eval mode."""
+        def task_loss(p, x, y):
+            loss = self.loss_fn(functional_call(self.model, {**p, **buffers}, (x,)), y)
+            return loss, loss
+
+        grads, task_losses = vmap(func_grad(task_loss, has_aux=True), in_dims=(None, 0, 0))(
+            params, candidates, labels)
+        objective = self.trial_distances(tuple(grads[k] for k in params), target_grads)
+        if self.task_regularization != 0:
+            objective = objective + self.task_regularization * task_losses
+        return objective, task_losses.detach()
+
     def gradient_based_loss(self, grads, target_grads):
         raise NotImplementedError
+
+    def trial_distances(self, grads, target_grads):
+        raise NotImplementedError
+
+
+def _per_trial_sum(x: torch.Tensor) -> torch.Tensor:
+    return x.sum(dim=tuple(range(1, x.dim())))
 
 
 class CosineSimilarity(GradientLoss):
@@ -57,13 +86,22 @@ class CosineSimilarity(GradientLoss):
         data_norm = sum((t * t).sum() for t in target_grads)
         return (1.0 - product / (torch.sqrt(rec_norm) * torch.sqrt(data_norm) + 1e-12)) * self.scale
 
+    def trial_distances(self, grads, target_grads):
+        product = sum(_per_trial_sum(g * t) for g, t in zip(grads, target_grads))
+        rec_norm = sum(_per_trial_sum(g * g) for g in grads)
+        data_norm = sum(_per_trial_sum(t * t) for t in target_grads)
+        return (1.0 - product / (torch.sqrt(rec_norm) * torch.sqrt(data_norm) + 1e-12)) * self.scale
+
     def __repr__(self):
         return f"Cosine Similarity with scale={self.scale} and task reg={self.task_regularization}"
 
 
 class FusedCosineSimilarity(CosineSimilarity):
     """Cosine matching over the flattened gradient through kernels B1 (one-pass
-    sums) and B2 (its backward), ``breaching_tpu_torch/ops/matching.py``."""
+    sums) and B2 (its backward), ``breaching_tpu_torch/ops/matching.py``. For T
+    trials, one B1 and one B2 launch per trial, on that trial's row of the flattened
+    gradient. The flattened target is kept for as long as the target is the same
+    object: one row per trial for ``trials``."""
 
     def __init__(self, scale=1.0, task_regularization=0.0, **kwargs):
         super().__init__(scale, task_regularization)
@@ -75,6 +113,15 @@ class FusedCosineSimilarity(CosineSimilarity):
             self._flat_target = torch.cat([t.reshape(-1) for t in target_grads])
         rec = torch.cat([g.reshape(-1) for g in grads])
         return fused_cosine_similarity(rec, self._flat_target) * self.scale
+
+    def trial_distances(self, grads, target_grads):
+        num_trials = grads[0].shape[0]
+        if self._target is not target_grads:
+            self._target = target_grads
+            self._flat_target = torch.cat([t.reshape(num_trials, -1) for t in target_grads], dim=1)
+        rec = torch.cat([g.reshape(num_trials, -1) for g in grads], dim=1)
+        return torch.stack([fused_cosine_similarity(r, d) for r, d in
+                            zip(rec.unbind(), self._flat_target.unbind())]) * self.scale
 
     def __repr__(self):
         return f"Fused (CUDA) Cosine Similarity with scale={self.scale}"

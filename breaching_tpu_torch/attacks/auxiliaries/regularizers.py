@@ -3,13 +3,15 @@
 Total variation runs through ``ops.total_variation``: one launch of the fused B3
 kernel gives the scaled value and its gradient, the closed-form sign-divergence
 gradient of the JAX package's ``_tv_p1q1`` and ``_make_tv_general``. Images are NCHW.
+``trials`` gives the value of each trial of a (T, N, C, H, W) stack, as the JAX
+package's vmapped fleet does: each the mean over that trial's own elements.
 """
 
 from __future__ import annotations
 
 import torch
 
-from ...ops import total_variation
+from ...ops import total_variation, total_variation_trials
 
 
 class TotalVariation:
@@ -30,14 +32,25 @@ class TotalVariation:
         pass
 
     def __call__(self, tensor, intermediates=None):
-        x = tensor
-        if self.double_opponents:
-            x = torch.cat([x, x[:, 0:1] - x[:, 1:2], x[:, 0:1] - x[:, 2:3], x[:, 1:2] - x[:, 2:3]],
-                          dim=1)
+        x = self._opponents(tensor)
+        return total_variation(x, self.inner_exp, self.outer_exp, self.eps, self._scale(x))
+
+    def trials(self, tensor):
+        """(T,) values for a (T, N, C, H, W) stack of trials."""
+        x = self._opponents(tensor)
+        return total_variation_trials(x, self.inner_exp, self.outer_exp, self.eps, self._scale(x))
+
+    def _opponents(self, x):
+        if not self.double_opponents:
+            return x
+        c0, c1, c2 = x[..., 0:1, :, :], x[..., 1:2, :, :], x[..., 2:3, :, :]
+        return torch.cat([x, c0 - c1, c0 - c2, c1 - c2], dim=-3)
+
+    def _scale(self, x):
         scale = self._scales.get(x.device)
         if scale is None:
             scale = self._scales[x.device] = torch.full((1,), self.scale, dtype=x.dtype, device=x.device)
-        return total_variation(x, self.inner_exp, self.outer_exp, self.eps, scale)
+        return scale
 
     def __repr__(self):
         return (f"Total Variation, scale={self.scale}. p={self.inner_exp} q={self.outer_exp}. "

@@ -1,6 +1,6 @@
 """Shared attack machinery (counterpart of ``breaching_tpu/attacks/base_attack.py``):
-payload ingestion and candidate set-up. Only user-provided labels are ported; label
-recovery strategies are not.
+payload ingestion, label recovery and candidate set-up. Of the label recovery
+strategies, ``bias-corrected`` is ported; the others raise.
 """
 
 from __future__ import annotations
@@ -8,6 +8,7 @@ from __future__ import annotations
 import dataclasses
 import logging
 
+import numpy as np
 import torch
 
 from .auxiliaries.initializations import init_candidate
@@ -64,7 +65,7 @@ class _BaseAttacker:
 
         labels = self._shared_data_cache[0]["metadata"]["labels"]
         if labels is None:
-            raise NotImplementedError("Label recovery is not ported yet; the user must provide labels.")
+            labels = self._recover_label_information(self._shared_data_cache)
         return rec_models, torch.as_tensor(labels, device=device), stats
 
     def _construct_models_from_payload_and_buffers(self, server_payload, shared_data):
@@ -99,3 +100,33 @@ class _BaseAttacker:
     def _initialize_data(self, data_shape):
         return init_candidate(self.setup["generator"], self.cfg.init, data_shape,
                               dtype=self.setup["dtype"], device=self.setup["device"])
+
+    def _recover_label_information(self, user_data):
+        """Label recovery from the classification head's gradients (reference
+        base_attack.py:143-209, 280-286), on the host in numpy."""
+        strategy = self.cfg.label_strategy
+        if strategy is None or str(strategy).lower() == "none":
+            raise NotImplementedError("An attack without labels needs a label strategy.")
+        if strategy != "bias-corrected":
+            raise NotImplementedError(f"Label strategy {strategy} is not ported yet; "
+                                      f"bias-corrected is.")
+        num_data_points = int(user_data[0]["metadata"]["num_data_points"])
+        biases = [head_grads(d["gradients"])[1].detach().cpu().numpy() for d in user_data]
+        avg_bias = np.stack(biases).mean(axis=0).copy()
+        valid = np.nonzero(avg_bias < 0)[0]
+        selected = valid.tolist()
+        m_impact = avg_bias[valid].sum() / max(num_data_points, 1)
+        avg_bias[valid] -= m_impact
+        while len(selected) < num_data_points:
+            idx = int(np.argmin(avg_bias))
+            selected.append(idx)
+            avg_bias[idx] -= m_impact
+        labels = np.sort(np.asarray(selected[:num_data_points]))
+        log.info(f"Recovered labels {labels.tolist()} through strategy {strategy}.")
+        return labels
+
+
+def head_grads(gradients: dict):
+    """(weight gradient (out, in), bias gradient (out,)) of the classification head,
+    the ``nn.Linear`` named ``head`` in every model of the port."""
+    return gradients["head.weight"], gradients["head.bias"]

@@ -2,6 +2,8 @@
 
 - ``Conv`` and ``Dense`` draw weights and biases from U(-1/sqrt(fan_in), 1/sqrt(fan_in)),
   the statistics of torch's default init, from an explicit generator.
+- ``max_pool`` pads with -inf, as flax's ``max_pool`` does; ``avg_pool_global`` is
+  the mean over height and width.
 - ``BatchNorm`` is the JAX package's BatchNorm, not ``nn.BatchNorm2d``: in train
   mode it normalizes with var = E[x^2] - mean^2 and folds the batch statistics into
   a cumulative running average (torch's ``momentum=None``), so after one batch the
@@ -13,6 +15,7 @@ from __future__ import annotations
 import math
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 from torch.nn.utils import skip_init
 
@@ -24,13 +27,14 @@ def _uniform_(tensor: torch.Tensor, fan_in: int, generator: torch.Generator | No
 
 
 def Conv(in_channels: int, out_channels: int, kernel_size: int = 3, stride: int = 1,
-         generator: torch.Generator | None = None) -> nn.Conv2d:
-    """A biased Conv2d padded by kernel_size // 2 on each side."""
+         use_bias: bool = True, generator: torch.Generator | None = None) -> nn.Conv2d:
+    """A Conv2d padded by kernel_size // 2 on each side, biased unless ``use_bias=False``."""
     conv = skip_init(nn.Conv2d, in_channels, out_channels, kernel_size, stride,
-                     padding=kernel_size // 2)
+                     padding=kernel_size // 2, bias=use_bias)
     fan_in = in_channels * kernel_size * kernel_size
     _uniform_(conv.weight, fan_in, generator)
-    _uniform_(conv.bias, fan_in, generator)
+    if use_bias:
+        _uniform_(conv.bias, fan_in, generator)
     return conv
 
 
@@ -70,3 +74,13 @@ class BatchNorm(nn.Module):
             mean, var = self.running_mean, self.running_var
         y = (x - mean.reshape(shape)) * torch.rsqrt(var + self.eps).reshape(shape)
         return y * self.weight.reshape(shape) + self.bias.reshape(shape)
+
+
+def max_pool(x: torch.Tensor, window: int, stride: int | None = None, padding: int = 0) -> torch.Tensor:
+    """Max pooling over NCHW; padded places are -inf, so they never win."""
+    return F.max_pool2d(x, window, stride or window, padding)
+
+
+def avg_pool_global(x: torch.Tensor) -> torch.Tensor:
+    """(N, C, H, W) -> (N, C): the mean over height and width."""
+    return x.mean(dim=(2, 3))

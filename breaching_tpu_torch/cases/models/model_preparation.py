@@ -1,10 +1,11 @@
-"""Model factory: name -> (nn.Module, loss_fn), for the ConvNet family.
+"""Model factory: name -> (nn.Module, loss_fn), for the ConvNet and ResNet families.
 
 Counterpart of ``breaching_tpu/cases/models/model_preparation.py``. Weights are
-drawn from the ``setup`` generator. With ``pretrained=True`` a converted checkpoint
-``<data.path>/checkpoints/<name>.npz`` in the JAX package's flat layout
-(``params/conv0/conv/kernel``, ``buffers/bn0/mean``, ...) is loaded through
-``ConvNet.from_jax_state`` where one exists; otherwise the random init stays.
+drawn from the ``setup`` generator. With ``pretrained=True`` a checkpoint in the
+JAX package's flat layout (``params/conv0/conv/kernel``, ``buffers/bn0/mean``, ...)
+is loaded through ``load_flat_state``: ``<data.path>/checkpoints/<name>.npz`` first,
+then the repo's ``assets/checkpoints/<name>.npz``; without one, or if a shape does
+not fit, a warning is logged and the random init stays.
 """
 
 from __future__ import annotations
@@ -13,11 +14,16 @@ import logging
 import os
 
 import numpy as np
+import torch
+from torch import nn
 
+from .layers import BatchNorm
 from .losses import LOSSES, CrossEntropyLoss
+from .resnets import build_resnet
 from .vision_nets import ConvNet
 
 log = logging.getLogger(__name__)
+REPO = os.path.dirname(os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__)))))
 
 
 def construct_model(cfg_model, cfg_data, pretrained: bool = False, generator=None):
@@ -26,14 +32,16 @@ def construct_model(cfg_model, cfg_data, pretrained: bool = False, generator=Non
         raise NotImplementedError(f"{cfg_data.modality} models are not ported yet.")
     name = str(cfg_model)
     lname = name.lower()
-    if lname.startswith("convnet") and lname[len("convnet"):].isdigit():
-        width = int(lname[len("convnet"):])
-    elif lname == "convnet":
-        width = 64
+    if "resnet" in lname and not any(tag in lname for tag in ("wsl", "ssl", "moco")):
+        model = build_resnet(name, int(cfg_data.classes), "ImageNet" in str(cfg_data.name),
+                             shape=tuple(cfg_data.shape), generator=generator)
+    elif lname.startswith("convnet") and (lname == "convnet" or lname[len("convnet"):].isdigit()):
+        width = int(lname[len("convnet"):] or 64)
+        model = ConvNet(width=width, num_classes=int(cfg_data.classes), shape=tuple(cfg_data.shape),
+                        generator=generator)
     else:
-        raise NotImplementedError(f"Model {name} is not ported yet; the port has the ConvNet family.")
-    model = ConvNet(width=width, num_classes=int(cfg_data.classes), shape=tuple(cfg_data.shape),
-                    generator=generator)
+        raise NotImplementedError(f"Model {name} is not ported yet; the port has the ConvNet and "
+                                  f"ResNet families.")
     model.name = name
     if pretrained:
         _maybe_load_pretrained(model, cfg_data)
@@ -41,24 +49,63 @@ def construct_model(cfg_model, cfg_data, pretrained: bool = False, generator=Non
     return model, loss_cls()
 
 
-def _unflatten(flat: dict, prefix: str) -> dict:
-    tree = {}
-    for key, value in flat.items():
-        if key.startswith(prefix):
-            *path, leaf = key[len(prefix):].split("/")
-            node = tree
-            for part in path:
-                node = node.setdefault(part, {})
-            node[leaf] = value
-    return tree
+def _flat_entries(model: nn.Module):
+    """(flat key, tensor, transform) for every parameter and buffer of the model, the
+    flat key in the JAX package's layout and the transform taking its array to the
+    tensor's layout (HWIO -> OIHW for convolutions, (in, out) -> (out, in) for dense)."""
+    for path, module in model.named_modules():
+        prefix = path.replace(".", "/")
+        if isinstance(module, nn.Conv2d):
+            yield f"params/{prefix}/conv/kernel", module.weight, lambda a: np.transpose(a, (3, 2, 0, 1))
+            if module.bias is not None:
+                yield f"params/{prefix}/conv/bias", module.bias, None
+        elif isinstance(module, nn.Linear):
+            yield f"params/{prefix}/dense/kernel", module.weight, np.transpose
+            yield f"params/{prefix}/dense/bias", module.bias, None
+        elif isinstance(module, BatchNorm):
+            yield f"params/{prefix}/scale", module.weight, None
+            yield f"params/{prefix}/bias", module.bias, None
+            yield f"buffers/{prefix}/mean", module.running_mean, None
+            yield f"buffers/{prefix}/var", module.running_var, None
+            yield f"buffers/{prefix}/num_batches_tracked", module.num_batches_tracked, None
 
 
-def _maybe_load_pretrained(model: ConvNet, cfg_data) -> None:
-    path = os.path.expanduser(os.path.join(str(cfg_data.path), "checkpoints", f"{model.name}.npz"))
-    if not os.path.exists(path):
-        log.warning(f"pretrained=True but no checkpoint at {path}; keeping random init.")
+def load_flat_state(model: nn.Module, flat: dict, strict: bool = False) -> int:
+    """Load a flat ``{"params/a/b/kernel": array}`` mapping in the JAX package's layout
+    into the model. Returns the number of tensors replaced. Every shape is checked
+    before anything is written: a shape that does not fit raises ValueError and leaves
+    the model as it was. With ``strict``, a tensor without an entry raises KeyError."""
+    updates = []
+    for key, tensor, transform in _flat_entries(model):
+        if key not in flat:
+            if strict:
+                raise KeyError(f"Checkpoint has no entry for {key}.")
+            continue
+        value = np.asarray(flat[key])
+        value = transform(value) if transform is not None else value
+        if tuple(value.shape) != tuple(tensor.shape):
+            raise ValueError(f"Checkpoint entry {key} has shape {tuple(value.shape)}, the model "
+                             f"expects {tuple(tensor.shape)}.")
+        updates.append((tensor, value))
+    with torch.no_grad():
+        for tensor, value in updates:
+            tensor.copy_(torch.tensor(np.array(value), dtype=tensor.dtype))
+    return len(updates)
+
+
+def _maybe_load_pretrained(model: nn.Module, cfg_data) -> None:
+    candidates = [os.path.expanduser(os.path.join(str(cfg_data.path), "checkpoints", f"{model.name}.npz")),
+                  os.path.join(REPO, "assets", "checkpoints", f"{model.name}.npz")]
+    path = next((p for p in candidates if os.path.exists(p)), None)
+    if path is None:
+        log.warning(f"pretrained=True but no checkpoint at {candidates[0]} (nor the repo fallback "
+                    f"{candidates[1]}); keeping random init.")
         return
     with np.load(path) as blob:
         flat = dict(blob)
-    model.from_jax_state(_unflatten(flat, "params/"), _unflatten(flat, "buffers/"))
-    log.info(f"Loaded pretrained {model.name} from {path}.")
+    try:
+        replaced = load_flat_state(model, flat)
+    except ValueError as err:
+        log.warning(f"Checkpoint at {path} does not fit this model ({err}); keeping random init.")
+        return
+    log.info(f"Loaded {replaced} pretrained tensors for {model.name} from {path}.")

@@ -8,20 +8,11 @@ with a plain transpose.
 
 from __future__ import annotations
 
-import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
 
 from .layers import BatchNorm, Conv, Dense
-
-
-def _assign(target: torch.Tensor, array, name: str) -> None:
-    value = torch.tensor(np.asarray(array), dtype=target.dtype)
-    if value.shape != target.shape:
-        raise ValueError(f"{name}: shape {tuple(value.shape)} does not fit {tuple(target.shape)}.")
-    with torch.no_grad():
-        target.copy_(value)
 
 
 class ConvNet(nn.Module):
@@ -54,20 +45,19 @@ class ConvNet(nn.Module):
 
     def from_jax_state(self, params: dict, buffers: dict) -> "ConvNet":
         """Load the JAX package's ConvNet state (nested dicts of arrays, flax names
-        conv{i}, bn{i}, head): conv kernels HWIO -> OIHW, dense kernels (in, out) ->
-        (out, in), BN scale -> weight and mean/var -> running_mean/running_var."""
-        for idx in range(len(self.WIDTHS)):
-            conv, bn = getattr(self, f"conv{idx}"), getattr(self, f"bn{idx}")
-            p = params[f"conv{idx}"]["conv"]
-            _assign(conv.weight, np.transpose(np.asarray(p["kernel"]), (3, 2, 0, 1)), f"conv{idx}.kernel")
-            _assign(conv.bias, p["bias"], f"conv{idx}.bias")
-            _assign(bn.weight, params[f"bn{idx}"]["scale"], f"bn{idx}.scale")
-            _assign(bn.bias, params[f"bn{idx}"]["bias"], f"bn{idx}.bias")
-            b = buffers[f"bn{idx}"]
-            _assign(bn.running_mean, b["mean"], f"bn{idx}.mean")
-            _assign(bn.running_var, b["var"], f"bn{idx}.var")
-            _assign(bn.num_batches_tracked, b["num_batches_tracked"], f"bn{idx}.num_batches_tracked")
-        head = params["head"]["dense"]
-        _assign(self.head.weight, np.asarray(head["kernel"]).T, "head.kernel")
-        _assign(self.head.bias, head["bias"], "head.bias")
+        conv{i}, bn{i}, head) through ``model_preparation.load_flat_state``."""
+        from .model_preparation import load_flat_state
+
+        flat = {}
+
+        def flatten(tree, prefix):
+            for key, value in tree.items():
+                if isinstance(value, dict):
+                    flatten(value, f"{prefix}{key}/")
+                else:
+                    flat[f"{prefix}{key}"] = value
+
+        flatten(params, "params/")
+        flatten(buffers, "buffers/")
+        load_flat_state(self, flat, strict=True)
         return self

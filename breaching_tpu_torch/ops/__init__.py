@@ -1,7 +1,8 @@
 """Hand-written CUDA kernels of the attack step, with their plain PyTorch versions."""
 
-from .image import (AdamStep, adam_box_step, box_project, sign, total_variation, tv_backward,
-                    tv_forward, tv_value_and_grad)
+from .image import (AdamStep, adam_box_step, adam_box_step_trials, box_project, sign,
+                    total_variation, total_variation_trials, tv_backward, tv_forward,
+                    tv_value_and_grad)
 from .matching import axpby, cosine_backward, fused_cosine_similarity, matching_sums
 
 # Every kernel wrapper; each carries a `launches` count of its kernel launches.
@@ -29,6 +30,7 @@ __all__ = [
     "KERNELS",
     "AdamStep",
     "adam_box_step",
+    "adam_box_step_trials",
     "axpby",
     "box_project",
     "cosine_backward",
@@ -38,6 +40,7 @@ __all__ = [
     "reset_launch_counts",
     "sign",
     "total_variation",
+    "total_variation_trials",
     "tv_backward",
     "tv_forward",
     "tv_value_and_grad",

@@ -194,6 +194,34 @@ def total_variation(images, inner_exp=1.0, outer_exp=1.0, eps=1e-8, scale=None):
     return _TotalVariation.apply(images, scale, float(inner_exp), float(outer_exp), float(eps))
 
 
+class _TotalVariationTrials(torch.autograd.Function):
+    """scale * TV of each trial of a (T, N, C, H, W) stack, the mean over that trial's
+    own elements: one ``tv_value_and_grad`` call per trial on its contiguous view."""
+
+    @staticmethod
+    def forward(ctx, images, scale, inner_exp, outer_exp, eps):
+        values, grads = zip(*(tv_value_and_grad(trial, scale, inner_exp, outer_exp, eps)
+                              for trial in images.unbind()))
+        ctx.save_for_backward(torch.stack(grads))
+        return torch.stack(values)
+
+    @staticmethod
+    def backward(ctx, g):
+        grad, = ctx.saved_tensors
+        return grad * g.reshape(-1, *(1,) * (grad.dim() - 1)), None, None, None, None
+
+
+def total_variation_trials(images, inner_exp=1.0, outer_exp=1.0, eps=1e-8, scale=None):
+    """``total_variation`` of each trial of a contiguous (T, N, C, H, W) stack: a (T,)
+    vector, differentiable."""
+    if images.dim() != 5 or not images.is_contiguous():
+        raise ValueError(f"total_variation_trials takes a contiguous (T, N, C, H, W) stack, got "
+                         f"{tuple(images.shape)}.")
+    if scale is None:
+        scale = torch.ones(1, dtype=images.dtype, device=images.device)
+    return _TotalVariationTrials.apply(images, scale, float(inner_exp), float(outer_exp), float(eps))
+
+
 def box_project_plain(x, lo, hi):
     return torch.minimum(torch.maximum(x, lo.reshape(1, -1, 1, 1)), hi.reshape(1, -1, 1, 1))
 
@@ -281,3 +309,14 @@ def adam_box_step(x, grad, mu, nu, best, lo, hi, value, best_val, new_best_val, 
 
 
 adam_box_step.launches = 0
+
+
+def adam_box_step_trials(x, grad, mu, nu, best, lo, hi, values, best_vals, new_best_vals, step,
+                         signed=True, boxed=True):
+    """``adam_box_step`` for T trials stacked on a leading axis, (T, N, C, H, W), each with
+    its own loss, best value and best iterate: ``values``, ``best_vals`` and
+    ``new_best_vals`` hold one entry per trial. One launch per trial, on the trial's
+    contiguous views; the step's scalars are shared."""
+    for t in range(x.shape[0]):
+        adam_box_step(x[t], grad[t], mu[t], nu[t], best[t], lo, hi, values[t], best_vals[t],
+                      new_best_vals[t], step, signed, boxed)

@@ -1,11 +1,14 @@
-"""Where the time of the slice's attack step goes, on the card.
+"""Where the time of a slice's attack step goes, on the card.
 
-    python3 -m breaching_tpu_torch.profile_slice [--iterations N]
+    python3 -m breaching_tpu_torch.profile_slice [--slice 1|2] [--fleet F] [--fused] [--iterations N]
 
-Runs Inverting Gradients with the fused cosine objective on ConvNet-64 / CIFAR-10
-shapes through the entry points: one warm-up attack, an attack of N steps
-(default 200) timed with the profiler off, and the same attack under
-``torch.profiler``. Prints one JSON line: milliseconds per step with the
+Slice 1 (the default) runs Inverting Gradients with the fused cosine objective on
+ConvNet-64 / CIFAR-10 shapes; slice 2 the JAX package's bench preset on ResNet-18
+at ImageNet shapes (the repo's trained checkpoint), with ``--fused`` the fused
+cosine objective, and with ``--fleet F`` as F experiments of one server through
+``reconstruct_fleet``. Each goes through the entry points: one warm-up attack, an
+attack of N steps (default 200) timed with the profiler off, and the same attack
+under ``torch.profiler``. Prints one JSON line: milliseconds per step with the
 profiler off and on (wall clock around the synchronised attack; the difference
 is the profiler's cost), device-busy milliseconds per step (the sum of the
 kernels' device times; one stream, so they do not overlap), the idle share of
@@ -25,17 +28,31 @@ from torch.profiler import ProfilerActivity, profile
 
 import breaching_tpu_torch as breaching
 
-SLICE = ["case=1_single_image_small", "attack=invertinggradients",
-         "attack.objective.type=fused-cosine-similarity", "attack.optim.callback=0", "seed=0"]
+SLICES = {
+    1: ["case=1_single_image_small", "attack=invertinggradients",
+        "attack.objective.type=fused-cosine-similarity", "attack.optim.callback=0", "seed=0"],
+    2: ["case=2_single_imagenet", "attack=invertinggradients", "attack.restarts.num_trials=1",
+        "case.user.provide_labels=True", "attack.optim.callback=0", "seed=7"],
+}
+FUSED = ["attack.objective.type=fused-cosine-similarity"]
 
 
-def _attack(iterations):
-    cfg = breaching.get_config(SLICE + [f"attack.optim.max_iterations={iterations}"])
+def _attack(overrides, iterations, fleet=1):
+    cfg = breaching.get_config(overrides + [f"attack.optim.max_iterations={iterations}"])
     setup = breaching.utils.system_startup(cfg=cfg)
-    user, server, _, _ = breaching.cases.construct_case(cfg.case, setup)
+    user, server, model, _ = breaching.cases.construct_case(cfg.case, setup)
     attacker = breaching.attacks.prepare_attack(server.model, server.loss, cfg.attack, setup)
-    shared_data, payloads, _ = server.run_protocol(user)
-    return lambda: attacker.reconstruct(payloads, shared_data, server.secrets)
+    if fleet == 1:
+        shared_data, payloads, _ = server.run_protocol(user)
+        return lambda: attacker.reconstruct(payloads, shared_data, server.secrets)
+    payload_lists, shared_lists = [], []
+    for idx in range(fleet):
+        cfg.case.user.user_idx = idx
+        shared_data, payloads, _ = server.run_protocol(
+            breaching.cases.construct_user(model, server.loss, cfg.case, setup))
+        payload_lists.append(payloads)
+        shared_lists.append(shared_data)
+    return lambda: attacker.reconstruct_fleet(payload_lists, shared_lists, server.secrets)
 
 
 def _timed(run) -> float:
@@ -48,14 +65,18 @@ def _timed(run) -> float:
 
 def main():
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument("--slice", type=int, choices=sorted(SLICES), default=1)
+    parser.add_argument("--fleet", type=int, default=1, help="experiments through reconstruct_fleet")
+    parser.add_argument("--fused", action="store_true", help="slice 2 with the fused cosine objective")
     parser.add_argument("--iterations", type=int, default=200)
     args = parser.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("profile_slice needs a CUDA device.")
+    overrides = SLICES[args.slice] + (FUSED if args.fused else [])
 
-    _attack(50)()  # warm-up: kernel build, cuDNN heuristics, allocator
+    _attack(overrides, 20, args.fleet)()  # warm-up: kernel build, cuDNN heuristics, allocator
     steps = args.iterations
-    run = _attack(steps)
+    run = _attack(overrides, steps, args.fleet)
     wall_ms = _timed(run)
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         profiled_ms = _timed(run)
@@ -65,7 +86,9 @@ def main():
     # the port's kernels by name, without the return type that templates carry
     port = {e.key.removeprefix("void ").split("(")[0]: e for e in kernels if "breaching::" in e.key}
     print(json.dumps(dict(
-        device=torch.cuda.get_device_name(0), iterations=steps,
+        device=torch.cuda.get_device_name(0), slice=args.slice, fleet=args.fleet,
+        objective=("fused-" if args.fused or args.slice == 1 else "") + "cosine-similarity", iterations=steps,
+        peak_memory_gib=torch.cuda.max_memory_allocated() / 2**30,
         ms_per_step=wall_ms / steps, profiled_ms_per_step=profiled_ms / steps,
         device_busy_ms_per_step=busy_ms / steps, idle_share=1.0 - busy_ms / wall_ms,
         launches_per_step=sum(e.count for e in kernels) / steps,

@@ -8,30 +8,39 @@ Phases, one line each on standard output:
      gives it;
   2. the kernels' build with ``nvcc`` (breaching_tpu_torch/ops/_build.py), with
      its seconds;
-  3. each kernel against its plain PyTorch version on the card, at the slice's
+  3. each kernel against its plain PyTorch version on the card, at both slices'
      shapes and at ragged shapes, with the tolerance stated (the fused
-     kernels bit for bit, NaN positions included); the fused TV kernel also at
-     1x3x224x224, with NaN and infinite pixels at the boundary, twice in a row
-     and in a replayed CUDA graph;
-  4. the attack gradient of the slice on the card against the same computation on
-     the CPU, through the plain versions (and whether the card gives the same
+     kernels bit for bit, NaN positions included): B1 and the fused cosine
+     backward also at ResNet-18's 11,380,173 gradient entries, the fused Adam
+     step also at 1x3x224x224 and per trial on an 8x1x3x224x224 stack, the fused
+     TV kernel also at 1x3x224x224, with NaN and infinite pixels at the
+     boundary, twice in a row and in a replayed CUDA graph;
+  4. the attack gradient of each slice on the card against the same computation
+     on the CPU, through the plain versions (and whether the card gives the same
      bits twice, which is reported, not required);
-  5. the slice end to end through the entry points: Inverting Gradients with the
-     fused cosine objective on ConvNet-64 / CIFAR-10 shapes, a bounded number of
-     iterations; loss at the start and end, PSNR, SSIM, it/s and every kernel's
-     launch count (the fused TV kernel once per step, the B3 forward never);
+  5. the main paths end to end through the entry points, each with the kernels'
+     launch counts set to 0 just before it and read just after: slice 1,
+     Inverting Gradients with the fused cosine objective on ConvNet-64 /
+     CIFAR-10 shapes; slice 2, the bench preset on ResNet-18 at ImageNet shapes
+     (the repo's trained checkpoint where the checkout holds it, else random
+     weights, printed either way) solo, the same with the fused cosine
+     objective, and as the 8-experiment fleet through ``reconstruct_fleet``;
+     for each: set-up seconds, loss at the start and end of every trial, PSNR,
+     SSIM, it/s (the fleet's aggregate), peak memory and launches per step;
   6. each kernel's time beside its bound, the plain version's time and one
      PyTorch call of the same function (for a fused kernel, the library call of
      the kernel it grew from), each as time per call (200 calls between two
      events), device time (the 200 calls captured in a CUDA graph and replayed)
-     and host time per call (the 200 calls enqueued, no wait); the fused TV
-     kernel also at 1x3x224x224.
+     and host time per call (the 200 calls enqueued, no wait); B1, the fused
+     cosine backward, the fused TV kernel and the fused Adam step also at
+     slice 2's shapes (100 calls).
 Then one JSON line with the kernels, and as the last line
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 
 Exits non-zero, without that line, when no CUDA device is present, a kernel does
-not build, launch or agree, a kernel of the slice was not launched, or the
-attack's loss does not fall.
+not build, launch or agree, a kernel of a path was not launched as often as the
+path needs, an attack's loss does not fall, or an experiment of the fleet does
+not keep its own labels.
 """
 
 import json
@@ -47,6 +56,11 @@ ITERATIONS = 2000
 DEVICE = "cuda"
 SLICE = ["case=1_single_image_small", "attack=invertinggradients",
          "attack.objective.type=fused-cosine-similarity"]
+# slice 2: the JAX package's bench.py preset (ResNet-18, ImageNetAnimals shapes)
+SLICE2 = ["case=2_single_imagenet", "attack=invertinggradients", "attack.restarts.num_trials=1",
+          "case.user.provide_labels=True", "seed=7"]
+SLICE2_STEPS, SLICE2_FUSED_STEPS, FLEET, FLEET_STEPS = 300, 100, 8, 100
+CHECKPOINT = os.path.join(REPO, "assets", "checkpoints", "ResNet18.npz")
 # H100 SXM peaks (NVIDIA data sheet): HBM bytes/s and float32 FLOP/s outside the tensor cores.
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_PER_S = 67e12
@@ -69,6 +83,7 @@ KERNELS = {  # name -> (source, what it replaces in the JAX package)
 # ops.box_project, checked and timed.
 SLICE_KERNELS = ("b1_matching_sums", "b2_cosine_backward", "b3_tv_value_and_grad", "b4_adam_box_step")
 BIG = (1, 3, 224, 224)  # the image batch of slice 2 (ResNet-18 at ImageNet shapes)
+N2 = 11_380_173  # the gradient entries of slice 2
 # (p, q) whose powers p, p-1, q, q-1 cheap_pow forms exactly: the fused TV gradient bit for bit
 TV_EXACT = ((1.0, 1.0), (2.0, 1.0), (1.5, 2.0))
 
@@ -90,7 +105,7 @@ def card_line():
 
 def check_kernels(ops, n_params, image_shape):
     """Phase 3: every kernel against its plain version. Returns the largest error
-    of each kernel at the slice's shapes."""
+    of each kernel at slice 1's shapes, and under "<name> slice2" at slice 2's."""
     from breaching_tpu_torch.ops import image, matching
 
     gen = torch.Generator().manual_seed(1234)
@@ -101,6 +116,12 @@ def check_kernels(ops, n_params, image_shape):
 
     worst = {}
 
+    def record(name, slice_shape, err):
+        """``slice_shape``: False, True (slice 1's shape) or the key to record under."""
+        if slice_shape:
+            key = slice_shape if isinstance(slice_shape, str) else name
+            worst[key] = max(worst.get(key, 0.0), err)
+
     def report_exact(name, shape, got, want, slice_shape):
         """Bit for bit where not NaN (signed zeros included), NaN in the same places."""
         nan = torch.isnan(want)
@@ -110,8 +131,7 @@ def check_kernels(ops, n_params, image_shape):
         print(f"check {name} {shape}: max_abs_err={err:.3e} tol=0 (bits, {int(nan.sum())} NaN) "
               f"{'ok' if ok else 'FAILED'}", flush=True)
         require(ok, f"{name} disagrees with its plain version at {shape}")
-        if slice_shape:
-            worst[name] = max(worst.get(name, 0.0), err)
+        record(name, slice_shape, err)
 
     def report(name, shape, got, want, tol, slice_shape):
         err = (got - want).abs()
@@ -119,19 +139,23 @@ def check_kernels(ops, n_params, image_shape):
         print(f"check {name} {shape}: max_abs_err={err.max().item():.3e} "
               f"tol={torch.as_tensor(tol).min().item():.3e} {'ok' if ok else 'FAILED'}", flush=True)
         require(ok, f"{name} disagrees with its plain version at {shape}")
-        if slice_shape:
-            worst[name] = max(worst.get(name, 0.0), err.max().item())
+        record(name, slice_shape, err.max().item())
 
-    for n, offset in ((n_params, 0), (1_000_003, 0), (1_000_003, 1)):
+    for n, offset in ((n_params, 0), (N2, 0), (1_000_003, 0), (1_000_003, 1)):
         # offset 1 starts both vectors 4 bytes into their buffers: the unaligned path
         r, d = randn(n + offset)[offset:], randn(n + offset)[offset:]
         shape = f"n={n}{' unaligned' if offset else ''}"
+
+        def at(name, n=n, offset=offset):
+            """Where this shape's error is recorded: slice 1's, slice 2's or nowhere."""
+            return False if offset else n == n_params or (n == N2 and f"{name} slice2")
+
         got = ops.matching_sums(r, d).double()
         want = matching.matching_sums_plain(r, d).double()
         # float32 sums of n terms in two different orders: each within about
         # (terms per thread + log2 n) * 2^-24 of the sum of |terms|; 1e-5 covers both
         scale = torch.stack([(r * d).abs().double().sum(), (r * r).double().sum(), (d * d).double().sum()])
-        report("b1_matching_sums", shape, got, want, 1e-5 * scale, n == n_params and not offset)
+        report("b1_matching_sums", shape, got, want, 1e-5 * scale, at("b1_matching_sums"))
 
         a, b = torch.tensor([-0.7], device=dev), torch.tensor([1.3], device=dev)
         got, want = ops.axpby(a, r, b, d), matching.axpby_plain(a, r, b, d)
@@ -144,7 +168,7 @@ def check_kernels(ops, n_params, image_shape):
             got = ops.cosine_backward(sums, upstream, r, d, wrt_data)
             want = matching.cosine_backward_plain(sums, upstream, r, d, wrt_data)
             report_exact("b2_cosine_backward", f"{shape} wrt_data={wrt_data}", got, want,
-                         n == n_params and not offset)
+                         at("b2_cosine_backward"))
 
     for shape in (image_shape, (2, 3, 331, 1007)):
         x = randn(*shape)
@@ -160,6 +184,11 @@ def check_kernels(ops, n_params, image_shape):
         report("b4_box_project", str(shape), got, want, 0.0, slice_shape)
         for signed in (True, False):
             check_adam_box_step(ops, image, report_exact, randn, shape, lo, hi, signed, slice_shape)
+    for signed in (True, False):  # slice 2: one image, and per trial on the fleet's stack
+        check_adam_box_step(ops, image, report_exact, randn, BIG, lo, hi, signed,
+                            signed and "b4_adam_box_step slice2")
+        check_adam_box_step(ops, image, report_exact, randn, (FLEET, *BIG), lo, hi, signed,
+                            signed and "b4_adam_box_step slice2")
     check_tv_value_and_grad(ops, image, report, report_exact, randn, image_shape)
     return worst
 
@@ -243,40 +272,53 @@ def check_tv_value_and_grad(ops, image, report, report_exact, randn, image_shape
 def check_adam_box_step(ops, image, report_exact, randn, shape, lo, hi, signed, slice_shape):
     """b4_adam_box_step against its plain version over three steps, with NaN and signed
     zeros planted in the gradient and a loss that improves, does not, then improves,
-    so that the two best-value buffers swap and the best iterate is taken and kept."""
+    so that the two best-value buffers swap and the best iterate is taken and kept.
+    A 5-dimensional shape is a stack of trials: ``ops.adam_box_step_trials`` (one
+    launch per trial, each trial with its own loss and best value) against the plain
+    version run on each trial in turn."""
     dev = lo.device
+    trials = shape[0] if len(shape) == 5 else 0
     grads = [randn(*shape) for _ in range(3)]
     grads[0].view(-1)[::997] = float("nan")
     grads[1].view(-1)[::499] = -0.0
     grads[2].view(-1)[1::499] = 0.0
     start = dict(x=randn(*shape) * 2, mu=randn(*shape) * 0.1, nu=randn(*shape) ** 2 * 0.01,
                  best=randn(*shape))
+    # each trial's losses differ by a small offset, so that no two trials share a value
+    offsets = torch.arange(max(trials, 1), device=dev) * 1e-3 if trials else torch.zeros((), device=dev)
+
+    def plain_trials(x, grad, mu, nu, best, lo, hi, value, best_val, new_best_val, step, signed):
+        for t in range(trials):
+            image.adam_box_step_plain(x[t], grad[t], mu[t], nu[t], best[t], lo, hi, value[t], best_val[t],
+                                      new_best_val[t], step, signed)
+
+    fused_fn, plain_fn = ((ops.adam_box_step_trials, plain_trials) if trials
+                          else (ops.adam_box_step, image.adam_box_step_plain))
     states = []
     for fused in (True, False):
         st = {k: v.clone() for k, v in start.items()}
-        vals = [torch.tensor(float("inf"), device=dev), torch.empty((), device=dev)]
+        vals = [torch.full(offsets.shape, float("inf"), device=dev), torch.empty(offsets.shape, device=dev)]
         seen = []
         for t, (grad, value) in enumerate(zip(grads, (0.5, 0.7, 0.3)), start=3):
             step = ops.AdamStep(lr=0.1 / t, b1=0.9, b2=0.999, eps=1e-8, bias1=1 - 0.9 ** t,
                                 bias2=1 - 0.999 ** t)
-            args = (st["x"], grad, st["mu"], st["nu"], st["best"], lo, hi,
-                    torch.tensor(value, device=dev), *vals, step)
-            (ops.adam_box_step if fused else image.adam_box_step_plain)(*args, signed=signed)
+            args = (st["x"], grad, st["mu"], st["nu"], st["best"], lo, hi, value + offsets, *vals, step)
+            (fused_fn if fused else plain_fn)(*args, signed=signed)
             vals.reverse()
-            seen.append({**{k: v.clone() for k, v in st.items()}, "best_val": vals[0].reshape(1).clone()})
+            seen.append({**{k: v.clone() for k, v in st.items()}, "best_val": vals[0].reshape(-1).clone()})
         states.append(seen)
-    best_vals = [s["best_val"].item() for s in states[0]]
+    best_vals = [s["best_val"][0].item() for s in states[0]]
     require(best_vals == [0.5, 0.5, float(torch.tensor(0.3))],
             f"b4_adam_box_step best values over three steps: {best_vals}")
     for step, (got, want) in enumerate(zip(*states)):
         for key in ("x", "mu", "nu", "best", "best_val"):
             report_exact("b4_adam_box_step", f"{shape} signed={signed} step={step} {key}",
-                         got[key], want[key], slice_shape and signed)
+                         got[key], want[key], signed and slice_shape)
 
 
-def attack_gradient(breaching, device, x0):
-    """The slice's loss and its gradient at candidate x0, on `device`."""
-    cfg = breaching.get_config(SLICE + ["seed=7"])
+def attack_gradient(breaching, device, x0, overrides):
+    """A slice's loss and its gradient at candidate x0, on `device`."""
+    cfg = breaching.get_config(overrides)
     setup = breaching.utils.system_startup(cfg=cfg, device=device)
     user, server, model, loss_fn = breaching.cases.construct_case(cfg.case, setup)
     attacker = breaching.attacks.prepare_attack(server.model, server.loss, cfg.attack, setup)
@@ -290,26 +332,28 @@ def attack_gradient(breaching, device, x0):
     return value.item(), grad.cpu()
 
 
-def check_reference(breaching):
-    """Phase 4: the attack gradient on the card (kernels, cuDNN) against the CPU
+def check_reference(breaching, name, overrides, shape):
+    """Phase 4: a slice's attack gradient on the card (kernels, cuDNN) against the CPU
     (plain versions), same weights, data and candidate."""
-    x0 = torch.randn(1, 3, 32, 32, generator=torch.Generator().manual_seed(5))
-    v_gpu, g_gpu = attack_gradient(breaching, DEVICE, x0)
-    v_again, g_again = attack_gradient(breaching, DEVICE, x0)
+    x0 = torch.randn(*shape, generator=torch.Generator().manual_seed(5))
+    v_gpu, g_gpu = attack_gradient(breaching, DEVICE, x0, overrides)
+    v_again, g_again = attack_gradient(breaching, DEVICE, x0, overrides)
     # not a check: cuDNN's backward need not give the same bits twice
-    print(f"reference: the card's loss and gradient computed twice: loss bits "
+    print(f"reference {name}: the card's loss and gradient computed twice: loss bits "
           f"{'equal' if v_again == v_gpu else 'differ'}, gradient bits "
           f"{'equal' if torch.equal(g_again.view(torch.int32), g_gpu.view(torch.int32)) else 'differ'} "
           f"(max |difference| {(g_again - g_gpu).abs().max().item():.3e})", flush=True)
-    v_cpu, g_cpu = attack_gradient(breaching, "cpu", x0)
+    start = time.perf_counter()
+    v_cpu, g_cpu = attack_gradient(breaching, "cpu", x0, overrides)
     # float32 on both sides, convolutions and sums in other orders; the gradient
     # passes through a double backward: 1e-4 relative on the value, 1e-3 on the gradient
     v_err = abs(v_gpu - v_cpu) / abs(v_cpu)
     g_err = ((g_gpu - g_cpu).abs().max() / g_cpu.abs().max()).item()
     ok = v_err <= 1e-4 and g_err <= 1e-3 and bool(torch.isfinite(g_gpu).all())
-    print(f"reference: loss card={v_gpu:.7f} cpu={v_cpu:.7f} rel_err={v_err:.2e} (tol 1e-4); "
-          f"gradient rel_err={g_err:.2e} (tol 1e-3) {'ok' if ok else 'FAILED'}", flush=True)
-    require(ok, "the slice's attack gradient on the card disagrees with the CPU")
+    print(f"reference {name}: loss card={v_gpu:.7f} cpu={v_cpu:.7f} rel_err={v_err:.2e} (tol 1e-4); "
+          f"gradient rel_err={g_err:.2e} (tol 1e-3) {'ok' if ok else 'FAILED'} "
+          f"(CPU side {time.perf_counter() - start:.1f} s)", flush=True)
+    require(ok, f"{name}'s attack gradient on the card disagrees with the CPU")
 
 
 def run_slice(breaching, ops):
@@ -345,13 +389,81 @@ def run_slice(breaching, ops):
     return launches
 
 
+def slice2_weights():
+    """The overrides that choose slice 2's weights, and what they are: the trained
+    checkpoint where the checkout holds it, else random weights, passed explicitly."""
+    if os.path.exists(CHECKPOINT):
+        return [], f"trained checkpoint {os.path.relpath(CHECKPOINT, REPO)}"
+    return ["case.server.pretrained=False"], "random weights from seed 7 (no ResNet18.npz in the checkout)"
+
+
+def run_slice2(breaching, ops, path, overrides, steps, experiments=1):
+    """Phase 5, slice 2: the bench preset on ResNet-18 through the entry points, solo or
+    as a fleet of ``experiments`` users of one server through ``reconstruct_fleet``;
+    launch counts from the attack alone. Returns the launch counts."""
+    weight_overrides, weights = slice2_weights()
+    cfg = breaching.get_config(SLICE2 + weight_overrides + overrides + [
+        f"attack.optim.max_iterations={steps}", "attack.optim.callback=100"])
+    start = time.perf_counter()
+    setup = breaching.utils.system_startup(cfg=cfg, device=DEVICE)
+    user, server, model, loss_fn = breaching.cases.construct_case(cfg.case, setup)
+    if not weight_overrides:  # the package found the checkout's checkpoint
+        import numpy as np
+
+        with np.load(CHECKPOINT) as blob:
+            head = torch.from_numpy(blob["params/head/dense/kernel"].T.copy())
+        require(torch.equal(model.head.weight.detach().cpu(), head), "ResNet18.npz was not loaded")
+    payload_lists, shared_lists, truths = [], [], []
+    for idx in range(experiments):
+        cfg.case.user.user_idx = idx
+        user = breaching.cases.construct_user(model, server.loss, cfg.case, setup)
+        shared, payloads, true = server.run_protocol(user)
+        payload_lists.append(payloads)
+        shared_lists.append(shared)
+        truths.append(true)
+    attacker = breaching.attacks.prepare_attack(server.model, server.loss, cfg.attack, setup)
+    torch.cuda.synchronize()
+    setup_seconds = time.perf_counter() - start
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    start = time.perf_counter()
+    if experiments > 1:
+        results, stats = attacker.reconstruct_fleet(payload_lists, shared_lists, server.secrets)
+    else:
+        result, stats = attacker.reconstruct(payload_lists[0], shared_lists[0], server.secrets)
+        results = [result]
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - start
+    launches = ops.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    print(f"slice 2 {path}: ResNet-18 {sum(p.numel() for p in model.parameters())} parameters on {weights}; "
+          f"{experiments} experiment(s), set-up {setup_seconds:.2f} s; {steps} steps in {seconds:.2f} s = "
+          f"{experiments * steps / seconds:.2f} it/s{' (aggregate)' if experiments > 1 else ''}; "
+          f"peak memory {peak / 2**30:.3f} GiB; launches per step "
+          f"{ {k: v / steps for k, v in launches.items() if v} }", flush=True)
+    for idx, (result, true, payloads) in enumerate(zip(results, truths, payload_lists)):
+        losses = stats[f"Trial_{idx}_Val"]
+        metrics = breaching.analysis.report(result, true, payloads, server.model, cfg_case=cfg.case, setup=setup)
+        print(f"slice 2 {path} experiment {idx}: labels {result['labels'].tolist()}; loss first={losses[0]:.6f} "
+              f"last={losses[-1]:.6f}; PSNR={metrics['psnr']:.3f} SSIM={metrics['ssim']:.4f}", flush=True)
+        data = result["data"]
+        require(tuple(data.shape) == BIG and bool(torch.isfinite(data).all()),
+                f"slice 2 {path}: reconstruction {idx} is not a finite {BIG} tensor: {tuple(data.shape)}")
+        require(len(losses) == steps and losses[-1] < losses[0], f"slice 2 {path}: the loss of {idx} did not fall")
+        require(torch.equal(result["labels"].cpu(), true["labels"].cpu()),
+                f"slice 2 {path}: experiment {idx} did not keep its own labels")
+    return launches
+
+
 def bound(bytes_moved, flops):
     t_bytes, t_ops = bytes_moved / PEAK_BYTES_PER_S, flops / PEAK_F32_PER_S
     return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
 
 
-def time_kernels(ops, n, image_shape):
-    """Phase 6: times at the slice's shapes (inputs warm in L2, as in the attack step)."""
+def time_kernels(ops, n, image_shape, names=None, iters=200):
+    """Phase 6: times at a slice's shapes (inputs warm in L2, as in the attack step), of
+    every kernel or of ``names``, over ``iters`` calls."""
     from breaching_tpu_torch.ops import image, matching
     from breaching_tpu_torch.timing import time_ms
 
@@ -418,15 +530,17 @@ def time_kernels(ops, n, image_shape):
                                                 "replaced_half")
     timings = {}
     for name, (kernel, plain, library, nbytes, flops) in cases.items():
+        if names is not None and name not in names:
+            continue
         bound_ms, bound_by = bound(nbytes, flops)
-        ms, device_ms, host_ms = time_ms(kernel)
-        plain_ms, plain_device_ms, plain_host_ms = time_ms(plain)
+        ms, device_ms, host_ms = time_ms(kernel, iters)
+        plain_ms, plain_device_ms, plain_host_ms = time_ms(plain, iters)
         row = dict(ms=ms, device_ms=device_ms, host_ms=host_ms, plain_ms=plain_ms,
                    plain_device_ms=plain_device_ms, plain_host_ms=plain_host_ms,
                    library_ms=None, bound_ms=bound_ms, bound_by=bound_by)
         yardstick = seconds.get(name, None if library is None else (*library, "library"))
         if yardstick is not None:
-            lib_ms, lib_device_ms, lib_host_ms = time_ms(yardstick[0])
+            lib_ms, lib_device_ms, lib_host_ms = time_ms(yardstick[0], iters)
             prefix = yardstick[2]
             row.update({f"{prefix}_call": yardstick[1], f"{prefix}_ms": lib_ms,
                         f"{prefix}_device_ms": lib_device_ms, f"{prefix}_host_ms": lib_host_ms})
@@ -437,7 +551,7 @@ def time_kernels(ops, n, image_shape):
         if yardstick is not None:
             line += (f"; {yardstick[1]} {lib_ms * 1e3:.2f} / {lib_device_ms * 1e3:.2f} / "
                      f"{lib_host_ms * 1e3:.2f} us")
-        print(f"{line}; bound {bound_ms * 1e3:.3f} us ({bound_by})", flush=True)
+        print(f"{line}; bound {bound_ms * 1e3:.3f} us ({bound_by}); n={n} images {image_shape}", flush=True)
     return timings
 
 
@@ -462,16 +576,37 @@ def main():
                    .parameters())
     image_shape = (int(cfg.case.user.num_data_points), *cfg.case.data.shape)
     errors = check_kernels(ops, n_params, image_shape)
-    check_reference(breaching)
-    launches = run_slice(breaching, ops)
+    check_reference(breaching, "slice 1", SLICE + ["seed=7"], (1, 3, 32, 32))
+    check_reference(breaching, "slice 2", SLICE2 + slice2_weights()[0], BIG)
+
+    paths = {"slice 1": run_slice(breaching, ops)}
+    fused = ["attack.objective.type=fused-cosine-similarity"]
+    for path, overrides, steps, experiments, per_step in (
+            ("preset", [], SLICE2_STEPS, 1, dict(b3_tv_value_and_grad=1, b4_adam_box_step=1)),
+            ("fused", fused, SLICE2_FUSED_STEPS, 1,
+             dict(b1_matching_sums=1, b2_cosine_backward=1, b3_tv_value_and_grad=1, b4_adam_box_step=1)),
+            ("fleet", [], FLEET_STEPS, FLEET, dict(b3_tv_value_and_grad=FLEET, b4_adam_box_step=FLEET))):
+        launches = run_slice2(breaching, ops, path, overrides, steps, experiments)
+        want = {name: n * steps for name, n in per_step.items()}
+        require({k: v for k, v in launches.items() if v} == want,
+                f"slice 2 {path}: launches {launches}, the path needs {want}")
+        paths[f"slice 2 {path}"] = launches
+
     timings = time_kernels(ops, n_params, image_shape)
+    slice2 = ("b1_matching_sums", "b2_cosine_backward", "b4_adam_box_step")
+    timings2 = time_kernels(ops, N2, BIG, names=slice2, iters=100)
 
     rows = []
     for name, (source, replaces) in KERNELS.items():
         rows.append(dict(name=name, route="cuda", source=source, replaces=replaces,
-                         launches=launches[name], max_abs_err=errors[name], **timings[name]))
+                         launches=sum(counts[name] for counts in paths.values()),
+                         launches_by_path={path: counts[name] for path, counts in paths.items()},
+                         max_abs_err=errors[name], **timings[name]))
         if f"{name} {BIG}" in timings:
             rows[-1]["at_1x3x224x224"] = timings[f"{name} {BIG}"]
+        if name in slice2:
+            rows[-1]["at_slice2"] = dict(n=N2 if name != "b4_adam_box_step" else BIG,
+                                         max_abs_err=errors[f"{name} slice2"], **timings2[name])
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))

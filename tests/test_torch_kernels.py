@@ -156,6 +156,50 @@ def test_b4_adam_box_step_swaps_best_values_over_three_steps(cuda):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("signed", [True, False])
+def test_adam_box_step_trials_matches_plain_per_trial(cuda, signed):
+    # the fleet's step tail: one launch per trial on the trial's views of an 8x1x3x224x224
+    # stack, each trial with its own loss and best value
+    lo, hi = torch.tensor([-1.0, -2.0, 0.0], device=cuda), torch.tensor([1.0, 0.5, 2.0], device=cuda)
+    shape, trials = (8, 1, 3, 224, 224), 8
+    start = dict(x=_randn(shape, 31, cuda) * 2, grad=_randn(shape, 32, cuda), mu=_randn(shape, 33, cuda) * 0.1,
+                 nu=_randn(shape, 34, cuda) ** 2 * 0.01, best=_randn(shape, 35, cuda))
+    start["grad"].view(-1)[::997] = float("nan")
+    values = torch.linspace(0.4, 0.6, trials, device=cuda)
+    best_vals = torch.full((trials,), 0.5, device=cuda)
+    step = ops.AdamStep(lr=0.1, b1=0.9, b2=0.999, eps=1e-8, bias1=1 - 0.9 ** 3, bias2=1 - 0.999 ** 3)
+    got = {k: v.clone() for k, v in start.items()}
+    got_best_val = torch.empty(trials, device=cuda)
+    before = ops.adam_box_step.launches
+    ops.adam_box_step_trials(got["x"], got["grad"], got["mu"], got["nu"], got["best"], lo, hi, values,
+                             best_vals, got_best_val, step, signed=signed)
+    assert ops.adam_box_step.launches == before + trials
+    want = {k: v.clone() for k, v in start.items()}
+    want_best_val = torch.empty(trials, device=cuda)
+    for t in range(trials):
+        image.adam_box_step_plain(want["x"][t], want["grad"][t], want["mu"][t], want["nu"][t], want["best"][t],
+                                  lo, hi, values[t], best_vals[t], want_best_val[t], step, signed)
+    for key in ("x", "mu", "nu", "best"):
+        assert _same_bits(got[key], want[key]), key
+    assert _same_bits(got_best_val, want_best_val)
+    assert torch.equal(got_best_val, torch.minimum(values, best_vals))
+
+
+@pytest.mark.cuda
+def test_total_variation_trials_is_one_launch_per_trial(cuda):
+    # each trial's value is the mean over its own elements, as the JAX fleet's vmap gives
+    x = _randn((8, 1, 3, 224, 224), 41, cuda).requires_grad_(True)
+    scale = torch.tensor([0.2], device=cuda)
+    before = ops.tv_value_and_grad.launches
+    values = ops.total_variation_trials(x, scale=scale)
+    grad, = torch.autograd.grad(values.sum(), x)
+    assert ops.tv_value_and_grad.launches == before + 8 and values.shape == (8,)
+    for t in range(8):
+        value, want = ops.tv_value_and_grad(x[t].detach(), scale)
+        assert _same_bits(values[t].detach(), value) and _same_bits(grad[t], want), t
+
+
+@pytest.mark.cuda
 def test_kernels_launch_on_the_current_stream(cuda):
     # the side stream first sleeps: a kernel that lands on it has not run when the
     # default stream (which does not wait for it) reads the candidate back
