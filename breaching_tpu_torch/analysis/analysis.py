@@ -2,8 +2,12 @@
 ``breaching_tpu/analysis/analysis.py`` ``report``).
 
 Reports MSE, PSNR, SSIM, the worst image's MSE, label accuracy and the
-feature-space MSE through the payload model. Not ported yet: LPIPS, CW-SSIM,
-registered PSNR, IIP and the batch reordering they need.
+feature-space MSE through the payload model. With ``order_batch`` a batch of
+several reconstructions is first put in the order that matches the true images by
+pixel MSE (``metrics.compute_batch_order``) and the order is reported; every image
+metric, the feature-space MSE too, is taken in that order. LPIPS is reported as
+NaN, as the JAX package reports it when no LPIPS weights are on disk (the repo
+holds none). Not ported yet: LPIPS, CW-SSIM, registered PSNR and IIP.
 """
 
 from __future__ import annotations
@@ -24,16 +28,21 @@ def report(reconstructed_user_data, true_user_data, server_payload, model,
     metadata = server_payload[0]["metadata"]
     if metadata.modality != "vision":
         raise NotImplementedError(f"{metadata.modality} metrics are not ported yet.")
-    rec = torch.as_tensor(reconstructed_user_data["data"], dtype=torch.float32)
-    ref = torch.as_tensor(true_user_data["data"], dtype=torch.float32, device=rec.device)
-    if order_batch and rec.shape[0] > 1:
-        raise NotImplementedError("Batch reordering of several reconstructions is not ported yet.")
     if compute_full_iip:
         raise NotImplementedError("IIP scores are not ported yet.")
+    rec = torch.as_tensor(reconstructed_user_data["data"], dtype=torch.float32)
+    ref = torch.as_tensor(true_user_data["data"], dtype=torch.float32, device=rec.device)
     dm = torch.as_tensor(metadata.mean, dtype=torch.float32, device=rec.device).reshape(1, -1, 1, 1)
     ds = torch.as_tensor(metadata.std, dtype=torch.float32, device=rec.device).reshape(1, -1, 1, 1)
     rec_den = torch.clamp(rec * ds + dm, 0, 1)
     ref_den = torch.clamp(ref * ds + dm, 0, 1)
+
+    order = None
+    if order_batch and rec.shape[0] == ref.shape[0] and rec.shape[0] > 1:
+        # the label accuracy counts a multiset: the order of the labels cannot change it
+        order = M.compute_batch_order(rec_den, ref_den)
+        index = torch.as_tensor(order, device=rec.device)
+        rec, rec_den = rec[index], rec_den[index]
 
     mse, psnr = M.mse_psnr(rec_den, ref_den, factor=1.0, clip=True)
     test_metrics = dict(
@@ -41,13 +50,15 @@ def report(reconstructed_user_data, true_user_data, server_payload, model,
         psnr=float(psnr),
         ssim=float(M.ssim(rec_den, ref_den)),
         max_mse=float(torch.amax(torch.mean((rec_den - ref_den) ** 2, dim=(1, 2, 3)))),
-        order=None,
+        lpips=float("nan"),
+        order=order,
     )
     test_metrics["label_acc"] = _label_accuracy(reconstructed_user_data, true_user_data)
     test_metrics["feat_mse"] = _feature_space_mse(rec, ref, server_payload, model)
     test_metrics["parameters"] = int(sum(p.numel() for p in server_payload[0]["parameters"].values()))
     log.info(f"METRICS: | MSE: {test_metrics['mse']:2.4f} | PSNR: {test_metrics['psnr']:4.2f} | "
-             f"FMSE: {test_metrics['feat_mse']:2.4e} | SSIM: {test_metrics['ssim']:2.4f} | "
+             f"FMSE: {test_metrics['feat_mse']:2.4e} | LPIPS: {test_metrics['lpips']:4.2f} | "
+             f"SSIM: {test_metrics['ssim']:2.4f} | "
              f"Label Acc: {test_metrics['label_acc']:2.2%}")
     return test_metrics
 

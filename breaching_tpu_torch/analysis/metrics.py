@@ -1,8 +1,10 @@
 """Image-quality metrics on NCHW batches in [0, 1] (counterpart of
-``breaching_tpu/analysis/metrics.py`` ``mse_psnr`` and ``ssim``)."""
+``breaching_tpu/analysis/metrics.py`` ``mse_psnr``, ``ssim`` and, without LPIPS,
+``compute_batch_order``)."""
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -43,3 +45,20 @@ def ssim(rec, ref, max_val: float = 1.0):
     ssim_map = ((2 * mu_x * mu_y + c1) * (2 * sigma_xy + c2)) / (
         (mu_x ** 2 + mu_y ** 2 + c1) * (sigma_x + sigma_y + c2))
     return ssim_map.mean()
+
+
+def compute_batch_order(rec, ref):
+    """The order of the reconstructed images that matches them to the true ones:
+    the assignment of least total cost, with cost[i, j] = mean((ref_i - rec_j)^2)
+    over each pair of images, the truth on the rows, solved on the host (reference
+    ``breaching_tpu/analysis/metrics.py:244-266`` without an LPIPS scorer).
+    ``rec[order]`` lines up with ``ref``."""
+    from scipy.optimize import linear_sum_assignment
+
+    num_images = rec.shape[0]
+    if num_images == 1:
+        return np.asarray([0])
+    rec_flat, ref_flat = rec.reshape(num_images, -1), ref.reshape(num_images, -1)
+    cost = torch.mean((ref_flat[:, None, :] - rec_flat[None, :, :]) ** 2, dim=-1)
+    _, order = linear_sum_assignment(cost.cpu().numpy())
+    return order

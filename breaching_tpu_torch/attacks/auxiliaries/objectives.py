@@ -5,11 +5,18 @@ the task loss through ``torch.func.functional_call``, so the attack's gradient
 with respect to the candidate is a double backward, which cuDNN runs for the
 convolutions. Gradients are tuples of tensors in the order of the parameter dict.
 
+For a fedAVG user (``initialize`` with its local hyperparameters) the simulated
+update is the parameter delta after K local SGD steps, unrolled: each step's
+gradient is taken with ``create_graph=True`` and the next step's parameters are the
+non-leaf tensors p - lr·g, so the attack's gradient runs back through all K steps
+(reference ``breaching_tpu/attacks/auxiliaries/objectives.py:166-202``).
+
 ``trials`` computes the objective for T trials at once (restarts, and the fleet of
 ``reconstruct_fleet``): the user gradient of every trial is
 ``torch.func.vmap(torch.func.grad(task loss))`` over the candidates' leading trial
 axis with the parameters shared, and the distance is reduced per trial, so that one
-``torch.autograd.grad`` of the trials' sum gives each trial's attack gradient.
+``torch.autograd.grad`` of the trials' sum gives each trial's attack gradient. It
+is not ported for fedAVG users.
 """
 
 from __future__ import annotations
@@ -26,24 +33,54 @@ class GradientLoss:
     def __init__(self, scale=1.0, task_regularization=0.0, **kwargs):
         self.scale = float(scale)
         self.task_regularization = float(task_regularization)
+        self.local_hyperparams = None
 
     def initialize(self, loss_fn, model, local_hyperparams=None, cfg_impl=None):
-        if local_hyperparams is not None:
-            raise NotImplementedError("Multi-step (fedAVG) users are not ported yet.")
+        """``local_hyperparams``: None for a fedSGD user; for a fedAVG user its ``lr``,
+        ``steps``, ``data_per_step`` and ``labels``, one row of sorted labels per step
+        as a (steps, data_per_step) tensor."""
         if cfg_impl is not None and int(cfg_impl.get("grad_accum", 1) or 1) > 1:
             raise NotImplementedError("attack.impl.grad_accum > 1 is not ported yet.")
         self.loss_fn = loss_fn
         self.model = model
+        self.local_hyperparams = local_hyperparams
 
     def grad_fn(self, params, buffers, candidate, labels, bn_train=False):
-        """The user's parameter gradient for the candidate data, differentiable."""
+        """The user's update for the candidate data, differentiable: the parameter
+        gradient, or for a fedAVG user the parameter delta; with the task loss (of the
+        last local step)."""
         if bn_train:  # train-mode BatchNorm updates the buffers it is given in place
             buffers = {k: v.clone() for k, v in buffers.items()}
+        if self.local_hyperparams is not None:
+            return self._local_steps(params, buffers, candidate, bn_train)
         outputs = functional_call(self.model, {**params, **buffers}, (candidate,),
                                   dict(train=bn_train))
         task_loss = self.loss_fn(outputs, labels)
         grads = torch.autograd.grad(task_loss, tuple(params.values()), create_graph=True)
         return grads, task_loss
+
+    def _local_steps(self, params, buffers, candidate, bn_train):
+        """The fedAVG user's K local SGD steps, unrolled: step k trains on the
+        candidate's rows (k·m + j) mod N, j < m, under the shared sorted labels of
+        that step (not the attack's labels), as the user does. Returns the delta and
+        the last step's task loss."""
+        hp = self.local_hyperparams
+        lr, steps, per_step = float(hp["lr"]), int(hp["steps"]), int(hp["data_per_step"])
+        num_points = candidate.shape[0]
+        initial = tuple(params.values())
+        current = initial
+        for k in range(steps):
+            start = k * per_step % num_points
+            if start + per_step <= num_points:  # a view: no gather, and no scatter in the backward
+                batch = candidate[start:start + per_step]
+            else:
+                batch = candidate[[(start + j) % num_points for j in range(per_step)]]
+            outputs = functional_call(self.model, {**dict(zip(params, current)), **buffers}, (batch,),
+                                      dict(train=bn_train))
+            task_loss = self.loss_fn(outputs, hp["labels"][k])
+            grads = torch.autograd.grad(task_loss, current, create_graph=True)
+            current = tuple(p - lr * g for p, g in zip(current, grads))
+        return tuple(p - p0 for p, p0 in zip(current, initial)), task_loss
 
     def __call__(self, params, buffers, target_grads, candidate, labels, bn_train=False):
         grads, task_loss = self.grad_fn(params, buffers, candidate, labels, bn_train=bn_train)
@@ -57,6 +94,9 @@ class GradientLoss:
         (T, N) and ``target_grads`` with a leading trial axis (T, ...) in the order of
         ``params``: (T,) values, differentiable with respect to the candidates, and
         (T,) task losses. BatchNorm runs in eval mode."""
+        if self.local_hyperparams is not None:
+            raise NotImplementedError("Restarts and fleets of fedAVG users are not ported yet; "
+                                      "attack a fedAVG user with one trial.")
         def task_loss(p, x, y):
             loss = self.loss_fn(functional_call(self.model, {**p, **buffers}, (x,)), y)
             return loss, loss

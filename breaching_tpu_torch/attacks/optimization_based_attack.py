@@ -5,6 +5,8 @@ Each step computes grad_x [distance(grad_theta L(theta, x), g*) + reg(x)] by dou
 backward; then one call of ``ops.adam_box_step`` (one kernel launch on the card)
 takes its sign (hard-signed attacks), takes an Adam step, clamps the candidate to
 the data box, rejects a step whose loss is not finite and keeps the best iterate.
+A single trial whose loss ends non-finite also leaves the candidate it stopped at in
+``stats["Trial_<t>_nonfinite_candidate"]``.
 The step runs eagerly; nothing in it waits on the host except the loss readout
 every ``optim.callback`` steps.
 
@@ -14,6 +16,10 @@ a batched step: the objective of every trial at once (``objectives.trials``), on
 double backward for all, and per trial one TV launch and one ``adam_box_step``
 launch on its contiguous views, each trial keeping its own best value and iterate.
 The trials are then scored (``restarts.scoring``) and the best is returned.
+
+A fedAVG user's update (a payload whose metadata carries ``local_hyperparams``) is
+matched by the objective's unrolled local steps, and scored the same way; it runs
+one trial, solo: restarts and fleets of such users are refused.
 """
 
 from __future__ import annotations
@@ -93,6 +99,9 @@ class OptimizationBasedAttacker(_BaseAttacker):
         The experiments share one model: their payloads must carry identical
         parameters. Returns (one reconstructed-data dict per experiment, stats), with
         each experiment's selected value in ``stats["fleet_opt_values"]``."""
+        if any(data["metadata"].get("local_hyperparams") is not None
+               for shared in shared_lists for data in shared):
+            raise NotImplementedError("Fleets of fedAVG users are not ported yet; attack each solo.")
         ref_params = payload_lists[0][0]["parameters"]
         for payloads in payload_lists[1:]:
             params = payloads[0]["parameters"]
@@ -116,9 +125,8 @@ class OptimizationBasedAttacker(_BaseAttacker):
                                                trial_labels, stats, None, dryrun)
         if trials_per > 1:  # each trial scored against its own experiment's target
             scores = np.concatenate([
-                self._score_all_trials(best[i * trials_per:(i + 1) * trials_per], labels, rec_models,
-                                       [dict(gradients=dict(zip(rec_models[0].params, targets)))])
-                for i, (targets, labels) in enumerate(zip(all_targets, all_labels))])
+                self._score_all_trials(best[i * trials_per:(i + 1) * trials_per], labels, rec_models, shared)
+                for i, (shared, labels) in enumerate(zip(shared_lists, all_labels))])
         else:  # one trial per experiment: its best value
             scores = best_vals
         results = []
@@ -165,8 +173,11 @@ class OptimizationBasedAttacker(_BaseAttacker):
         num_points = int(metadata["num_data_points"]) if metadata["num_data_points"] \
             else len(trial_labels[0])
 
-        self.objective.initialize(self.loss_fn, rec_models[0].module,
-                                  metadata.get("local_hyperparams"), self.cfg.impl)
+        local_hyperparams = self._local_hyperparams(metadata)
+        if local_hyperparams is not None and num_trials > 1:
+            raise NotImplementedError("Restarts of a fedAVG user's attack are not ported yet; "
+                                      "set attack.restarts.num_trials=1.")
+        self.objective.initialize(self.loss_fn, rec_models[0].module, local_hyperparams, self.cfg.impl)
         for reg in self.regularizers:
             reg.initialize(rec_models, shared_data, trial_labels[0])
 
@@ -187,6 +198,17 @@ class OptimizationBasedAttacker(_BaseAttacker):
                                 trial_labels[t], stats, max_iterations, box)
                 for t in range(num_trials)]
         return torch.stack([best for best, _ in runs]), np.asarray([v for _, v in runs])
+
+    def _local_hyperparams(self, metadata):
+        """A fedAVG user's local hyperparameters with its per-step label lists stacked
+        into one (steps, data per step) tensor on the attack's device, or None for a
+        fedSGD user (reference optimization_based_attack.py:327-332)."""
+        local_hyperparams = metadata.get("local_hyperparams")
+        if local_hyperparams is None:
+            return None
+        labels = torch.stack([torch.as_tensor(step_labels, dtype=torch.int64, device=self.setup["device"])
+                              for step_labels in local_hyperparams["labels"]])
+        return dict(local_hyperparams, labels=labels)
 
     def _optimizer(self, max_iterations):
         cfg_optim = self.cfg.optim
@@ -215,7 +237,12 @@ class OptimizationBasedAttacker(_BaseAttacker):
             best_vals.reverse()
             return value, task_loss
 
-        self._optimize(step, [stats.setdefault(f"Trial_{trial}_Val", [])], max_iterations)
+        history = stats.setdefault(f"Trial_{trial}_Val", [])
+        self._optimize(step, [history], max_iterations)
+        if history and not np.isfinite(history[-1]):
+            # a step whose loss is not finite keeps its candidate: this is where the loss
+            # turned non-finite, kept so that the cause can be looked at
+            stats[f"Trial_{trial}_nonfinite_candidate"] = candidate.clone()
         return best, float(best_vals[0])
 
     def _run_trials_batched(self, candidate, rec_models, targets, labels, stats, max_iterations, box):
@@ -281,7 +308,8 @@ class OptimizationBasedAttacker(_BaseAttacker):
         if scoring != "cosine-similarity":
             raise NotImplementedError(f"Scoring {scoring} is not ported yet.")
         objective = CosineSimilarity()
-        objective.initialize(self.loss_fn, rec_models[0].module, None, self.cfg.impl)
+        objective.initialize(self.loss_fn, rec_models[0].module,
+                             self._local_hyperparams(shared_data[0]["metadata"]), self.cfg.impl)
         scores = []
         for candidate in best_trials:
             total = 0.0

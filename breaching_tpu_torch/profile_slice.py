@@ -1,12 +1,15 @@
 """Where the time of a slice's attack step goes, on the card.
 
-    python3 -m breaching_tpu_torch.profile_slice [--slice 1|2] [--fleet F] [--fused] [--iterations N]
+    python3 -m breaching_tpu_torch.profile_slice [--slice 1|2|3] [--fleet F] [--fused] [--iterations N]
 
 Slice 1 (the default) runs Inverting Gradients with the fused cosine objective on
 ConvNet-64 / CIFAR-10 shapes; slice 2 the JAX package's bench preset on ResNet-18
 at ImageNet shapes (the repo's trained checkpoint), with ``--fused`` the fused
 cosine objective, and with ``--fleet F`` as F experiments of one server through
-``reconstruct_fleet``. Each goes through the entry points: one warm-up attack, an
+``reconstruct_fleet``; slice 3 the fedAVG user of case 4 on the same ResNet-18 (4
+images, 4 local steps of 2), as the JAX package's notebook preset
+``inverting_gradients_fedavg_imagenet`` runs it, with ``--fused`` the fused cosine
+objective. Each goes through the entry points: one warm-up attack, an
 attack of N steps (default 200) timed with the profiler off, and the same attack
 under ``torch.profiler``. Prints one JSON line: milliseconds per step with the
 profiler off and on (wall clock around the synchronised attack; the difference
@@ -33,6 +36,9 @@ SLICES = {
         "attack.objective.type=fused-cosine-similarity", "attack.optim.callback=0", "seed=0"],
     2: ["case=2_single_imagenet", "attack=invertinggradients", "attack.restarts.num_trials=1",
         "case.user.provide_labels=True", "attack.optim.callback=0", "seed=7"],
+    3: ["case=4_fedavg_small_scale", "attack=invertinggradients", "case.user.num_data_points=4",
+        "case.user.num_local_updates=4", "case.user.num_data_per_local_update_step=2",
+        "case.user.provide_labels=True", "case.user.user_idx=1", "attack.optim.callback=0", "seed=7"],
 }
 FUSED = ["attack.objective.type=fused-cosine-similarity"]
 
@@ -67,7 +73,7 @@ def main():
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--slice", type=int, choices=sorted(SLICES), default=1)
     parser.add_argument("--fleet", type=int, default=1, help="experiments through reconstruct_fleet")
-    parser.add_argument("--fused", action="store_true", help="slice 2 with the fused cosine objective")
+    parser.add_argument("--fused", action="store_true", help="slice 2 or 3 with the fused cosine objective")
     parser.add_argument("--iterations", type=int, default=200)
     args = parser.parse_args()
     if not torch.cuda.is_available():

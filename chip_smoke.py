@@ -12,12 +12,14 @@ Phases, one line each on standard output:
      shapes and at ragged shapes, with the tolerance stated (the fused
      kernels bit for bit, NaN positions included): B1 and the fused cosine
      backward also at ResNet-18's 11,380,173 gradient entries, the fused Adam
-     step also at 1x3x224x224 and per trial on an 8x1x3x224x224 stack, the fused
-     TV kernel also at 1x3x224x224, with NaN and infinite pixels at the
-     boundary, twice in a row and in a replayed CUDA graph;
+     step also at 1x3x224x224, at slice 3's 4x3x224x224 and per trial on an
+     8x1x3x224x224 stack, the fused TV kernel also at 1x3x224x224 and
+     4x3x224x224, with NaN and infinite pixels at the boundary, twice in a row
+     and in a replayed CUDA graph;
   4. the attack gradient of each slice on the card against the same computation
      on the CPU, through the plain versions (and whether the card gives the same
-     bits twice, which is reported, not required);
+     bits twice, which is reported, not required); for slice 3 the gradient
+     through the fedAVG user's four unrolled local steps;
   5. the main paths end to end through the entry points, each with the kernels'
      launch counts set to 0 just before it and read just after: slice 1,
      Inverting Gradients with the fused cosine objective on ConvNet-64 /
@@ -25,25 +27,38 @@ Phases, one line each on standard output:
      (the repo's trained checkpoint where the checkout holds it, else random
      weights, printed either way) solo, the same with the fused cosine
      objective, and as the 8-experiment fleet through ``reconstruct_fleet``;
-     for each: set-up seconds, loss at the start and end of every trial, PSNR,
-     SSIM, it/s (the fleet's aggregate), peak memory and launches per step;
+     slice 3, the fedAVG user of case 4 on the same ResNet-18 (4 images of
+     3x224x224, 4 local SGD steps of 2 images, the JAX package's notebook preset
+     ``inverting_gradients_fedavg_imagenet``), with the preset's cosine objective
+     and with the fused one; for each: set-up seconds, loss at the start and end
+     of every trial, PSNR and SSIM (of the batch put in the true images' order,
+     and the order), it/s (the fleet's aggregate), peak memory and launches per
+     step;
   6. each kernel's time beside its bound, the plain version's time and one
      PyTorch call of the same function (for a fused kernel, the library call of
      the kernel it grew from), each as time per call (200 calls between two
      events), device time (the 200 calls captured in a CUDA graph and replayed)
      and host time per call (the 200 calls enqueued, no wait); B1, the fused
      cosine backward, the fused TV kernel and the fused Adam step also at
-     slice 2's shapes (100 calls).
+     slice 2's shapes (100 calls), the fused TV kernel and the fused Adam step
+     at slice 3's (100 calls).
 Then one JSON line with the kernels, and as the last line
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 
 Exits non-zero, without that line, when no CUDA device is present, a kernel does
 not build, launch or agree, a kernel of a path was not launched as often as the
-path needs, an attack's loss does not fall, or an experiment of the fleet does
-not keep its own labels.
+path needs, an attack's loss does not fall, an experiment of the fleet does not
+keep its own labels, or a batch's order is not a permutation. A loss that turns
+non-finite fails every path but slice 3's: there the simulated local SGD of the
+fedAVG user can overflow float32 on the attack's candidates, as it does in the
+JAX package, and the attack stops at such a candidate. The same local steps at
+that candidate, in float64 on the CPU, must then reach a magnitude above 1e30
+(float32 overflows in sums of such terms), which the script prints beside the
+magnitude on the user's own images.
 """
 
 import json
+import math
 import os
 import subprocess
 import sys
@@ -60,6 +75,15 @@ SLICE = ["case=1_single_image_small", "attack=invertinggradients",
 SLICE2 = ["case=2_single_imagenet", "attack=invertinggradients", "attack.restarts.num_trials=1",
           "case.user.provide_labels=True", "seed=7"]
 SLICE2_STEPS, SLICE2_FUSED_STEPS, FLEET, FLEET_STEPS = 300, 100, 8, 100
+# slice 3: the fedAVG user of case 4 on ResNet-18, the JAX package's notebook preset
+# inverting_gradients_fedavg_imagenet (examples/run_example.py)
+SLICE3 = ["case=4_fedavg_small_scale", "attack=invertinggradients", "case.user.num_data_points=4",
+          "case.user.num_local_updates=4", "case.user.num_data_per_local_update_step=2",
+          "case.user.provide_labels=True", "case.user.user_idx=1", "seed=7"]
+SLICE3_STEPS, SLICE3_FUSED_STEPS = 100, 50
+# a magnitude in the fedAVG user's local SGD (in float64) that shows float32 overflow:
+# sums of such terms in a convolution's backward leave float32 (largest value 3.4e38)
+DIVERGED = 1e30
 CHECKPOINT = os.path.join(REPO, "assets", "checkpoints", "ResNet18.npz")
 # H100 SXM peaks (NVIDIA data sheet): HBM bytes/s and float32 FLOP/s outside the tensor cores.
 PEAK_BYTES_PER_S = 3.35e12
@@ -83,6 +107,7 @@ KERNELS = {  # name -> (source, what it replaces in the JAX package)
 # ops.box_project, checked and timed.
 SLICE_KERNELS = ("b1_matching_sums", "b2_cosine_backward", "b3_tv_value_and_grad", "b4_adam_box_step")
 BIG = (1, 3, 224, 224)  # the image batch of slice 2 (ResNet-18 at ImageNet shapes)
+BATCH = (4, 3, 224, 224)  # the image batch of slice 3 (the fedAVG user's 4 images)
 N2 = 11_380_173  # the gradient entries of slice 2
 # (p, q) whose powers p, p-1, q, q-1 cheap_pow forms exactly: the fused TV gradient bit for bit
 TV_EXACT = ((1.0, 1.0), (2.0, 1.0), (1.5, 2.0))
@@ -189,6 +214,8 @@ def check_kernels(ops, n_params, image_shape):
                             signed and "b4_adam_box_step slice2")
         check_adam_box_step(ops, image, report_exact, randn, (FLEET, *BIG), lo, hi, signed,
                             signed and "b4_adam_box_step slice2")
+        check_adam_box_step(ops, image, report_exact, randn, BATCH, lo, hi, signed,
+                            signed and "b4_adam_box_step slice3")
     check_tv_value_and_grad(ops, image, report, report_exact, randn, image_shape)
     return worst
 
@@ -204,17 +231,18 @@ def check_tv_value_and_grad(ops, image, report, report_exact, randn, image_shape
     def run(x, p, q):
         return ops.tv_value_and_grad(x, scale, p, q, 1e-8), image.tv_value_and_grad_plain(x, scale, p, q, 1e-8)
 
-    for shape in (image_shape, BIG, (2, 3, 331, 1007), (2, 3, 17, 23), (1, 6, 33, 31),
+    for shape in (image_shape, BIG, BATCH, (2, 3, 331, 1007), (2, 3, 17, 23), (1, 6, 33, 31),
                   (1, 6, 9, 1), (1, 3, 1, 7)):
         x = randn(*shape)
-        record = shape == image_shape
+        # where this shape's error is recorded: slice 1's, slice 3's or nowhere
+        record = shape == image_shape or (shape == BATCH and f"{name} slice3")
         for p, q in TV_EXACT + ((2.0, 0.5),):
             (value, grad), (want_value, want) = run(x, p, q)
             # a mean of n float32 terms summed in two orders: 1e-5 relative
             report(name, f"{shape} p={p} q={q} value", value, want_value, 1e-5 * abs(want_value.item()),
-                   record and p == q == 1.0)
+                   p == q == 1.0 and record)
             if (p, q) in TV_EXACT:
-                report_exact(name, f"{shape} p={p} q={q} gradient", grad, want, record and p == q == 1.0)
+                report_exact(name, f"{shape} p={p} q={q} gradient", grad, want, p == q == 1.0 and record)
             else:  # pow(., -0.5) is rsqrtf in PyTorch, powf in the kernel
                 report(name, f"{shape} p={p} q={q} gradient", grad, want,
                        2.0 ** -22 * want.abs().max().item(), False)
@@ -324,7 +352,8 @@ def attack_gradient(breaching, device, x0, overrides):
     attacker = breaching.attacks.prepare_attack(server.model, server.loss, cfg.attack, setup)
     shared, payloads, _ = server.run_protocol(user)
     rec_models, labels, _ = attacker.prepare_attack(payloads, shared)
-    attacker.objective.initialize(loss_fn, rec_models[0].module, None, cfg.attack.impl)
+    attacker.objective.initialize(loss_fn, rec_models[0].module,
+                                  attacker._local_hyperparams(shared[0]["metadata"]), cfg.attack.impl)
     targets = [tuple(shared[0]["gradients"][k] for k in rec_models[0].params)]
     x = x0.to(device).requires_grad_(True)
     value, _ = attacker._loss(x, rec_models, targets, labels)
@@ -389,20 +418,24 @@ def run_slice(breaching, ops):
     return launches
 
 
-def slice2_weights():
-    """The overrides that choose slice 2's weights, and what they are: the trained
-    checkpoint where the checkout holds it, else random weights, passed explicitly."""
+def resnet_weights():
+    """The overrides that choose ResNet-18's weights (slices 2 and 3), and what they
+    are: the trained checkpoint where the checkout holds it, else random weights,
+    passed explicitly."""
     if os.path.exists(CHECKPOINT):
         return [], f"trained checkpoint {os.path.relpath(CHECKPOINT, REPO)}"
     return ["case.server.pretrained=False"], "random weights from seed 7 (no ResNet18.npz in the checkout)"
 
 
-def run_slice2(breaching, ops, path, overrides, steps, experiments=1):
-    """Phase 5, slice 2: the bench preset on ResNet-18 through the entry points, solo or
-    as a fleet of ``experiments`` users of one server through ``reconstruct_fleet``;
-    launch counts from the attack alone. Returns the launch counts."""
-    weight_overrides, weights = slice2_weights()
-    cfg = breaching.get_config(SLICE2 + weight_overrides + overrides + [
+def run_resnet(breaching, ops, path, case, overrides, steps, experiments=1):
+    """Phase 5, slices 2 and 3: ``case`` (the bench preset, or the fedAVG user's) on
+    ResNet-18 through the entry points, solo or as a fleet of ``experiments`` users of
+    one server through ``reconstruct_fleet``; launch counts from the attack alone.
+    Returns the launch counts."""
+    from breaching_tpu_torch.cases.users import UserMultiStep
+
+    weight_overrides, weights = resnet_weights()
+    cfg = breaching.get_config(case + weight_overrides + overrides + [
         f"attack.optim.max_iterations={steps}", "attack.optim.callback=100"])
     start = time.perf_counter()
     setup = breaching.utils.system_startup(cfg=cfg, device=DEVICE)
@@ -415,8 +448,9 @@ def run_slice2(breaching, ops, path, overrides, steps, experiments=1):
         require(torch.equal(model.head.weight.detach().cpu(), head), "ResNet18.npz was not loaded")
     payload_lists, shared_lists, truths = [], [], []
     for idx in range(experiments):
-        cfg.case.user.user_idx = idx
-        user = breaching.cases.construct_user(model, server.loss, cfg.case, setup)
+        if experiments > 1:  # the fleet: users 0, 1, ... of one server
+            cfg.case.user.user_idx = idx
+            user = breaching.cases.construct_user(model, server.loss, cfg.case, setup)
         shared, payloads, true = server.run_protocol(user)
         payload_lists.append(payloads)
         shared_lists.append(shared)
@@ -437,23 +471,83 @@ def run_slice2(breaching, ops, path, overrides, steps, experiments=1):
     seconds = time.perf_counter() - start
     launches = ops.launch_counts()
     peak = torch.cuda.max_memory_allocated()
-    print(f"slice 2 {path}: ResNet-18 {sum(p.numel() for p in model.parameters())} parameters on {weights}; "
+    shape = (int(cfg.case.user.num_data_points), *cfg.case.data.shape)
+    print(f"{path}: ResNet-18 {sum(p.numel() for p in model.parameters())} parameters on {weights}; "
+          f"{user.__class__.__name__} with {shape[0]} image(s) of {tuple(shape[1:])}; "
           f"{experiments} experiment(s), set-up {setup_seconds:.2f} s; {steps} steps in {seconds:.2f} s = "
           f"{experiments * steps / seconds:.2f} it/s{' (aggregate)' if experiments > 1 else ''}; "
           f"peak memory {peak / 2**30:.3f} GiB; launches per step "
           f"{ {k: v / steps for k, v in launches.items() if v} }", flush=True)
     for idx, (result, true, payloads) in enumerate(zip(results, truths, payload_lists)):
         losses = stats[f"Trial_{idx}_Val"]
+        # the first step whose loss is not finite, if any
+        diverged = next((i for i, value in enumerate(losses) if not math.isfinite(value)), None)
         metrics = breaching.analysis.report(result, true, payloads, server.model, cfg_case=cfg.case, setup=setup)
-        print(f"slice 2 {path} experiment {idx}: labels {result['labels'].tolist()}; loss first={losses[0]:.6f} "
-              f"last={losses[-1]:.6f}; PSNR={metrics['psnr']:.3f} SSIM={metrics['ssim']:.4f}", flush=True)
+        order = metrics["order"]
+        score = stats["fleet_opt_values"][idx] if experiments > 1 else stats["opt_value"]
+        print(f"{path} experiment {idx}: labels {result['labels'].tolist()}; loss first={losses[0]:.6f} "
+              f"lowest={min(losses[:diverged] or [math.nan]):.6f} last={losses[-1]:.6f}"
+              f"{'' if diverged is None else f' (not finite from step {diverged} on)'}; best iterate's score "
+              f"{score:.6f}; PSNR={metrics['psnr']:.3f} SSIM={metrics['ssim']:.4f}"
+              f"{'' if order is None else f' (in the order {order.tolist()})'}", flush=True)
         data = result["data"]
-        require(tuple(data.shape) == BIG and bool(torch.isfinite(data).all()),
-                f"slice 2 {path}: reconstruction {idx} is not a finite {BIG} tensor: {tuple(data.shape)}")
-        require(len(losses) == steps and losses[-1] < losses[0], f"slice 2 {path}: the loss of {idx} did not fall")
+        require(tuple(data.shape) == shape and bool(torch.isfinite(data).all()),
+                f"{path}: reconstruction {idx} is not a finite {shape} tensor: {tuple(data.shape)}")
+        require(len(losses) == steps, f"{path}: {len(losses)} losses of {idx} for {steps} steps")
+        if diverged is None:
+            require(losses[-1] < losses[0], f"{path}: the loss of {idx} did not fall")
+        else:
+            # The fedAVG user's simulated local SGD can overflow float32 on the attack's
+            # candidates, as it does in the JAX package: the cosine does not see the
+            # delta's size. The attack stops at the candidate whose loss is not finite
+            # and keeps its best iterate. The overflow must be the local SGD's own: the
+            # same steps in float64 on the CPU reach magnitudes that float32 cannot sum.
+            require(isinstance(user, UserMultiStep) and diverged > 0 and not math.isfinite(losses[-1]),
+                    f"{path}: the loss of {idx} turned non-finite at step {diverged}")
+            start = time.perf_counter()
+            hyper = shared_lists[idx][0]["metadata"]["local_hyperparams"]
+            own = local_sgd_peak(server.model, server.loss, payloads[0], hyper, true["data"])
+            peak = local_sgd_peak(server.model, server.loss, payloads[0], hyper,
+                                  stats[f"Trial_{idx}_nonfinite_candidate"])
+            print(f"{path} experiment {idx}: the user's local SGD in float64 on the CPU reaches |value| "
+                  f"{own:.3e} on its own images and {peak:.3e} at the candidate where the loss turned "
+                  f"non-finite (float32 overflow shown above {DIVERGED:.0e}; CPU side "
+                  f"{time.perf_counter() - start:.1f} s)", flush=True)
+            require(not peak < DIVERGED, f"{path}: the loss of {idx} turned non-finite at step {diverged}, "
+                                         f"but the local SGD stays below {DIVERGED:.0e} in float64 ({peak:.3e})")
         require(torch.equal(result["labels"].cpu(), true["labels"].cpu()),
-                f"slice 2 {path}: experiment {idx} did not keep its own labels")
+                f"{path}: experiment {idx} did not keep its own labels")
+        require(order is None or sorted(order.tolist()) == list(range(shape[0])),
+                f"{path}: the batch order {order} is not a permutation")
     return launches
+
+
+def local_sgd_peak(model, loss_fn, payload, hyper, data):
+    """The largest magnitude among the logits, task losses, gradients and parameters of
+    the fedAVG user's local SGD steps (``hyper``: its shared local hyperparameters) on
+    ``data``, from the payload's weights, in float64 on the CPU; inf where even float64
+    overflows."""
+    from torch.func import functional_call
+
+    buffers = payload["buffers"]
+    bn_train = buffers is None
+    buffers = {k: v.detach().cpu().double() for k, v in (buffers or dict(model.named_buffers())).items()}
+    params = {k: v.detach().cpu().double() for k, v in payload["parameters"].items()}
+    x = data.detach().cpu().double()
+    per_step, peak = int(hyper["data_per_step"]), 0.0
+    for k, labels in enumerate(hyper["labels"][:int(hyper["steps"])]):
+        rows = [(k * per_step + j) % x.shape[0] for j in range(per_step)]
+        current = {name: v.requires_grad_(True) for name, v in params.items()}
+        outputs = functional_call(model, {**current, **buffers}, (x[rows],), dict(train=bn_train))
+        loss = loss_fn(outputs, torch.as_tensor(labels).cpu())
+        grads = torch.autograd.grad(loss, tuple(current.values()))
+        params = {name: (v - float(hyper["lr"]) * g).detach() for (name, v), g in zip(current.items(), grads)}
+        for t in (outputs, loss, *grads, *params.values()):
+            top = t.detach().abs().max().item()
+            if not math.isfinite(top):
+                return math.inf
+            peak = max(peak, top)
+    return peak
 
 
 def bound(bytes_moved, flops):
@@ -577,24 +671,33 @@ def main():
     image_shape = (int(cfg.case.user.num_data_points), *cfg.case.data.shape)
     errors = check_kernels(ops, n_params, image_shape)
     check_reference(breaching, "slice 1", SLICE + ["seed=7"], (1, 3, 32, 32))
-    check_reference(breaching, "slice 2", SLICE2 + slice2_weights()[0], BIG)
+    check_reference(breaching, "slice 2", SLICE2 + resnet_weights()[0], BIG)
+    fused = ["attack.objective.type=fused-cosine-similarity"]
+    check_reference(breaching, "slice 3", SLICE3 + resnet_weights()[0], BATCH)
+    check_reference(breaching, "slice 3 fused", SLICE3 + fused + resnet_weights()[0], BATCH)
 
     paths = {"slice 1": run_slice(breaching, ops)}
-    fused = ["attack.objective.type=fused-cosine-similarity"]
-    for path, overrides, steps, experiments, per_step in (
-            ("preset", [], SLICE2_STEPS, 1, dict(b3_tv_value_and_grad=1, b4_adam_box_step=1)),
-            ("fused", fused, SLICE2_FUSED_STEPS, 1,
-             dict(b1_matching_sums=1, b2_cosine_backward=1, b3_tv_value_and_grad=1, b4_adam_box_step=1)),
-            ("fleet", [], FLEET_STEPS, FLEET, dict(b3_tv_value_and_grad=FLEET, b4_adam_box_step=FLEET))):
-        launches = run_slice2(breaching, ops, path, overrides, steps, experiments)
+    image_kernels = dict(b3_tv_value_and_grad=1, b4_adam_box_step=1)
+    all_kernels = dict(b1_matching_sums=1, b2_cosine_backward=1, **image_kernels)
+    # the image kernels once per attack step, not once per local step of the fedAVG user
+    for path, case, overrides, steps, experiments, per_step in (
+            ("slice 2 preset", SLICE2, [], SLICE2_STEPS, 1, image_kernels),
+            ("slice 2 fused", SLICE2, fused, SLICE2_FUSED_STEPS, 1, all_kernels),
+            ("slice 2 fleet", SLICE2, [], FLEET_STEPS, FLEET,
+             dict(b3_tv_value_and_grad=FLEET, b4_adam_box_step=FLEET)),
+            ("slice 3 preset", SLICE3, [], SLICE3_STEPS, 1, image_kernels),
+            ("slice 3 fused", SLICE3, fused, SLICE3_FUSED_STEPS, 1, all_kernels)):
+        launches = run_resnet(breaching, ops, path, case, overrides, steps, experiments)
         want = {name: n * steps for name, n in per_step.items()}
         require({k: v for k, v in launches.items() if v} == want,
-                f"slice 2 {path}: launches {launches}, the path needs {want}")
-        paths[f"slice 2 {path}"] = launches
+                f"{path}: launches {launches}, the path needs {want}")
+        paths[path] = launches
 
     timings = time_kernels(ops, n_params, image_shape)
     slice2 = ("b1_matching_sums", "b2_cosine_backward", "b4_adam_box_step")
     timings2 = time_kernels(ops, N2, BIG, names=slice2, iters=100)
+    slice3 = ("b3_tv_value_and_grad", "b4_adam_box_step")
+    timings3 = time_kernels(ops, N2, BATCH, names=slice3, iters=100)
 
     rows = []
     for name, (source, replaces) in KERNELS.items():
@@ -607,6 +710,8 @@ def main():
         if name in slice2:
             rows[-1]["at_slice2"] = dict(n=N2 if name != "b4_adam_box_step" else BIG,
                                          max_abs_err=errors[f"{name} slice2"], **timings2[name])
+        if name in slice3:
+            rows[-1]["at_slice3"] = dict(shape=BATCH, max_abs_err=errors[f"{name} slice3"], **timings3[name])
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))
