@@ -11,6 +11,16 @@ gradient is taken with ``create_graph=True`` and the next step's parameters are 
 non-leaf tensors p - lr·g, so the attack's gradient runs back through all K steps
 (reference ``breaching_tpu/attacks/auxiliaries/objectives.py:166-202``).
 
+Every objective of the JAX package's ``objective_lookup`` is here. Gradients are
+summed leaf by leaf in the parameter dict's order; only ``tag-euclidean`` depends on
+the order, and it weights each leaf by its place in the JAX package's pytree leaf
+order (``model_preparation.jax_leaf_ranks``). ``fused-euclidean`` runs through B1 and
+``b2_axpby`` (``ops.fused_euclidean``). The Pearlmutter objectives are the JAX
+package's exact linearizations, with ``.detach()`` for ``stop_gradient``. A
+``capture`` dict handed to ``__call__`` receives the model's pre-head features and
+train-mode BatchNorm statistics from the same forward pass, for the regularizers
+that read them.
+
 ``trials`` computes the objective for T trials at once (restarts, and the fleet of
 ``reconstruct_fleet``): the user gradient of every trial is
 ``torch.func.vmap(torch.func.grad(task loss))`` over the candidates' leading trial
@@ -24,7 +34,8 @@ from __future__ import annotations
 import torch
 from torch.func import functional_call, grad as func_grad, vmap
 
-from ...ops import fused_cosine_similarity
+from ...cases.models.model_preparation import jax_leaf_ranks
+from ...ops import fused_cosine_similarity, fused_euclidean
 
 
 class GradientLoss:
@@ -45,16 +56,20 @@ class GradientLoss:
         self.model = model
         self.local_hyperparams = local_hyperparams
 
-    def grad_fn(self, params, buffers, candidate, labels, bn_train=False):
+    def grad_fn(self, params, buffers, candidate, labels, bn_train=False, capture=None):
         """The user's update for the candidate data, differentiable: the parameter
         gradient, or for a fedAVG user the parameter delta; with the task loss (of the
-        last local step)."""
+        last local step). A ``capture`` dict receives the forward's intermediates (for a
+        fedAVG user, from one extra forward of the whole batch, as the JAX package does)."""
         if bn_train:  # train-mode BatchNorm updates the buffers it is given in place
             buffers = {k: v.clone() for k, v in buffers.items()}
         if self.local_hyperparams is not None:
+            if capture is not None:
+                functional_call(self.model, {**params, **buffers}, (candidate,),
+                                dict(train=bn_train, capture=capture))
             return self._local_steps(params, buffers, candidate, bn_train)
         outputs = functional_call(self.model, {**params, **buffers}, (candidate,),
-                                  dict(train=bn_train))
+                                  dict(train=bn_train, capture=capture))
         task_loss = self.loss_fn(outputs, labels)
         grads = torch.autograd.grad(task_loss, tuple(params.values()), create_graph=True)
         return grads, task_loss
@@ -82,8 +97,9 @@ class GradientLoss:
             current = tuple(p - lr * g for p, g in zip(current, grads))
         return tuple(p - p0 for p, p0 in zip(current, initial)), task_loss
 
-    def __call__(self, params, buffers, target_grads, candidate, labels, bn_train=False):
-        grads, task_loss = self.grad_fn(params, buffers, candidate, labels, bn_train=bn_train)
+    def __call__(self, params, buffers, target_grads, candidate, labels, bn_train=False, capture=None):
+        grads, task_loss = self.grad_fn(params, buffers, candidate, labels, bn_train=bn_train,
+                                        capture=capture)
         objective = self.gradient_based_loss(grads, target_grads)
         if self.task_regularization != 0:
             objective = objective + self.task_regularization * task_loss
@@ -112,11 +128,39 @@ class GradientLoss:
         raise NotImplementedError
 
     def trial_distances(self, grads, target_grads):
-        raise NotImplementedError
+        """(T,) distances of T trials' gradients (each with a leading trial axis) from
+        their targets: ``gradient_based_loss`` of each trial in turn."""
+        return torch.stack([self.gradient_based_loss(tuple(g[t] for g in grads),
+                                                     tuple(d[t] for d in target_grads))
+                            for t in range(grads[0].shape[0])])
 
 
 def _per_trial_sum(x: torch.Tensor) -> torch.Tensor:
     return x.sum(dim=tuple(range(1, x.dim())))
+
+
+def _dot(a, b):
+    return sum((x * y).sum() for x, y in zip(a, b))
+
+
+def _sqnorm(a):
+    return sum((x * x).sum() for x in a)
+
+
+class Euclidean(GradientLoss):
+    def gradient_based_loss(self, grads, target_grads):
+        return 0.5 * _sqnorm([g - t for g, t in zip(grads, target_grads)]) * self.scale
+
+    def __repr__(self):
+        return f"Euclidean loss with scale={self.scale} and task reg={self.task_regularization}"
+
+
+class L1Loss(GradientLoss):
+    def gradient_based_loss(self, grads, target_grads):
+        return 0.5 * sum((g - t).abs().sum() for g, t in zip(grads, target_grads)) * self.scale
+
+    def __repr__(self):
+        return f"L1 loss with scale={self.scale} and task reg={self.task_regularization}"
 
 
 class CosineSimilarity(GradientLoss):
@@ -136,38 +180,172 @@ class CosineSimilarity(GradientLoss):
         return f"Cosine Similarity with scale={self.scale} and task reg={self.task_regularization}"
 
 
-class FusedCosineSimilarity(CosineSimilarity):
+class AngularSimilarity(CosineSimilarity):
+    def __init__(self, scale=1.0, task_regularization=0.0, fudge_factor=1e-7, **kwargs):
+        super().__init__(scale, task_regularization)
+        self.fudge_factor = fudge_factor
+
+    def gradient_based_loss(self, grads, target_grads):
+        cosine = _dot(grads, target_grads) / (torch.sqrt(_sqnorm(grads)) * torch.sqrt(_sqnorm(target_grads))
+                                              + 1e-12)
+        angle = torch.arccos(torch.clamp(cosine, -1 + self.fudge_factor, 1 - self.fudge_factor))
+        return angle / torch.pi * self.scale
+
+    def __repr__(self):
+        return f"Angular Similarity with scale={self.scale} and task reg={self.task_regularization}"
+
+
+class MaskedCosineSimilarity(GradientLoss):
+    def __init__(self, scale=1.0, mask_value=1e-6, task_regularization=0.0, **kwargs):
+        super().__init__(scale, task_regularization)
+        self.mask_value = float(mask_value)
+
+    def gradient_based_loss(self, grads, target_grads):
+        product = rec_norm = data_norm = 0.0
+        for rec, data in zip(grads, target_grads):
+            mask = (data.abs() > self.mask_value).to(rec.dtype)
+            product = product + (rec * mask * data).sum()
+            rec_norm = rec_norm + ((rec * mask) * (rec * mask)).sum()
+            data_norm = data_norm + ((data * mask) * (data * mask)).sum()
+        return (1.0 - product / (torch.sqrt(rec_norm) * torch.sqrt(data_norm) + 1e-12)) * self.scale
+
+    def __repr__(self):
+        return f"Masked Cosine Similarity with scale={self.scale}, mask={self.mask_value}"
+
+
+class FastCosineSimilarity(GradientLoss):
+    """Cosine similarity with no gradient through the candidate gradient's norm."""
+
+    def gradient_based_loss(self, grads, target_grads):
+        rec_norm = _sqnorm(grads).detach()
+        return (1.0 - _dot(grads, target_grads) / (torch.sqrt(rec_norm) * torch.sqrt(_sqnorm(target_grads))
+                                                   + 1e-12)) * self.scale
+
+    def __repr__(self):
+        return f"Fast Cosine Similarity with scale={self.scale}"
+
+
+class EuclideanTag(GradientLoss):
+    """Euclidean + layer-weighted L1 (TAG, Deng et al.): leaf i of the JAX package's
+    pytree leaf order of L leaves weighs (L - i) / L ("linear"), its softmax share
+    over the same ramp relative to the first ("exp"), or 1."""
+
+    def __init__(self, scale=1.0, task_regularization=0.0, tag_scale=0.1, scale_scheme="linear", **kwargs):
+        super().__init__(scale, task_regularization)
+        self.tag_scale = float(tag_scale)
+        self.scale_scheme = scale_scheme
+        self.leaf_ranks = None
+
+    def initialize(self, loss_fn, model, local_hyperparams=None, cfg_impl=None):
+        super().initialize(loss_fn, model, local_hyperparams, cfg_impl)
+        self.leaf_ranks = jax_leaf_ranks(model)
+
+    def _weights(self, num):
+        ramp = torch.arange(num, 0, -1, dtype=torch.float32)
+        if self.scale_scheme == "linear":
+            return ramp / num
+        if self.scale_scheme == "exp":
+            w = torch.softmax(ramp, dim=0)
+            return w / w[0]
+        return torch.ones(num)
+
+    def gradient_based_loss(self, grads, target_grads):
+        weights = self._weights(len(grads)).tolist()
+        total = 0.0
+        for rank, g, t in sorted(zip(self.leaf_ranks, grads, target_grads), key=lambda e: e[0]):
+            diff = g - t
+            total = total + (diff * diff).sum() + self.tag_scale * weights[rank] * diff.abs().sum()
+        return 0.5 * total * self.scale
+
+    def __repr__(self):
+        return f"TAG loss with scale={self.scale}, scheme={self.scale_scheme}, tag_scale={self.tag_scale}"
+
+
+class PearlmutterEuclidean(GradientLoss):
+    """The JAX package's exact linearized euclidean matching: value 0.5 |r|^2 with
+    r = g - g* detached; its gradient J^T r through the linear term."""
+
+    def gradient_based_loss(self, grads, target_grads):
+        residual = [(g - t).detach() for g, t in zip(grads, target_grads)]
+        linear = _dot(residual, grads)
+        value = 0.5 * _sqnorm(residual)
+        return (linear - linear.detach() + value) * self.scale
+
+    def __repr__(self):
+        return f"Pearlmutter-style exact-HVP Euclidean loss with scale={self.scale}"
+
+
+class PearlmutterCosine(GradientLoss):
+    """The JAX package's exact linearized cosine matching."""
+
+    def gradient_based_loss(self, grads, target_grads):
+        product = _dot(grads, target_grads)
+        rec_norm = torch.sqrt(_sqnorm(grads).detach())
+        data_norm = torch.sqrt(_sqnorm(target_grads))
+        value = 1.0 - product / (rec_norm * data_norm + 1e-12)
+        direction = [(-d / (rec_norm * data_norm + 1e-12) + g * product / (rec_norm ** 3 * data_norm + 1e-12)).detach()
+                     for g, d in zip(grads, target_grads)]
+        linear = _dot(direction, grads)
+        return (linear - linear.detach() + value.detach()) * self.scale
+
+    def __repr__(self):
+        return f"Pearlmutter-style exact-HVP cosine loss with scale={self.scale}"
+
+
+class _FlatTarget:
+    """The target gradient flattened once for as long as it is the same object (it is
+    fixed for a whole attack): one row per trial for ``trials``."""
+
+    def _flat_target(self, target_grads, num_trials=None):
+        if getattr(self, "_target", None) is not target_grads:
+            self._target = target_grads
+            self._flat = (torch.cat([t.reshape(-1) for t in target_grads]) if num_trials is None
+                          else torch.cat([t.reshape(num_trials, -1) for t in target_grads], dim=1))
+        return self._flat
+
+
+class FusedCosineSimilarity(_FlatTarget, CosineSimilarity):
     """Cosine matching over the flattened gradient through kernels B1 (one-pass
     sums) and B2 (its backward), ``breaching_tpu_torch/ops/matching.py``. For T
     trials, one B1 and one B2 launch per trial, on that trial's row of the flattened
-    gradient. The flattened target is kept for as long as the target is the same
-    object: one row per trial for ``trials``."""
-
-    def __init__(self, scale=1.0, task_regularization=0.0, **kwargs):
-        super().__init__(scale, task_regularization)
-        self._target, self._flat_target = None, None
+    gradient."""
 
     def gradient_based_loss(self, grads, target_grads):
-        if self._target is not target_grads:  # the target is fixed for a whole attack
-            self._target = target_grads
-            self._flat_target = torch.cat([t.reshape(-1) for t in target_grads])
         rec = torch.cat([g.reshape(-1) for g in grads])
-        return fused_cosine_similarity(rec, self._flat_target) * self.scale
+        return fused_cosine_similarity(rec, self._flat_target(target_grads)) * self.scale
 
     def trial_distances(self, grads, target_grads):
         num_trials = grads[0].shape[0]
-        if self._target is not target_grads:
-            self._target = target_grads
-            self._flat_target = torch.cat([t.reshape(num_trials, -1) for t in target_grads], dim=1)
         rec = torch.cat([g.reshape(num_trials, -1) for g in grads], dim=1)
         return torch.stack([fused_cosine_similarity(r, d) for r, d in
-                            zip(rec.unbind(), self._flat_target.unbind())]) * self.scale
+                            zip(rec.unbind(), self._flat_target(target_grads, num_trials).unbind())]) * self.scale
 
     def __repr__(self):
         return f"Fused (CUDA) Cosine Similarity with scale={self.scale}"
 
 
+class FusedEuclidean(_FlatTarget, Euclidean):
+    """Euclidean matching over the flattened gradient through B1 (the forward) and
+    ``b2_axpby`` (the backward): one launch of each per evaluation."""
+
+    def gradient_based_loss(self, grads, target_grads):
+        rec = torch.cat([g.reshape(-1) for g in grads])
+        return fused_euclidean(rec, self._flat_target(target_grads)) * self.scale
+
+    def __repr__(self):
+        return f"Fused (CUDA) Euclidean with scale={self.scale}"
+
+
 objective_lookup = {
-    "cosine-similarity": CosineSimilarity,
+    "euclidean": Euclidean,
+    "fused-euclidean": FusedEuclidean,
     "fused-cosine-similarity": FusedCosineSimilarity,
+    "cosine-similarity": CosineSimilarity,
+    "masked-cosine-similarity": MaskedCosineSimilarity,
+    "fast-cosine-similarity": FastCosineSimilarity,
+    "angular": AngularSimilarity,
+    "l1": L1Loss,
+    "pearlmutter-loss": PearlmutterEuclidean,
+    "pearlmutter-cosine": PearlmutterCosine,
+    "tag-euclidean": EuclideanTag,
 }

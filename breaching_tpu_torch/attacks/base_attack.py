@@ -1,6 +1,9 @@
 """Shared attack machinery (counterpart of ``breaching_tpu/attacks/base_attack.py``):
-payload ingestion, label recovery and candidate set-up. Of the label recovery
-strategies, ``bias-corrected`` is ported; the others raise.
+payload ingestion, gradient normalization, label recovery and candidate set-up.
+The label strategies ``iDLG``, ``analytic``, ``yin``, ``wainakh-simple``,
+``bias-corrected`` and ``random`` are ported; ``wainakh-whitebox``, ``exhaustive``
+and ``bias-text`` raise ``NotImplementedError``. ``random``, and the padding of a
+strategy that finds too few labels, draw from ``setup["python_rng"]`` (numpy).
 """
 
 from __future__ import annotations
@@ -58,15 +61,16 @@ class _BaseAttacker:
             self.dm = torch.zeros(self.data_shape[0], device=device)
             self.ds = torch.ones(self.data_shape[0], device=device)
 
-        if self.cfg.normalize_gradients:
-            raise NotImplementedError("normalize_gradients is not ported yet.")
         rec_models = self._construct_models_from_payload_and_buffers(server_payload, shared_data)
-        self._shared_data_cache = self._cast_shared_data(shared_data)
+        shared_data = self._cast_shared_data(shared_data)
+        if self.cfg.normalize_gradients:
+            shared_data = self._normalize_gradients(shared_data)
+        self._shared_data_cache = shared_data
 
         labels = self._shared_data_cache[0]["metadata"]["labels"]
         if labels is None:
             labels = self._recover_label_information(self._shared_data_cache)
-        return rec_models, torch.as_tensor(labels, device=device), stats
+        return rec_models, None if labels is None else torch.as_tensor(labels, device=device), stats
 
     def _construct_models_from_payload_and_buffers(self, server_payload, shared_data):
         """Bind payload parameters and the best available buffers: user-shared
@@ -97,31 +101,72 @@ class _BaseAttacker:
                                  for k, g in data["gradients"].items()}
         return shared_data
 
+    def _normalize_gradients(self, shared_data, fudge_factor=1e-6):
+        """Scale each query's gradient to unit norm (reference base_attack.py:112-120)."""
+        for data in shared_data:
+            grads = data["gradients"]
+            norm = torch.sqrt(sum((g * g).sum() for g in grads.values()))
+            scale = 1.0 / torch.maximum(norm, torch.full_like(norm, fudge_factor))
+            data["gradients"] = {k: g * scale for k, g in grads.items()}
+        return shared_data
+
     def _initialize_data(self, data_shape):
         return init_candidate(self.setup["generator"], self.cfg.init, data_shape,
-                              dtype=self.setup["dtype"], device=self.setup["device"])
+                              dtype=self.setup["dtype"], device=self.setup["device"], mean=self.dm, std=self.ds)
 
     def _recover_label_information(self, user_data):
         """Label recovery from the classification head's gradients (reference
-        base_attack.py:143-209, 280-286), on the host in numpy."""
+        base_attack.py:143-253), on the host in numpy."""
         strategy = self.cfg.label_strategy
         if strategy is None or str(strategy).lower() == "none":
             raise NotImplementedError("An attack without labels needs a label strategy.")
-        if strategy != "bias-corrected":
-            raise NotImplementedError(f"Label strategy {strategy} is not ported yet; "
-                                      f"bias-corrected is.")
+        if strategy in ("wainakh-whitebox", "exhaustive", "bias-text"):
+            raise NotImplementedError(f"Label strategy {strategy} is not ported yet.")
         num_data_points = int(user_data[0]["metadata"]["num_data_points"])
-        biases = [head_grads(d["gradients"])[1].detach().cpu().numpy() for d in user_data]
-        avg_bias = np.stack(biases).mean(axis=0).copy()
-        valid = np.nonzero(avg_bias < 0)[0]
-        selected = valid.tolist()
-        m_impact = avg_bias[valid].sum() / max(num_data_points, 1)
-        avg_bias[valid] -= m_impact
-        while len(selected) < num_data_points:
-            idx = int(np.argmin(avg_bias))
-            selected.append(idx)
-            avg_bias[idx] -= m_impact
-        labels = np.sort(np.asarray(selected[:num_data_points]))
+        grads = [tuple(t.detach().cpu().numpy() for t in head_grads(d["gradients"])) for d in user_data]
+        num_classes, num_queries = grads[0][1].shape[0], len(user_data)
+        if strategy == "iDLG":
+            labels = np.unique([int(np.argmin(w.sum(axis=1))) for w, _ in grads])
+        elif strategy == "analytic":
+            labels = np.unique([i for _, b in grads for i in np.nonzero(b < 0)[0].tolist()])[:num_data_points]
+        elif strategy == "yin":
+            labels = np.argsort(sum(w.min(axis=1) for w, _ in grads))[:num_data_points]
+        elif strategy == "wainakh-simple":
+            m_impact = 0.0
+            for w, _ in grads:
+                g_i = w.sum(axis=1)
+                m_impact += np.where(g_i < 0, g_i, 0).sum() * (1 + 1 / num_classes) / num_data_points / num_queries
+            g_i = np.stack([w.sum(axis=1) for w, _ in grads]).mean(axis=0).copy()
+            selected = []
+            for idx in range(num_classes):
+                if g_i[idx] < 0:
+                    selected.append(idx)
+                    g_i[idx] -= m_impact
+            while len(selected) < num_data_points:
+                idx = int(np.argmin(g_i))
+                selected.append(idx)
+                g_i[idx] -= m_impact
+            labels = np.asarray(selected)
+        elif strategy == "bias-corrected":
+            avg_bias = np.stack([b for _, b in grads]).mean(axis=0).copy()
+            valid = np.nonzero(avg_bias < 0)[0]
+            selected = valid.tolist()
+            m_impact = avg_bias[valid].sum() / max(num_data_points, 1)
+            avg_bias[valid] -= m_impact
+            while len(selected) < num_data_points:
+                idx = int(np.argmin(avg_bias))
+                selected.append(idx)
+                avg_bias[idx] -= m_impact
+            labels = np.asarray(selected)
+        elif strategy == "random":
+            labels = self.setup["python_rng"].integers(0, num_classes, num_data_points)
+        else:
+            raise ValueError(f"Invalid label recovery strategy {strategy} given.")
+        labels = np.asarray(labels).reshape(-1)
+        if len(labels) < num_data_points:  # too few found: random labels fill the rest
+            fill = self.setup["python_rng"].integers(0, num_classes, num_data_points - len(labels))
+            labels = np.concatenate([labels, fill])
+        labels = np.sort(labels[:num_data_points])
         log.info(f"Recovered labels {labels.tolist()} through strategy {strategy}.")
         return labels
 

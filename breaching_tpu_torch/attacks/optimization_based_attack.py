@@ -1,21 +1,43 @@
 """Optimization-based gradient inversion (counterpart of
 ``breaching_tpu/attacks/optimization_based_attack.py``).
 
-Each step computes grad_x [distance(grad_theta L(theta, x), g*) + reg(x)] by double
-backward; then one call of ``ops.adam_box_step`` (one kernel launch on the card)
-takes its sign (hard-signed attacks), takes an Adam step, clamps the candidate to
-the data box, rejects a step whose loss is not finite and keeps the best iterate.
-A single trial whose loss ends non-finite also leaves the candidate it stopped at in
-``stats["Trial_<t>_nonfinite_candidate"]``.
-The step runs eagerly; nothing in it waits on the host except the loss readout
-every ``optim.callback`` steps.
+The optimization variable is a dict of tensors, the candidate tree: ``data`` (NCHW
+images), and for the joint attack (``optimization_with_label_attack.py``) also
+``labels`` (label logits). Each step computes its loss, the gradient matching
+objective plus the regularizers, and the loss's gradient with respect to every leaf
+by double backward. Regularizers that read the model's intermediates
+(``DeepInversion``, ``FeatureRegularization``) take them from the objective's own
+forward pass; the others read the candidate alone. What follows depends on the
+optimizer (``optim.optimizer``):
 
-One trial runs that step alone. Two or more trials (``restarts.num_trials > 1``, and
-``reconstruct_fleet``, which stacks independent experiments on the trials axis) run
-a batched step: the objective of every trial at once (``objectives.trials``), one
-double backward for all, and per trial one TV launch and one ``adam_box_step``
-launch on its contiguous views, each trial keeping its own best value and iterate.
-The trials are then scored (``restarts.scoring``) and the best is returned.
+- Adam and ``adam-safe``: the gradient transforms that the kernel does not take
+  (Langevin noise, ``grad_clip``) in PyTorch operations, then per leaf one call of
+  ``ops.adam_box_step`` (one kernel launch on the card), which takes the hard or
+  soft sign, the Adam step, the box clamp (data only), rejects a step whose loss is
+  not finite and keeps the best iterate. The leaves of one step share its loss and
+  best value, so they keep the best iterate of the same step.
+- ``bert-adam``, ``momgd`` and ``gd``: the transforms and the update in PyTorch
+  operations, then ``ops.box_project`` on the data when boxed (kernel B4), then the
+  finite guard and the best iterate.
+- L-BFGS: the untransformed gradient and a closure of the full loss go to
+  ``LBFGS.update`` (up to 20 more evaluations of the loss), then the box on the
+  data through ``ops.box_project``, the guard and the best iterate.
+
+A single trial whose loss ends non-finite also leaves the candidate it stopped at in
+``stats["Trial_<t>_nonfinite_candidate"]``. ``stats["objective_evaluations"]``
+counts the evaluations of the loss (with L-BFGS, more than one per step). The step
+runs eagerly; besides L-BFGS's break conditions, nothing in it waits on the host
+except the loss readout every ``optim.callback`` steps.
+
+One trial runs that step alone. Two or more trials of an Adam attack on the data
+alone (``restarts.num_trials > 1``, and ``reconstruct_fleet``, which stacks
+independent experiments on the trials axis) run a batched step: the objective of
+every trial at once (``objectives.trials``), one double backward for all, and per
+trial one TV launch and one ``adam_box_step`` launch on its contiguous views, each
+trial keeping its own best value and iterate. The trials of other optimizers and of
+the joint attack run one after the other through the single step. The trials are
+then scored (``restarts.scoring``: ``cosine-similarity``, ``euclidean`` or TV) and
+the best is returned.
 
 A fedAVG user's update (a payload whose metadata carries ``local_hyperparams``) is
 matched by the objective's unrolled local steps, and scored the same way; it runs
@@ -30,10 +52,11 @@ import time
 import numpy as np
 import torch
 
-from ..ops import adam_box_step, adam_box_step_trials
-from .auxiliaries.objectives import CosineSimilarity, objective_lookup
-from .auxiliaries.optimizers import optimizer_lookup
-from .auxiliaries.regularizers import regularizer_lookup
+from ..ops import adam_box_step, adam_box_step_trials, box_project, sign, soft_sign_scalars
+from ..ops.image import soft_sign_plain
+from .auxiliaries.objectives import CosineSimilarity, Euclidean, objective_lookup
+from .auxiliaries.optimizers import Adam, LBFGS, make_schedule, optimizer_lookup
+from .auxiliaries.regularizers import CAPTURING, TotalVariation, regularizer_lookup
 from .base_attack import _BaseAttacker
 
 log = logging.getLogger(__name__)
@@ -42,9 +65,11 @@ log = logging.getLogger(__name__)
 class OptimizationBasedAttacker(_BaseAttacker):
     """The optimization attack for vision payloads."""
 
-    # two or more trials (restarts, the fleet) through one batched step; off, they run
-    # one after the other through the single step, the plain version of the batched one
+    # two or more trials (restarts, the fleet) of an Adam attack through one batched
+    # step; off, they run one after the other through the single step, the plain
+    # version of the batched one
     batched_trials = True
+    supports_fleet = True
 
     def __init__(self, model, loss_fn, cfg_attack, setup):
         super().__init__(model, loss_fn, cfg_attack, setup)
@@ -60,10 +85,10 @@ class OptimizationBasedAttacker(_BaseAttacker):
                 self.regularizers.append(regularizer_lookup[key](self.setup, **rcfg))
         if self.cfg.get("augmentations"):
             raise NotImplementedError("Attack augmentations are not ported yet.")
-        optim = self.cfg.optim
-        if float(optim.get("langevin_noise") or 0.0) > 0 or optim.grad_clip is not None \
-                or optim.signed not in (None, False, "hard", True):
-            raise NotImplementedError("Of the gradient transforms only the hard sign is ported yet.")
+        signed = self.cfg.optim.signed
+        if signed not in (None, False, True, "hard", "soft"):
+            raise NotImplementedError(f"Gradient transform signed={signed} is not ported yet.")
+        self._noise_generators = {}
 
     def __repr__(self):
         n = "\n" + " " * 18
@@ -78,7 +103,7 @@ class OptimizationBasedAttacker(_BaseAttacker):
     def reconstruct(self, server_payload, shared_data, server_secrets=None,
                     initial_data=None, dryrun=False):
         """Reconstruct the user's data; ``initial_data`` (NCHW) replaces the random
-        initial candidate of every trial."""
+        initial data of every trial."""
         rec_models, labels, stats = self.prepare_attack(server_payload, shared_data)
         shared_data = self._shared_data_cache
         num_trials = int(self.cfg.restarts.num_trials)
@@ -88,7 +113,7 @@ class OptimizationBasedAttacker(_BaseAttacker):
                                        [labels] * num_trials, stats, initial_data, dryrun)
         scores = self._score_all_trials(best, labels, rec_models, shared_data)
         optimal = self._select_optimal_reconstruction(best, scores, stats)
-        return dict(data=optimal, labels=labels), stats
+        return self._extract_solution(optimal, labels), stats
 
     def reconstruct_fleet(self, payload_lists, shared_lists, server_secrets=None, dryrun=False):
         """Run N independent single-query reconstructions as one batched attack
@@ -99,6 +124,8 @@ class OptimizationBasedAttacker(_BaseAttacker):
         The experiments share one model: their payloads must carry identical
         parameters. Returns (one reconstructed-data dict per experiment, stats), with
         each experiment's selected value in ``stats["fleet_opt_values"]``."""
+        if not self.supports_fleet:
+            raise NotImplementedError(f"Fleets are not ported for {self.__class__.__name__}.")
         if any(data["metadata"].get("local_hyperparams") is not None
                for shared in shared_lists for data in shared):
             raise NotImplementedError("Fleets of fedAVG users are not ported yet; attack each solo.")
@@ -125,7 +152,8 @@ class OptimizationBasedAttacker(_BaseAttacker):
                                                trial_labels, stats, None, dryrun)
         if trials_per > 1:  # each trial scored against its own experiment's target
             scores = np.concatenate([
-                self._score_all_trials(best[i * trials_per:(i + 1) * trials_per], labels, rec_models, shared)
+                self._score_all_trials({k: v[i * trials_per:(i + 1) * trials_per] for k, v in best.items()},
+                                       labels, rec_models, shared)
                 for i, (shared, labels) in enumerate(zip(shared_lists, all_labels))])
         else:  # one trial per experiment: its best value
             scores = best_vals
@@ -134,18 +162,47 @@ class OptimizationBasedAttacker(_BaseAttacker):
         for i, labels in enumerate(all_labels):
             j = i * trials_per + int(np.argmin(scores[i * trials_per:(i + 1) * trials_per]))
             stats["fleet_opt_values"].append(float(scores[j]))
-            results.append(dict(data=best[j], labels=labels))
+            results.append(self._extract_solution({k: v[j] for k, v in best.items()}, labels))
         return results, stats
 
+    # ---------------------------------------------------------------- candidate tree
+
+    def _init_candidate_tree(self, num_trials, num_points):
+        """The optimization variable of every trial, leaves with a leading trial axis."""
+        return dict(data=self._initialize_data((num_trials, num_points, *self.data_shape)))
+
+    def _effective_labels(self, tree, labels):
+        """The labels of the task loss; the joint attack derives them from the tree."""
+        return labels
+
+    def _extract_solution(self, tree, labels):
+        return dict(data=tree["data"], labels=labels)
+
+    # ---------------------------------------------------------------- loss
+
+    def _split_regularizers(self):
+        """(the regularizers that read the objective's captured intermediates, those that
+        read the candidate alone), as the JAX package splits them."""
+        inner = [reg for reg in self.regularizers if isinstance(reg, CAPTURING)]
+        return inner, [reg for reg in self.regularizers if not isinstance(reg, CAPTURING)]
+
     def _loss(self, candidate, rec_models, targets, labels):
-        """Matching objective over all queries plus the regularizers: (value, task loss)."""
-        total, task_total = 0.0, 0.0
+        """Matching objective over all queries plus the regularizers: (value, task loss).
+        ``candidate`` is the candidate tree, or the data alone."""
+        tree = candidate if isinstance(candidate, dict) else dict(data=candidate)
+        data, labels = tree["data"], self._effective_labels(tree, labels)
+        inner, outer = self._split_regularizers()
+        total, task_total, intermediates = 0.0, 0.0, []
         for model, target in zip(rec_models, targets):
-            obj, task = self.objective(model.params, model.buffers, target, candidate, labels,
-                                       bn_train=model.bn_train)
+            captured = {} if inner else None
+            obj, task = self.objective(model.params, model.buffers, target, data, labels,
+                                       bn_train=model.bn_train, capture=captured)
             total, task_total = total + obj, task_total + task
-        for reg in self.regularizers:
-            total = total + reg(candidate)
+            intermediates.append(captured)
+        for reg in inner:
+            total = total + reg(data, intermediates)
+        if outer:
+            total = total + sum(reg(data) for reg in outer)
         return total, task_total
 
     def _trial_losses(self, candidates, params, rec_models, targets, labels):
@@ -160,13 +217,22 @@ class OptimizationBasedAttacker(_BaseAttacker):
             total = total + reg.trials(candidates)
         return total, task_total
 
+    def _value_and_grad(self, tree, rec_models, targets, labels, stats):
+        """The loss at the candidate tree and its gradient with respect to every leaf:
+        (value, task loss, gradient tree), detached. Counts the evaluation."""
+        leaves = {k: v.detach().requires_grad_(True) for k, v in tree.items()}
+        value, task_loss = self._loss(leaves, rec_models, targets, labels)
+        grads = torch.autograd.grad(value, tuple(leaves.values()))
+        stats["objective_evaluations"] = stats.get("objective_evaluations", 0) + 1
+        return value.detach(), task_loss, {k: g.contiguous() for k, g in zip(leaves, grads)}
+
+    # ---------------------------------------------------------------- core loop
+
     def _run_all_trials(self, rec_models, shared_data, trial_targets, trial_labels, stats,
                         initial_data, dryrun):
         """Run every trial: trial t matches ``trial_targets[t]`` (one tuple of target
-        gradients per query) under ``trial_labels[t]``. One trial runs the single step;
-        two or more run the batched step, or one after the other through the single step
-        if ``batched_trials`` is off (its plain version). Returns the best iterates
-        (T, N, C, H, W) and their values (T,)."""
+        gradients per query) under ``trial_labels[t]``. Returns the best iterates (a
+        tree of leaves with a leading trial axis) and their values (T,)."""
         max_iterations = 1 if dryrun else int(self.cfg.optim.max_iterations)
         num_trials = len(trial_targets)
         metadata = shared_data[0]["metadata"]
@@ -181,23 +247,32 @@ class OptimizationBasedAttacker(_BaseAttacker):
         for reg in self.regularizers:
             reg.initialize(rec_models, shared_data, trial_labels[0])
 
-        candidates = self._initialize_data((num_trials, num_points, *self.data_shape))
+        tree = self._init_candidate_tree(num_trials, num_points)
         if initial_data is not None:
-            candidates = torch.as_tensor(initial_data, dtype=candidates.dtype,
-                                         device=candidates.device).expand_as(candidates)
+            tree["data"] = torch.as_tensor(initial_data, dtype=tree["data"].dtype,
+                                           device=tree["data"].device).expand_as(tree["data"])
         box = (-self.dm / self.ds).contiguous(), ((1 - self.dm) / self.ds).contiguous()
-        if num_trials > 1 and self.batched_trials:
+        adam = isinstance(self._optimizer(max_iterations), Adam)
+        if num_trials > 1 and self.batched_trials and adam and list(tree) == ["data"]:
             if any(model.bn_train for model in rec_models):
                 raise NotImplementedError("BatchNorm in train mode is not ported under the batched "
                                           "trial step; the server must share its buffers.")
+            if self._split_regularizers()[0]:
+                raise NotImplementedError("Regularizers that read the model's intermediates are not "
+                                          "ported under the batched trial step; run one trial.")
             targets = [tuple(torch.stack(ts) for ts in zip(*query)) for query in zip(*trial_targets)]
-            return self._run_trials_batched(candidates.clone(memory_format=torch.contiguous_format),
-                                            rec_models, targets,
-                                            torch.stack(trial_labels), stats, max_iterations, box)
-        runs = [self._run_trial(candidates[t].clone(), t, rec_models, trial_targets[t],
+            best, values = self._run_trials_batched(tree["data"].clone(memory_format=torch.contiguous_format),
+                                                    rec_models, targets, torch.stack(trial_labels), stats,
+                                                    max_iterations, box)
+            return dict(data=best), values
+        if num_trials > 1:
+            log.info(f"The {num_trials} trials run one after the other through the single step "
+                     f"({self.cfg.optim.optimizer}{'' if adam else ' has no batched step'}).")
+        runs = [self._run_trial({k: v[t].clone() for k, v in tree.items()}, t, rec_models, trial_targets[t],
                                 trial_labels[t], stats, max_iterations, box)
                 for t in range(num_trials)]
-        return torch.stack([best for best, _ in runs]), np.asarray([v for _, v in runs])
+        return ({k: torch.stack([best[k] for best, _ in runs]) for k in tree},
+                np.asarray([value for _, value in runs]))
 
     def _local_hyperparams(self, metadata):
         """A fedAVG user's local hyperparameters with its per-step label lists stacked
@@ -216,34 +291,128 @@ class OptimizationBasedAttacker(_BaseAttacker):
                                 scheduler=cfg_optim.step_size_decay, warmup=int(cfg_optim.warmup or 0),
                                 max_iterations=max_iterations)
 
-    def _run_trial(self, candidate, trial, rec_models, targets, labels, stats, max_iterations, box):
-        """One trial through the single step. Returns its best iterate and best value."""
-        cfg_optim = self.cfg.optim
-        optimizer = self._optimizer(max_iterations)
-        state = optimizer.init(candidate)
-        best = candidate.clone()
-        # the step reads one and writes the other; they swap after every step
-        best_vals = [torch.tensor(float("inf"), device=candidate.device),
-                     torch.empty((), device=candidate.device)]
+    def _sign_mode(self):
+        """"soft", "hard" or None, as the JAX package reads ``optim.signed``."""
+        signed = self.cfg.optim.signed
+        return "soft" if signed == "soft" else "hard" if signed in ("hard", True) else None
 
-        def step():
-            x = candidate.detach().requires_grad_(True)
-            value, task_loss = self._loss(x, rec_models, targets, labels)
-            grad, = torch.autograd.grad(value, x)
-            value = value.detach()
-            adam_box_step(candidate, grad.contiguous(), state["mu"], state["nu"], best,
-                          *box, value, *best_vals, optimizer.advance(state),
-                          signed=bool(cfg_optim.signed), boxed=bool(cfg_optim.boxed))
-            best_vals.reverse()
-            return value, task_loss
+    def _noise(self, like):
+        """Standard normal noise of ``like``'s shape, from a generator on its device seeded
+        once from the attack's generator."""
+        generator = self._noise_generators.get(like.device)
+        if generator is None:
+            seed = int(torch.randint(2 ** 62, (), generator=self.setup["generator"]))
+            generator = self._noise_generators[like.device] = torch.Generator(device=like.device).manual_seed(seed)
+        return torch.randn(like.shape, generator=generator, device=like.device, dtype=like.dtype)
+
+    def transform_grads(self, grad, iteration, max_iterations, with_sign=True, per_trial=False):
+        """The JAX package's ``transform_grads`` on one gradient leaf: Langevin noise
+        (``optim.langevin_noise`` times the step size at ``iteration``), clipping to
+        norm ``optim.grad_clip`` (over each trial's leaf with ``per_trial``), then with
+        ``with_sign`` the hard or soft sign (which ``adam_box_step`` takes itself)."""
+        cfg_optim = self.cfg.optim
+        langevin = float(cfg_optim.langevin_noise or 0.0)
+        if langevin > 0:
+            lr_now = make_schedule(float(cfg_optim.step_size), cfg_optim.step_size_decay,
+                                   int(cfg_optim.warmup or 0), max_iterations)(iteration)
+            grad = grad + float(np.float32(langevin) * np.float32(lr_now)) * self._noise(grad)
+        if cfg_optim.grad_clip is not None:
+            dims = tuple(range(1, grad.dim())) if per_trial else tuple(range(grad.dim()))
+            norm = torch.sqrt((grad * grad).sum(dim=dims, keepdim=True))
+            clip = torch.full_like(norm, float(cfg_optim.grad_clip))
+            grad = grad * torch.where(norm > clip, torch.div(clip, norm + 1e-6), torch.ones_like(norm))
+        mode = self._sign_mode() if with_sign else None
+        if mode == "soft":
+            grad = soft_sign_plain(grad, soft_sign_scalars(iteration, max_iterations))
+        elif mode == "hard":
+            grad = sign(grad)
+        return grad
+
+    def _run_trial(self, tree, trial, rec_models, targets, labels, stats, max_iterations, box):
+        """One trial through the single step. Returns its best iterate and best value."""
+        optimizer = self._optimizer(max_iterations)
+        best = {k: v.clone() for k, v in tree.items()}
+        # the step reads one and writes the other; they swap after every step
+        device = tree["data"].device
+        best_vals = [torch.tensor(float("inf"), device=device), torch.empty((), device=device)]
+        boxed = bool(self.cfg.optim.boxed)
+
+        if isinstance(optimizer, Adam):
+            states = {k: optimizer.init(v) for k, v in tree.items()}
+            no_box = torch.zeros(1, device=device)
+
+            def step(iteration):
+                value, task_loss, grads = self._value_and_grad(tree, rec_models, targets, labels, stats)
+                mode = self._sign_mode()
+                soft = soft_sign_scalars(iteration, max_iterations) if mode == "soft" else None
+                for k, leaf in tree.items():
+                    grad = self.transform_grads(grads[k], iteration, max_iterations, with_sign=False)
+                    image = leaf.dim() == 4  # the data; other leaves as one row, unboxed
+                    view = (lambda t: t) if image else (lambda t: t.view(1, 1, 1, -1))
+                    adam_box_step(view(leaf), view(grad.contiguous()), view(states[k]["mu"]),
+                                  view(states[k]["nu"]), view(best[k]), *(box if image else (no_box, no_box)),
+                                  value, *best_vals, optimizer.advance(states[k]), signed=mode,
+                                  boxed=boxed and k == "data", soft_scale=soft)
+                best_vals.reverse()
+                return value, task_loss
+        elif isinstance(optimizer, LBFGS):
+            keys, shapes = list(tree), [v.shape for v in tree.values()]
+            sizes = [v.numel() for v in tree.values()]
+
+            def flatten(leaves):
+                return torch.cat([leaves[k].reshape(-1) for k in keys])
+
+            def unflatten(flat):
+                return {k: part.view(shape) for k, part, shape in zip(keys, flat.split(sizes), shapes)}
+
+            def closure(flat):
+                value, _, grads = self._value_and_grad(unflatten(flat), rec_models, targets, labels, stats)
+                return value, flatten(grads)
+
+            state = optimizer.init(flatten(tree))
+
+            def step(iteration):
+                # L-BFGS takes the untransformed gradient: its curvature pairs compare it
+                # with the closure's gradients
+                value, task_loss, grads = self._value_and_grad(tree, rec_models, targets, labels, stats)
+                flat = flatten(tree)
+                final = optimizer.update(flat, flatten(grads), value, closure, state)
+                new = unflatten(flat + (final - flat))
+                self._finish_step(tree, new, best, best_vals, value, box, boxed)
+                return value, task_loss
+        else:
+            states = {k: optimizer.init(v) for k, v in tree.items()}
+
+            def step(iteration):
+                value, task_loss, grads = self._value_and_grad(tree, rec_models, targets, labels, stats)
+                new = {k: optimizer.update(self.transform_grads(grads[k], iteration, max_iterations),
+                                           states[k], leaf) for k, leaf in tree.items()}
+                self._finish_step(tree, new, best, best_vals, value, box, boxed)
+                return value, task_loss
 
         history = stats.setdefault(f"Trial_{trial}_Val", [])
         self._optimize(step, [history], max_iterations)
         if history and not np.isfinite(history[-1]):
             # a step whose loss is not finite keeps its candidate: this is where the loss
             # turned non-finite, kept so that the cause can be looked at
-            stats[f"Trial_{trial}_nonfinite_candidate"] = candidate.clone()
+            stats[f"Trial_{trial}_nonfinite_candidate"] = tree["data"].clone()
         return best, float(best_vals[0])
+
+    @staticmethod
+    def _finish_step(tree, new, best, best_vals, value, box, boxed):
+        """The step's tail in PyTorch operations, for optimizers other than Adam: the box
+        on the data (``ops.box_project``), then the candidate takes ``new`` if the loss
+        is finite, and the best iterate the candidate from before the step if the loss
+        is finite and below the best value."""
+        if boxed:
+            new = dict(new, data=box_project(new["data"].contiguous(), *box))
+        finite = torch.isfinite(value)
+        improved = finite & (value < best_vals[0])
+        for k, leaf in tree.items():
+            best[k].copy_(torch.where(improved, leaf, best[k]))
+            leaf.copy_(torch.where(finite, new[k], leaf))
+        best_vals[1].copy_(torch.where(improved, value, best_vals[0]))
+        best_vals.reverse()
 
     def _run_trials_batched(self, candidate, rec_models, targets, labels, stats, max_iterations, box):
         """All T trials of candidate (T, N, C, H, W) through one step: the per-trial
@@ -260,14 +429,18 @@ class OptimizationBasedAttacker(_BaseAttacker):
         # the user gradient is taken inside the objective: the outer graph needs no parameter
         params = [{k: v.detach() for k, v in model.params.items()} for model in rec_models]
 
-        def step():
+        def step(iteration):
             x = candidate.detach().requires_grad_(True)
             value, task_loss = self._trial_losses(x, params, rec_models, targets, labels)
             grad, = torch.autograd.grad(value.sum(), x)
+            stats["objective_evaluations"] = stats.get("objective_evaluations", 0) + num_trials
+            grad = self.transform_grads(grad, iteration, max_iterations, with_sign=False, per_trial=True)
             value = value.detach()
+            mode = self._sign_mode()
             adam_box_step_trials(candidate, grad.contiguous(), state["mu"], state["nu"], best,
-                                 *box, value, *best_vals, optimizer.advance(state),
-                                 signed=bool(cfg_optim.signed), boxed=bool(cfg_optim.boxed))
+                                 *box, value, *best_vals, optimizer.advance(state), signed=mode,
+                                 boxed=bool(cfg_optim.boxed),
+                                 soft_scale=soft_sign_scalars(iteration, max_iterations) if mode == "soft" else None)
             best_vals.reverse()
             return value, task_loss
 
@@ -276,15 +449,15 @@ class OptimizationBasedAttacker(_BaseAttacker):
         return best, best_vals[0].cpu().numpy()
 
     def _optimize(self, step, histories, max_iterations):
-        """Run ``step`` (which returns the loss and task loss, a value per trial) until
-        ``max_iterations`` or until no trial's loss is finite, reading the losses back
-        into each trial's history every ``optim.callback`` steps."""
+        """Run ``step`` (which takes the iteration and returns the loss and task loss, a
+        value per trial) until ``max_iterations`` or until no trial's loss is finite,
+        reading the losses back into each trial's history every ``optim.callback`` steps."""
         callback = int(self.cfg.optim.callback or 0) or max_iterations
         iteration, wallclock = 0, time.time()
         while iteration < max_iterations:
             values, task_losses = [], []
             for _ in range(min(callback, max_iterations - iteration)):
-                value, task_loss = step()
+                value, task_loss = step(iteration)
                 values.append(value)
                 task_losses.append(task_loss)
                 iteration += 1
@@ -301,24 +474,32 @@ class OptimizationBasedAttacker(_BaseAttacker):
                          f"Cancelling reconstruction!")
                 break
 
+    # ---------------------------------------------------------------- scoring
+
     def _score_all_trials(self, best_trials, labels, rec_models, shared_data):
-        """Score every trial with cfg.restarts.scoring (reference
-        optimization_based_attack.py:191-218)."""
+        """Score every trial (a tree with a leading trial axis) with cfg.restarts.scoring
+        (reference optimization_based_attack.py:846-903)."""
         scoring = self.cfg.restarts.scoring
-        if scoring != "cosine-similarity":
+        num_trials = best_trials["data"].shape[0]
+        trees = [{k: v[t] for k, v in best_trials.items()} for t in range(num_trials)]
+        if scoring in ("euclidean", "cosine-similarity"):
+            objective = Euclidean() if scoring == "euclidean" else CosineSimilarity()
+            objective.initialize(self.loss_fn, rec_models[0].module,
+                                 self._local_hyperparams(shared_data[0]["metadata"]), self.cfg.impl)
+            scores = []
+            for tree in trees:
+                total = 0.0
+                for model, data in zip(rec_models, shared_data):
+                    target = tuple(data["gradients"][k] for k in model.params)
+                    obj, _ = objective(model.params, model.buffers, target, tree["data"],
+                                       self._effective_labels(tree, labels), bn_train=model.bn_train)
+                    total = total + obj.detach()
+                scores.append(float(total))
+        elif scoring in ("TV", "total-variation"):
+            tv = TotalVariation(scale=1.0)
+            scores = [float(tv(tree["data"].contiguous())) for tree in trees]
+        else:
             raise NotImplementedError(f"Scoring {scoring} is not ported yet.")
-        objective = CosineSimilarity()
-        objective.initialize(self.loss_fn, rec_models[0].module,
-                             self._local_hyperparams(shared_data[0]["metadata"]), self.cfg.impl)
-        scores = []
-        for candidate in best_trials:
-            total = 0.0
-            for model, data in zip(rec_models, shared_data):
-                target = tuple(data["gradients"][k] for k in model.params)
-                obj, _ = objective(model.params, model.buffers, target, candidate, labels,
-                                   bn_train=model.bn_train)
-                total = total + obj.detach()
-            scores.append(float(total))
         scores = np.asarray(scores)
         return np.where(np.isfinite(scores), scores, np.inf)
 
@@ -328,6 +509,6 @@ class OptimizationBasedAttacker(_BaseAttacker):
         if np.isfinite(scores[optimal_index]):
             log.info(f"Optimal candidate solution with rec. loss {scores[optimal_index]:2.4f} "
                      f"selected (trial {optimal_index}).")
-            return best_trials[optimal_index]
+            return {k: v[optimal_index] for k, v in best_trials.items()}
         log.info("No valid reconstruction could be found.")
-        return torch.zeros_like(best_trials[0])
+        return {k: torch.zeros_like(v[0]) for k, v in best_trials.items()}

@@ -8,6 +8,11 @@
   mode it normalizes with var = E[x^2] - mean^2 and folds the batch statistics into
   a cumulative running average (torch's ``momentum=None``), so after one batch the
   running statistics are exactly that batch's.
+- ``capture``: the counterpart of the JAX models' ``sow`` into 'intermediates'. A
+  forward given a dict collects the pre-head features under "features" and, in train
+  mode only (as the JAX BatchNorm sows only there), each BatchNorm's batch (mean,
+  var) under "bn_stats", keyed by the layer's module name (``name_batchnorms``). The
+  tensors are the forward's own, not copies.
 """
 
 from __future__ import annotations
@@ -57,12 +62,16 @@ class BatchNorm(nn.Module):
         self.register_buffer("running_var", torch.ones(features))
         self.register_buffer("num_batches_tracked", torch.zeros(()))
 
-    def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
+    name = ""  # the module name under which ``capture`` files its batch statistics
+
+    def forward(self, x: torch.Tensor, train: bool = False, capture: dict | None = None) -> torch.Tensor:
         shape = (1, -1) + (1,) * (x.dim() - 2)
         if train:
             axes = [0] + list(range(2, x.dim()))
             mean = x.mean(dim=axes)
             var = (x * x).mean(dim=axes) - mean * mean
+            if capture is not None:
+                capture.setdefault("bn_stats", {})[self.name] = (mean, var)
             with torch.no_grad():  # in place: the caller owns the buffers it passes
                 n = self.num_batches_tracked
                 count = x.numel() // x.shape[1]
@@ -84,3 +93,11 @@ def max_pool(x: torch.Tensor, window: int, stride: int | None = None, padding: i
 def avg_pool_global(x: torch.Tensor) -> torch.Tensor:
     """(N, C, H, W) -> (N, C): the mean over height and width."""
     return x.mean(dim=(2, 3))
+
+
+def name_batchnorms(model: nn.Module) -> None:
+    """Give each BatchNorm of ``model`` its module name, under which ``capture`` files
+    its batch statistics."""
+    for name, module in model.named_modules():
+        if isinstance(module, BatchNorm):
+            module.name = name

@@ -70,6 +70,19 @@ def _flat_entries(model: nn.Module):
             yield f"buffers/{prefix}/num_batches_tracked", module.num_batches_tracked, None
 
 
+def jax_leaf_ranks(model: nn.Module) -> list[int]:
+    """For each parameter of ``model`` in ``named_parameters`` order, its place in the
+    JAX package's pytree leaf order of the same model's parameters (dict keys sorted at
+    every level)."""
+    paths = {id(tensor): tuple(key.split("/")) for key, tensor, _ in _flat_entries(model)}
+    keyed = [paths[id(p)] for _, p in model.named_parameters()]
+    order = sorted(range(len(keyed)), key=lambda i: keyed[i])
+    ranks = [0] * len(keyed)
+    for rank, i in enumerate(order):
+        ranks[i] = rank
+    return ranks
+
+
 def load_flat_state(model: nn.Module, flat: dict, strict: bool = False) -> int:
     """Load a flat ``{"params/a/b/kernel": array}`` mapping in the JAX package's layout
     into the model. Returns the number of tensors replaced. Every shape is checked

@@ -19,7 +19,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from .layers import BatchNorm, Conv, Dense, avg_pool_global, max_pool
+from .layers import BatchNorm, Conv, Dense, avg_pool_global, max_pool, name_batchnorms
 
 
 def resnet_depths_to_config(depth: int):
@@ -62,12 +62,12 @@ class BasicBlock(nn.Module):
                                         generator=generator)
             self.downsample_norm = BatchNorm(features)
 
-    def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
-        y = F.relu(self.bn1(self.conv1(x), train=train))
-        y = self.bn2(self.conv2(y), train=train)
+    def forward(self, x: torch.Tensor, train: bool = False, capture: dict | None = None) -> torch.Tensor:
+        y = F.relu(self.bn1(self.conv1(x), train=train, capture=capture))
+        y = self.bn2(self.conv2(y), train=train, capture=capture)
         residual = x
         if self.downsample_conv is not None:
-            residual = self.downsample_norm(self.downsample_conv(x), train=train)
+            residual = self.downsample_norm(self.downsample_conv(x), train=train, capture=capture)
         return F.relu(y + residual)
 
 
@@ -90,13 +90,13 @@ class Bottleneck(nn.Module):
                                         generator=generator)
             self.downsample_norm = BatchNorm(4 * features)
 
-    def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
-        y = F.relu(self.bn1(self.conv1(x), train=train))
-        y = F.relu(self.bn2(self.conv2(y), train=train))
-        y = self.bn3(self.conv3(y), train=train)
+    def forward(self, x: torch.Tensor, train: bool = False, capture: dict | None = None) -> torch.Tensor:
+        y = F.relu(self.bn1(self.conv1(x), train=train, capture=capture))
+        y = F.relu(self.bn2(self.conv2(y), train=train, capture=capture))
+        y = self.bn3(self.conv3(y), train=train, capture=capture)
         residual = x
         if self.downsample_conv is not None:
-            residual = self.downsample_norm(self.downsample_conv(x), train=train)
+            residual = self.downsample_norm(self.downsample_conv(x), train=train, capture=capture)
         return F.relu(y + residual)
 
 
@@ -133,14 +133,20 @@ class ResNet(nn.Module):
                 channels = features * block_cls.expansion
             features *= 2
         self.head = Dense(channels, num_classes, generator=generator)
+        name_batchnorms(self)
 
-    def forward(self, x: torch.Tensor, train: bool = False, features: bool = False) -> torch.Tensor:
-        x = F.relu(self.stem_norm(self.stem_conv(x), train=train))
+    def forward(self, x: torch.Tensor, train: bool = False, features: bool = False,
+                capture: dict | None = None) -> torch.Tensor:
+        """Logits, or the pre-head features with ``features``; a ``capture`` dict
+        collects the features and train-mode BatchNorm statistics (``layers.BatchNorm``)."""
+        x = F.relu(self.stem_norm(self.stem_conv(x), train=train, capture=capture))
         if self.stem == "ImageNet":
             x = max_pool(x, 3, 2, padding=1)
         for name in self.blocks:
-            x = getattr(self, name)(x, train=train)
+            x = getattr(self, name)(x, train=train, capture=capture)
         x = avg_pool_global(x)
+        if capture is not None:
+            capture["features"] = x
         return x if features else self.head(x)
 
 

@@ -1,7 +1,8 @@
 """Vision architectures of the port (counterpart of ``breaching_tpu/cases/models/vision_nets.py``).
 
-NCHW ``nn.Module``s; ``forward(x, train=False, features=False)`` returns logits, or
-the pre-head features with ``features=True``. The features are flattened in
+NCHW ``nn.Module``s; ``forward(x, train=False, features=False, capture=None)`` returns
+logits, or the pre-head features with ``features=True``; a ``capture`` dict collects
+the features and train-mode BatchNorm statistics (``layers.BatchNorm``). The features are flattened in
 height-width-channel order, the JAX package's order, so that its head weights load
 with a plain transpose.
 """
@@ -12,7 +13,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from .layers import BatchNorm, Conv, Dense
+from .layers import BatchNorm, Conv, Dense, name_batchnorms
 
 
 class ConvNet(nn.Module):
@@ -33,14 +34,18 @@ class ConvNet(nn.Module):
         for _ in self.POOLS_AFTER:
             height, width_px = height // 3, width_px // 3
         self.head = Dense(channels * height * width_px, num_classes, generator=generator)
+        name_batchnorms(self)
 
-    def forward(self, x: torch.Tensor, train: bool = False, features: bool = False) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, train: bool = False, features: bool = False,
+                capture: dict | None = None) -> torch.Tensor:
         for idx in range(len(self.WIDTHS)):
             x = getattr(self, f"conv{idx}")(x)
-            x = F.relu(getattr(self, f"bn{idx}")(x, train=train))
+            x = F.relu(getattr(self, f"bn{idx}")(x, train=train, capture=capture))
             if idx in self.POOLS_AFTER:
                 x = F.max_pool2d(x, 3)
         x = x.permute(0, 2, 3, 1).flatten(1)
+        if capture is not None:
+            capture["features"] = x
         return x if features else self.head(x)
 
     def from_jax_state(self, params: dict, buffers: dict) -> "ConvNet":

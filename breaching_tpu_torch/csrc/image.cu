@@ -67,6 +67,12 @@
 // division and square root, so it equals the plain PyTorch sequence bit for bit.
 // The step's new best value goes to a second buffer: were blocks to read and write
 // one buffer, a block that wrote first would change what the others compare with.
+// Its soft-sign mode (the `modern` and `legacy` presets) takes tanh(g s) / max(s, 1e-3)
+// in place of the sign, as the JAX package's transform_grads does
+// (optimization_based_attack.py:397-399), with s = 1 - iteration / max_iterations and
+// max(s, 1e-3) formed on the host in float32. tanhf need not round as PyTorch's tanh
+// does, so that mode agrees with the plain version to a stated tolerance, not bit for
+// bit; the product and the quotient are rounded on their own as before.
 #include "reduce.cuh"
 
 namespace breaching {
@@ -282,14 +288,17 @@ box_kernel(const float* __restrict__ x, const float* __restrict__ lo, const floa
 
 struct AdamParams {
   float lr, one_minus_b1, b1, one_minus_b2, b2, eps, bias1, bias2;
+  float soft_scale, soft_div;  // s and max(s, 1e-3) of the soft sign
 };
+
+enum SignMode { kUnsigned = 0, kHardSign = 1, kSoftSign = 2 };
 
 __global__ void __launch_bounds__(kThreads)
 adam_box_step_kernel(float* __restrict__ x, const float* __restrict__ grad, float* __restrict__ mu,
                      float* __restrict__ nu, float* __restrict__ best, const float* __restrict__ lo,
                      const float* __restrict__ hi, const float* __restrict__ value,
                      const float* __restrict__ best_val, float* __restrict__ new_best_val, int64_t n,
-                     int64_t hw, int channels, AdamParams a, bool is_signed, bool boxed) {
+                     int64_t hw, int channels, AdamParams a, SignMode mode, bool boxed) {
   const float v = *value;
   const float bv = *best_val;
   const bool finite = isfinite(v);
@@ -298,7 +307,9 @@ adam_box_step_kernel(float* __restrict__ x, const float* __restrict__ grad, floa
   const int64_t stride = (int64_t)gridDim.x * kThreads;
   for (int64_t i = (int64_t)blockIdx.x * kThreads + threadIdx.x; i < n; i += stride) {
     const float x0 = x[i];
-    const float g = is_signed ? sign_of(grad[i]) : grad[i];
+    const float g = mode == kHardSign ? sign_of(grad[i])
+                    : mode == kSoftSign ? __fdiv_rn(tanhf(__fmul_rn(grad[i], a.soft_scale)), a.soft_div)
+                                        : grad[i];
     const float m = __fadd_rn(__fmul_rn(a.one_minus_b1, g), __fmul_rn(a.b1, mu[i]));
     const float s = __fadd_rn(__fmul_rn(a.one_minus_b2, __fmul_rn(g, g)), __fmul_rn(a.b2, nu[i]));
     mu[i] = m;
@@ -370,18 +381,21 @@ extern "C" int b4_box_project(const float* x, const float* lo, const float* hi, 
 
 // One attack step on the NCHW candidate x (n elements, `channels` channels of hw
 // pixels), in place on x, mu, nu and best; new_best_val[0] gets the step's best value.
-// flags: bit 0 takes the gradient's sign, bit 1 clamps to [lo[c], hi[c]].
+// flags: bit 0 takes the gradient's sign, bit 1 clamps to [lo[c], hi[c]], bit 2 takes
+// the soft sign tanh(g soft_scale) / soft_div (bits 0 and 2 exclude each other).
 extern "C" int b4_adam_box_step(float* x, const float* grad, float* mu, float* nu, float* best,
                                 const float* lo, const float* hi, const float* value,
                                 const float* best_val, float* new_best_val, int64_t n, int64_t hw,
                                 int channels, float lr, float one_minus_b1, float b1,
                                 float one_minus_b2, float b2, float eps, float bias1, float bias2,
-                                int flags, void* stream) {
-  if (n < 1 || hw < 1 || channels < 1 || best_val == new_best_val) return (int)cudaErrorInvalidValue;
+                                float soft_scale, float soft_div, int flags, void* stream) {
+  if (n < 1 || hw < 1 || channels < 1 || best_val == new_best_val || (flags & 5) == 5)
+    return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const AdamParams a{lr, one_minus_b1, b1, one_minus_b2, b2, eps, bias1, bias2};
+  const AdamParams a{lr, one_minus_b1, b1, one_minus_b2, b2, eps, bias1, bias2, soft_scale, soft_div};
+  const SignMode mode = (flags & 1) ? kHardSign : (flags & 4) ? kSoftSign : kUnsigned;
   adam_box_step_kernel<<<grid_for(n, 1, 8192), kThreads, 0, s>>>(
-      x, grad, mu, nu, best, lo, hi, value, best_val, new_best_val, n, hw, channels, a,
-      (flags & 1) != 0, (flags & 2) != 0);
+      x, grad, mu, nu, best, lo, hi, value, best_val, new_best_val, n, hw, channels, a, mode,
+      (flags & 2) != 0);
   return (int)cudaGetLastError();
 }

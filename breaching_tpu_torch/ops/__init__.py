@@ -1,9 +1,10 @@
 """Hand-written CUDA kernels of the attack step, with their plain PyTorch versions."""
 
-from .image import (AdamStep, adam_box_step, adam_box_step_trials, box_project, sign,
+from .image import (AdamStep, adam_box_step, adam_box_step_trials, box_project, sign, soft_sign_scalars,
                     total_variation, total_variation_trials, tv_backward, tv_forward,
                     tv_value_and_grad)
-from .matching import axpby, cosine_backward, fused_cosine_similarity, matching_sums
+from .matching import (axpby, cosine_backward, fused_cosine_similarity, fused_euclidean,
+                       matching_sums)
 
 # Every kernel wrapper; each carries a `launches` count of its kernel launches.
 KERNELS = {
@@ -35,10 +36,12 @@ __all__ = [
     "box_project",
     "cosine_backward",
     "fused_cosine_similarity",
+    "fused_euclidean",
     "launch_counts",
     "matching_sums",
     "reset_launch_counts",
     "sign",
+    "soft_sign_scalars",
     "total_variation",
     "total_variation_trials",
     "tv_backward",

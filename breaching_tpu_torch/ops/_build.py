@@ -35,7 +35,7 @@ SIGNATURES = {
     "b3_tv_value_and_grad": [_P, _P, _I64, _I32, _I32, _F32, _F32, _F32, _P, _P, _P, _P],
     "b4_box_project": [_P, _P, _P, _P, _I64, _I64, _I32, _P],
     "b4_adam_box_step": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I64, _I64, _I32,
-                         _F32, _F32, _F32, _F32, _F32, _F32, _F32, _F32, _I32, _P],
+                         _F32, _F32, _F32, _F32, _F32, _F32, _F32, _F32, _F32, _F32, _I32, _P],
 }
 
 _library = None

@@ -13,11 +13,13 @@ is NHWC, so the TV stencil runs along dims 3 and 2 here). Kernels
   per element. ``tv_backward`` is its gradient alone.
 - B4 ``box_project`` replaces ``box_project`` / Pallas ``_box_kernel``; bound 8 bytes
   per element.
-- ``adam_box_step`` is B4 rebuilt as the attack's whole step tail: the hard sign,
-  optax's Adam, the box clamp, the finite guard and the best-iterate update, which
+- ``adam_box_step`` is B4 rebuilt as the attack's whole step tail: the hard or soft
+  sign, optax's Adam, the box clamp, the finite guard and the best-iterate update, which
   the JAX package runs as one XLA fusion with ``jnp.clip`` in place of the box
   kernel (``breaching_tpu/attacks/optimization_based_attack.py:206-217, 401-466``).
-  One launch in place of about 23; bound at most 32 bytes per element.
+  One launch in place of about 23; bound at most 32 bytes per element. Its soft sign
+  takes ``tanhf``, which need not round as PyTorch's tanh does; on the H100 it gave
+  the plain version's bits at every shape ``chip_smoke.py`` checks.
 
 Each wrapper runs its kernel on contiguous float32 CUDA tensors and counts the
 launch in its ``launches`` attribute; it runs the plain PyTorch version (``*_plain``)
@@ -28,6 +30,7 @@ from __future__ import annotations
 
 from typing import NamedTuple
 
+import numpy as np
 import torch
 
 from . import _build
@@ -260,9 +263,36 @@ class AdamStep(NamedTuple):
     bias2: float
 
 
+def soft_sign_scalars(iteration: int, max_iterations: int) -> tuple[float, float]:
+    """(s, max(s, 1e-3)) of the soft sign at ``iteration``, s = 1 - iteration /
+    max_iterations, in float32 as the JAX package's ``transform_grads`` forms them."""
+    s = np.float32(1.0) - np.float32(iteration) / np.float32(max_iterations)
+    return float(s), float(np.maximum(s, np.float32(1e-3)))
+
+
+def soft_sign_plain(grad, soft_scale):
+    """tanh(grad s) / max(s, 1e-3) for ``soft_scale`` = (s, max(s, 1e-3))."""
+    s, div = (torch.full((), v, dtype=grad.dtype, device=grad.device) for v in soft_scale)
+    return torch.tanh(grad * s) / div
+
+
+def _sign_mode(signed, soft_scale):
+    """0 (none), 1 (hard) or 4 (soft) from ``signed`` (False/None, True/"hard" or "soft")."""
+    if signed == "soft":
+        if soft_scale is None:
+            raise ValueError("The soft sign takes soft_scale = (s, max(s, 1e-3)).")
+        return 4
+    if signed in (True, "hard"):
+        return 1
+    if signed in (False, None):
+        return 0
+    raise ValueError(f"signed must be False, True, 'hard' or 'soft', got {signed!r}.")
+
+
 def adam_box_step_plain(x, grad, mu, nu, best, lo, hi, value, best_val, new_best_val, step,
-                        signed=True, boxed=True):
-    sign_grad = sign(grad) if signed else grad
+                        signed=True, boxed=True, soft_scale=None):
+    mode = _sign_mode(signed, soft_scale)
+    sign_grad = sign(grad) if mode == 1 else soft_sign_plain(grad, soft_scale) if mode == 4 else grad
     mu.copy_((1 - step.b1) * sign_grad + step.b1 * mu)
     nu.copy_((1 - step.b2) * (sign_grad * sign_grad) + step.b2 * nu)
     # divide by tensors: CUDA divides by a host scalar as a product with its reciprocal
@@ -279,10 +309,12 @@ def adam_box_step_plain(x, grad, mu, nu, best, lo, hi, value, best_val, new_best
 
 
 def adam_box_step(x, grad, mu, nu, best, lo, hi, value, best_val, new_best_val, step,
-                  signed=True, boxed=True):
+                  signed=True, boxed=True, soft_scale=None):
     """One step of the optimization attack from the candidate's gradient on, in place.
 
-    With ``signed`` the gradient's sign (``sign``) replaces it; Adam with the scalars
+    With ``signed`` True (or "hard") the gradient's sign (``sign``) replaces it; with
+    "soft", tanh(g s) / max(s, 1e-3) for ``soft_scale`` = (s, max(s, 1e-3))
+    (``soft_sign_scalars``); Adam with the scalars
     ``step`` (an ``AdamStep``) advances the moments ``mu`` and ``nu`` in place and moves
     the NCHW candidate ``x``; with ``boxed`` the result is clamped to lo[c] <= x <= hi[c].
     If the step's loss ``value`` is finite, ``x`` takes the result, else it stays. If
@@ -297,14 +329,16 @@ def adam_box_step(x, grad, mu, nu, best, lo, hi, value, best_val, new_best_val, 
                          "one-element value, best_val and new_best_val.")
     if new_best_val.data_ptr() == best_val.data_ptr():
         raise ValueError("adam_box_step writes new_best_val while it reads best_val: pass two buffers.")
+    mode = _sign_mode(signed, soft_scale)
     tensors = (x, grad, mu, nu, best, lo, hi, value, best_val, new_best_val)
     stream = _build.launch_stream("adam_box_step", *tensors)
     if stream is None:
-        return adam_box_step_plain(*tensors, step, signed, boxed)
+        return adam_box_step_plain(*tensors, step, signed, boxed, soft_scale)
+    s, div = soft_scale if mode == 4 else (1.0, 1.0)
     _build.check(_build.load_library().b4_adam_box_step(
         *(t.data_ptr() for t in tensors), x.numel(), x.shape[2] * x.shape[3], x.shape[1],
         step.lr, 1 - step.b1, step.b1, 1 - step.b2, step.b2, step.eps, step.bias1, step.bias2,
-        int(signed) | int(boxed) << 1, stream), "b4_adam_box_step")
+        s, div, mode | int(boxed) << 1, stream), "b4_adam_box_step")
     adam_box_step.launches += 1
 
 
@@ -312,11 +346,11 @@ adam_box_step.launches = 0
 
 
 def adam_box_step_trials(x, grad, mu, nu, best, lo, hi, values, best_vals, new_best_vals, step,
-                         signed=True, boxed=True):
+                         signed=True, boxed=True, soft_scale=None):
     """``adam_box_step`` for T trials stacked on a leading axis, (T, N, C, H, W), each with
     its own loss, best value and best iterate: ``values``, ``best_vals`` and
     ``new_best_vals`` hold one entry per trial. One launch per trial, on the trial's
     contiguous views; the step's scalars are shared."""
     for t in range(x.shape[0]):
         adam_box_step(x[t], grad[t], mu[t], nu[t], best[t], lo, hi, values[t], best_vals[t],
-                      new_best_vals[t], step, signed, boxed)
+                      new_best_vals[t], step, signed, boxed, soft_scale)

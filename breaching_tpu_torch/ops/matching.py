@@ -12,6 +12,10 @@ Counterpart of ``breaching_tpu/ops/matching.py``. Kernels (``csrc/matching.cu``)
   registers, in ``_cos_bwd``'s order, then streams a x + b y. One launch in place of
   the eleven scalar launches and ``axpby``. Bound: 12 bytes per element.
 
+``fused_euclidean`` (B5, the JAX package's ``fused_euclidean``) is built on them:
+B1 gives 0.5 (|r|^2 - 2 <r, d> + |d|^2) and ``axpby(g, rec, -g, data)`` its gradient
+with respect to rec, one launch of each per evaluation.
+
 Each wrapper runs its kernel on contiguous float32 CUDA tensors and counts the
 launch in its ``launches`` attribute; it runs the plain PyTorch version (``*_plain``)
 only for CPU tensors, and raises for anything else.
@@ -131,3 +135,37 @@ class _FusedCosine(torch.autograd.Function):
 def fused_cosine_similarity(rec: torch.Tensor, data: torch.Tensor) -> torch.Tensor:
     """Cosine distance of two flat float32 vectors through kernels B1 and B2."""
     return _FusedCosine.apply(rec, data)
+
+
+class _FusedEuclidean(torch.autograd.Function):
+    """0.5 |rec - data|^2 from B1's sums; the backward is ``axpby(g, rec, -g, data)``
+    (``_euc_bwd`` of the JAX package), with a and b the upstream gradient and its
+    negation kept on the device. The target ``data`` takes no gradient in the
+    attack, so one ``axpby`` launch gives the backward; the other is formed only if
+    asked for."""
+
+    @staticmethod
+    def forward(ctx, rec, data):
+        dot, rec_sq, data_sq = matching_sums(rec, data).unbind()
+        ctx.save_for_backward(rec, data)
+        return 0.5 * (rec_sq - 2 * dot + data_sq)
+
+    @staticmethod
+    def backward(ctx, g):
+        rec, data = ctx.saved_tensors
+        g = g.reshape(1)
+        d_rec = axpby(g, rec, -g, data) if ctx.needs_input_grad[0] else None
+        d_data = axpby(-g, rec, g, data) if ctx.needs_input_grad[1] else None
+        return d_rec, d_data
+
+
+def fused_euclidean(rec: torch.Tensor, data: torch.Tensor) -> torch.Tensor:
+    """0.5 |rec - data|^2 of two flat float32 vectors through kernels B1 and B2."""
+    return _FusedEuclidean.apply(rec, data)
+
+
+def fused_euclidean_plain(rec: torch.Tensor, data: torch.Tensor) -> torch.Tensor:
+    """``fused_euclidean``'s plain version: the same formula over the plain sums,
+    differentiated by autograd."""
+    dot, rec_sq, data_sq = matching_sums_plain(rec, data).unbind()
+    return 0.5 * (rec_sq - 2 * dot + data_sq)

@@ -1,6 +1,6 @@
 """Where the time of a slice's attack step goes, on the card.
 
-    python3 -m breaching_tpu_torch.profile_slice [--slice 1|2|3] [--fleet F] [--fused] [--iterations N]
+    python3 -m breaching_tpu_torch.profile_slice [--slice 1|2|3|4] [--fleet F] [--fused] [--lbfgs] [--iterations N]
 
 Slice 1 (the default) runs Inverting Gradients with the fused cosine objective on
 ConvNet-64 / CIFAR-10 shapes; slice 2 the JAX package's bench preset on ResNet-18
@@ -9,13 +9,20 @@ cosine objective, and with ``--fleet F`` as F experiments of one server through
 ``reconstruct_fleet``; slice 3 the fedAVG user of case 4 on the same ResNet-18 (4
 images, 4 local steps of 2), as the JAX package's notebook preset
 ``inverting_gradients_fedavg_imagenet`` runs it, with ``--fused`` the fused cosine
-objective. Each goes through the entry points: one warm-up attack, an
+objective; slice 4 the JAX package's ``modern_hyperparams`` preset on the same
+ResNet-18 at ImageNet shapes (soft-signed Adam with warmup and cosine decay,
+double-opponent TV, feature regularization), or with ``--lbfgs`` its
+``deep_leakage`` preset with the fused euclidean objective on ConvNet-64 (the joint
+attack of data and label logits with L-BFGS; a step is an outer L-BFGS step of up to
+21 evaluations of the objective, 20 steps by default). Each goes through the entry
+points: one warm-up attack, an
 attack of N steps (default 200) timed with the profiler off, and the same attack
 under ``torch.profiler``. Prints one JSON line: milliseconds per step with the
 profiler off and on (wall clock around the synchronised attack; the difference
 is the profiler's cost), device-busy milliseconds per step (the sum of the
 kernels' device times; one stream, so they do not overlap), the idle share of
-the unprofiled step, kernel launches per step, device time per step of the
+the unprofiled step, kernel launches per step (and, for L-BFGS, the objective's
+evaluations per step), device time per step of the
 kernels that take most of it, and device time and launches per step of each of
 the port's own kernels (``csrc/``). Needs a CUDA device.
 """
@@ -39,8 +46,12 @@ SLICES = {
     3: ["case=4_fedavg_small_scale", "attack=invertinggradients", "case.user.num_data_points=4",
         "case.user.num_local_updates=4", "case.user.num_data_per_local_update_step=2",
         "case.user.provide_labels=True", "case.user.user_idx=1", "attack.optim.callback=0", "seed=7"],
+    4: ["case=2_single_imagenet", "attack=modern", "attack.optim.callback=0", "seed=7"],
 }
 FUSED = ["attack.objective.type=fused-cosine-similarity"]
+# slice 4 --lbfgs: the deep_leakage preset with the fused euclidean objective (path 4a')
+LBFGS = ["case=1_single_image_small", "attack=deepleakage", "case.user.provide_labels=False",
+         "attack.objective.type=fused-euclidean", "attack.optim.callback=0", "seed=7"]
 
 
 def _attack(overrides, iterations, fleet=1):
@@ -61,12 +72,13 @@ def _attack(overrides, iterations, fleet=1):
     return lambda: attacker.reconstruct_fleet(payload_lists, shared_lists, server.secrets)
 
 
-def _timed(run) -> float:
+def _timed(run):
+    """(milliseconds of ``run()``, what it returned)."""
     torch.cuda.synchronize()
     start = time.perf_counter()
-    run()
+    result = run()
     torch.cuda.synchronize()
-    return (time.perf_counter() - start) * 1e3
+    return (time.perf_counter() - start) * 1e3, result
 
 
 def main():
@@ -74,26 +86,32 @@ def main():
     parser.add_argument("--slice", type=int, choices=sorted(SLICES), default=1)
     parser.add_argument("--fleet", type=int, default=1, help="experiments through reconstruct_fleet")
     parser.add_argument("--fused", action="store_true", help="slice 2 or 3 with the fused cosine objective")
-    parser.add_argument("--iterations", type=int, default=200)
+    parser.add_argument("--lbfgs", action="store_true", help="slice 4: deep_leakage with fused euclidean, L-BFGS")
+    parser.add_argument("--iterations", type=int, default=None, help="steps (default 200; 20 with --lbfgs)")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("profile_slice needs a CUDA device.")
-    overrides = SLICES[args.slice] + (FUSED if args.fused else [])
+    if args.lbfgs and args.slice != 4:
+        parser.error("--lbfgs is a path of slice 4.")
+    overrides = LBFGS if args.lbfgs else SLICES[args.slice] + (FUSED if args.fused else [])
 
-    _attack(overrides, 20, args.fleet)()  # warm-up: kernel build, cuDNN heuristics, allocator
-    steps = args.iterations
+    _attack(overrides, 5 if args.lbfgs else 20, args.fleet)()  # warm-up: kernel build, cuDNN heuristics
+    steps = args.iterations or (20 if args.lbfgs else 200)
     run = _attack(overrides, steps, args.fleet)
-    wall_ms = _timed(run)
+    wall_ms, (_, stats) = _timed(run)
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        profiled_ms = _timed(run)
+        profiled_ms, _ = _timed(run)
     kernels = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
     busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
     top = sorted(kernels, key=lambda e: e.self_device_time_total, reverse=True)[:12]
     # the port's kernels by name, without the return type that templates carry
     port = {e.key.removeprefix("void ").split("(")[0]: e for e in kernels if "breaching::" in e.key}
+    objective = ("fused-euclidean" if args.lbfgs else
+                 ("fused-" if args.fused or args.slice == 1 else "") + "cosine-similarity")
     print(json.dumps(dict(
-        device=torch.cuda.get_device_name(0), slice=args.slice, fleet=args.fleet,
-        objective=("fused-" if args.fused or args.slice == 1 else "") + "cosine-similarity", iterations=steps,
+        device=torch.cuda.get_device_name(0), slice=args.slice, fleet=args.fleet, objective=objective,
+        optimizer="L-BFGS" if args.lbfgs else "adam", iterations=steps,
+        evaluations_per_step=stats.get("objective_evaluations", steps) / steps,
         peak_memory_gib=torch.cuda.max_memory_allocated() / 2**30,
         ms_per_step=wall_ms / steps, profiled_ms_per_step=profiled_ms / steps,
         device_busy_ms_per_step=busy_ms / steps, idle_share=1.0 - busy_ms / wall_ms,

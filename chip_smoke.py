@@ -8,9 +8,12 @@ Phases, one line each on standard output:
      gives it;
   2. the kernels' build with ``nvcc`` (breaching_tpu_torch/ops/_build.py), with
      its seconds;
-  3. each kernel against its plain PyTorch version on the card, at both slices'
+  3. each kernel against its plain PyTorch version on the card, at every slice's
      shapes and at ragged shapes, with the tolerance stated (the fused
-     kernels bit for bit, NaN positions included): B1 and the fused cosine
+     kernels bit for bit, NaN positions included; the fused Adam step's soft
+     sign, whose tanhf need not round as PyTorch's tanh, to a stated
+     tolerance; ``fused_euclidean``, B1 and ``b2_axpby``, against its plain
+     version at ConvNet-64's 2,904,970 entries): B1 and the fused cosine
      backward also at ResNet-18's 11,380,173 gradient entries, the fused Adam
      step also at 1x3x224x224, at slice 3's 4x3x224x224 and per trial on an
      8x1x3x224x224 stack, the fused TV kernel also at 1x3x224x224 and
@@ -19,7 +22,9 @@ Phases, one line each on standard output:
   4. the attack gradient of each slice on the card against the same computation
      on the CPU, through the plain versions (and whether the card gives the same
      bits twice, which is reported, not required); for slice 3 the gradient
-     through the fedAVG user's four unrolled local steps;
+     through the fedAVG user's four unrolled local steps; for slice 4 the
+     gradient of ``deep_leakage`` (data and label logits), ``wei_framework`` and
+     ``modern_hyperparams``;
   5. the main paths end to end through the entry points, each with the kernels'
      launch counts set to 0 just before it and read just after: slice 1,
      Inverting Gradients with the fused cosine objective on ConvNet-64 /
@@ -30,10 +35,15 @@ Phases, one line each on standard output:
      slice 3, the fedAVG user of case 4 on the same ResNet-18 (4 images of
      3x224x224, 4 local SGD steps of 2 images, the JAX package's notebook preset
      ``inverting_gradients_fedavg_imagenet``), with the preset's cosine objective
-     and with the fused one; for each: set-up seconds, loss at the start and end
+     and with the fused one; slice 4, the JAX package's other named optimization
+     presets (examples/run_example.py): ``deep_leakage`` (the joint attack of data
+     and label logits with L-BFGS), the same with the fused euclidean objective,
+     ``wei_framework`` and ``beyond_inferring`` on ConvNet-64 (20 outer L-BFGS
+     steps each), ``modern_hyperparams`` and ``legacy_hyperparams`` on ResNet-18
+     (300 steps each); for each: set-up seconds, loss at the start and end
      of every trial, PSNR and SSIM (of the batch put in the true images' order,
-     and the order), it/s (the fleet's aggregate), peak memory and launches per
-     step;
+     and the order), it/s (the fleet's aggregate; with L-BFGS also the
+     objective's evaluations per second), peak memory and launches per step;
   6. each kernel's time beside its bound, the plain version's time and one
      PyTorch call of the same function (for a fused kernel, the library call of
      the kernel it grew from), each as time per call (200 calls between two
@@ -41,13 +51,17 @@ Phases, one line each on standard output:
      and host time per call (the 200 calls enqueued, no wait); B1, the fused
      cosine backward, the fused TV kernel and the fused Adam step also at
      slice 2's shapes (100 calls), the fused TV kernel and the fused Adam step
-     at slice 3's (100 calls).
+     at slice 3's (100 calls), the fused Adam step's soft sign at 1x3x224x224
+     and the fused TV kernel at 1x6x224x224 (slice 4's double opponents).
 Then one JSON line with the kernels, and as the last line
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 
 Exits non-zero, without that line, when no CUDA device is present, a kernel does
 not build, launch or agree, a kernel of a path was not launched as often as the
-path needs, an attack's loss does not fall, an experiment of the fleet does not
+path needs (on slice 4's L-BFGS paths: B1 and ``b2_axpby`` once per evaluation of
+the objective, TV once per evaluation, ``b4_box_project`` once per outer step), an
+attack's loss does not fall (on slice 4: its best value stays at its first, or a
+loss is not finite), an experiment of the fleet does not
 keep its own labels, or a batch's order is not a permutation. A loss that turns
 non-finite fails every path but slice 3's: there the simulated local SGD of the
 fedAVG user can overflow float32 on the attack's candidates, as it does in the
@@ -81,6 +95,25 @@ SLICE3 = ["case=4_fedavg_small_scale", "attack=invertinggradients", "case.user.n
           "case.user.num_local_updates=4", "case.user.num_data_per_local_update_step=2",
           "case.user.provide_labels=True", "case.user.user_idx=1", "seed=7"]
 SLICE3_STEPS, SLICE3_FUSED_STEPS = 100, 50
+# slice 4: the JAX package's other named optimization presets (examples/run_example.py):
+# path -> (overrides, steps, the launches per step or per objective evaluation it needs)
+CASE1 = ["case=1_single_image_small", "seed=7"]
+SLICE4 = {
+    "slice 4a deep_leakage": (CASE1 + ["attack=deepleakage", "case.user.provide_labels=False"], 20, {}),
+    "slice 4a' deep_leakage fused": (CASE1 + ["attack=deepleakage", "case.user.provide_labels=False",
+                                              "attack.objective.type=fused-euclidean"], 20,
+                                     dict(b1_matching_sums="evaluation", b2_axpby="evaluation")),
+    "slice 4b wei_framework": (CASE1 + ["attack=wei"], 20, dict(b4_box_project="step")),
+    "slice 4c beyond_inferring": (CASE1 + ["attack=beyondinfering", "case.data.partition=unique-class",
+                                           "case.user.user_idx=1",
+                                           "attack.regularization.total_variation.scale=1e-4"], 20,
+                                  dict(b3_tv_value_and_grad="evaluation", b4_box_project="step")),
+    "slice 4d modern_hyperparams": (["case=2_single_imagenet", "attack=modern", "seed=7"], 300,
+                                    dict(b3_tv_value_and_grad="step", b4_adam_box_step="step")),
+    "slice 4e legacy_hyperparams": (["case=2_single_imagenet", "attack=legacy", "seed=7"], 300,
+                                    dict(b3_tv_value_and_grad="step", b4_adam_box_step="step")),
+}
+OPPONENTS = (1, 6, 224, 224)  # slice 4d-e's TV input: three channels and their three differences
 # a magnitude in the fedAVG user's local SGD (in float64) that shows float32 overflow:
 # sums of such terms in a convolution's backward leave float32 (largest value 3.4e38)
 DIVERGED = 1e30
@@ -209,6 +242,9 @@ def check_kernels(ops, n_params, image_shape):
         report("b4_box_project", str(shape), got, want, 0.0, slice_shape)
         for signed in (True, False):
             check_adam_box_step(ops, image, report_exact, randn, shape, lo, hi, signed, slice_shape)
+    for shape in (image_shape, BIG, (2, 3, 331, 1007)):  # slice 4d-e's soft sign
+        check_adam_box_step(ops, image, report_exact, randn, shape, lo, hi, "soft",
+                            shape == BIG and "b4_adam_box_step soft", report)
     for signed in (True, False):  # slice 2: one image, and per trial on the fleet's stack
         check_adam_box_step(ops, image, report_exact, randn, BIG, lo, hi, signed,
                             signed and "b4_adam_box_step slice2")
@@ -217,7 +253,29 @@ def check_kernels(ops, n_params, image_shape):
         check_adam_box_step(ops, image, report_exact, randn, BATCH, lo, hi, signed,
                             signed and "b4_adam_box_step slice3")
     check_tv_value_and_grad(ops, image, report, report_exact, randn, image_shape)
+    check_fused_euclidean(ops, matching, report, randn, n_params)
     return worst
+
+
+def check_fused_euclidean(ops, matching, report, randn, n):
+    """``fused_euclidean`` (B1 forward, ``b2_axpby`` backward) against
+    ``fused_euclidean_plain`` (autograd through the plain sums), value and gradient."""
+    rec, data = randn(n), randn(n) * 0.5
+    upstream = torch.tensor(0.37, device=DEVICE)
+    results = []
+    for fn in (ops.fused_euclidean, matching.fused_euclidean_plain):
+        r = rec.clone().requires_grad_(True)
+        value = fn(r, data)
+        grad, = torch.autograd.grad(value, r, upstream)
+        results.append((value.detach(), grad))
+    (value, grad), (want_value, want) = results
+    sums = matching.matching_sums_plain(rec, data)
+    # the value is a difference of float32 sums of n terms in two orders: 1e-5 of the sums,
+    # as B1 is held; the gradient g rec - g data, rounded otherwise by autograd: 2^-22
+    report("fused_euclidean (b1 + b2_axpby)", f"n={n} value", value, want_value,
+           1e-5 * 0.5 * (sums[1] + sums[2]).item(), False)
+    report("fused_euclidean (b1 + b2_axpby)", f"n={n} gradient", grad, want,
+           2.0 ** -22 * (0.37 * (rec.abs() + data.abs())).max().item(), False)
 
 
 def check_tv_value_and_grad(ops, image, report, report_exact, randn, image_shape):
@@ -231,12 +289,15 @@ def check_tv_value_and_grad(ops, image, report, report_exact, randn, image_shape
     def run(x, p, q):
         return ops.tv_value_and_grad(x, scale, p, q, 1e-8), image.tv_value_and_grad_plain(x, scale, p, q, 1e-8)
 
-    for shape in (image_shape, BIG, BATCH, (2, 3, 331, 1007), (2, 3, 17, 23), (1, 6, 33, 31),
+    for shape in (image_shape, BIG, BATCH, OPPONENTS, (2, 3, 331, 1007), (2, 3, 17, 23), (1, 6, 33, 31),
                   (1, 6, 9, 1), (1, 3, 1, 7)):
         x = randn(*shape)
         # where this shape's error is recorded: slice 1's, slice 3's or nowhere
         record = shape == image_shape or (shape == BATCH and f"{name} slice3")
-        for p, q in TV_EXACT + ((2.0, 0.5),):
+        # slice 4: p = 2, q = 0.5 on the double opponents (4d-e), q = 1.25 at 1x3x32x32 (4c)
+        for p, q in TV_EXACT + ((2.0, 0.5), (2.0, 1.25)):
+            if (p, q) == (2.0, 1.25) and shape != image_shape:
+                continue
             (value, grad), (want_value, want) = run(x, p, q)
             # a mean of n float32 terms summed in two orders: 1e-5 relative
             report(name, f"{shape} p={p} q={q} value", value, want_value, 1e-5 * abs(want_value.item()),
@@ -244,8 +305,9 @@ def check_tv_value_and_grad(ops, image, report, report_exact, randn, image_shape
             if (p, q) in TV_EXACT:
                 report_exact(name, f"{shape} p={p} q={q} gradient", grad, want, p == q == 1.0 and record)
             else:  # pow(., -0.5) is rsqrtf in PyTorch, powf in the kernel
+                slice4 = (shape, q) in ((OPPONENTS, 0.5), (image_shape, 1.25)) and f"{name} slice4 {shape} q={q}"
                 report(name, f"{shape} p={p} q={q} gradient", grad, want,
-                       2.0 ** -22 * want.abs().max().item(), False)
+                       2.0 ** -22 * want.abs().max().item(), slice4)
             if shape in (image_shape, (2, 3, 331, 1007)) and (p, q) in ((1.0, 1.0), (2.0, 0.5)):
                 xr = x.clone().requires_grad_(True)
                 auto, = torch.autograd.grad(image.tv_forward_plain(xr, p, q, 1e-8) * 0.2, xr)
@@ -297,13 +359,16 @@ def check_tv_value_and_grad(ops, image, report, report_exact, randn, image_shape
     require(all(same), f"{name} gives other bits when repeated or replayed: {same}")
 
 
-def check_adam_box_step(ops, image, report_exact, randn, shape, lo, hi, signed, slice_shape):
+def check_adam_box_step(ops, image, report_exact, randn, shape, lo, hi, signed, slice_shape, report=None):
     """b4_adam_box_step against its plain version over three steps, with NaN and signed
     zeros planted in the gradient and a loss that improves, does not, then improves,
     so that the two best-value buffers swap and the best iterate is taken and kept.
     A 5-dimensional shape is a stack of trials: ``ops.adam_box_step_trials`` (one
     launch per trial, each trial with its own loss and best value) against the plain
-    version run on each trial in turn."""
+    version run on each trial in turn. ``signed="soft"``: the soft sign at steps 3-5 of
+    10 (s = 0.7, 0.6, 0.5), whose tanhf need not round as PyTorch's tanh: NaN in the
+    same places, and elsewhere within 4 float32 ulps of each tensor's largest entry
+    (``report``); the best values equal."""
     dev = lo.device
     trials = shape[0] if len(shape) == 5 else 0
     grads = [randn(*shape) for _ in range(3)]
@@ -315,10 +380,10 @@ def check_adam_box_step(ops, image, report_exact, randn, shape, lo, hi, signed, 
     # each trial's losses differ by a small offset, so that no two trials share a value
     offsets = torch.arange(max(trials, 1), device=dev) * 1e-3 if trials else torch.zeros((), device=dev)
 
-    def plain_trials(x, grad, mu, nu, best, lo, hi, value, best_val, new_best_val, step, signed):
+    def plain_trials(x, grad, mu, nu, best, lo, hi, value, best_val, new_best_val, step, signed, soft_scale):
         for t in range(trials):
             image.adam_box_step_plain(x[t], grad[t], mu[t], nu[t], best[t], lo, hi, value[t], best_val[t],
-                                      new_best_val[t], step, signed)
+                                      new_best_val[t], step, signed, soft_scale=soft_scale)
 
     fused_fn, plain_fn = ((ops.adam_box_step_trials, plain_trials) if trials
                           else (ops.adam_box_step, image.adam_box_step_plain))
@@ -331,7 +396,8 @@ def check_adam_box_step(ops, image, report_exact, randn, shape, lo, hi, signed, 
             step = ops.AdamStep(lr=0.1 / t, b1=0.9, b2=0.999, eps=1e-8, bias1=1 - 0.9 ** t,
                                 bias2=1 - 0.999 ** t)
             args = (st["x"], grad, st["mu"], st["nu"], st["best"], lo, hi, value + offsets, *vals, step)
-            (fused_fn if fused else plain_fn)(*args, signed=signed)
+            soft = ops.soft_sign_scalars(t, 10) if signed == "soft" else None
+            (fused_fn if fused else plain_fn)(*args, signed=signed, soft_scale=soft)
             vals.reverse()
             seen.append({**{k: v.clone() for k, v in st.items()}, "best_val": vals[0].reshape(-1).clone()})
         states.append(seen)
@@ -340,12 +406,20 @@ def check_adam_box_step(ops, image, report_exact, randn, shape, lo, hi, signed, 
             f"b4_adam_box_step best values over three steps: {best_vals}")
     for step, (got, want) in enumerate(zip(*states)):
         for key in ("x", "mu", "nu", "best", "best_val"):
-            report_exact("b4_adam_box_step", f"{shape} signed={signed} step={step} {key}",
-                         got[key], want[key], signed and slice_shape)
+            where = f"{shape} signed={signed} step={step} {key}"
+            if signed == "soft" and key != "best_val":
+                nan = torch.isnan(want[key])
+                require(torch.equal(torch.isnan(got[key]), nan), f"b4_adam_box_step soft: NaN positions at {where}")
+                tol = 4 * torch.finfo(torch.float32).eps * want[key][~nan].abs().max().item()
+                report("b4_adam_box_step", where, got[key][~nan], want[key][~nan], tol, slice_shape)
+            else:
+                report_exact("b4_adam_box_step", where, got[key], want[key], signed and slice_shape)
 
 
-def attack_gradient(breaching, device, x0, overrides):
-    """A slice's loss and its gradient at candidate x0, on `device`."""
+def attack_gradient(breaching, device, tree0, overrides):
+    """A slice's loss and its gradient at the candidate tree tree0 (``data``, and for
+    the joint attack ``labels``, the label logits), on `device`: the gradient of every
+    leaf, flattened and joined."""
     cfg = breaching.get_config(overrides)
     setup = breaching.utils.system_startup(cfg=cfg, device=device)
     user, server, model, loss_fn = breaching.cases.construct_case(cfg.case, setup)
@@ -354,17 +428,23 @@ def attack_gradient(breaching, device, x0, overrides):
     rec_models, labels, _ = attacker.prepare_attack(payloads, shared)
     attacker.objective.initialize(loss_fn, rec_models[0].module,
                                   attacker._local_hyperparams(shared[0]["metadata"]), cfg.attack.impl)
+    for reg in attacker.regularizers:
+        reg.initialize(rec_models, attacker._shared_data_cache, labels)
     targets = [tuple(shared[0]["gradients"][k] for k in rec_models[0].params)]
-    x = x0.to(device).requires_grad_(True)
-    value, _ = attacker._loss(x, rec_models, targets, labels)
-    grad, = torch.autograd.grad(value, x)
-    return value.item(), grad.cpu()
+    tree = {k: v.to(device).requires_grad_(True) for k, v in tree0.items()}
+    value, _ = attacker._loss(tree, rec_models, targets, labels)
+    grads = torch.autograd.grad(value, tuple(tree.values()))
+    return value.item(), torch.cat([g.reshape(-1) for g in grads]).cpu()
 
 
-def check_reference(breaching, name, overrides, shape):
+def check_reference(breaching, name, overrides, shape, classes=None):
     """Phase 4: a slice's attack gradient on the card (kernels, cuDNN) against the CPU
-    (plain versions), same weights, data and candidate."""
-    x0 = torch.randn(*shape, generator=torch.Generator().manual_seed(5))
+    (plain versions), same weights, data and candidate; with ``classes``, the joint
+    attack's, with respect to the data and label logits of that many classes."""
+    gen = torch.Generator().manual_seed(5)
+    x0 = dict(data=torch.randn(*shape, generator=gen))
+    if classes:
+        x0["labels"] = torch.randn(shape[0], classes, generator=gen)
     v_gpu, g_gpu = attack_gradient(breaching, DEVICE, x0, overrides)
     v_again, g_again = attack_gradient(breaching, DEVICE, x0, overrides)
     # not a check: cuDNN's backward need not give the same bits twice
@@ -550,6 +630,54 @@ def local_sgd_peak(model, loss_fn, payload, hyper, data):
     return peak
 
 
+def run_slice4(breaching, ops, path, overrides, steps, needs):
+    """Phase 5, slice 4: a named preset through the entry points; launch counts from the
+    attack alone. ``needs`` gives each kernel the path must launch, once per outer
+    "step" or once per "evaluation" of the objective (L-BFGS evaluates it up to 21
+    times a step); no other port kernel may launch. Returns the launch counts."""
+    resnet = "case=2_single_imagenet" in overrides
+    weight_overrides, weights = resnet_weights() if resnet else ([], "random weights from seed 7")
+    cfg = breaching.get_config(overrides + weight_overrides + [
+        f"attack.optim.max_iterations={steps}", f"attack.optim.callback={100 if resnet else 5}"])
+    start = time.perf_counter()
+    setup = breaching.utils.system_startup(cfg=cfg, device=DEVICE)
+    user, server, model, loss_fn = breaching.cases.construct_case(cfg.case, setup)
+    shared, payloads, true = server.run_protocol(user)
+    attacker = breaching.attacks.prepare_attack(server.model, server.loss, cfg.attack, setup)
+    torch.cuda.synchronize()
+    setup_seconds = time.perf_counter() - start
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    start = time.perf_counter()
+    result, stats = attacker.reconstruct(payloads, shared, server.secrets)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - start
+    launches = ops.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    metrics = breaching.analysis.report(result, true, payloads, server.model, cfg_case=cfg.case, setup=setup)
+    losses, evaluations = stats["Trial_0_Val"], stats["objective_evaluations"]
+    shape = (int(cfg.case.user.num_data_points), *cfg.case.data.shape)
+    print(f"{path}: {model.name} {sum(p.numel() for p in model.parameters())} parameters on {weights}; "
+          f"{cfg.attack.optim.optimizer}, {cfg.attack.objective.type}; set-up {setup_seconds:.2f} s; {steps} steps "
+          f"in {seconds:.2f} s = {steps / seconds:.2f} steps/s, {evaluations} objective evaluations = "
+          f"{evaluations / seconds:.1f} evaluations/s; loss first={losses[0]:.6f} best={min(losses):.6f} "
+          f"last={losses[-1]:.6f}; score {stats['opt_value']:.6f}; labels {result['labels'].tolist()} "
+          f"(true {true['labels'].tolist()}); PSNR={metrics['psnr']:.3f} SSIM={metrics['ssim']:.4f}; "
+          f"peak memory {peak / 2**30:.3f} GiB; launches per step { {k: v / steps for k, v in launches.items() if v} }",
+          flush=True)
+    data = result["data"]
+    require(tuple(data.shape) == shape and bool(torch.isfinite(data).all()),
+            f"{path}: the reconstruction is not a finite {shape} tensor: {tuple(data.shape)}")
+    require(len(losses) == steps and all(math.isfinite(v) for v in losses),
+            f"{path}: {len(losses)} losses for {steps} steps, or a loss that is not finite")
+    require(min(losses) < losses[0], f"{path}: the best value did not fall below the first")
+    want = {name: evaluations if per == "evaluation" else steps for name, per in needs.items()}
+    require({k: v for k, v in launches.items() if v} == want,
+            f"{path}: launches {launches}, the path needs {want} ({evaluations} evaluations, {steps} steps)")
+    return launches
+
+
 def bound(bytes_moved, flops):
     t_bytes, t_ops = bytes_moved / PEAK_BYTES_PER_S, flops / PEAK_F32_PER_S
     return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
@@ -579,6 +707,7 @@ def time_kernels(ops, n, image_shape, names=None, iters=200):
     # best_val stays inf: every call improves and writes best, the most bytes a step moves
     vals = (torch.tensor(float("inf"), device=dev), torch.empty((), device=dev))
     step = ops.AdamStep(lr=0.1, b1=0.9, b2=0.999, eps=1e-8, bias1=1 - 0.9 ** 3, bias2=1 - 0.999 ** 3)
+    soft = ops.soft_sign_scalars(3, 10)
     step_args = (x, grad, mu, nu, best, lo, hi, value, *vals, step)
     cases = {
         # name: (kernel, plain, (library call, its name) or None, bytes, flops)
@@ -604,6 +733,17 @@ def time_kernels(ops, n, image_shape, names=None, iters=200):
         # the new best value; about 15 operations per element
         "b4_adam_box_step": (lambda: ops.adam_box_step(*step_args), lambda: image.adam_box_step_plain(*step_args),
                              None, 32 * m + 36, 15 * m),
+        # the soft sign (slice 4d-e): tanh and a division more per element, about 35 operations
+        "b4_adam_box_step soft": (lambda: ops.adam_box_step(*step_args, signed="soft", soft_scale=soft),
+                                  lambda: image.adam_box_step_plain(*step_args, signed="soft", soft_scale=soft),
+                                  None, 32 * m + 36, 35 * m),
+        # p = 2, q = 0.5 (slice 4d-e, on the double opponents): a square root and its
+        # reciprocal power more per element, about 30 operations
+        "b3_tv_value_and_grad q=0.5": (lambda: ops.tv_value_and_grad(x, g, 2.0, 0.5),
+                                       lambda: image.tv_value_and_grad_plain(x, g, 2.0, 0.5), None,
+                                       8 * m + 8, 30 * m),
+        "b3_tv_forward q=0.5": (lambda: ops.tv_forward(x, 2.0, 0.5), lambda: image.tv_forward_plain(x, 2.0, 0.5),
+                                None, 4 * m + 4, 12 * m),
     }
     # the fused TV kernel and B3 forward also at the shape slice 2 (ResNet-18, ImageNet)
     # gives them
@@ -618,14 +758,17 @@ def time_kernels(ops, n, image_shape, names=None, iters=200):
     # for the fused TV kernel, B3 forward alone, the half of the pair it replaced that the
     # tree keeps (the whole pair, from the parent commit: python3 -m breaching_tpu_torch.timing)
     seconds = {"b2_cosine_backward": (*cases["b2_axpby"][2], "grew_from_library"),
-               "b4_adam_box_step": (*cases["b4_box_project"][2], "grew_from_library")}
+               "b4_adam_box_step": (*cases["b4_box_project"][2], "grew_from_library"),
+               "b4_adam_box_step soft": (*cases["b4_box_project"][2], "grew_from_library"),
+               "b3_tv_value_and_grad q=0.5": (cases["b3_tv_forward q=0.5"][0], "b3_tv_forward alone",
+                                              "replaced_half")}
     for at in ("", f" {BIG}"):
         seconds["b3_tv_value_and_grad" + at] = (cases["b3_tv_forward" + at][0], "b3_tv_forward alone",
                                                 "replaced_half")
     timings = {}
     for name, (kernel, plain, library, nbytes, flops) in cases.items():
-        if names is not None and name not in names:
-            continue
+        if (names is None and name.endswith(("soft", "q=0.5"))) or (names is not None and name not in names):
+            continue  # slice 4's variants run only when named
         bound_ms, bound_by = bound(nbytes, flops)
         ms, device_ms, host_ms = time_ms(kernel, iters)
         plain_ms, plain_device_ms, plain_host_ms = time_ms(plain, iters)
@@ -660,7 +803,7 @@ def main():
 
     print(card_line(), flush=True)
 
-    start = time.perf_counter()
+    start = began = time.perf_counter()
     _build.load_library()
     print(f"build: {os.path.relpath(_build.library_path(), REPO)} ready in "
           f"{time.perf_counter() - start:.1f} s (nvcc {_build.build_seconds or 0.0:.1f} s)", flush=True)
@@ -675,6 +818,11 @@ def main():
     fused = ["attack.objective.type=fused-cosine-similarity"]
     check_reference(breaching, "slice 3", SLICE3 + resnet_weights()[0], BATCH)
     check_reference(breaching, "slice 3 fused", SLICE3 + fused + resnet_weights()[0], BATCH)
+    check_reference(breaching, "slice 4a deep_leakage", SLICE4["slice 4a deep_leakage"][0], (1, 3, 32, 32),
+                    classes=10)
+    check_reference(breaching, "slice 4b wei_framework", SLICE4["slice 4b wei_framework"][0], (1, 3, 32, 32))
+    check_reference(breaching, "slice 4d modern_hyperparams",
+                    SLICE4["slice 4d modern_hyperparams"][0] + resnet_weights()[0], BIG)
 
     paths = {"slice 1": run_slice(breaching, ops)}
     image_kernels = dict(b3_tv_value_and_grad=1, b4_adam_box_step=1)
@@ -692,12 +840,16 @@ def main():
         require({k: v for k, v in launches.items() if v} == want,
                 f"{path}: launches {launches}, the path needs {want}")
         paths[path] = launches
+    for path, (overrides, steps, needs) in SLICE4.items():
+        paths[path] = run_slice4(breaching, ops, path, overrides, steps, needs)
 
     timings = time_kernels(ops, n_params, image_shape)
     slice2 = ("b1_matching_sums", "b2_cosine_backward", "b4_adam_box_step")
     timings2 = time_kernels(ops, N2, BIG, names=slice2, iters=100)
     slice3 = ("b3_tv_value_and_grad", "b4_adam_box_step")
     timings3 = time_kernels(ops, N2, BATCH, names=slice3, iters=100)
+    timings4 = {**time_kernels(ops, N2, BIG, names=("b4_adam_box_step soft",), iters=100),
+                **time_kernels(ops, N2, OPPONENTS, names=("b3_tv_value_and_grad q=0.5",), iters=100)}
 
     rows = []
     for name, (source, replaces) in KERNELS.items():
@@ -712,6 +864,15 @@ def main():
                                          max_abs_err=errors[f"{name} slice2"], **timings2[name])
         if name in slice3:
             rows[-1]["at_slice3"] = dict(shape=BATCH, max_abs_err=errors[f"{name} slice3"], **timings3[name])
+        # slice 4: b4_box_project (4b-c) and b2_axpby (4a') run at slice 1's shapes, timed above
+        if name == "b4_adam_box_step":
+            rows[-1]["at_slice4"] = dict(shape=BIG, signed="soft", max_abs_err=errors["b4_adam_box_step soft"],
+                                         **timings4["b4_adam_box_step soft"])
+        if name == "b3_tv_value_and_grad":
+            rows[-1]["at_slice4"] = dict(shape=OPPONENTS, p=2.0, q=0.5,
+                                         max_abs_err=errors[f"{name} slice4 {OPPONENTS} q=0.5"],
+                                         **timings4["b3_tv_value_and_grad q=0.5"])
+    print(f"chip_smoke: phases 2-6 in {time.perf_counter() - began:.1f} s", flush=True)
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))

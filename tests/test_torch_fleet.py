@@ -168,7 +168,7 @@ def fleets():
     results, stats = port["attacker"].reconstruct_fleet(port["payloads"], port["shared"])
     return dict(ref=ref, port=port, j_results=j_results, j_stats=j_stats, results=results, stats=stats,
                 j_best=np.transpose(np.asarray(captured["jax"][0]["data"]), (0, 1, 4, 2, 3)),
-                best=captured["port"][0].numpy())
+                best=captured["port"][0]["data"].numpy())
 
 
 def test_fleet_matches_the_jax_package(fleets):
@@ -247,8 +247,9 @@ def test_bias_corrected_labels_match_the_jax_package(num_data_points, queries):
 
 
 def test_other_label_strategies_are_refused():
-    cfg = breaching.get_attack_config("invertinggradients", ["attack.label_strategy=iDLG"])
-    with pytest.raises(NotImplementedError, match="iDLG"):
+    # iDLG, analytic, yin, wainakh-simple and random are ported (tests/test_torch_presets.py)
+    cfg = breaching.get_attack_config("invertinggradients", ["attack.label_strategy=wainakh-whitebox"])
+    with pytest.raises(NotImplementedError, match="wainakh-whitebox"):
         _BaseAttacker(None, None, cfg, dict(device=torch.device("cpu")))._recover_label_information(
             [dict(gradients={}, metadata=dict(num_data_points=1, labels=None))])
 

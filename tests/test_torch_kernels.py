@@ -16,6 +16,10 @@ Tolerances, each with its reason:
   multiply-add, IEEE division and square root; the plain Adam step divides by
   device tensors, not by host scalars, which CUDA would turn into products with
   a reciprocal): bit for bit, signed zeros included, NaN in the same places;
+- the soft sign of b4_adam_box_step: tanhf need not round as PyTorch's tanh does,
+  so 4 float32 ulps of each tensor's largest entry, NaN in the same places;
+- fused_euclidean (B1 and b2_axpby) against autograd through the plain sums: its
+  value 1e-5 of the sums, its gradient one rounding;
 - b3_tv_value_and_grad: its gradient likewise bit for bit where p, p-1, q and q-1
   are powers cheap_pow forms exactly, else one rounding; its value, a sum in
   another order, 1e-5 relative, and non-finite where the plain version's is.
@@ -113,14 +117,15 @@ def _adam_inputs(shape, cuda):
 
 def _adam_run(step_fn, inputs, values, lo, hi, signed):
     """Three steps from `inputs` with the two best-value buffers swapped after each;
-    the state after every step."""
+    the state after every step. The soft sign takes steps t of 10."""
     st = {k: v.clone() for k, v in inputs.items()}
     vals = [torch.tensor(float("inf"), device=lo.device), torch.empty((), device=lo.device)]
     states = []
     for t, value in enumerate(values, start=1):
         step = ops.AdamStep(lr=0.1, b1=0.9, b2=0.999, eps=1e-8, bias1=1 - 0.9 ** t, bias2=1 - 0.999 ** t)
+        soft = ops.soft_sign_scalars(t, 10) if signed == "soft" else None
         step_fn(st["x"], st["grad"], st["mu"], st["nu"], st["best"], lo, hi,
-                torch.tensor(value, device=lo.device), *vals, step, signed=signed)
+                torch.tensor(value, device=lo.device), *vals, step, signed=signed, soft_scale=soft)
         vals.reverse()
         states.append({**{k: v.clone() for k, v in st.items()}, "best_val": vals[0].reshape(1).clone()})
     return states
@@ -139,6 +144,45 @@ def test_b4_adam_box_step_matches_plain(cuda, shape, signed):
     for key in ("x", "mu", "nu", "best", "best_val"):
         assert _same_bits(got[key], want[key]), key
     assert bool(torch.isnan(got["x"]).any())  # a NaN gradient, or its sign, gives a NaN candidate
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(1, 3, 32, 32), (1, 3, 224, 224), (2, 3, 331, 1007)])
+def test_b4_adam_box_step_soft_sign_matches_plain(cuda, shape):
+    """The soft sign tanh(g s) / max(s, 1e-3): tanhf need not round as PyTorch's tanh,
+    so NaN in the same places and elsewhere 4 float32 ulps of each tensor's largest
+    entry, over three steps; the best values equal."""
+    lo, hi = torch.tensor([-1.0, -2.0, 0.0], device=cuda), torch.tensor([1.0, 0.5, 2.0], device=cuda)
+    inputs = _adam_inputs(shape, cuda)
+    before = ops.adam_box_step.launches
+    got = _adam_run(ops.adam_box_step, inputs, [0.5, 0.7, 0.3], lo, hi, "soft")
+    assert ops.adam_box_step.launches == before + 3
+    want = _adam_run(image.adam_box_step_plain, inputs, [0.5, 0.7, 0.3], lo, hi, "soft")
+    for got_step, want_step in zip(got, want):
+        assert torch.equal(got_step["best_val"], want_step["best_val"])
+        for key in ("x", "mu", "nu", "best"):
+            g, w = got_step[key], want_step[key]
+            nan = torch.isnan(w)
+            assert torch.equal(torch.isnan(g), nan), key
+            tol = 4 * torch.finfo(torch.float32).eps * w[~nan].abs().max()
+            assert bool(((g[~nan] - w[~nan]).abs() <= tol).all()), key
+
+
+@pytest.mark.cuda
+def test_fused_euclidean_matches_plain(cuda):
+    """B1 forward, b2_axpby backward (one launch each) against autograd through the
+    plain sums: the value 1e-5 of the sums, the gradient 2^-22 of max |g| (|r| + |d|)."""
+    rec, data = _randn(2_904_970, 1, cuda).requires_grad_(True), _randn(2_904_970, 2, cuda) * 0.5
+    before = (ops.matching_sums.launches, ops.axpby.launches)
+    value = ops.fused_euclidean(rec, data)
+    grad, = torch.autograd.grad(value, rec, torch.tensor(0.37, device=cuda))
+    assert (ops.matching_sums.launches, ops.axpby.launches) == (before[0] + 1, before[1] + 1)
+    want_value = matching.fused_euclidean_plain(rec, data)
+    want, = torch.autograd.grad(want_value, rec, torch.tensor(0.37, device=cuda))
+    sums = matching.matching_sums_plain(rec.detach(), data)
+    assert abs(value.item() - want_value.item()) <= 1e-5 * 0.5 * (sums[1] + sums[2]).item()
+    tol = ONE_ROUNDING * (0.37 * (rec.detach().abs() + data.abs())).max()
+    assert bool(((grad - want).abs() <= tol).all())
 
 
 @pytest.mark.cuda
