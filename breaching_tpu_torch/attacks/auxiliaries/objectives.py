@@ -21,6 +21,20 @@ package's exact linearizations, with ``.detach()`` for ``stop_gradient``. A
 train-mode BatchNorm statistics from the same forward pass, for the regularizers
 that read them.
 
+With ``attack.impl.grad_accum`` = A > 1 a fedSGD user's gradient and task loss are
+the means over A micro-batches of the candidate, as the JAX package forms them
+(``breaching_tpu/attacks/auxiliaries/objectives.py:98-154``), for memory: each
+micro-batch's gradient is one ``_MicroBatchGradient``, which keeps no graph in the
+forward and recomputes the micro-batch's double-backward graph in the attack's
+backward, so that one micro-batch's activations are alive at a time, as under the
+JAX package's ``jax.checkpoint``. (``torch.utils.checkpoint`` with
+``use_reentrant=False`` carries the double backward too, but recomputes each
+micro-batch's forward once more inside the forward: three forwards where this takes
+two.) As in the JAX package, an A that does not divide the batch falls back to the
+largest divisor below it, and the knob is ignored, with a warning, under regularizers
+that capture the model's intermediates, under BatchNorm in train mode and for a
+fedAVG user.
+
 ``trials`` computes the objective for T trials at once (restarts, and the fleet of
 ``reconstruct_fleet``): the user gradient of every trial is
 ``torch.func.vmap(torch.func.grad(task loss))`` over the candidates' leading trial
@@ -31,11 +45,44 @@ is not ported for fedAVG users.
 
 from __future__ import annotations
 
+import logging
+
 import torch
 from torch.func import functional_call, grad as func_grad, vmap
 
 from ...cases.models.model_preparation import jax_leaf_ranks
 from ...ops import fused_cosine_similarity, fused_euclidean
+
+log = logging.getLogger(__name__)
+
+
+class _MicroBatchGradient(torch.autograd.Function):
+    """(task loss, *parameter gradient) of one micro-batch (x, y), differentiable with
+    respect to x (and y, where y is soft labels). The forward keeps no graph; the
+    backward rebuilds the micro-batch's graph with ``create_graph=True`` and runs the
+    incoming cotangents back through it to x and y."""
+
+    @staticmethod
+    def forward(ctx, task_loss, params, x, y):
+        ctx.task_loss, ctx.params = task_loss, params
+        ctx.save_for_backward(x, y)
+        with torch.enable_grad():
+            leaves = tuple(p.detach().requires_grad_(True) for p in params)
+            loss = task_loss(leaves, x.detach(), y.detach())
+            grads = torch.autograd.grad(loss, leaves)
+        return (loss.detach(), *grads)
+
+    @staticmethod
+    def backward(ctx, loss_bar, *grads_bar):
+        needs = ctx.needs_input_grad[2:]
+        inputs = [t.detach().requires_grad_(need) for t, need in zip(ctx.saved_tensors, needs)]
+        with torch.enable_grad():
+            leaves = tuple(p.detach().requires_grad_(True) for p in ctx.params)
+            loss = ctx.task_loss(leaves, *inputs)
+            grads = torch.autograd.grad(loss, leaves, create_graph=True)
+            wanted = [t for t, need in zip(inputs, needs) if need]
+            bars = iter(torch.autograd.grad((loss, *grads), wanted, (loss_bar, *grads_bar)))
+        return (None, None, *(next(bars) if need else None for need in needs))
 
 
 class GradientLoss:
@@ -50,11 +97,30 @@ class GradientLoss:
         """``local_hyperparams``: None for a fedSGD user; for a fedAVG user its ``lr``,
         ``steps``, ``data_per_step`` and ``labels``, one row of sorted labels per step
         as a (steps, data_per_step) tensor."""
-        if cfg_impl is not None and int(cfg_impl.get("grad_accum", 1) or 1) > 1:
-            raise NotImplementedError("attack.impl.grad_accum > 1 is not ported yet.")
         self.loss_fn = loss_fn
         self.model = model
         self.local_hyperparams = local_hyperparams
+        self.grad_accum = int((cfg_impl or {}).get("grad_accum", 1) or 1)
+        self._warned = set()
+
+    def _warn_once(self, message):
+        if message not in self._warned:
+            self._warned.add(message)
+            log.warning(message)
+
+    def _micro_batches(self, n, capture, bn_train):
+        """The number of micro-batches of a fedSGD user's gradient over n candidates."""
+        accum = self.grad_accum
+        if accum > 1 and n % accum != 0:
+            # the largest divisor: dropping the knob would bring back the memory it saves
+            adjusted = next(d for d in range(min(accum, n), 0, -1) if n % d == 0)
+            self._warn_once(f"grad_accum={accum} does not divide the batch of {n}; using grad_accum={adjusted}.")
+            accum = adjusted
+        if accum > 1 and (capture is not None or bn_train):
+            self._warn_once("grad_accum ignored: capture-intermediates regularizers and bn-train mode need "
+                            "the full batch in one pass.")
+            return 1
+        return accum
 
     def grad_fn(self, params, buffers, candidate, labels, bn_train=False, capture=None):
         """The user's update for the candidate data, differentiable: the parameter
@@ -64,15 +130,41 @@ class GradientLoss:
         if bn_train:  # train-mode BatchNorm updates the buffers it is given in place
             buffers = {k: v.clone() for k, v in buffers.items()}
         if self.local_hyperparams is not None:
+            if self.grad_accum > 1:
+                self._warn_once("grad_accum ignored: the multi-step (fedavg) simulated update unrolls full "
+                                "local batches per step.")
             if capture is not None:
                 functional_call(self.model, {**params, **buffers}, (candidate,),
                                 dict(train=bn_train, capture=capture))
             return self._local_steps(params, buffers, candidate, bn_train)
+        accum = self._micro_batches(candidate.shape[0], capture, bn_train)
+        if accum > 1:
+            return self._micro_batched(params, buffers, candidate, labels, accum)
         outputs = functional_call(self.model, {**params, **buffers}, (candidate,),
                                   dict(train=bn_train, capture=capture))
         task_loss = self.loss_fn(outputs, labels)
         grads = torch.autograd.grad(task_loss, tuple(params.values()), create_graph=True)
         return grads, task_loss
+
+    def _micro_batched(self, params, buffers, candidate, labels, accum):
+        """The user's gradient and task loss as means over ``accum`` equal micro-batches,
+        BatchNorm in eval mode (``_MicroBatchGradient``)."""
+        names = tuple(params)
+
+        def task_loss(leaves, x, y):
+            outputs = functional_call(self.model, {**dict(zip(names, leaves)), **buffers}, (x,))
+            return self.loss_fn(outputs, y)
+
+        values = tuple(v.detach() for v in params.values())
+        size = candidate.shape[0] // accum
+        loss_sum = grad_sum = None
+        for x, y in zip(candidate.split(size), labels.split(size)):
+            loss, *grads = _MicroBatchGradient.apply(task_loss, values, x, y)
+            if grad_sum is None:
+                loss_sum, grad_sum = loss, grads
+            else:
+                loss_sum, grad_sum = loss_sum + loss, [a + b for a, b in zip(grad_sum, grads)]
+        return tuple(g / accum for g in grad_sum), loss_sum / accum
 
     def _local_steps(self, params, buffers, candidate, bn_train):
         """The fedAVG user's K local SGD steps, unrolled: step k trains on the
@@ -113,6 +205,9 @@ class GradientLoss:
         if self.local_hyperparams is not None:
             raise NotImplementedError("Restarts and fleets of fedAVG users are not ported yet; "
                                       "attack a fedAVG user with one trial.")
+        if self.grad_accum > 1:
+            raise NotImplementedError("attack.impl.grad_accum is not ported under the batched trial step; "
+                                      "run one trial.")
         def task_loss(p, x, y):
             loss = self.loss_fn(functional_call(self.model, {**p, **buffers}, (x,)), y)
             return loss, loss

@@ -42,6 +42,16 @@ the best is returned.
 A fedAVG user's update (a payload whose metadata carries ``local_hyperparams``) is
 matched by the objective's unrolled local steps, and scored the same way; it runs
 one trial, solo: restarts and fleets of such users are refused.
+
+``augmentations`` (``auxiliaries/augmentations.py``) apply to the candidate inside the
+loss, before the objective and the regularizers that read its intermediates, with
+fresh draws at every step from the trial's own generators (L-BFGS's evaluations
+within a step share them); without ``differentiable_augmentations`` the gradient
+passes straight through. The batched trial step refuses them. Of ``attack.impl`` the
+port acts on ``grad_accum`` (in the objective) and refuses, by name, the knobs the
+JAX package acts on and the port does not (``mixed_precision``, ``checkpoint_path``,
+``checkpoint_every``, ``sharding``, ``trace_dir``, a 16-bit ``dtype``). Ctrl-C ends
+the run with each trial's best iterate so far and ``stats["interrupted_at"]``.
 """
 
 from __future__ import annotations
@@ -54,6 +64,7 @@ import torch
 
 from ..ops import adam_box_step, adam_box_step_trials, box_project, sign, soft_sign_scalars
 from ..ops.image import soft_sign_plain
+from .auxiliaries.augmentations import augmentation_lookup
 from .auxiliaries.objectives import CosineSimilarity, Euclidean, objective_lookup
 from .auxiliaries.optimizers import Adam, LBFGS, make_schedule, optimizer_lookup
 from .auxiliaries.regularizers import CAPTURING, TotalVariation, regularizer_lookup
@@ -83,11 +94,19 @@ class OptimizationBasedAttacker(_BaseAttacker):
                 if key not in regularizer_lookup:
                     raise NotImplementedError(f"Regularizer {key} is not ported yet.")
                 self.regularizers.append(regularizer_lookup[key](self.setup, **rcfg))
-        if self.cfg.get("augmentations"):
-            raise NotImplementedError("Attack augmentations are not ported yet.")
+        self.augmentations = [augmentation_lookup[key](**(acfg or {}))
+                              for key, acfg in (self.cfg.get("augmentations") or {}).items()]
         signed = self.cfg.optim.signed
         if signed not in (None, False, True, "hard", "soft"):
             raise NotImplementedError(f"Gradient transform signed={signed} is not ported yet.")
+        impl = self.cfg.get("impl") or {}
+        for knob, value in (("mixed_precision", impl.get("mixed_precision")),
+                            ("checkpoint_path", impl.get("checkpoint_path")),
+                            ("checkpoint_every", int(impl.get("checkpoint_every", 0) or 0) > 0),
+                            ("sharding", impl.get("sharding")), ("trace_dir", impl.get("trace_dir")),
+                            ("dtype", str(impl.get("dtype", "float")) in ("bfloat16", "bf16", "float16", "fp16"))):
+            if value:  # the JAX package acts on each of these; the port would run without it
+                raise NotImplementedError(f"attack.impl.{knob}={impl.get(knob)} is not ported yet.")
         self._noise_generators = {}
 
     def __repr__(self):
@@ -186,24 +205,49 @@ class OptimizationBasedAttacker(_BaseAttacker):
         inner = [reg for reg in self.regularizers if isinstance(reg, CAPTURING)]
         return inner, [reg for reg in self.regularizers if not isinstance(reg, CAPTURING)]
 
-    def _loss(self, candidate, rec_models, targets, labels):
+    def _loss(self, candidate, rec_models, targets, labels, draws=None):
         """Matching objective over all queries plus the regularizers: (value, task loss).
-        ``candidate`` is the candidate tree, or the data alone."""
+        ``candidate`` is the candidate tree, or the data alone. With augmentations, the
+        objective and the regularizers that read its intermediates see the augmented
+        data (under ``draws``, one entry per augmentation), the others the candidate."""
         tree = candidate if isinstance(candidate, dict) else dict(data=candidate)
         data, labels = tree["data"], self._effective_labels(tree, labels)
+        matched = self._augment(data, draws) if self.augmentations else data
         inner, outer = self._split_regularizers()
         total, task_total, intermediates = 0.0, 0.0, []
         for model, target in zip(rec_models, targets):
             captured = {} if inner else None
-            obj, task = self.objective(model.params, model.buffers, target, data, labels,
+            obj, task = self.objective(model.params, model.buffers, target, matched, labels,
                                        bn_train=model.bn_train, capture=captured)
             total, task_total = total + obj, task_total + task
             intermediates.append(captured)
         for reg in inner:
-            total = total + reg(data, intermediates)
+            total = total + reg(matched, intermediates)
         if outer:
             total = total + sum(reg(data) for reg in outer)
         return total, task_total
+
+    def _augment(self, data, draws):
+        """The augmentations applied in turn; without ``differentiable_augmentations``
+        the gradient passes straight through to the candidate."""
+        if draws is None:
+            raise ValueError("The attack's augmentations need their draws.")
+        augmented = data
+        for augmentation, draw in zip(self.augmentations, draws):
+            augmented = augmentation.apply(augmented, draw)
+        return augmented if self.cfg.differentiable_augmentations else data + (augmented - data).detach()
+
+    def _augmentation_generators(self, device):
+        """A trial's generators for the augmentations' draws, seeded from the attack's
+        generator: one on ``device``, one on the CPU for draws that become integers."""
+        seeds = torch.randint(2 ** 62, (2,), generator=self.setup["generator"]).tolist()
+        return (torch.Generator(device=device).manual_seed(seeds[0]),
+                torch.Generator().manual_seed(seeds[1]))
+
+    def _draw_augmentations(self, shape, generators):
+        """One step's draws of every augmentation for images of NCHW ``shape``."""
+        return [augmentation.sample(shape, generators[1] if augmentation.host_draws else generators[0])
+                for augmentation in self.augmentations]
 
     def _trial_losses(self, candidates, params, rec_models, targets, labels):
         """``_loss`` of T trials at once, each against its own targets and labels: (T,)
@@ -217,11 +261,11 @@ class OptimizationBasedAttacker(_BaseAttacker):
             total = total + reg.trials(candidates)
         return total, task_total
 
-    def _value_and_grad(self, tree, rec_models, targets, labels, stats):
+    def _value_and_grad(self, tree, rec_models, targets, labels, stats, draws=None):
         """The loss at the candidate tree and its gradient with respect to every leaf:
         (value, task loss, gradient tree), detached. Counts the evaluation."""
         leaves = {k: v.detach().requires_grad_(True) for k, v in tree.items()}
-        value, task_loss = self._loss(leaves, rec_models, targets, labels)
+        value, task_loss = self._loss(leaves, rec_models, targets, labels, draws)
         grads = torch.autograd.grad(value, tuple(leaves.values()))
         stats["objective_evaluations"] = stats.get("objective_evaluations", 0) + 1
         return value.detach(), task_loss, {k: g.contiguous() for k, g in zip(leaves, grads)}
@@ -260,6 +304,9 @@ class OptimizationBasedAttacker(_BaseAttacker):
             if self._split_regularizers()[0]:
                 raise NotImplementedError("Regularizers that read the model's intermediates are not "
                                           "ported under the batched trial step; run one trial.")
+            if self.augmentations:
+                raise NotImplementedError("Augmentations are not ported under the batched trial step "
+                                          "(each trial would need its own draws); run one trial.")
             targets = [tuple(torch.stack(ts) for ts in zip(*query)) for query in zip(*trial_targets)]
             best, values = self._run_trials_batched(tree["data"].clone(memory_format=torch.contiguous_format),
                                                     rec_models, targets, torch.stack(trial_labels), stats,
@@ -336,13 +383,21 @@ class OptimizationBasedAttacker(_BaseAttacker):
         device = tree["data"].device
         best_vals = [torch.tensor(float("inf"), device=device), torch.empty((), device=device)]
         boxed = bool(self.cfg.optim.boxed)
+        generators = self._augmentation_generators(device) if self.augmentations else None
+        # the augmentations' draws of the current step; L-BFGS's evaluations within a
+        # step share them
+        draws = [None]
+
+        def draw():
+            draws[0] = self._draw_augmentations(tree["data"].shape, generators) if generators else None
+            return draws[0]
 
         if isinstance(optimizer, Adam):
             states = {k: optimizer.init(v) for k, v in tree.items()}
             no_box = torch.zeros(1, device=device)
 
             def step(iteration):
-                value, task_loss, grads = self._value_and_grad(tree, rec_models, targets, labels, stats)
+                value, task_loss, grads = self._value_and_grad(tree, rec_models, targets, labels, stats, draw())
                 mode = self._sign_mode()
                 soft = soft_sign_scalars(iteration, max_iterations) if mode == "soft" else None
                 for k, leaf in tree.items():
@@ -366,7 +421,8 @@ class OptimizationBasedAttacker(_BaseAttacker):
                 return {k: part.view(shape) for k, part, shape in zip(keys, flat.split(sizes), shapes)}
 
             def closure(flat):
-                value, _, grads = self._value_and_grad(unflatten(flat), rec_models, targets, labels, stats)
+                value, _, grads = self._value_and_grad(unflatten(flat), rec_models, targets, labels, stats,
+                                                       draws[0])
                 return value, flatten(grads)
 
             state = optimizer.init(flatten(tree))
@@ -374,7 +430,7 @@ class OptimizationBasedAttacker(_BaseAttacker):
             def step(iteration):
                 # L-BFGS takes the untransformed gradient: its curvature pairs compare it
                 # with the closure's gradients
-                value, task_loss, grads = self._value_and_grad(tree, rec_models, targets, labels, stats)
+                value, task_loss, grads = self._value_and_grad(tree, rec_models, targets, labels, stats, draw())
                 flat = flatten(tree)
                 final = optimizer.update(flat, flatten(grads), value, closure, state)
                 new = unflatten(flat + (final - flat))
@@ -384,14 +440,14 @@ class OptimizationBasedAttacker(_BaseAttacker):
             states = {k: optimizer.init(v) for k, v in tree.items()}
 
             def step(iteration):
-                value, task_loss, grads = self._value_and_grad(tree, rec_models, targets, labels, stats)
+                value, task_loss, grads = self._value_and_grad(tree, rec_models, targets, labels, stats, draw())
                 new = {k: optimizer.update(self.transform_grads(grads[k], iteration, max_iterations),
                                            states[k], leaf) for k, leaf in tree.items()}
                 self._finish_step(tree, new, best, best_vals, value, box, boxed)
                 return value, task_loss
 
         history = stats.setdefault(f"Trial_{trial}_Val", [])
-        self._optimize(step, [history], max_iterations)
+        self._optimize(step, [history], max_iterations, stats)
         if history and not np.isfinite(history[-1]):
             # a step whose loss is not finite keeps its candidate: this is where the loss
             # turned non-finite, kept so that the cause can be looked at
@@ -445,34 +501,52 @@ class OptimizationBasedAttacker(_BaseAttacker):
             return value, task_loss
 
         self._optimize(step, [stats.setdefault(f"Trial_{t}_Val", []) for t in range(num_trials)],
-                       max_iterations)
+                       max_iterations, stats)
         return best, best_vals[0].cpu().numpy()
 
-    def _optimize(self, step, histories, max_iterations):
+    def _optimize(self, step, histories, max_iterations, stats):
         """Run ``step`` (which takes the iteration and returns the loss and task loss, a
         value per trial) until ``max_iterations`` or until no trial's loss is finite,
-        reading the losses back into each trial's history every ``optim.callback`` steps."""
+        reading the losses back into each trial's history every ``optim.callback`` steps.
+        A ``KeyboardInterrupt`` ends the run: the losses of the steps done are read back,
+        ``stats["interrupted_at"]`` holds the number of steps done, and the trials keep
+        their best iterates so far (an interrupt inside a step may leave that step's best
+        iterate beside the previous best value)."""
         callback = int(self.cfg.optim.callback or 0) or max_iterations
         iteration, wallclock = 0, time.time()
-        while iteration < max_iterations:
-            values, task_losses = [], []
-            for _ in range(min(callback, max_iterations - iteration)):
-                value, task_loss = step(iteration)
-                values.append(value)
-                task_losses.append(task_loss)
-                iteration += 1
-            values = torch.stack(values).cpu().numpy().reshape(len(values), len(histories))
-            for history, trial_values in zip(histories, values.T):
+        values = []  # the losses of the steps not yet read back
+
+        def read_back():
+            done = torch.stack(values).cpu().numpy().reshape(len(values), len(histories))
+            for history, trial_values in zip(histories, done.T):
                 history.extend(trial_values.tolist())
-            now = time.time()
-            log.info(f"| It: {iteration} | Rec. loss: {values[-1].mean():2.4f} | "
-                     f"Task loss: {float(task_losses[-1].mean()):2.4f} | T: {now - wallclock:4.2f}s | "
-                     f"{values.size / max(now - wallclock, 1e-9):,.1f} it/s")
-            wallclock = now
-            if not np.isfinite(values[-1]).any():
-                log.info(f"Recovery loss is non-finite in iteration {iteration}. "
-                         f"Cancelling reconstruction!")
-                break
+            values.clear()
+            return done
+
+        try:
+            while iteration < max_iterations:
+                task_losses = []
+                for _ in range(min(callback, max_iterations - iteration)):
+                    value, task_loss = step(iteration)
+                    values.append(value)
+                    task_losses.append(task_loss)
+                    iteration += 1
+                done = read_back()
+                now = time.time()
+                log.info(f"| It: {iteration} | Rec. loss: {done[-1].mean():2.4f} | "
+                         f"Task loss: {float(task_losses[-1].mean()):2.4f} | T: {now - wallclock:4.2f}s | "
+                         f"{done.size / max(now - wallclock, 1e-9):,.1f} it/s")
+                wallclock = now
+                if not np.isfinite(done[-1]).any():
+                    log.info(f"Recovery loss is non-finite in iteration {iteration}. "
+                             f"Cancelling reconstruction!")
+                    break
+        except KeyboardInterrupt:  # as the JAX package: return the best so far
+            if values:
+                read_back()
+            stats["interrupted_at"] = iteration
+            log.info(f"Recovery interrupted manually at iteration {iteration}; "
+                     f"returning best-so-far candidates.")
 
     # ---------------------------------------------------------------- scoring
 

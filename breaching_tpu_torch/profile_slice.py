@@ -1,6 +1,7 @@
 """Where the time of a slice's attack step goes, on the card.
 
-    python3 -m breaching_tpu_torch.profile_slice [--slice 1|2|3|4] [--fleet F] [--fused] [--lbfgs] [--iterations N]
+    python3 -m breaching_tpu_torch.profile_slice [--slice 1|2|3|4|5] [--path 5a|5b|5b'|5c] [--fleet F] [--fused]
+                                                 [--lbfgs] [--iterations N]
 
 Slice 1 (the default) runs Inverting Gradients with the fused cosine objective on
 ConvNet-64 / CIFAR-10 shapes; slice 2 the JAX package's bench preset on ResNet-18
@@ -14,7 +15,12 @@ ResNet-18 at ImageNet shapes (soft-signed Adam with warmup and cosine decay,
 double-opponent TV, feature regularization), or with ``--lbfgs`` its
 ``deep_leakage`` preset with the fused euclidean objective on ConvNet-64 (the joint
 attack of data and label logits with L-BFGS; a step is an outer L-BFGS step of up to
-21 evaluations of the objective, 20 steps by default). Each goes through the entry
+21 evaluations of the objective, 20 steps by default); slice 5 one of the JAX
+package's remaining vision presets, chosen by ``--path``: 5a ``multiscale`` (ResNet-18
+on its checkpoint at 224, seven stages 32, 64, ..., 224 of N steps each), 5b
+``inverting_large_batch_cifar`` (ResNet32-10 on 100 images of CIFAR-100's shape,
+grad_accum=10), 5b' the same with grad_accum=1, 5c ``see_through_gradients``
+(ResNet-50 on the repo's checkpoint at 224). Each goes through the entry
 points: one warm-up attack, an
 attack of N steps (default 200) timed with the profiler off, and the same attack
 under ``torch.profiler``. Prints one JSON line: milliseconds per step with the
@@ -47,6 +53,15 @@ SLICES = {
         "case.user.num_local_updates=4", "case.user.num_data_per_local_update_step=2",
         "case.user.provide_labels=True", "case.user.user_idx=1", "attack.optim.callback=0", "seed=7"],
     4: ["case=2_single_imagenet", "attack=modern", "attack.optim.callback=0", "seed=7"],
+}
+# slice 5's paths (examples/run_example.py's presets)
+SLICE5 = {
+    "5a": ["case=2_single_imagenet", "attack=multiscale_ghiasi"],
+    "5b": ["case=6_large_batch_cifar", "attack=invertinggradients", "attack.impl.grad_accum=10"],
+    "5b'": ["case=6_large_batch_cifar", "attack=invertinggradients", "attack.impl.grad_accum=1"],
+    "5c": ["case=5_small_batch_imagenet", "attack=seethroughgradients", "case.data.partition=unique-class",
+           "case.user.num_data_points=1", "case.server.provide_public_buffers=False",
+           "case.user.provide_buffers=True"],
 }
 FUSED = ["attack.objective.type=fused-cosine-similarity"]
 # slice 4 --lbfgs: the deep_leakage preset with the fused euclidean objective (path 4a')
@@ -83,7 +98,8 @@ def _timed(run):
 
 def main():
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    parser.add_argument("--slice", type=int, choices=sorted(SLICES), default=1)
+    parser.add_argument("--slice", type=int, choices=sorted(SLICES) + [5], default=1)
+    parser.add_argument("--path", choices=sorted(SLICE5), default="5a", help="slice 5's path")
     parser.add_argument("--fleet", type=int, default=1, help="experiments through reconstruct_fleet")
     parser.add_argument("--fused", action="store_true", help="slice 2 or 3 with the fused cosine objective")
     parser.add_argument("--lbfgs", action="store_true", help="slice 4: deep_leakage with fused euclidean, L-BFGS")
@@ -93,12 +109,16 @@ def main():
         raise SystemExit("profile_slice needs a CUDA device.")
     if args.lbfgs and args.slice != 4:
         parser.error("--lbfgs is a path of slice 4.")
-    overrides = LBFGS if args.lbfgs else SLICES[args.slice] + (FUSED if args.fused else [])
+    if args.slice == 5:
+        overrides = SLICE5[args.path] + ["attack.optim.callback=0", "seed=7"]
+    else:
+        overrides = LBFGS if args.lbfgs else SLICES[args.slice] + (FUSED if args.fused else [])
 
     _attack(overrides, 5 if args.lbfgs else 20, args.fleet)()  # warm-up: kernel build, cuDNN heuristics
-    steps = args.iterations or (20 if args.lbfgs else 200)
-    run = _attack(overrides, steps, args.fleet)
+    iterations = args.iterations or (20 if args.lbfgs else 200)
+    run = _attack(overrides, iterations, args.fleet)
     wall_ms, (_, stats) = _timed(run)
+    steps = len(stats["Trial_0_Val"])  # on 5a, the iterations of every stage
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         profiled_ms, _ = _timed(run)
     kernels = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
@@ -106,10 +126,11 @@ def main():
     top = sorted(kernels, key=lambda e: e.self_device_time_total, reverse=True)[:12]
     # the port's kernels by name, without the return type that templates carry
     port = {e.key.removeprefix("void ").split("(")[0]: e for e in kernels if "breaching::" in e.key}
-    objective = ("fused-euclidean" if args.lbfgs else
+    objective = ("fused-euclidean" if args.lbfgs else "euclidean" if args.path == "5c" and args.slice == 5 else
                  ("fused-" if args.fused or args.slice == 1 else "") + "cosine-similarity")
     print(json.dumps(dict(
-        device=torch.cuda.get_device_name(0), slice=args.slice, fleet=args.fleet, objective=objective,
+        device=torch.cuda.get_device_name(0), slice=args.slice, path=args.path if args.slice == 5 else None,
+        fleet=args.fleet, objective=objective,
         optimizer="L-BFGS" if args.lbfgs else "adam", iterations=steps,
         evaluations_per_step=stats.get("objective_evaluations", steps) / steps,
         peak_memory_gib=torch.cuda.max_memory_allocated() / 2**30,

@@ -25,10 +25,39 @@ import time
 import torch
 
 
+# Twice the H100's 50 MB L2: reading this much between two calls leaves none of the
+# first call's operands in the cache.
+FLUSH_BYTES = 100 * 2**20
+
+
+def _graph_ms(calls, iters):
+    """Device time of ``iters`` rounds of ``calls`` captured in one CUDA graph and
+    replayed between two events, in ms per round."""
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(iters):
+            for call in calls:
+                call()
+    graph.replay()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    graph.replay()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / iters
+
+
 def time_ms(fn, iters=200, warmup=20):
-    """Time per call of ``fn`` on the card, in ms: (200 calls enqueued back to back
-    between two events; the same 200 calls captured in a CUDA graph and replayed
-    between two events, which is device time alone; host time to enqueue one call)."""
+    """Time per call of ``fn`` on the card, in ms: (``iters`` calls enqueued back to back
+    between two events; device time of one call with its operands cold; host time to
+    enqueue one call; device time of one call with its operands warm in L2).
+
+    Device times come from CUDA graph replays, which leave out the host. Warm: the
+    calls back to back, each finding the last one's operands in L2 where they fit.
+    Cold: each call after a read of ``FLUSH_BYTES`` that evicts them, as in the attack
+    step, where a double backward through the model runs between two calls; the time
+    of the reads alone, replayed the same way, is subtracted."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
@@ -46,17 +75,15 @@ def time_ms(fn, iters=200, warmup=20):
     host = (time.perf_counter() - begin) * 1e3 / iters
     torch.cuda.synchronize()
 
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
-        for _ in range(iters):
-            fn()
-    graph.replay()
-    torch.cuda.synchronize()
-    start.record()
-    graph.replay()
-    end.record()
-    end.synchronize()
-    return per_call, start.elapsed_time(end) / iters, host
+    warm = _graph_ms([fn], iters)
+    scratch = torch.ones(FLUSH_BYTES // 4, device="cuda")
+    sink = torch.empty((), device="cuda")
+
+    def flush():
+        torch.sum(scratch, dim=0, out=sink)
+
+    cold = _graph_ms([flush, fn], iters) - _graph_ms([flush], iters)
+    return per_call, cold, host, warm
 
 
 def _time_standalone(root: str) -> dict:
@@ -88,7 +115,8 @@ def _time_standalone(root: str) -> dict:
         if hasattr(ops, "tv_value_and_grad"):
             calls[f"b3_tv_value_and_grad {at}"] = lambda img=img: ops.tv_value_and_grad(img, g)
         calls[f"TV regularizer value and gradient {at}"] = lambda leaf=leaf: torch.autograd.grad(reg(leaf), leaf)
-    return {name: dict(zip(("ms", "device_ms", "host_ms"), time_ms(fn))) for name, fn in calls.items()}
+    return {name: dict(zip(("ms", "device_ms", "host_ms", "device_warm_ms"), time_ms(fn)))
+            for name, fn in calls.items()}
 
 
 def main(roots):

@@ -18,13 +18,19 @@ Phases, one line each on standard output:
      step also at 1x3x224x224, at slice 3's 4x3x224x224 and per trial on an
      8x1x3x224x224 stack, the fused TV kernel also at 1x3x224x224 and
      4x3x224x224, with NaN and infinite pixels at the boundary, twice in a row
-     and in a replayed CUDA graph;
+     and in a replayed CUDA graph; for slice 5 the fused TV kernel and the fused
+     Adam step at 100x3x32x32 (5b) and 1x3x96x96 (a stage of 5a), TV also at
+     1x3x192x192;
   4. the attack gradient of each slice on the card against the same computation
      on the CPU, through the plain versions (and whether the card gives the same
      bits twice, which is reported, not required); for slice 3 the gradient
      through the fedAVG user's four unrolled local steps; for slice 4 the
      gradient of ``deep_leakage`` (data and label logits), ``wei_framework`` and
-     ``modern_hyperparams``;
+     ``modern_hyperparams``; for slice 5 the multiscale attack's at a 96x96
+     stage (one draw of its augmentation, the same on both) and
+     ``see_through_gradients``' on ResNet-50 at 224; for 5b the gradient of its
+     objective on 100 images through grad_accum=10 against grad_accum=1 in
+     float64 on the card, and float32 on the card and on the CPU against that;
   5. the main paths end to end through the entry points, each with the kernels'
      launch counts set to 0 just before it and read just after: slice 1,
      Inverting Gradients with the fused cosine objective on ConvNet-64 /
@@ -40,19 +46,33 @@ Phases, one line each on standard output:
      and label logits with L-BFGS), the same with the fused euclidean objective,
      ``wei_framework`` and ``beyond_inferring`` on ConvNet-64 (20 outer L-BFGS
      steps each), ``modern_hyperparams`` and ``legacy_hyperparams`` on ResNet-18
-     (300 steps each); for each: set-up seconds, loss at the start and end
+     (200 steps each); slice 5, the remaining vision presets: 5a ``multiscale``
+     (ResNet-18 on its checkpoint at 224, seven stages 32, 64, ..., 224 of 50
+     steps), 5b ``inverting_large_batch_cifar`` (ResNet32-10 on 100 images of
+     CIFAR-100's shape with grad_accum=10, 50 steps) and 5b' (the same with
+     grad_accum=1, 5 steps, for the peak memory, which grad_accum=10 must
+     lower), 5c ``see_through_gradients`` (ResNet-50 on the checkout's
+     ResNet50.npz, which it must hold, at 224, 200 steps), 5d
+     ``inverting_gradients_fedavg``, ``inverting_gradients_fedavg_cifar`` and
+     ``inverting_gradients_resnet18`` (50 steps each); slices 1 and 2 solo take
+     1,000 and 200 steps; for each: set-up seconds, loss at the start and end
      of every trial, PSNR and SSIM (of the batch put in the true images' order,
      and the order), it/s (the fleet's aggregate; with L-BFGS also the
      objective's evaluations per second), peak memory and launches per step;
   6. each kernel's time beside its bound, the plain version's time and one
      PyTorch call of the same function (for a fused kernel, the library call of
      the kernel it grew from), each as time per call (200 calls between two
-     events), device time (the 200 calls captured in a CUDA graph and replayed)
-     and host time per call (the 200 calls enqueued, no wait); B1, the fused
+     events), device time (``timing.time_ms``: the calls captured in a CUDA
+     graph and replayed, each after a read of 100 MB that evicts its operands
+     from the 50 MB L2, whose time is subtracted; and warm, back to back), and
+     host time per call (the 200 calls enqueued, no wait); B1, the fused
      cosine backward, the fused TV kernel and the fused Adam step also at
      slice 2's shapes (100 calls), the fused TV kernel and the fused Adam step
      at slice 3's (100 calls), the fused Adam step's soft sign at 1x3x224x224
-     and the fused TV kernel at 1x6x224x224 (slice 4's double opponents).
+     and the fused TV kernel at 1x6x224x224 (slice 4's double opponents), the
+     fused TV kernel and the fused Adam step at slice 5's 100x3x32x32 and
+     1x3x96x96, TV at 1x3x192x192 (100 calls); and which device times, if any,
+     come in under their bound.
 Then one JSON line with the kernels, and as the last line
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 
@@ -61,9 +81,9 @@ not build, launch or agree, a kernel of a path was not launched as often as the
 path needs (on slice 4's L-BFGS paths: B1 and ``b2_axpby`` once per evaluation of
 the objective, TV once per evaluation, ``b4_box_project`` once per outer step), an
 attack's loss does not fall (on slice 4: its best value stays at its first, or a
-loss is not finite), an experiment of the fleet does not
+loss is not finite; on slice 5a: a stage's), an experiment of the fleet does not
 keep its own labels, or a batch's order is not a permutation. A loss that turns
-non-finite fails every path but slice 3's: there the simulated local SGD of the
+non-finite fails every path but the fedAVG users' (slices 3 and 5d): there the simulated local SGD of the
 fedAVG user can overflow float32 on the attack's candidates, as it does in the
 JAX package, and the attack stops at such a candidate. The same local steps at
 that candidate, in float64 on the CPU, must then reach a magnitude above 1e30
@@ -81,14 +101,14 @@ import time
 import torch
 
 REPO = os.path.dirname(os.path.abspath(__file__))
-ITERATIONS = 2000
+ITERATIONS = 1000
 DEVICE = "cuda"
 SLICE = ["case=1_single_image_small", "attack=invertinggradients",
          "attack.objective.type=fused-cosine-similarity"]
 # slice 2: the JAX package's bench.py preset (ResNet-18, ImageNetAnimals shapes)
 SLICE2 = ["case=2_single_imagenet", "attack=invertinggradients", "attack.restarts.num_trials=1",
           "case.user.provide_labels=True", "seed=7"]
-SLICE2_STEPS, SLICE2_FUSED_STEPS, FLEET, FLEET_STEPS = 300, 100, 8, 100
+SLICE2_STEPS, SLICE2_FUSED_STEPS, FLEET, FLEET_STEPS = 200, 100, 8, 100
 # slice 3: the fedAVG user of case 4 on ResNet-18, the JAX package's notebook preset
 # inverting_gradients_fedavg_imagenet (examples/run_example.py)
 SLICE3 = ["case=4_fedavg_small_scale", "attack=invertinggradients", "case.user.num_data_points=4",
@@ -108,12 +128,40 @@ SLICE4 = {
                                            "case.user.user_idx=1",
                                            "attack.regularization.total_variation.scale=1e-4"], 20,
                                   dict(b3_tv_value_and_grad="evaluation", b4_box_project="step")),
-    "slice 4d modern_hyperparams": (["case=2_single_imagenet", "attack=modern", "seed=7"], 300,
+    "slice 4d modern_hyperparams": (["case=2_single_imagenet", "attack=modern", "seed=7"], 200,
                                     dict(b3_tv_value_and_grad="step", b4_adam_box_step="step")),
-    "slice 4e legacy_hyperparams": (["case=2_single_imagenet", "attack=legacy", "seed=7"], 300,
+    "slice 4e legacy_hyperparams": (["case=2_single_imagenet", "attack=legacy", "seed=7"], 200,
                                     dict(b3_tv_value_and_grad="step", b4_adam_box_step="step")),
 }
 OPPONENTS = (1, 6, 224, 224)  # slice 4d-e's TV input: three channels and their three differences
+# slice 5: the JAX package's remaining vision presets (examples/run_example.py), seed 7:
+# path -> (overrides, steps (per stage on 5a), the launches per step each kernel needs)
+IMAGE_KERNELS = dict(b3_tv_value_and_grad=1, b4_adam_box_step=1)
+FEDAVG = ["case=4_fedavg_small_scale", "attack=invertinggradients", "case.user.num_data_points=4",
+          "case.user.num_local_updates=4", "case.user.num_data_per_local_update_step=2",
+          "case.user.provide_labels=True", "seed=7"]
+LARGE_BATCH = ["case=6_large_batch_cifar", "attack=invertinggradients", "seed=7"]
+SEE_THROUGH = ["case=5_small_batch_imagenet", "attack=seethroughgradients", "case.data.partition=unique-class",
+               "case.user.num_data_points=1", "case.server.provide_public_buffers=False",
+               "case.user.provide_buffers=True", "seed=7"]
+MULTISCALE = ["case=2_single_imagenet", "attack=multiscale_ghiasi", "seed=7"]
+SLICE5 = {
+    "slice 5a multiscale": (MULTISCALE, 50, IMAGE_KERNELS),
+    "slice 5b inverting_large_batch_cifar": (LARGE_BATCH + ["attack.impl.grad_accum=10"], 50, IMAGE_KERNELS),
+    "slice 5b' grad_accum=1": (LARGE_BATCH + ["attack.impl.grad_accum=1"], 5, IMAGE_KERNELS),
+    "slice 5c see_through_gradients": (SEE_THROUGH, 200, IMAGE_KERNELS),
+    "slice 5d inverting_gradients_fedavg": (FEDAVG + [
+        "case/data=CIFAR10", "case.data.partition=random", "case.model=ResNet18", "case.server.pretrained=False",
+        "case.user.user_idx=1", "attack.regularization.total_variation.scale=1e-3"], 50, IMAGE_KERNELS),
+    "slice 5d inverting_gradients_fedavg_cifar": (FEDAVG + ["case/data=CIFAR10", "case.model=ConvNet"], 50,
+                                                  IMAGE_KERNELS),
+    "slice 5d inverting_gradients_resnet18": (["case=2_single_imagenet", "attack=invertinggradients", "seed=7"], 50,
+                                              IMAGE_KERNELS),
+}
+STAGE = (1, 3, 96, 96)  # a stage of 5a's pyramid (32, 64, ..., 224) that slices 1-4 do not run
+STAGE2 = (1, 3, 192, 192)
+LARGE = (100, 3, 32, 32)  # 5b's candidate: 100 CIFAR-100 images
+CHECKPOINT50 = os.path.join(REPO, "assets", "checkpoints", "ResNet50.npz")
 # a magnitude in the fedAVG user's local SGD (in float64) that shows float32 overflow:
 # sums of such terms in a convolution's backward leave float32 (largest value 3.4e38)
 DIVERGED = 1e30
@@ -252,6 +300,9 @@ def check_kernels(ops, n_params, image_shape):
                             signed and "b4_adam_box_step slice2")
         check_adam_box_step(ops, image, report_exact, randn, BATCH, lo, hi, signed,
                             signed and "b4_adam_box_step slice3")
+        for shape in (LARGE, STAGE):  # slice 5: 5b's 100 images, a stage of 5a's pyramid
+            check_adam_box_step(ops, image, report_exact, randn, shape, lo, hi, signed,
+                                signed and f"b4_adam_box_step slice5 {shape}")
     check_tv_value_and_grad(ops, image, report, report_exact, randn, image_shape)
     check_fused_euclidean(ops, matching, report, randn, n_params)
     return worst
@@ -289,11 +340,12 @@ def check_tv_value_and_grad(ops, image, report, report_exact, randn, image_shape
     def run(x, p, q):
         return ops.tv_value_and_grad(x, scale, p, q, 1e-8), image.tv_value_and_grad_plain(x, scale, p, q, 1e-8)
 
-    for shape in (image_shape, BIG, BATCH, OPPONENTS, (2, 3, 331, 1007), (2, 3, 17, 23), (1, 6, 33, 31),
-                  (1, 6, 9, 1), (1, 3, 1, 7)):
+    for shape in (image_shape, BIG, BATCH, OPPONENTS, LARGE, STAGE, STAGE2, (2, 3, 331, 1007), (2, 3, 17, 23),
+                  (1, 6, 33, 31), (1, 6, 9, 1), (1, 3, 1, 7)):
         x = randn(*shape)
-        # where this shape's error is recorded: slice 1's, slice 3's or nowhere
-        record = shape == image_shape or (shape == BATCH and f"{name} slice3")
+        # where this shape's error is recorded: slice 1's, slice 3's, slice 5's or nowhere
+        record = shape == image_shape or (shape == BATCH and f"{name} slice3") or (
+            shape in (LARGE, STAGE, STAGE2) and f"{name} slice5 {shape}")
         # slice 4: p = 2, q = 0.5 on the double opponents (4d-e), q = 1.25 at 1x3x32x32 (4c)
         for p, q in TV_EXACT + ((2.0, 0.5), (2.0, 1.25)):
             if (p, q) == (2.0, 1.25) and shape != image_shape:
@@ -419,7 +471,8 @@ def check_adam_box_step(ops, image, report_exact, randn, shape, lo, hi, signed, 
 def attack_gradient(breaching, device, tree0, overrides):
     """A slice's loss and its gradient at the candidate tree tree0 (``data``, and for
     the joint attack ``labels``, the label logits), on `device`: the gradient of every
-    leaf, flattened and joined."""
+    leaf, flattened and joined. An attack with augmentations (5a) takes one draw of
+    them from a seeded generator on the CPU, the same on every device."""
     cfg = breaching.get_config(overrides)
     setup = breaching.utils.system_startup(cfg=cfg, device=device)
     user, server, model, loss_fn = breaching.cases.construct_case(cfg.case, setup)
@@ -432,7 +485,12 @@ def attack_gradient(breaching, device, tree0, overrides):
         reg.initialize(rec_models, attacker._shared_data_cache, labels)
     targets = [tuple(shared[0]["gradients"][k] for k in rec_models[0].params)]
     tree = {k: v.to(device).requires_grad_(True) for k, v in tree0.items()}
-    value, _ = attacker._loss(tree, rec_models, targets, labels)
+    draws = None
+    if attacker.augmentations:  # the same draws on both devices, made on the CPU
+        gen = torch.Generator().manual_seed(11)
+        draws = [d if d is None or augmentation.host_draws else d.to(device) for augmentation, d in
+                 zip(attacker.augmentations, attacker._draw_augmentations(tuple(tree0["data"].shape), (gen, gen)))]
+    value, _ = attacker._loss(tree, rec_models, targets, labels, draws)
     grads = torch.autograd.grad(value, tuple(tree.values()))
     return value.item(), torch.cat([g.reshape(-1) for g in grads]).cpu()
 
@@ -512,8 +570,6 @@ def run_resnet(breaching, ops, path, case, overrides, steps, experiments=1):
     ResNet-18 through the entry points, solo or as a fleet of ``experiments`` users of
     one server through ``reconstruct_fleet``; launch counts from the attack alone.
     Returns the launch counts."""
-    from breaching_tpu_torch.cases.users import UserMultiStep
-
     weight_overrides, weights = resnet_weights()
     cfg = breaching.get_config(case + weight_overrides + overrides + [
         f"attack.optim.max_iterations={steps}", "attack.optim.callback=100"])
@@ -521,11 +577,7 @@ def run_resnet(breaching, ops, path, case, overrides, steps, experiments=1):
     setup = breaching.utils.system_startup(cfg=cfg, device=DEVICE)
     user, server, model, loss_fn = breaching.cases.construct_case(cfg.case, setup)
     if not weight_overrides:  # the package found the checkout's checkpoint
-        import numpy as np
-
-        with np.load(CHECKPOINT) as blob:
-            head = torch.from_numpy(blob["params/head/dense/kernel"].T.copy())
-        require(torch.equal(model.head.weight.detach().cpu(), head), "ResNet18.npz was not loaded")
+        require_checkpoint(model, CHECKPOINT)
     payload_lists, shared_lists, truths = [], [], []
     for idx in range(experiments):
         if experiments > 1:  # the fleet: users 0, 1, ... of one server
@@ -560,8 +612,7 @@ def run_resnet(breaching, ops, path, case, overrides, steps, experiments=1):
           f"{ {k: v / steps for k, v in launches.items() if v} }", flush=True)
     for idx, (result, true, payloads) in enumerate(zip(results, truths, payload_lists)):
         losses = stats[f"Trial_{idx}_Val"]
-        # the first step whose loss is not finite, if any
-        diverged = next((i for i, value in enumerate(losses) if not math.isfinite(value)), None)
+        diverged = first_nonfinite(losses)
         metrics = breaching.analysis.report(result, true, payloads, server.model, cfg_case=cfg.case, setup=setup)
         order = metrics["order"]
         score = stats["fleet_opt_values"][idx] if experiments > 1 else stats["opt_value"]
@@ -577,29 +628,49 @@ def run_resnet(breaching, ops, path, case, overrides, steps, experiments=1):
         if diverged is None:
             require(losses[-1] < losses[0], f"{path}: the loss of {idx} did not fall")
         else:
-            # The fedAVG user's simulated local SGD can overflow float32 on the attack's
-            # candidates, as it does in the JAX package: the cosine does not see the
-            # delta's size. The attack stops at the candidate whose loss is not finite
-            # and keeps its best iterate. The overflow must be the local SGD's own: the
-            # same steps in float64 on the CPU reach magnitudes that float32 cannot sum.
-            require(isinstance(user, UserMultiStep) and diverged > 0 and not math.isfinite(losses[-1]),
-                    f"{path}: the loss of {idx} turned non-finite at step {diverged}")
-            start = time.perf_counter()
-            hyper = shared_lists[idx][0]["metadata"]["local_hyperparams"]
-            own = local_sgd_peak(server.model, server.loss, payloads[0], hyper, true["data"])
-            peak = local_sgd_peak(server.model, server.loss, payloads[0], hyper,
-                                  stats[f"Trial_{idx}_nonfinite_candidate"])
-            print(f"{path} experiment {idx}: the user's local SGD in float64 on the CPU reaches |value| "
-                  f"{own:.3e} on its own images and {peak:.3e} at the candidate where the loss turned "
-                  f"non-finite (float32 overflow shown above {DIVERGED:.0e}; CPU side "
-                  f"{time.perf_counter() - start:.1f} s)", flush=True)
-            require(not peak < DIVERGED, f"{path}: the loss of {idx} turned non-finite at step {diverged}, "
-                                         f"but the local SGD stays below {DIVERGED:.0e} in float64 ({peak:.3e})")
+            require_local_sgd_overflow(f"{path} experiment {idx}", user, server, payloads[0], shared_lists[idx],
+                                       true, stats, idx, losses, diverged)
         require(torch.equal(result["labels"].cpu(), true["labels"].cpu()),
                 f"{path}: experiment {idx} did not keep its own labels")
         require(order is None or sorted(order.tolist()) == list(range(shape[0])),
                 f"{path}: the batch order {order} is not a permutation")
     return launches
+
+
+def require_checkpoint(model, path):
+    """Fails unless ``model`` holds the head of the checkpoint at ``path``."""
+    import numpy as np
+
+    with np.load(path) as blob:
+        head = torch.from_numpy(blob["params/head/dense/kernel"].T.copy())
+    require(torch.equal(model.head.weight.detach().cpu(), head), f"{os.path.basename(path)} was not loaded")
+
+
+def first_nonfinite(losses):
+    """The first step whose loss is not finite, or None."""
+    return next((i for i, value in enumerate(losses) if not math.isfinite(value)), None)
+
+
+def require_local_sgd_overflow(name, user, server, payload, shared, true, stats, trial, losses, diverged):
+    """A loss that turned non-finite is accepted only from a fedAVG user whose simulated
+    local SGD overflows float32 on the attack's candidates, as it does in the JAX
+    package: the cosine does not see the delta's size. The attack stops at the
+    candidate whose loss is not finite and keeps its best iterate. The overflow must be
+    the local SGD's own: the same steps in float64 on the CPU reach magnitudes that
+    float32 cannot sum."""
+    from breaching_tpu_torch.cases.users import UserMultiStep
+
+    require(isinstance(user, UserMultiStep) and diverged > 0 and not math.isfinite(losses[-1]),
+            f"{name}: the loss turned non-finite at step {diverged}")
+    start = time.perf_counter()
+    hyper = shared[0]["metadata"]["local_hyperparams"]
+    own = local_sgd_peak(server.model, server.loss, payload, hyper, true["data"])
+    peak = local_sgd_peak(server.model, server.loss, payload, hyper, stats[f"Trial_{trial}_nonfinite_candidate"])
+    print(f"{name}: the user's local SGD in float64 on the CPU reaches |value| {own:.3e} on its own images and "
+          f"{peak:.3e} at the candidate where the loss turned non-finite (float32 overflow shown above "
+          f"{DIVERGED:.0e}; CPU side {time.perf_counter() - start:.1f} s)", flush=True)
+    require(not peak < DIVERGED, f"{name}: the loss turned non-finite at step {diverged}, but the local SGD "
+                                 f"stays below {DIVERGED:.0e} in float64 ({peak:.3e})")
 
 
 def local_sgd_peak(model, loss_fn, payload, hyper, data):
@@ -678,14 +749,141 @@ def run_slice4(breaching, ops, path, overrides, steps, needs):
     return launches
 
 
+def run_slice5(breaching, ops, path, overrides, steps, needs):
+    """Phase 5, slice 5: a preset through the entry points; launch counts from the
+    attack alone. ``steps``: per stage of the multiscale pyramid (5a), else in all;
+    ``needs``: the launches per step of each kernel the path must launch (no other port
+    kernel may launch). The ImageNet cases run on the repo's checkpoints: case 2 on
+    ResNet18.npz where the checkout holds it, case 5 (5c) on ResNet50.npz, which it must
+    hold. Returns (the launch counts, the peak memory in bytes)."""
+    weight_overrides, weights = resnet_weights() if "case=2_single_imagenet" in overrides else ([], None)
+    cfg = breaching.get_config(overrides + weight_overrides + [
+        f"attack.optim.max_iterations={steps}", f"attack.optim.callback={steps}"])
+    start = time.perf_counter()
+    setup = breaching.utils.system_startup(cfg=cfg, device=DEVICE)
+    user, server, model, loss_fn = breaching.cases.construct_case(cfg.case, setup)
+    if weights is not None and not weight_overrides:
+        require_checkpoint(model, CHECKPOINT)
+    if "case=5_small_batch_imagenet" in overrides:
+        require(os.path.exists(CHECKPOINT50), "ResNet50.npz is not in the checkout")
+        require_checkpoint(model, CHECKPOINT50)
+        weights = f"trained checkpoint {os.path.relpath(CHECKPOINT50, REPO)}"
+    weights = weights or "random weights from seed 7"
+    shared, payloads, true = server.run_protocol(user)
+    attacker = breaching.attacks.prepare_attack(server.model, server.loss, cfg.attack, setup)
+    torch.cuda.synchronize()
+    setup_seconds = time.perf_counter() - start
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    start = time.perf_counter()
+    result, stats = attacker.reconstruct(payloads, shared, server.secrets)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - start
+    launches = ops.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    metrics = breaching.analysis.report(result, true, payloads, server.model, order_batch=True, cfg_case=cfg.case,
+                                        setup=setup)
+    losses = stats["Trial_0_Val"]
+    stages = attacker._scale_pyramid() if hasattr(attacker, "_scale_pyramid") else [cfg.case.data.shape[-1]]
+    total = steps * len(stages)
+    shape = (int(cfg.case.user.num_data_points), *cfg.case.data.shape)
+    diverged = first_nonfinite(losses)
+    by_stage = [losses[i * steps:(i + 1) * steps] for i in range(len(stages))]
+    labels = (f"labels {result['labels'].tolist()} (true {true['labels'].tolist()})" if shape[0] <= 8 else
+              f"label accuracy {metrics['label_acc']:.2f}")
+    print(f"{path}: {model.name} {sum(p.numel() for p in model.parameters())} parameters on {weights}; "
+          f"{user.__class__.__name__} with {shape[0]} image(s) of {tuple(shape[1:])}; {cfg.attack.objective.type}, "
+          f"{cfg.attack.optim.optimizer}, grad_accum={cfg.attack.impl.grad_accum}; set-up {setup_seconds:.2f} s; "
+          f"{len(stages)} stage(s) {stages} of {steps} steps in {seconds:.2f} s = {total / seconds:.2f} it/s; loss "
+          f"first={losses[0]:.6f} lowest={min(losses[:diverged] or [math.nan]):.6f} last={losses[-1]:.6f}"
+          f"{'' if diverged is None else f' (not finite from step {diverged} on)'}; score {stats['opt_value']:.6f}; "
+          f"{labels}; PSNR={metrics['psnr']:.3f} SSIM={metrics['ssim']:.4f}; peak memory {peak / 2**30:.3f} GiB; "
+          f"launches per step { {k: v / total for k, v in launches.items() if v} }", flush=True)
+    if len(stages) > 1:
+        print(f"{path} by stage: " + "; ".join(f"{size}x{size} {stage[0]:.6f} -> {min(stage):.6f}"
+                                                for size, stage in zip(stages, by_stage)), flush=True)
+    data = result["data"]
+    require(tuple(data.shape) == shape and bool(torch.isfinite(data).all()),
+            f"{path}: the reconstruction is not a finite {shape} tensor: {tuple(data.shape)}")
+    require(len(losses) == total, f"{path}: {len(losses)} losses for {total} steps")
+    if diverged is None:
+        require(all(min(stage) < stage[0] for stage in by_stage), f"{path}: a stage's loss did not fall")
+    else:
+        require_local_sgd_overflow(path, user, server, payloads[0], shared, true, stats, 0, losses, diverged)
+    want = {name: n * total for name, n in needs.items()}
+    require({k: v for k, v in launches.items() if v} == want,
+            f"{path}: launches {launches}, the path needs {want} ({total} steps)")
+    return launches, peak
+
+
+def check_large_batch(breaching, shape):
+    """Phase 4, slice 5b: the gradient of 5b's objective (the cosine between the user
+    gradient of 100 candidate images on ResNet32-10 and the target) by the candidate.
+    The micro-batched user gradient (grad_accum=10) against the full batch (grad_accum=1),
+    in float64 on the card: equal to 1e-12 of the largest entry (the same sums grouped
+    otherwise). Then float32 on the card (cuDNN) and on the CPU (the plain versions),
+    both through grad_accum=10, against that float64 evaluation: this gradient is a small
+    difference of large terms, and float32 keeps only a few digits of it (measured on
+    the H100, max error over the largest entry: cuDNN 1.4e-2, cuDNN at grad_accum=1
+    5.5e-3, PyTorch's own CUDA convolutions 3.1e-3, the CPU 4.6e-3), so each is held to
+    5e-2 of the largest entry, and the value to 1e-5 relative."""
+    import copy
+
+    from breaching_tpu_torch.attacks.auxiliaries.objectives import CosineSimilarity
+
+    cfg = breaching.get_config(LARGE_BATCH)
+    setup = breaching.utils.system_startup(cfg=cfg, device=DEVICE)
+    user, server, model, loss_fn = breaching.cases.construct_case(cfg.case, setup)
+    attacker = breaching.attacks.prepare_attack(server.model, server.loss, cfg.attack, setup)
+    shared, payloads, _ = server.run_protocol(user)
+    rec_models, labels, _ = attacker.prepare_attack(payloads, shared)
+    payload_model = rec_models[0]
+    target = tuple(attacker._shared_data_cache[0]["gradients"][k] for k in payload_model.params)
+    x0 = torch.randn(*shape, generator=torch.Generator().manual_seed(5))
+
+    def gradient(accum, dtype, device):
+        objective = CosineSimilarity()
+        objective.initialize(loss_fn, copy.deepcopy(payload_model.module).to(device=device, dtype=dtype), None,
+                             {"grad_accum": accum})
+        params = {k: v.detach().to(device=device, dtype=dtype).requires_grad_(True)
+                  for k, v in payload_model.params.items()}
+        buffers = {k: v.to(device=device, dtype=dtype) for k, v in payload_model.buffers.items()}
+        x = x0.to(device=device, dtype=dtype).requires_grad_(True)
+        value, _ = objective(params, buffers, tuple(t.to(device=device, dtype=dtype) for t in target), x,
+                             labels.to(device))
+        grad, = torch.autograd.grad(value, x)
+        return value.item(), grad.double().cpu()
+
+    start = time.perf_counter()
+    (exact_value, exact), (value1, grad1) = gradient(10, torch.float64, DEVICE), gradient(1, torch.float64, DEVICE)
+    scale = exact.abs().max().item()
+    err = (exact - grad1).abs().max().item() / scale
+    print(f"reference slice 5b: the attack gradient through grad_accum=10 against grad_accum=1, float64 on the card: "
+          f"loss {exact_value:.12f} / {value1:.12f}, max error {err:.2e} of the largest entry (tol 1e-12) "
+          f"{'ok' if err <= 1e-12 else 'FAILED'}", flush=True)
+    require(err <= 1e-12, "slice 5b: the micro-batched user gradient differs from the full batch")
+    for name, device in (("the card", DEVICE), ("the CPU", "cpu")):
+        value, grad = gradient(10, torch.float32, device)
+        err = (grad - exact).abs().max().item() / scale
+        l2 = ((grad - exact).norm() / exact.norm()).item()
+        ok = err <= 5e-2 and abs(value - exact_value) <= 1e-5 * abs(exact_value) and bool(torch.isfinite(grad).all())
+        print(f"reference slice 5b: float32 on {name} through grad_accum=10 against float64: loss {value:.7f} "
+              f"(rel_err {abs(value - exact_value) / abs(exact_value):.2e}, tol 1e-5); gradient max error "
+              f"{err:.2e} of the largest entry (tol 5e-2), L2 error {l2:.2e} {'ok' if ok else 'FAILED'}", flush=True)
+        require(ok, f"slice 5b's float32 attack gradient on {name} is off its float64 evaluation")
+    print(f"reference slice 5b: {time.perf_counter() - start:.1f} s", flush=True)
+
+
 def bound(bytes_moved, flops):
     t_bytes, t_ops = bytes_moved / PEAK_BYTES_PER_S, flops / PEAK_F32_PER_S
     return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
 
 
 def time_kernels(ops, n, image_shape, names=None, iters=200):
-    """Phase 6: times at a slice's shapes (inputs warm in L2, as in the attack step), of
-    every kernel or of ``names``, over ``iters`` calls."""
+    """Phase 6: times at a slice's shapes, of every kernel or of ``names``, over ``iters``
+    calls (``timing.time_ms``: device times with the operands cold, as the attack step
+    finds them after a double backward through the model, and warm in L2)."""
     from breaching_tpu_torch.ops import image, matching
     from breaching_tpu_torch.timing import time_ms
 
@@ -770,26 +968,38 @@ def time_kernels(ops, n, image_shape, names=None, iters=200):
         if (names is None and name.endswith(("soft", "q=0.5"))) or (names is not None and name not in names):
             continue  # slice 4's variants run only when named
         bound_ms, bound_by = bound(nbytes, flops)
-        ms, device_ms, host_ms = time_ms(kernel, iters)
-        plain_ms, plain_device_ms, plain_host_ms = time_ms(plain, iters)
-        row = dict(ms=ms, device_ms=device_ms, host_ms=host_ms, plain_ms=plain_ms,
+        ms, device_ms, host_ms, device_warm_ms = time_ms(kernel, iters)
+        plain_ms, plain_device_ms, plain_host_ms, plain_device_warm_ms = time_ms(plain, iters)
+        row = dict(ms=ms, device_ms=device_ms, host_ms=host_ms, device_warm_ms=device_warm_ms, plain_ms=plain_ms,
                    plain_device_ms=plain_device_ms, plain_host_ms=plain_host_ms,
-                   library_ms=None, bound_ms=bound_ms, bound_by=bound_by)
+                   plain_device_warm_ms=plain_device_warm_ms, library_ms=None, bound_ms=bound_ms, bound_by=bound_by)
         yardstick = seconds.get(name, None if library is None else (*library, "library"))
         if yardstick is not None:
-            lib_ms, lib_device_ms, lib_host_ms = time_ms(yardstick[0], iters)
+            lib_ms, lib_device_ms, lib_host_ms, lib_device_warm_ms = time_ms(yardstick[0], iters)
             prefix = yardstick[2]
             row.update({f"{prefix}_call": yardstick[1], f"{prefix}_ms": lib_ms,
-                        f"{prefix}_device_ms": lib_device_ms, f"{prefix}_host_ms": lib_host_ms})
+                        f"{prefix}_device_ms": lib_device_ms, f"{prefix}_host_ms": lib_host_ms,
+                        f"{prefix}_device_warm_ms": lib_device_warm_ms})
         timings[name] = row
-        line = (f"time {name}: kernel {ms * 1e3:.2f} us per call, {device_ms * 1e3:.2f} us device, "
-                f"{host_ms * 1e3:.2f} us host; plain {plain_ms * 1e3:.2f} / {plain_device_ms * 1e3:.2f} / "
-                f"{plain_host_ms * 1e3:.2f} us")
+        line = (f"time {name}: kernel {ms * 1e3:.2f} us per call, {device_ms * 1e3:.2f} us device cold "
+                f"({device_warm_ms * 1e3:.2f} warm), {host_ms * 1e3:.2f} us host; plain {plain_ms * 1e3:.2f} / "
+                f"{plain_device_ms * 1e3:.2f} ({plain_device_warm_ms * 1e3:.2f}) / {plain_host_ms * 1e3:.2f} us")
         if yardstick is not None:
-            line += (f"; {yardstick[1]} {lib_ms * 1e3:.2f} / {lib_device_ms * 1e3:.2f} / "
-                     f"{lib_host_ms * 1e3:.2f} us")
+            line += (f"; {yardstick[1]} {lib_ms * 1e3:.2f} / {lib_device_ms * 1e3:.2f} "
+                     f"({lib_device_warm_ms * 1e3:.2f}) / {lib_host_ms * 1e3:.2f} us")
         print(f"{line}; bound {bound_ms * 1e3:.3f} us ({bound_by}); n={n} images {image_shape}", flush=True)
     return timings
+
+
+def under_bound(rows):
+    """(kernel, where, shape) of every timing whose cold device time is under its bound:
+    a measurement that does not see what the kernel must move."""
+    found = []
+    for row in rows:
+        timed = [("at slice 1", row)] + [(key, at) for key, value in row.items() if key.startswith("at_")
+                                         for at in (value if isinstance(value, list) else [value])]
+        found += [(row["name"], key, at.get("shape")) for key, at in timed if at["device_ms"] < at["bound_ms"]]
+    return found
 
 
 def main():
@@ -813,6 +1023,7 @@ def main():
                    .parameters())
     image_shape = (int(cfg.case.user.num_data_points), *cfg.case.data.shape)
     errors = check_kernels(ops, n_params, image_shape)
+    print(f"chip_smoke: phase 3 done at {time.perf_counter() - began:.1f} s", flush=True)
     check_reference(breaching, "slice 1", SLICE + ["seed=7"], (1, 3, 32, 32))
     check_reference(breaching, "slice 2", SLICE2 + resnet_weights()[0], BIG)
     fused = ["attack.objective.type=fused-cosine-similarity"]
@@ -823,17 +1034,20 @@ def main():
     check_reference(breaching, "slice 4b wei_framework", SLICE4["slice 4b wei_framework"][0], (1, 3, 32, 32))
     check_reference(breaching, "slice 4d modern_hyperparams",
                     SLICE4["slice 4d modern_hyperparams"][0] + resnet_weights()[0], BIG)
+    check_reference(breaching, "slice 5a multiscale at a 96x96 stage", MULTISCALE + resnet_weights()[0], STAGE)
+    check_large_batch(breaching, LARGE)
+    check_reference(breaching, "slice 5c see_through_gradients", SEE_THROUGH, BIG)
+    print(f"chip_smoke: phase 4 done at {time.perf_counter() - began:.1f} s", flush=True)
 
     paths = {"slice 1": run_slice(breaching, ops)}
-    image_kernels = dict(b3_tv_value_and_grad=1, b4_adam_box_step=1)
-    all_kernels = dict(b1_matching_sums=1, b2_cosine_backward=1, **image_kernels)
+    all_kernels = dict(b1_matching_sums=1, b2_cosine_backward=1, **IMAGE_KERNELS)
     # the image kernels once per attack step, not once per local step of the fedAVG user
     for path, case, overrides, steps, experiments, per_step in (
-            ("slice 2 preset", SLICE2, [], SLICE2_STEPS, 1, image_kernels),
+            ("slice 2 preset", SLICE2, [], SLICE2_STEPS, 1, IMAGE_KERNELS),
             ("slice 2 fused", SLICE2, fused, SLICE2_FUSED_STEPS, 1, all_kernels),
             ("slice 2 fleet", SLICE2, [], FLEET_STEPS, FLEET,
              dict(b3_tv_value_and_grad=FLEET, b4_adam_box_step=FLEET)),
-            ("slice 3 preset", SLICE3, [], SLICE3_STEPS, 1, image_kernels),
+            ("slice 3 preset", SLICE3, [], SLICE3_STEPS, 1, IMAGE_KERNELS),
             ("slice 3 fused", SLICE3, fused, SLICE3_FUSED_STEPS, 1, all_kernels)):
         launches = run_resnet(breaching, ops, path, case, overrides, steps, experiments)
         want = {name: n * steps for name, n in per_step.items()}
@@ -842,7 +1056,15 @@ def main():
         paths[path] = launches
     for path, (overrides, steps, needs) in SLICE4.items():
         paths[path] = run_slice4(breaching, ops, path, overrides, steps, needs)
+    peaks = {}
+    for path, (overrides, steps, needs) in SLICE5.items():
+        paths[path], peaks[path] = run_slice5(breaching, ops, path, overrides, steps, needs)
+    accum10, accum1 = peaks["slice 5b inverting_large_batch_cifar"], peaks["slice 5b' grad_accum=1"]
+    print(f"slice 5b: peak memory {accum10 / 2**30:.3f} GiB with grad_accum=10, {accum1 / 2**30:.3f} GiB with "
+          f"grad_accum=1 ({accum1 / accum10:.2f}x)", flush=True)
+    require(accum10 < accum1, "slice 5b: grad_accum=10 does not lower the peak memory")
 
+    print(f"chip_smoke: phase 5 done at {time.perf_counter() - began:.1f} s", flush=True)
     timings = time_kernels(ops, n_params, image_shape)
     slice2 = ("b1_matching_sums", "b2_cosine_backward", "b4_adam_box_step")
     timings2 = time_kernels(ops, N2, BIG, names=slice2, iters=100)
@@ -850,6 +1072,8 @@ def main():
     timings3 = time_kernels(ops, N2, BATCH, names=slice3, iters=100)
     timings4 = {**time_kernels(ops, N2, BIG, names=("b4_adam_box_step soft",), iters=100),
                 **time_kernels(ops, N2, OPPONENTS, names=("b3_tv_value_and_grad q=0.5",), iters=100)}
+    timings5 = {shape: time_kernels(ops, n_params, shape, names=slice3 if shape != STAGE2 else slice3[:1], iters=100)
+                for shape in (LARGE, STAGE, STAGE2)}
 
     rows = []
     for name, (source, replaces) in KERNELS.items():
@@ -872,6 +1096,12 @@ def main():
             rows[-1]["at_slice4"] = dict(shape=OPPONENTS, p=2.0, q=0.5,
                                          max_abs_err=errors[f"{name} slice4 {OPPONENTS} q=0.5"],
                                          **timings4["b3_tv_value_and_grad q=0.5"])
+        # slice 5: 5b's 100 images, and two stages of 5a's pyramid
+        rows[-1]["at_slice5"] = [dict(shape=shape, max_abs_err=errors[f"{name} slice5 {shape}"],
+                                      **timings5[shape][name]) for shape in timings5 if name in timings5[shape]]
+        if not rows[-1]["at_slice5"]:
+            del rows[-1]["at_slice5"]
+    print(f"device times (cold) under their bound: {under_bound(rows) or 'none'}", flush=True)
     print(f"chip_smoke: phases 2-6 in {time.perf_counter() - began:.1f} s", flush=True)
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
