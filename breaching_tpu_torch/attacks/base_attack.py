@@ -1,9 +1,13 @@
 """Shared attack machinery (counterpart of ``breaching_tpu/attacks/base_attack.py``):
 payload ingestion, gradient normalization, label recovery and candidate set-up.
 The label strategies ``iDLG``, ``analytic``, ``yin``, ``wainakh-simple``,
-``bias-corrected`` and ``random`` are ported; ``wainakh-whitebox``, ``exhaustive``
-and ``bias-text`` raise ``NotImplementedError``. ``random``, and the padding of a
-strategy that finds too few labels, draw from ``setup["python_rng"]`` (numpy).
+``wainakh-whitebox``, ``bias-corrected`` and ``random`` are ported; ``exhaustive``
+raises the JAX package's ``ValueError``, and ``bias-text`` (text) raises
+``NotImplementedError``. ``random``, and the padding of a strategy that finds too few
+labels, draw from ``setup["python_rng"]`` (numpy). ``wainakh-whitebox`` measures the
+impact of one example on the head's gradient with fake images (``_fake_data``: standard
+normal, from a CPU generator seeded from the setup's, so that the CPU and the card see
+the same draws).
 """
 
 from __future__ import annotations
@@ -13,6 +17,7 @@ import logging
 
 import numpy as np
 import torch
+from torch.func import functional_call
 
 from .auxiliaries.initializations import init_candidate
 
@@ -69,7 +74,7 @@ class _BaseAttacker:
 
         labels = self._shared_data_cache[0]["metadata"]["labels"]
         if labels is None:
-            labels = self._recover_label_information(self._shared_data_cache)
+            labels = self._recover_label_information(self._shared_data_cache, rec_models)
         return rec_models, None if labels is None else torch.as_tensor(labels, device=device), stats
 
     def _construct_models_from_payload_and_buffers(self, server_payload, shared_data):
@@ -114,13 +119,14 @@ class _BaseAttacker:
         return init_candidate(self.setup["generator"], self.cfg.init, data_shape,
                               dtype=self.setup["dtype"], device=self.setup["device"], mean=self.dm, std=self.ds)
 
-    def _recover_label_information(self, user_data):
+    def _recover_label_information(self, user_data, rec_models=None):
         """Label recovery from the classification head's gradients (reference
-        base_attack.py:143-253), on the host in numpy."""
+        base_attack.py:143-253), on the host in numpy; ``wainakh-whitebox`` also runs
+        ``rec_models[0]`` on fake data."""
         strategy = self.cfg.label_strategy
         if strategy is None or str(strategy).lower() == "none":
             raise NotImplementedError("An attack without labels needs a label strategy.")
-        if strategy in ("wainakh-whitebox", "exhaustive", "bias-text"):
+        if strategy == "bias-text":
             raise NotImplementedError(f"Label strategy {strategy} is not ported yet.")
         num_data_points = int(user_data[0]["metadata"]["num_data_points"])
         grads = [tuple(t.detach().cpu().numpy() for t in head_grads(d["gradients"])) for d in user_data]
@@ -131,22 +137,32 @@ class _BaseAttacker:
             labels = np.unique([i for _, b in grads for i in np.nonzero(b < 0)[0].tolist()])[:num_data_points]
         elif strategy == "yin":
             labels = np.argsort(sum(w.min(axis=1) for w, _ in grads))[:num_data_points]
-        elif strategy == "wainakh-simple":
-            m_impact = 0.0
-            for w, _ in grads:
-                g_i = w.sum(axis=1)
-                m_impact += np.where(g_i < 0, g_i, 0).sum() * (1 + 1 / num_classes) / num_data_points / num_queries
+        elif strategy in ("wainakh-simple", "wainakh-whitebox"):
+            if strategy == "wainakh-simple":
+                m_impact = 0.0
+                for w, _ in grads:
+                    g_i = w.sum(axis=1)
+                    m_impact += np.where(g_i < 0, g_i, 0).sum() * (1 + 1 / num_classes) / num_data_points / num_queries
+                s_offset = np.zeros(num_classes)
+            else:
+                m_impact, s_offset = self._wainakh_whitebox_estimates(rec_models, num_data_points, num_classes,
+                                                                      num_queries)
             g_i = np.stack([w.sum(axis=1) for w, _ in grads]).mean(axis=0).copy()
             selected = []
             for idx in range(num_classes):
                 if g_i[idx] < 0:
                     selected.append(idx)
                     g_i[idx] -= m_impact
+            g_i = g_i - s_offset
             while len(selected) < num_data_points:
                 idx = int(np.argmin(g_i))
                 selected.append(idx)
                 g_i[idx] -= m_impact
             labels = np.asarray(selected)
+        elif strategy == "exhaustive":
+            raise ValueError(
+                f"Exhaustive label searching is not implemented — a naive search here would "
+                f"try {num_classes ** num_data_points} label vectors.")
         elif strategy == "bias-corrected":
             avg_bias = np.stack([b for _, b in grads]).mean(axis=0).copy()
             valid = np.nonzero(avg_bias < 0)[0]
@@ -169,6 +185,45 @@ class _BaseAttacker:
         labels = np.sort(labels[:num_data_points])
         log.info(f"Recovered labels {labels.tolist()} through strategy {strategy}.")
         return labels
+
+    def _fake_data(self, generator, index, count):
+        """``count`` standard normal images of the data's shape, the fake data of
+        ``wainakh-whitebox``'s draw ``index``: drawn on the CPU from ``generator`` and
+        moved to the attack's device."""
+        return torch.randn(count, *self.data_shape, generator=generator).to(self.setup["device"])
+
+    def _wainakh_whitebox_estimates(self, rec_models, num_data_points, num_classes, num_queries):
+        """The impact of one example on the head's weight gradient, measured on fake
+        data (reference base_attack.py:359-386; the JAX package's sweeps at
+        breaching_tpu/attacks/base_attack.py:256-300). With BatchNorm in eval mode on the
+        first payload: m, the sum over classes c of the head's weight gradient summed
+        over its entries for n fake images all of class c, times (1 + 1/C) / n / C / Q;
+        and s[c], the sum of row c of that gradient for C - 1 fake images of every
+        other class, divided by C - 1 and by Q. The m sweep takes draws 0, ..., C - 1,
+        the s sweep draws C, ..., 2C - 1."""
+        model = rec_models[0]
+        head = model.params["head.weight"].detach().requires_grad_(True)
+        params = {k: head if k == "head.weight" else v.detach() for k, v in model.params.items()}
+        seed = int(torch.randint(2 ** 62, (), generator=self.setup["generator"]))
+        generator = torch.Generator().manual_seed(seed)
+        device = head.device
+
+        def head_weight_grad(data, labels):
+            outputs = functional_call(model.module, {**params, **model.buffers}, (data,), dict(train=False))
+            grad, = torch.autograd.grad(self.loss_fn(outputs, labels), head)
+            return grad
+
+        m_sums = torch.stack([
+            head_weight_grad(self._fake_data(generator, c, num_data_points),
+                             torch.full((num_data_points,), c, dtype=torch.int64, device=device)).sum()
+            for c in range(num_classes)])
+        t = num_classes - 1
+        all_labels = torch.arange(num_classes, device=device)
+        s_sums = torch.stack([
+            head_weight_grad(self._fake_data(generator, num_classes + c, t), all_labels[all_labels != c])[c].sum() / t
+            for c in range(num_classes)])
+        m_impact = float(m_sums.sum()) * (1 + 1 / num_classes) / num_data_points / num_classes / num_queries
+        return m_impact, s_sums.cpu().numpy() / num_queries
 
 
 def head_grads(gradients: dict):

@@ -12,6 +12,7 @@ any of them. A dry run stops after stage 0; the result is resized to the full sh
 Resizing is ``augmentations.resize``, the JAX package's ``jax.image.resize``.
 
 An interrupt (``stats["interrupted_at"]``) ends the pyramid at the stage it reached.
+``attack.impl.checkpoint_path`` is refused.
 """
 
 from __future__ import annotations
@@ -56,6 +57,9 @@ class MultiScaleOptimizationAttacker(OptimizationBasedAttacker):
 
     def _run_all_trials(self, rec_models, shared_data, trial_targets, trial_labels, stats,
                         initial_data, dryrun):
+        if self.cfg.impl.get("checkpoint_path"):
+            raise NotImplementedError("attack.impl.checkpoint_path with the multiscale attack is not ported "
+                                      "yet: each stage's state has its own shape.")
         full_shape = self.data_shape
         if full_shape[1] != full_shape[2]:
             raise ValueError(f"The multiscale attack takes square images, not {full_shape[1:]}.")

@@ -47,21 +47,37 @@ one trial, solo: restarts and fleets of such users are refused.
 loss, before the objective and the regularizers that read its intermediates, with
 fresh draws at every step from the trial's own generators (L-BFGS's evaluations
 within a step share them); without ``differentiable_augmentations`` the gradient
-passes straight through. The batched trial step refuses them. Of ``attack.impl`` the
-port acts on ``grad_accum`` (in the objective) and refuses, by name, the knobs the
-JAX package acts on and the port does not (``mixed_precision``, ``checkpoint_path``,
-``checkpoint_every``, ``sharding``, ``trace_dir``, a 16-bit ``dtype``). Ctrl-C ends
-the run with each trial's best iterate so far and ``stats["interrupted_at"]``.
+passes straight through. The batched trial step refuses them. Ctrl-C ends the run with
+each trial's best iterate so far and ``stats["interrupted_at"]``.
+
+Of ``attack.impl`` the port acts on:
+- ``grad_accum`` (in the objective);
+- ``checkpoint_path`` and ``checkpoint_every``: every ``checkpoint_every`` read-back
+  chunks the run's state (``_RunState``: the candidate tree, the optimizer's moments
+  and step count, the best iterates and value, and the generators of the Langevin
+  noise and the augmentations) goes to the ``.npz`` file at ``checkpoint_path``
+  (``utils_checkpoint.py``); a run that finds a file that fits its state resumes from
+  it (``stats["resumed_at"]``), a file that does not fit is ignored with a warning.
+  Adam and the first-order optimizers, on one trial or on the batched trial step (the
+  fleet too); L-BFGS, whose history is not saved, trials run one after the other and
+  the multiscale attack refuse ``checkpoint_path``;
+- ``trace_dir``: the second read-back chunk of the run (the first after warm-up) runs
+  under ``torch.profiler`` and is written as a Chrome trace into ``trace_dir``
+  (``stats["trace_file"]``).
+It refuses, by name, the knobs the JAX package acts on and the port does not:
+``mixed_precision``, ``sharding`` and a ``dtype`` of bfloat16, float16 or float64.
 """
 
 from __future__ import annotations
 
 import logging
+import os
 import time
 
 import numpy as np
 import torch
 
+from .. import utils_checkpoint
 from ..ops import adam_box_step, adam_box_step_trials, box_project, sign, soft_sign_scalars
 from ..ops.image import soft_sign_plain
 from .auxiliaries.augmentations import augmentation_lookup
@@ -100,13 +116,14 @@ class OptimizationBasedAttacker(_BaseAttacker):
         if signed not in (None, False, True, "hard", "soft"):
             raise NotImplementedError(f"Gradient transform signed={signed} is not ported yet.")
         impl = self.cfg.get("impl") or {}
-        for knob, value in (("mixed_precision", impl.get("mixed_precision")),
-                            ("checkpoint_path", impl.get("checkpoint_path")),
-                            ("checkpoint_every", int(impl.get("checkpoint_every", 0) or 0) > 0),
-                            ("sharding", impl.get("sharding")), ("trace_dir", impl.get("trace_dir")),
-                            ("dtype", str(impl.get("dtype", "float")) in ("bfloat16", "bf16", "float16", "fp16"))):
+        for knob, value in (("mixed_precision", impl.get("mixed_precision")), ("sharding", impl.get("sharding")),
+                            ("dtype", str(impl.get("dtype", "float")) in ("bfloat16", "bf16", "float16", "fp16",
+                                                                          "float64", "double"))):
             if value:  # the JAX package acts on each of these; the port would run without it
                 raise NotImplementedError(f"attack.impl.{knob}={impl.get(knob)} is not ported yet.")
+        if impl.get("checkpoint_path") and isinstance(self._optimizer(1), LBFGS):
+            raise NotImplementedError("attack.impl.checkpoint_path with L-BFGS is not ported yet: its history "
+                                      "is not saved.")
         self._noise_generators = {}
 
     def __repr__(self):
@@ -313,6 +330,9 @@ class OptimizationBasedAttacker(_BaseAttacker):
                                                     max_iterations, box)
             return dict(data=best), values
         if num_trials > 1:
+            if self.cfg.impl.get("checkpoint_path"):
+                raise NotImplementedError(f"attack.impl.checkpoint_path with {num_trials} trials run one after "
+                                          f"the other is not ported yet; the batched trial step takes it.")
             log.info(f"The {num_trials} trials run one after the other through the single step "
                      f"({self.cfg.optim.optimizer}{'' if adam else ' has no batched step'}).")
         runs = [self._run_trial({k: v[t].clone() for k, v in tree.items()}, t, rec_models, trial_targets[t],
@@ -343,14 +363,36 @@ class OptimizationBasedAttacker(_BaseAttacker):
         signed = self.cfg.optim.signed
         return "soft" if signed == "soft" else "hard" if signed in ("hard", True) else None
 
-    def _noise(self, like):
-        """Standard normal noise of ``like``'s shape, from a generator on its device seeded
-        once from the attack's generator."""
-        generator = self._noise_generators.get(like.device)
+    def _noise_generator(self, device):
+        """The Langevin noise's generator on ``device``, seeded once from the attack's
+        generator."""
+        generator = self._noise_generators.get(device)
         if generator is None:
             seed = int(torch.randint(2 ** 62, (), generator=self.setup["generator"]))
-            generator = self._noise_generators[like.device] = torch.Generator(device=like.device).manual_seed(seed)
-        return torch.randn(like.shape, generator=generator, device=like.device, dtype=like.dtype)
+            generator = self._noise_generators[device] = torch.Generator(device=device).manual_seed(seed)
+        return generator
+
+    def _noise(self, like):
+        """Standard normal noise of ``like``'s shape from ``_noise_generator``."""
+        return torch.randn(like.shape, generator=self._noise_generator(like.device), device=like.device,
+                           dtype=like.dtype)
+
+    def _run_state(self, tree, states, best, best_vals, device, generators=None):
+        """The ``_RunState`` of a run: the candidate tree, each leaf's optimizer state,
+        the best iterates, the current best value(s), and the generators that draw in
+        the loop (the Langevin noise's, made here if the run draws it, and the
+        augmentations' ``generators``)."""
+        state = _RunState()
+        state.add_tree("tree", tree)
+        state.add_tree("optimizer", states)
+        state.add_tree("best", best)
+        state.add("best_value", best_vals, 0)
+        if float(self.cfg.optim.langevin_noise or 0.0) > 0:
+            self._noise_generator(device)
+            state.add("rng/langevin", self._noise_generators, device)
+        for i, generator in enumerate(generators or ()):
+            state.add(f"rng/augmentation{i}", generators, i)
+        return state
 
     def transform_grads(self, grad, iteration, max_iterations, with_sign=True, per_trial=False):
         """The JAX package's ``transform_grads`` on one gradient leaf: Langevin noise
@@ -392,6 +434,7 @@ class OptimizationBasedAttacker(_BaseAttacker):
             draws[0] = self._draw_augmentations(tree["data"].shape, generators) if generators else None
             return draws[0]
 
+        states = None
         if isinstance(optimizer, Adam):
             states = {k: optimizer.init(v) for k, v in tree.items()}
             no_box = torch.zeros(1, device=device)
@@ -447,7 +490,8 @@ class OptimizationBasedAttacker(_BaseAttacker):
                 return value, task_loss
 
         history = stats.setdefault(f"Trial_{trial}_Val", [])
-        self._optimize(step, [history], max_iterations, stats)
+        run_state = None if states is None else self._run_state(tree, states, best, best_vals, device, generators)
+        self._optimize(step, [history], max_iterations, stats, run_state)
         if history and not np.isfinite(history[-1]):
             # a step whose loss is not finite keeps its candidate: this is where the loss
             # turned non-finite, kept so that the cause can be looked at
@@ -457,11 +501,13 @@ class OptimizationBasedAttacker(_BaseAttacker):
     @staticmethod
     def _finish_step(tree, new, best, best_vals, value, box, boxed):
         """The step's tail in PyTorch operations, for optimizers other than Adam: the box
-        on the data (``ops.box_project``), then the candidate takes ``new`` if the loss
-        is finite, and the best iterate the candidate from before the step if the loss
-        is finite and below the best value."""
+        on the data (``ops.box_project``, in place: ``new`` is the step's own result,
+        which neither the optimizer's state nor L-BFGS's history holds), then the
+        candidate takes ``new`` if the loss is finite, and the best iterate the candidate
+        from before the step if the loss is finite and below the best value."""
         if boxed:
-            new = dict(new, data=box_project(new["data"].contiguous(), *box))
+            data = new["data"].contiguous()
+            new = dict(new, data=box_project(data, *box, out=data))
         finite = torch.isfinite(value)
         improved = finite & (value < best_vals[0])
         for k, leaf in tree.items():
@@ -500,20 +546,37 @@ class OptimizationBasedAttacker(_BaseAttacker):
             best_vals.reverse()
             return value, task_loss
 
+        run_state = self._run_state(dict(data=candidate), dict(data=state), dict(data=best), best_vals,
+                                    candidate.device)
         self._optimize(step, [stats.setdefault(f"Trial_{t}_Val", []) for t in range(num_trials)],
-                       max_iterations, stats)
+                       max_iterations, stats, run_state)
         return best, best_vals[0].cpu().numpy()
 
-    def _optimize(self, step, histories, max_iterations, stats):
+    def _optimize(self, step, histories, max_iterations, stats, run_state=None):
         """Run ``step`` (which takes the iteration and returns the loss and task loss, a
         value per trial) until ``max_iterations`` or until no trial's loss is finite,
         reading the losses back into each trial's history every ``optim.callback`` steps.
+
+        With ``attack.impl.checkpoint_path``, ``run_state`` (a ``_RunState``) is first
+        restored from the file where it fits, and the run goes on from the iteration
+        saved; it is saved there after every ``checkpoint_every`` chunks. With
+        ``trace_dir``, the second chunk runs under the profiler.
+
         A ``KeyboardInterrupt`` ends the run: the losses of the steps done are read back,
         ``stats["interrupted_at"]`` holds the number of steps done, and the trials keep
         their best iterates so far (an interrupt inside a step may leave that step's best
         iterate beside the previous best value)."""
         callback = int(self.cfg.optim.callback or 0) or max_iterations
-        iteration, wallclock = 0, time.time()
+        impl = self.cfg.get("impl") or {}
+        path, every, trace_dir = impl.get("checkpoint_path"), int(impl.get("checkpoint_every", 0) or 0), \
+            impl.get("trace_dir")
+        iteration, chunks, wallclock = 0, 0, time.time()
+        if path:
+            restored = utils_checkpoint.load_attack_state(path, run_state.arrays())
+            if restored is not None:
+                arrays, iteration = restored
+                run_state.restore(arrays)
+                stats["resumed_at"] = iteration
         values = []  # the losses of the steps not yet read back
 
         def read_back():
@@ -523,20 +586,30 @@ class OptimizationBasedAttacker(_BaseAttacker):
             values.clear()
             return done
 
+        def chunk():
+            nonlocal iteration
+            task_losses = []
+            for _ in range(min(callback, max_iterations - iteration)):
+                value, task_loss = step(iteration)
+                values.append(value)
+                task_losses.append(task_loss)
+                iteration += 1
+            return read_back(), task_losses
+
         try:
             while iteration < max_iterations:
-                task_losses = []
-                for _ in range(min(callback, max_iterations - iteration)):
-                    value, task_loss = step(iteration)
-                    values.append(value)
-                    task_losses.append(task_loss)
-                    iteration += 1
-                done = read_back()
+                if trace_dir and chunks == 1:
+                    done, task_losses = self._traced(chunk, str(trace_dir), iteration, stats)
+                else:
+                    done, task_losses = chunk()
+                chunks += 1
                 now = time.time()
                 log.info(f"| It: {iteration} | Rec. loss: {done[-1].mean():2.4f} | "
                          f"Task loss: {float(task_losses[-1].mean()):2.4f} | T: {now - wallclock:4.2f}s | "
                          f"{done.size / max(now - wallclock, 1e-9):,.1f} it/s")
                 wallclock = now
+                if path and every and chunks % every == 0:
+                    utils_checkpoint.save_attack_state(path, run_state.arrays(), iteration)
                 if not np.isfinite(done[-1]).any():
                     log.info(f"Recovery loss is non-finite in iteration {iteration}. "
                              f"Cancelling reconstruction!")
@@ -547,6 +620,26 @@ class OptimizationBasedAttacker(_BaseAttacker):
             stats["interrupted_at"] = iteration
             log.info(f"Recovery interrupted manually at iteration {iteration}; "
                      f"returning best-so-far candidates.")
+        if trace_dir and chunks < 2:
+            log.warning(f"No trace written to {trace_dir}: the run had {chunks} chunk(s), and the trace takes "
+                        f"the second.")
+
+    def _traced(self, chunk, trace_dir, iteration, stats):
+        """``chunk()`` under ``torch.profiler`` (the host, and the card where the attack
+        runs there), written as a Chrome trace into ``trace_dir``."""
+        from torch.profiler import ProfilerActivity, profile
+
+        activities = [ProfilerActivity.CPU]
+        if self.setup["device"].type == "cuda":
+            activities.append(ProfilerActivity.CUDA)
+        with profile(activities=activities) as profiler:
+            result = chunk()  # ends in the losses' read-back, which waits for the card
+        os.makedirs(trace_dir, exist_ok=True)
+        path = os.path.join(trace_dir, f"attack_chunk_{iteration}.json")
+        profiler.export_chrome_trace(path)
+        stats["trace_file"] = path
+        log.info(f"Saved a profiler trace of one attack chunk to {path}.")
+        return result
 
     # ---------------------------------------------------------------- scoring
 
@@ -586,3 +679,44 @@ class OptimizationBasedAttacker(_BaseAttacker):
             return {k: v[optimal_index] for k, v in best_trials.items()}
         log.info("No valid reconstruction could be found.")
         return {k: torch.zeros_like(v[0]) for k, v in best_trials.items()}
+
+
+class _RunState:
+    """What a checkpoint holds of a run: named slots (container, key), each holding a
+    tensor (restored in place), an int (an optimizer's step count) or a generator."""
+
+    def __init__(self):
+        self.slots = {}
+
+    def add(self, name, container, key):
+        self.slots[name] = (container, key)
+
+    def add_tree(self, prefix, tree):
+        for key, value in tree.items():
+            if isinstance(value, dict):
+                self.add_tree(f"{prefix}/{key}", value)
+            else:
+                self.add(f"{prefix}/{key}", tree, key)
+
+    def arrays(self) -> dict:
+        """name -> numpy array: a copy of every slot's value (a generator's state bytes)."""
+        out = {}
+        for name, (container, key) in self.slots.items():
+            value = container[key]
+            if isinstance(value, torch.Tensor):
+                out[name] = value.detach().cpu().numpy()
+            elif isinstance(value, torch.Generator):
+                out[name] = value.get_state().numpy()
+            else:
+                out[name] = np.asarray(value)
+        return out
+
+    def restore(self, arrays: dict) -> None:
+        for name, (container, key) in self.slots.items():
+            value, saved = container[key], arrays[name]
+            if isinstance(value, torch.Tensor):
+                value.copy_(torch.from_numpy(saved))
+            elif isinstance(value, torch.Generator):
+                value.set_state(torch.from_numpy(saved.copy()))
+            else:
+                container[key] = type(value)(saved)

@@ -32,7 +32,7 @@ class OptimizationJointAttacker(OptimizationBasedAttacker):
         self._num_classes = int(metadata["classes"])
         return super().reconstruct(server_payload, shared_data, server_secrets, initial_data, dryrun)
 
-    def _recover_label_information(self, user_data):
+    def _recover_label_information(self, user_data, rec_models=None):
         return None  # the labels are optimized
 
     def _init_candidate_tree(self, num_trials, num_points):

@@ -1,10 +1,33 @@
 """The honest-but-curious FL server (counterpart of ``breaching_tpu/cases/servers.py``).
 
 The payload is a dict of detached tensors copied from the server's model: its
-parameters by name, its buffers by name (or None) and the data config.
+parameters by name, its buffers by name (or None) and the data config. Before each
+payload the server sets its model to ``server.model_state``, as the JAX package's
+``reconfigure_model`` does, in place on its model:
+
+- ``default``, ``trained``, ``unchanged``: as loaded;
+- ``untrained``: a fresh initialization of the architecture, drawn from a CPU
+  generator seeded from the setup's generator and the query's index (the JAX
+  package's ``fold_in(split_key(setup), query_id)``), BatchNorm statistics reset;
+- ``orthogonal``: the same, then every convolution and dense kernel redrawn as a
+  (semi-)orthogonal matrix on the JAX package's axes: the kernel flattened to
+  (-1, out) in its HWIO (convolution) or (in, out) (dense) layout, whose columns, or
+  rows where it has fewer rows than columns, are orthonormal;
+- ``linearized``: every BatchNorm's scale set to its running variance and its bias to
+  its running mean + 10, and every biased convolution's bias raised by 10 (dense
+  layers keep theirs). Like the JAX package, which runs it on every payload, the
+  convolution biases gain 10 per query; the BatchNorm parameters do not, they are
+  set from the statistics.
 """
 
 from __future__ import annotations
+
+import numpy as np
+import torch
+from torch import nn
+
+from .models.layers import BatchNorm
+from .models.model_preparation import construct_model
 
 
 def construct_server(model, loss_fn, cfg_case, setup, external_dataloader=None):
@@ -42,8 +65,29 @@ class HonestServer:
     Secrets: {list(self.secrets.keys())}"""
 
     def reconfigure_model(self, model_state: str, query_id: int = 0):
-        if model_state not in ("default", "trained", "unchanged", None):
-            raise NotImplementedError(f"Model state {model_state} is not ported yet.")
+        if model_state in ("default", "trained", "unchanged", None):
+            return
+        if model_state in ("untrained", "orthogonal"):
+            # the setup's generator gives the base seed; the query's index is folded in
+            base = int(torch.randint(2 ** 62, (), generator=self.setup["generator"]))
+            generator = torch.Generator().manual_seed(
+                int(np.random.SeedSequence([base, int(query_id)]).generate_state(1, np.uint64)[0]))
+            self._reinitialize(generator)
+            if model_state == "orthogonal":
+                _orthogonalize_kernels(self.model, generator)
+        elif model_state == "linearized":
+            _linearize_batchnorm(self.model)
+        else:
+            raise ValueError(f"Unknown model state {model_state}.")
+
+    def _reinitialize(self, generator):
+        """A fresh initialization of the model's architecture from ``generator``: every
+        parameter and buffer, as ``construct_model`` draws them."""
+        fresh, _ = construct_model(self.cfg_case.model, self.cfg_data, pretrained=False, generator=generator)
+        state = self.model.state_dict()
+        with torch.no_grad():
+            for name, tensor in fresh.state_dict().items():
+                state[name].copy_(tensor)
 
     def distribute_payload(self, query_id: int = 0):
         self.reconfigure_model(self.cfg_server.model_state, query_id)
@@ -69,3 +113,42 @@ class HonestServer:
             payloads.append(payload)
             shared_user_data.append(shared_data)
         return shared_user_data, payloads, true_user_data
+
+
+def _orthogonalize_kernels(model: nn.Module, generator: torch.Generator) -> None:
+    """Redraw every convolution and dense kernel of ``model`` as a (semi-)orthogonal
+    matrix on the JAX package's axes (``jax.nn.initializers.orthogonal`` of the kernel
+    flattened to (-1, out)): a standard normal matrix of shape (max, min) of the flat
+    shape, its Q factor with the signs of R's diagonal, transposed where the flat
+    kernel has fewer rows than columns. Drawn in float64 on the CPU."""
+    for module in model.modules():
+        if isinstance(module, nn.Conv2d):
+            out, cin, kh, kw = module.weight.shape
+            flat = _orthogonal((kh * kw * cin, out), generator)  # HWIO flattened
+            weight = flat.reshape(kh, kw, cin, out).permute(3, 2, 0, 1)
+        elif isinstance(module, nn.Linear):
+            weight = _orthogonal(tuple(module.weight.shape[::-1]), generator).T  # (in, out)
+        else:
+            continue
+        with torch.no_grad():
+            module.weight.copy_(weight)
+
+
+def _orthogonal(shape: tuple, generator: torch.Generator) -> torch.Tensor:
+    rows, cols = shape
+    normal = torch.randn(max(rows, cols), min(rows, cols), generator=generator, dtype=torch.float64)
+    q, r = torch.linalg.qr(normal)
+    q = q * torch.sign(torch.diagonal(r))
+    return q.T if rows < cols else q
+
+
+def _linearize_batchnorm(model: nn.Module) -> None:
+    """BatchNorm scale := running variance and bias := running mean + 10; biased
+    convolutions' bias += 10 (``breaching_tpu/cases/servers.py`` ``_linearize_batchnorm``)."""
+    with torch.no_grad():
+        for module in model.modules():
+            if isinstance(module, BatchNorm):
+                module.weight.copy_(module.running_var)
+                module.bias.copy_(module.running_mean + 10.0)
+            elif isinstance(module, nn.Conv2d) and module.bias is not None:
+                module.bias.add_(10.0)

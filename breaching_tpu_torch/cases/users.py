@@ -7,9 +7,23 @@ the architecture; the fedAVG update is the parameter delta after several local S
 steps of that kind. BatchNorm follows the JAX package: with server-provided buffers
 the model runs in eval mode on them; without, it runs in train mode and the
 user's running statistics (cumulative, so exactly its batch statistics after one
-step, and carried from one local step to the next) are shared. Local DP noise and
-per-example clipping are not ported, nor is ``MultiUserAggregate``: a config that
-asks for them is refused.
+step, and carried from one local step to the next) are shared. ``MultiUserAggregate``
+is not ported: a config that asks for it is refused.
+
+Local differential privacy (``user.local_diff_privacy``), as the JAX package's users
+apply it:
+- the fedSGD user adds ``input_noise`` times a standard draw to its inputs, then with
+  ``per_example_clipping`` C > 0 takes each example's gradient alone, scales it by
+  min(1, C / (|g| + 1e-6)) (|g| over all parameters) and averages them (the shared
+  BatchNorm statistics come from a second, full-batch forward pass), and last adds
+  ``gradient_noise`` times a standard draw to every parameter's gradient;
+- the fedAVG user clips the batch gradient of each local step to C the same way and
+  adds gradient noise at each step; like the JAX package's, it adds no input noise.
+The draws are ``sample_noise``'s, standard normal (``gaussian``) or Laplace of unit
+scale (``laplacian``, variance 2, as ``jax.random.laplace``), from a generator on the
+user's device seeded once from the setup's generator. The user's arithmetic is
+float32 throughout (``system_startup`` turns TF32 off), as the JAX user runs at
+"highest" precision.
 """
 
 from __future__ import annotations
@@ -23,6 +37,27 @@ from torch.func import functional_call
 from .data import construct_dataloader
 
 log = logging.getLogger(__name__)
+NOISE_DISTRIBUTIONS = ("gaussian", "laplacian")
+
+
+def sample_noise(shapes, generator, distribution):
+    """One standard draw of ``distribution`` for each shape, float32 on the generator's
+    device: N(0, 1) (``gaussian``), or Laplace(0, 1) (``laplacian``) as
+    ``jax.random.laplace`` forms it from u ~ U(-1 + eps/2, 1): sign(u) log1p(-|u|)."""
+    device, draws = generator.device, []
+    for shape in shapes:
+        if distribution == "gaussian":
+            draws.append(torch.randn(shape, generator=generator, device=device))
+        else:
+            u = torch.empty(shape, device=device).uniform_(-1.0 + torch.finfo(torch.float32).eps / 2, 1.0,
+                                                          generator=generator)
+            draws.append(torch.sign(u) * torch.log1p(-u.abs()))
+    return draws
+
+
+def global_norm(grads) -> torch.Tensor:
+    """sqrt of the sum of squares of every entry of an iterable of tensors."""
+    return torch.sqrt(sum((g * g).sum() for g in grads))
 
 
 def construct_user(model, loss_fn, cfg_case, setup):
@@ -50,16 +85,68 @@ class UserSingleStep:
         self.provide_buffers = bool(cfg_user.provide_buffers)
         self.provide_num_data_points = bool(cfg_user.provide_num_data_points)
         ldp = cfg_user.local_diff_privacy
-        for key in ("gradient_noise", "input_noise", "per_example_clipping"):
-            if float(ldp.get(key, 0.0) or 0.0) > 0:
-                raise NotImplementedError(f"local_diff_privacy.{key} > 0 is not ported yet.")
+        self.gradient_noise = float(ldp.gradient_noise)
+        self.input_noise = float(ldp.input_noise)
+        self.noise_distribution = str(ldp.distribution)
+        self.clip_value = float(ldp.get("per_example_clipping", 0.0))
+        if (self.gradient_noise > 0 or self.input_noise > 0) and self.noise_distribution not in NOISE_DISTRIBUTIONS:
+            raise ValueError(f"local_diff_privacy.distribution={self.noise_distribution} is not one of "
+                             f"{NOISE_DISTRIBUTIONS}.")
         self.counted_queries = 0
+        self.defense_repr = []
+        if self.gradient_noise > 0:
+            self.defense_repr.append(
+                f"Defense: local {self.noise_distribution} gradient noise, scale {self.gradient_noise}.")
+        if self.input_noise > 0:
+            self.defense_repr.append(
+                f"Defense: local {self.noise_distribution} input noise, scale {self.input_noise}.")
+        if self.clip_value > 0:
+            self.defense_repr.append(f"Defense: per-example gradient clipping at {self.clip_value}.")
+        self._generator = None
 
     def __repr__(self):
+        n = "\n"
         return f"""User (of type {self.__class__.__name__}):
     Number of data points: {self.num_data_points}
     Threat model: labels {self.provide_labels}, buffers {self.provide_buffers}, n {self.provide_num_data_points}
-    Dataset: {self.dataloader.name}, user idx {self.user_idx}"""
+    Dataset: {self.dataloader.name}, user idx {self.user_idx}
+    {n.join(self.defense_repr)}"""
+
+    def _noise(self, shapes):
+        """``sample_noise`` of the user's distribution, from its generator on its device,
+        seeded from the setup's generator at the first draw."""
+        if self._generator is None:
+            seed = int(torch.randint(2 ** 62, (), generator=self.setup["generator"]))
+            self._generator = torch.Generator(device=self.setup["device"]).manual_seed(seed)
+        return sample_noise(shapes, self._generator, self.noise_distribution)
+
+    def _clip_factor(self, norm):
+        """min(1, C / (norm + 1e-6)), one float32 division as the JAX package's."""
+        return torch.clamp(torch.full_like(norm, self.clip_value) / (norm + 1e-6), max=1.0)
+
+    def _add_gradient_noise(self, grads: dict) -> dict:
+        draws = self._noise([g.shape for g in grads.values()])
+        return {k: g + self.gradient_noise * d for (k, g), d in zip(grads.items(), draws)}
+
+    def clipped_gradient(self, params, buffers, inputs, labels, bn_train):
+        """The per-example clipped gradient: each example's gradient alone (in train mode
+        on its own batch statistics, with the running statistics updated on a copy that
+        is dropped), scaled by min(1, C / (|g| + 1e-6)), then the mean over the examples.
+        Returns (the gradients by name, the clipped per-example norms (N,))."""
+        total, norms = None, []
+        for i in range(inputs.shape[0]):
+            current = {k: v.detach().requires_grad_(True) for k, v in params.items()}
+            example_buffers = {k: v.clone() for k, v in buffers.items()} if bn_train else buffers
+            outputs = functional_call(self.model, {**current, **example_buffers}, (inputs[i:i + 1],),
+                                      dict(train=bn_train))
+            grads = torch.autograd.grad(self.loss(outputs, labels[i:i + 1]), tuple(current.values()))
+            norm = global_norm(grads)
+            factor = self._clip_factor(norm)
+            norms.append(norm * factor)
+            clipped = [g * factor for g in grads]
+            total = clipped if total is None else [t + g for t, g in zip(total, clipped)]
+        count = inputs.shape[0]
+        return {k: t / count for k, t in zip(params, total)}, torch.stack(norms)
 
     def compute_local_updates(self, server_payload, custom_data=None):
         self.counted_queries += 1
@@ -67,12 +154,19 @@ class UserSingleStep:
         parameters = server_payload["parameters"]
         bn_train, local_buffers = self._local_buffers(server_payload["buffers"])
 
-        params = {k: v.detach().requires_grad_(True) for k, v in parameters.items()}
-        outputs = functional_call(self.model, {**params, **local_buffers}, (inputs,),
-                                  dict(train=bn_train))
-        loss = self.loss(outputs, labels)
-        grads = torch.autograd.grad(loss, tuple(params.values()))
-        grads = {k: g.detach() for k, g in zip(params, grads)}
+        seen = inputs + self.input_noise * self._noise([inputs.shape])[0] if self.input_noise > 0 else inputs
+        if self.clip_value > 0:
+            grads, _ = self.clipped_gradient(parameters, local_buffers, seen, labels, bn_train)
+            if bn_train:  # the shared statistics are the full batch's
+                with torch.no_grad():
+                    functional_call(self.model, {**parameters, **local_buffers}, (seen,), dict(train=True))
+        else:
+            params = {k: v.detach().requires_grad_(True) for k, v in parameters.items()}
+            outputs = functional_call(self.model, {**params, **local_buffers}, (seen,), dict(train=bn_train))
+            grads = torch.autograd.grad(self.loss(outputs, labels), tuple(params.values()))
+            grads = {k: g.detach() for k, g in zip(params, grads)}
+        if self.gradient_noise > 0:
+            grads = self._add_gradient_noise(grads)
 
         shared_buffers = local_buffers if bn_train else None
         metadata = dict(
@@ -128,7 +222,8 @@ class UserSingleStep:
 
 class UserMultiStep(UserSingleStep):
     """A fedAVG user: several local SGD steps, shares the parameter delta (reference
-    ``breaching_tpu/cases/users.py:270-370``).
+    ``breaching_tpu/cases/users.py:270-370``). With local DP, each step's batch gradient
+    is clipped to ``per_example_clipping`` and gets its own gradient noise.
 
     Step k trains on the user's examples (k·m + j) mod N, j < m, with m examples per
     step and N in all. The shared labels are the user's in data order; the local
@@ -141,6 +236,9 @@ class UserMultiStep(UserSingleStep):
         self.num_data_per_local_update_step = int(cfg_user.num_data_per_local_update_step)
         self.local_learning_rate = float(cfg_user.local_learning_rate)
         self.provide_local_hyperparams = bool(cfg_user.provide_local_hyperparams)
+        if self.input_noise > 0:
+            log.warning("The fedAVG user adds no input noise, as the JAX package's UserMultiStep; "
+                        "local_diff_privacy.input_noise is not applied.")
 
     def __repr__(self):
         return (super().__repr__() +
@@ -164,8 +262,13 @@ class UserMultiStep(UserSingleStep):
             outputs = functional_call(self.model, {**current, **local_buffers}, (inputs[step_idx],),
                                       dict(train=bn_train))
             grads = torch.autograd.grad(self.loss(outputs, labels[step_idx]), tuple(current.values()))
-            params = {k: (v - self.local_learning_rate * g).detach()
-                      for (k, v), g in zip(current.items(), grads)}
+            if self.clip_value > 0:  # the step's batch gradient, clipped as a whole
+                factor = self._clip_factor(global_norm(grads))
+                grads = [g * factor for g in grads]
+            grads = dict(zip(current, grads))
+            if self.gradient_noise > 0:
+                grads = self._add_gradient_noise(grads)
+            params = {k: (v - self.local_learning_rate * grads[k]).detach() for k, v in current.items()}
         delta = {k: params[k] - parameters[k].detach() for k in params}
 
         shared_buffers = local_buffers if any(True for _ in self.model.buffers()) else None

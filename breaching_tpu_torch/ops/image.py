@@ -12,7 +12,8 @@ is NHWC, so the TV stencil runs along dims 3 and 2 here). Kernels
   and ``_make_tv_general`` that the TPU kernel lacks, in one launch; bound 8 bytes
   per element. ``tv_backward`` is its gradient alone.
 - B4 ``box_project`` replaces ``box_project`` / Pallas ``_box_kernel``; bound 8 bytes
-  per element.
+  per element. At the attack's 12 KB its cost is the host's and the launch's, so its
+  wrapper's path is lean and takes an ``out`` that may be its input (in place).
 - ``adam_box_step`` is B4 rebuilt as the attack's whole step tail: the hard or soft
   sign, optax's Adam, the box clamp, the finite guard and the best-iterate update, which
   the JAX package runs as one XLA fusion with ``jnp.clip`` in place of the box
@@ -225,8 +226,11 @@ def total_variation_trials(images, inner_exp=1.0, outer_exp=1.0, eps=1e-8, scale
     return _TotalVariationTrials.apply(images, scale, float(inner_exp), float(outer_exp), float(eps))
 
 
-def box_project_plain(x, lo, hi):
-    return torch.minimum(torch.maximum(x, lo.reshape(1, -1, 1, 1)), hi.reshape(1, -1, 1, 1))
+def box_project_plain(x, lo, hi, out=None):
+    lo4, hi4 = lo.reshape(1, -1, 1, 1), hi.reshape(1, -1, 1, 1)
+    if out is None:
+        return torch.minimum(torch.maximum(x, lo4), hi4)
+    return torch.minimum(torch.maximum(x, lo4, out=out), hi4, out=out)
 
 
 def _check_box(name, x, lo, hi):
@@ -235,18 +239,51 @@ def _check_box(name, x, lo, hi):
                          f"{tuple(x.shape)}, {tuple(lo.shape)}, {tuple(hi.shape)}.")
 
 
-def box_project(x, lo, hi):
-    """Clamp an NCHW batch to the per-channel bounds lo[c] <= x <= hi[c]."""
+_box_entry = None  # the kernel's ctypes entry point, bound at its first launch
+
+
+def box_project(x, lo, hi, out=None):
+    """Clamp an NCHW batch to the per-channel bounds lo[c] <= x <= hi[c], into a new
+    tensor, or into ``out`` of x's shape, which may be ``x`` itself (in place).
+
+    The call is mostly host work at the attack's sizes, so the kernel's path checks only
+    what the kernel needs, one attribute at a time: the shapes, one CUDA device,
+    float32 and contiguity; anything else goes to ``_box_project_checked``, which runs
+    the plain version for CPU tensors and raises for the rest."""
+    global _box_entry
+    shape = x.shape
+    if x.is_cuda and len(shape) == 4:
+        n, c, h, w = shape
+        device = x.get_device()
+        ready = (lo.shape == hi.shape == (c,) and lo.get_device() == hi.get_device() == device
+                 and x.dtype is lo.dtype is hi.dtype is torch.float32
+                 and x.is_contiguous() and lo.is_contiguous() and hi.is_contiguous())
+        if ready and out is not None and out is not x:
+            ready = (out.shape == shape and out.get_device() == device and out.dtype is torch.float32
+                     and out.is_contiguous())
+        if ready:
+            if out is None:
+                out = torch.empty_like(x)
+            if _box_entry is None:
+                _box_entry = _build.load_library().b4_box_project
+            status = _box_entry(x.data_ptr(), lo.data_ptr(), hi.data_ptr(), out.data_ptr(), n * c * h * w, h * w, c,
+                                torch._C._cuda_getCurrentRawStream(device))
+            if status:
+                _build.check(status, "b4_box_project")
+            box_project.launches += 1
+            return out
+    return _box_project_checked(x, lo, hi, out)
+
+
+def _box_project_checked(x, lo, hi, out):
+    """``box_project`` off the kernel's path: the plain version for CPU tensors; a
+    ValueError for shapes, devices, dtypes or layouts the kernel does not take."""
     _check_box("box_project", x, lo, hi)
-    stream = _build.launch_stream("box_project", x, lo, hi)
-    if stream is None:
-        return box_project_plain(x, lo, hi)
-    out = torch.empty_like(x)
-    _build.check(_build.load_library().b4_box_project(
-        x.data_ptr(), lo.data_ptr(), hi.data_ptr(), out.data_ptr(), x.numel(),
-        x.shape[2] * x.shape[3], x.shape[1], stream), "b4_box_project")
-    box_project.launches += 1
-    return out
+    if out is not None and out.shape != x.shape:
+        raise ValueError(f"box_project writes into an out of x's shape {tuple(x.shape)}, got {tuple(out.shape)}.")
+    # every case the kernel takes went to it: this returns None for CPU tensors, else raises
+    _build.launch_stream("box_project", x, lo, hi, *(() if out is None else (out,)))
+    return box_project_plain(x, lo, hi, out)
 
 
 box_project.launches = 0

@@ -1,6 +1,6 @@
 """Where the time of a slice's attack step goes, on the card.
 
-    python3 -m breaching_tpu_torch.profile_slice [--slice 1|2|3|4|5] [--path 5a|5b|5b'|5c] [--fleet F] [--fused]
+    python3 -m breaching_tpu_torch.profile_slice [--slice 1|2|3|4|5|6] [--path 5a|5b|5b'|5c] [--fleet F] [--fused]
                                                  [--lbfgs] [--iterations N]
 
 Slice 1 (the default) runs Inverting Gradients with the fused cosine objective on
@@ -20,8 +20,9 @@ package's remaining vision presets, chosen by ``--path``: 5a ``multiscale`` (Res
 on its checkpoint at 224, seven stages 32, 64, ..., 224 of N steps each), 5b
 ``inverting_large_batch_cifar`` (ResNet32-10 on 100 images of CIFAR-100's shape,
 grad_accum=10), 5b' the same with grad_accum=1, 5c ``see_through_gradients``
-(ResNet-50 on the repo's checkpoint at 224). Each goes through the entry
-points: one warm-up attack, an
+(ResNet-50 on the repo's checkpoint at 224); slice 6 its path 6a, the same ResNet-18 at
+ImageNet shapes with 4 images and their labels, the user's gradient clipped per example at 1
+with Laplace noise of scale 1e-3. Each goes through the entry points: one warm-up attack, an
 attack of N steps (default 200) timed with the profiler off, and the same attack
 under ``torch.profiler``. Prints one JSON line: milliseconds per step with the
 profiler off and on (wall clock around the synchronised attack; the difference
@@ -53,6 +54,9 @@ SLICES = {
         "case.user.num_local_updates=4", "case.user.num_data_per_local_update_step=2",
         "case.user.provide_labels=True", "case.user.user_idx=1", "attack.optim.callback=0", "seed=7"],
     4: ["case=2_single_imagenet", "attack=modern", "attack.optim.callback=0", "seed=7"],
+    6: ["case=2_single_imagenet", "attack=invertinggradients", "case.user.num_data_points=4",
+        "case.user.provide_labels=True", "case.user.local_diff_privacy.per_example_clipping=1.0",
+        "case.user.local_diff_privacy.gradient_noise=1e-3", "attack.optim.callback=0", "seed=7"],
 }
 # slice 5's paths (examples/run_example.py's presets)
 SLICE5 = {
@@ -98,7 +102,7 @@ def _timed(run):
 
 def main():
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    parser.add_argument("--slice", type=int, choices=sorted(SLICES) + [5], default=1)
+    parser.add_argument("--slice", type=int, choices=sorted([*SLICES, 5]), default=1)
     parser.add_argument("--path", choices=sorted(SLICE5), default="5a", help="slice 5's path")
     parser.add_argument("--fleet", type=int, default=1, help="experiments through reconstruct_fleet")
     parser.add_argument("--fused", action="store_true", help="slice 2 or 3 with the fused cosine objective")

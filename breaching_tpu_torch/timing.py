@@ -4,20 +4,21 @@
 
     python3 -m breaching_tpu_torch.timing ROOT [ROOT ...]
 
-it times, for the port found under each ROOT in the order given, the wrappers of
-the standalone kernels B2 (``ops.axpby``) and B4 (``ops.box_project``) beside their
-library calls, at the slice's shapes (ConvNet-64's 2,904,970 parameters, one
-3x32x32 image); and TV at 1x3x32x32 and 1x3x224x224: the forward and backward
-wrappers called in turn (``ops.tv_forward`` then ``ops.tv_backward``), the fused
-``ops.tv_value_and_grad`` where the tree has it, and the attack's TV regularizer
-(scale 0.2) with its gradient through autograd, which is what one attack step
-spends on TV. It prints one JSON line per ROOT. Give a checkout of the parent
-commit and this one as parent, change, change, parent to compare two launch paths
-on one card. Needs a CUDA device.
+it times, for the port found under each ROOT in the order given, the wrappers of the
+standalone kernels B2 (``ops.axpby``) and B4 (``ops.box_project``, and its in-place
+form where the tree has it) beside their library calls, at the slice's shapes
+(ConvNet-64's 2,904,970 parameters, one 3x32x32 image); and TV at 1x3x32x32 and
+1x3x224x224: the forward and backward wrappers called in turn (``ops.tv_forward``
+then ``ops.tv_backward``), the fused ``ops.tv_value_and_grad`` where the tree has
+it, and the attack's TV regularizer (scale 0.2) with its gradient through autograd,
+which is what one attack step spends on TV. It prints one JSON line per ROOT. Give a
+checkout of the parent commit and this one as parent, change, change, parent to
+compare two launch paths on one card. Needs a CUDA device.
 """
 
 from __future__ import annotations
 
+import inspect
 import json
 import sys
 import time
@@ -105,6 +106,10 @@ def _time_standalone(root: str) -> dict:
     lo4, hi4 = lo.reshape(1, -1, 1, 1), hi.reshape(1, -1, 1, 1)
     calls = {"b2_axpby": lambda: ops.axpby(a, r, b, d), "torch.add(alpha=)": lambda: torch.add(ar, d, alpha=1.3),
              "b4_box_project": lambda: ops.box_project(x, lo, hi), "torch.clamp": lambda: torch.clamp(x, lo4, hi4)}
+    if "out" in inspect.signature(ops.box_project).parameters:  # the in-place form, where the tree has it
+        xi = x.clone()
+        calls["b4_box_project in place"] = lambda: ops.box_project(xi, lo, hi, out=xi)
+        calls["torch.clamp(out=)"] = lambda: torch.clamp(xi, lo4, hi4, out=xi)
     g = torch.tensor([0.2], device="cuda")
     reg = TotalVariation(scale=0.2)
     for shape in ((1, 3, 32, 32), (1, 3, 224, 224)):

@@ -20,7 +20,10 @@ Phases, one line each on standard output:
      4x3x224x224, with NaN and infinite pixels at the boundary, twice in a row
      and in a replayed CUDA graph; for slice 5 the fused TV kernel and the fused
      Adam step at 100x3x32x32 (5b) and 1x3x96x96 (a stage of 5a), TV also at
-     1x3x192x192;
+     1x3x192x192; the rebuilt box clamp bit for bit, out of place and in place,
+     at 1x3x32x32 and 4x3x224x224, 4 bytes off a 16-byte boundary and at a
+     width that is not a multiple of 4, with NaN, infinities and values on the
+     bounds;
   4. the attack gradient of each slice on the card against the same computation
      on the CPU, through the plain versions (and whether the card gives the same
      bits twice, which is reported, not required); for slice 3 the gradient
@@ -55,9 +58,23 @@ Phases, one line each on standard output:
      ResNet50.npz, which it must hold, at 224, 200 steps), 5d
      ``inverting_gradients_fedavg``, ``inverting_gradients_fedavg_cifar`` and
      ``inverting_gradients_resnet18`` (50 steps each); slices 1 and 2 solo take
-     1,000 and 200 steps; for each: set-up seconds, loss at the start and end
-     of every trial, PSNR and SSIM (of the batch put in the true images' order,
-     and the order), it/s (the fleet's aggregate; with L-BFGS also the
+     1,000 and 200 steps; slice 6, the honest server's remaining configuration
+     surface: 6a the fedSGD user with per-example clipping (C = 1) and Laplace
+     gradient noise on ResNet-18 at 224 (the checkpoint, 4 images, 200 steps),
+     where every clipped per-example norm is at most C (1 + 1e-5) and, with
+     the noise off, the clipped gradient on the card equals the CPU's to
+     1e-12 of its largest entry in float64 and to 1e-4 in float32; 6b the server's model states ``linearized``,
+     ``orthogonal`` (every kernel orthonormal to 1e-4 on the card) and
+     ``untrained``, 50 steps each; 6c case 4's fedAVG user with its batch
+     gradient clipped and noised at every local step (50 steps); 6d
+     ``wainakh-whitebox`` labels on ConvNet-64, CIFAR-10, 4 images, equal to
+     the CPU's (50 steps); 6e a checkpointed run of 101 steps and a fresh
+     attacker resumed from its file of step 100: the restored state bit for
+     bit, its loss to 1e-6 and its one step to 1e-6 but for 1e-4 of the
+     entries; 6f the Chrome trace that ``trace_dir`` writes of one chunk of
+     slice 1, which must name the path's four kernels; for each: set-up
+     seconds, loss at the start and end of every trial, PSNR and SSIM (of the
+     batch put in the true images' order, and the order), it/s (the fleet's aggregate; with L-BFGS also the
      objective's evaluations per second), peak memory and launches per step;
   6. each kernel's time beside its bound, the plain version's time and one
      PyTorch call of the same function (for a fused kernel, the library call of
@@ -71,8 +88,10 @@ Phases, one line each on standard output:
      at slice 3's (100 calls), the fused Adam step's soft sign at 1x3x224x224
      and the fused TV kernel at 1x6x224x224 (slice 4's double opponents), the
      fused TV kernel and the fused Adam step at slice 5's 100x3x32x32 and
-     1x3x96x96, TV at 1x3x192x192 (100 calls); and which device times, if any,
-     come in under their bound.
+     1x3x96x96, TV at 1x3x192x192 (100 calls); the box clamp also in place (the
+     form slices 4b-c call) beside ``torch.clamp(out=)``, each form and its
+     library call timed in turns over five rounds (medians); and which device
+     times, if any, come in under their bound.
 Then one JSON line with the kernels, and as the last line
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 
@@ -82,9 +101,9 @@ path needs (on slice 4's L-BFGS paths: B1 and ``b2_axpby`` once per evaluation o
 the objective, TV once per evaluation, ``b4_box_project`` once per outer step), an
 attack's loss does not fall (on slice 4: its best value stays at its first, or a
 loss is not finite; on slice 5a: a stage's), an experiment of the fleet does not
-keep its own labels, or a batch's order is not a permutation. A loss that turns
-non-finite fails every path but the fedAVG users' (slices 3 and 5d): there the simulated local SGD of the
-fedAVG user can overflow float32 on the attack's candidates, as it does in the
+keep its own labels, a batch's order is not a permutation, or a check of slice 6
+fails. A loss that turns non-finite fails every path but the fedAVG users' (slices
+3, 5d and 6c): there the simulated local SGD of the fedAVG user can overflow float32 on the attack's candidates, as it does in the
 JAX package, and the attack stops at such a candidate. The same local steps at
 that candidate, in float64 on the CPU, must then reach a magnitude above 1e30
 (float32 overflows in sums of such terms), which the script prints beside the
@@ -94,10 +113,13 @@ magnitude on the user's own images.
 import json
 import math
 import os
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 
+import numpy as np
 import torch
 
 REPO = os.path.dirname(os.path.abspath(__file__))
@@ -158,6 +180,16 @@ SLICE5 = {
     "slice 5d inverting_gradients_resnet18": (["case=2_single_imagenet", "attack=invertinggradients", "seed=7"], 50,
                                               IMAGE_KERNELS),
 }
+# slice 6: the honest server's remaining configuration surface, ResNet-18 at 224 on its
+# checkpoint, 4 images with their labels (6a-6c, 6e), ConvNet-64 for the labels (6d)
+LDP = "case.user.local_diff_privacy"
+SLICE6 = ["case=2_single_imagenet", "attack=invertinggradients", "case.user.num_data_points=4",
+          "case.user.provide_labels=True", "seed=7"]
+CLIP = 1.0
+DP = [f"{LDP}.per_example_clipping={CLIP}", f"{LDP}.gradient_noise=1e-3", f"{LDP}.distribution=laplacian"]
+SLICE6_STEPS, STATE_STEPS, RESUME_STEPS = 200, 50, 100
+WAINAKH = ["case=1_single_image_small", "attack=invertinggradients", "case.user.num_data_points=4",
+           "case.user.provide_labels=False", "attack.label_strategy=wainakh-whitebox", "seed=7"]
 STAGE = (1, 3, 96, 96)  # a stage of 5a's pyramid (32, 64, ..., 224) that slices 1-4 do not run
 STAGE2 = (1, 3, 192, 192)
 LARGE = (100, 3, 32, 32)  # 5b's candidate: 100 CIFAR-100 images
@@ -190,6 +222,8 @@ SLICE_KERNELS = ("b1_matching_sums", "b2_cosine_backward", "b3_tv_value_and_grad
 BIG = (1, 3, 224, 224)  # the image batch of slice 2 (ResNet-18 at ImageNet shapes)
 BATCH = (4, 3, 224, 224)  # the image batch of slice 3 (the fedAVG user's 4 images)
 N2 = 11_380_173  # the gradient entries of slice 2
+# the kernels timed in turns with their library call (per-call figures within 2 us of each other)
+IN_TURNS, TURNS = ("b4_box_project", "b4_box_project in place"), 5
 # (p, q) whose powers p, p-1, q, q-1 cheap_pow forms exactly: the fused TV gradient bit for bit
 TV_EXACT = ((1.0, 1.0), (2.0, 1.0), (1.5, 2.0))
 
@@ -286,8 +320,6 @@ def check_kernels(ops, n_params, image_shape):
                    slice_shape and p == 1.0)
         lo = torch.tensor([-1.9, -2.0, -1.7], device=dev)
         hi = torch.tensor([2.1, 2.1, 2.0], device=dev)
-        got, want = ops.box_project(x * 2, lo, hi), image.box_project_plain(x * 2, lo, hi)
-        report("b4_box_project", str(shape), got, want, 0.0, slice_shape)
         for signed in (True, False):
             check_adam_box_step(ops, image, report_exact, randn, shape, lo, hi, signed, slice_shape)
     for shape in (image_shape, BIG, (2, 3, 331, 1007)):  # slice 4d-e's soft sign
@@ -303,9 +335,33 @@ def check_kernels(ops, n_params, image_shape):
         for shape in (LARGE, STAGE):  # slice 5: 5b's 100 images, a stage of 5a's pyramid
             check_adam_box_step(ops, image, report_exact, randn, shape, lo, hi, signed,
                                 signed and f"b4_adam_box_step slice5 {shape}")
+    check_box_project(ops, image, report_exact, randn, image_shape, lo, hi)
     check_tv_value_and_grad(ops, image, report, report_exact, randn, image_shape)
     check_fused_euclidean(ops, matching, report, randn, n_params)
     return worst
+
+
+def check_box_project(ops, image, report_exact, randn, image_shape, lo, hi):
+    """b4_box_project against its plain version bit for bit, NaN positions included, out
+    of place and in place (``out=`` its input): at the path's 1x3x32x32 and at slice 3's
+    4x3x224x224 (the float4 kernel), 4 bytes off a 16-byte boundary and at a width that
+    is not a multiple of 4 (the scalar kernel), with NaN, infinities and values on the
+    bounds planted."""
+    for shape in (image_shape, BATCH, (2, 3, 331, 1007)):
+        n = math.prod(shape)
+        for offset in (0, 1):
+            buffer = randn(n + offset) * 2
+            flat = buffer[offset:]
+            flat[::97], flat[1::89], flat[2::89] = float("nan"), float("inf"), float("-inf")
+            x = flat.view(shape)
+            x[0, :, 0, 3], x[-1, :, -1, -1] = lo, hi  # on the bounds
+            where = f"{shape}{' unaligned' if offset else ''}"
+            want = image.box_project_plain(x, lo, hi)
+            report_exact("b4_box_project", where, ops.box_project(x, lo, hi), want,
+                         shape == image_shape and not offset)
+            inplace = buffer.clone()[offset:].view(shape)
+            ops.box_project(inplace, lo, hi, out=inplace)
+            report_exact("b4_box_project", f"{where} in place", inplace, want, False)
 
 
 def check_fused_euclidean(ops, matching, report, randn, n):
@@ -875,9 +931,254 @@ def check_large_batch(breaching, shape):
     print(f"reference slice 5b: {time.perf_counter() - start:.1f} s", flush=True)
 
 
+def build(breaching, overrides, device=None):
+    """(cfg, setup, user, server, model) of a case through the entry points, on the card
+    unless ``device`` says otherwise."""
+    cfg = breaching.get_config(overrides)
+    setup = breaching.utils.system_startup(cfg=cfg, device=device or DEVICE)
+    user, server, model, _ = breaching.cases.construct_case(cfg.case, setup)
+    return cfg, setup, user, server, model
+
+
+def attack_path(breaching, ops, path, cfg, setup, server, shared, payloads, true, steps, needs=IMAGE_KERNELS,
+                require_fall=True):
+    """Phase 5: ``steps`` attack steps on an exchange already made, launch counts from the
+    attack alone, each kernel of ``needs`` launched that many times a step and no other.
+    Returns (the launch counts, the result, the stats, the losses, it/s, peak bytes)."""
+    attacker = breaching.attacks.prepare_attack(server.model, server.loss, cfg.attack, setup)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    start = time.perf_counter()
+    result, stats = attacker.reconstruct(payloads, shared, server.secrets)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - start
+    launches = ops.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    losses = stats["Trial_0_Val"]
+    metrics = breaching.analysis.report(result, true, payloads, server.model, order_batch=True, cfg_case=cfg.case,
+                                        setup=setup)
+    diverged = first_nonfinite(losses)
+    print(f"{path}: {steps} steps in {seconds:.2f} s = {len(losses) / seconds:.2f} it/s; loss first={losses[0]:.6f} "
+          f"lowest={min(losses[:diverged] or [math.nan]):.6f} last={losses[-1]:.6f}"
+          f"{'' if diverged is None else f' (not finite from step {diverged} on)'}; labels "
+          f"{result['labels'].tolist()} (true {true['labels'].tolist()}); PSNR={metrics['psnr']:.3f} "
+          f"SSIM={metrics['ssim']:.4f}; peak memory {peak / 2**30:.3f} GiB; launches per step "
+          f"{ {k: v / len(losses) for k, v in launches.items() if v} }", flush=True)
+    data = result["data"]
+    require(tuple(data.shape) == tuple(true["data"].shape) and bool(torch.isfinite(data).all()),
+            f"{path}: the reconstruction is not a finite {tuple(true['data'].shape)} tensor")
+    require(len(losses) == steps, f"{path}: {len(losses)} losses for {steps} steps")
+    if require_fall:
+        require(diverged is None and min(losses) < losses[0], f"{path}: the loss did not fall, or is not finite")
+    want = {name: n * steps for name, n in needs.items()}
+    require({k: v for k, v in launches.items() if v} == want, f"{path}: launches {launches}, the path needs {want}")
+    return launches, result, stats, losses
+
+
+def run_dp(breaching, ops):
+    """6a: the fedSGD user with per-example clipping at C and laplacian gradient noise on
+    ResNet-18 at 224 (4 images). Every clipped per-example gradient's norm is at most
+    C (1 + 1e-5). With the noise off, the clipped gradient in float64 on the card equals
+    the CPU's to 1e-12 of its largest entry (the same arithmetic on both), and in float32
+    on the card it is within 1e-4 of the largest entry of both float64 and the CPU's
+    float32: measured on the H100, 3.35e-5, where the CPU's float32 is 4.0e-7 from
+    float64 (PERF.md §6). The attack's loss falls. Times the per-example clipped
+    gradient (3 calls after one warm-up)."""
+    weight_overrides, weights = resnet_weights()
+    cfg, setup, user, server, model = build(breaching, SLICE6 + DP + weight_overrides + [
+        f"attack.optim.max_iterations={SLICE6_STEPS}", "attack.optim.callback=100"])
+    if not weight_overrides:
+        require_checkpoint(model, CHECKPOINT)
+    start = time.perf_counter()
+    shared, payloads, true = server.run_protocol(user)
+    torch.cuda.synchronize()
+    exchange = time.perf_counter() - start
+    payload = payloads[0]
+    bn_train, buffers = user._local_buffers(payload["buffers"])
+    inputs, labels = user._user_tensors(None)
+    user.clipped_gradient(payload["parameters"], buffers, inputs, labels, bn_train)
+    torch.cuda.synchronize()
+    start = time.perf_counter()
+    for _ in range(3):
+        grads, norms = user.clipped_gradient(payload["parameters"], buffers, inputs, labels, bn_train)
+    torch.cuda.synchronize()
+    per_example_ms = (time.perf_counter() - start) / 3 * 1e3
+
+    def clipped(device, dtype):
+        """The clipped gradient on ``device`` in ``dtype``, flattened, float64 on the CPU."""
+        moved = [{k: v.to(device, dtype) for k, v in tree.items()} for tree in (payload["parameters"], buffers)]
+        found, _ = user.clipped_gradient(*moved, inputs.to(device, dtype), labels.to(device), bn_train)
+        return torch.cat([found[k].reshape(-1).double().cpu() for k in payload["parameters"]])
+
+    card = torch.cat([grads[k].reshape(-1).double().cpu() for k in payload["parameters"]])
+    exact, cpu, cpu64 = clipped(DEVICE, torch.float64), clipped("cpu", torch.float32), clipped("cpu", torch.float64)
+    scale = exact.abs().max()
+    errs = {name: ((a - b).abs().max() / scale).item() for name, a, b in (
+        ("float64 card-CPU", exact, cpu64), ("float32 card-float64", card, exact), ("float32 card-CPU", card, cpu),
+        ("float32 CPU-float64", cpu, exact))}
+    noisy = torch.cat([g.reshape(-1).cpu() for g in shared[0]["gradients"].values()])
+    print(f"slice 6a: ResNet-18 on {weights}, {tuple(inputs.shape)}, {'train' if bn_train else 'eval'}-mode BatchNorm; "
+          f"exchange {exchange:.2f} s; per-example clipped gradient {per_example_ms:.1f} ms a call; clipped norms "
+          f"{norms.tolist()} (C = {CLIP}); noise off, errors over the largest entry: "
+          f"{ {k: f'{v:.2e}' for k, v in errs.items()} } (tol 1e-12 in float64, 1e-4 in float32); shared update with "
+          f"noise: |noise| max {(noisy - card).abs().max().item():.3e}", flush=True)
+    require(bool((norms <= CLIP * (1 + 1e-5)).all()), f"slice 6a: a clipped norm exceeds C: {norms.tolist()}")
+    require(errs["float64 card-CPU"] <= 1e-12 and errs["float32 card-float64"] <= 1e-4
+            and errs["float32 card-CPU"] <= 1e-4, f"slice 6a: the clipped gradient on the card is off: {errs}")
+    launches, *_ = attack_path(breaching, ops, "slice 6a local DP", cfg, setup, server, shared, payloads, true,
+                               SLICE6_STEPS)
+    return launches
+
+
+def orthogonality_error(parameters):
+    """The largest |W^T W - I| (or |W W^T - I| where the flat kernel has fewer rows than
+    columns) over every convolution and dense kernel, flattened to (-1, out) on the JAX
+    package's axes, in float32 on the card."""
+    worst = 0.0
+    for name, value in parameters.items():
+        if not name.endswith("weight") or value.dim() not in (2, 4):
+            continue
+        flat = value.permute(2, 3, 1, 0).reshape(-1, value.shape[0]) if value.dim() == 4 else value.T
+        gram = flat.T @ flat if flat.shape[0] >= flat.shape[1] else flat @ flat.T
+        worst = max(worst, (gram - torch.eye(gram.shape[0], device=gram.device)).abs().max().item())
+    return worst
+
+
+def run_model_states(breaching, ops):
+    """6b: the same model and images with each server model state, 50 steps each."""
+    paths = {}
+    for state in ("linearized", "orthogonal", "untrained"):
+        path = f"slice 6b model_state={state}"
+        cfg, setup, user, server, model = build(breaching, SLICE6 + resnet_weights()[0] + [
+            f"case.server.model_state={state}", f"attack.optim.max_iterations={STATE_STEPS}",
+            f"attack.optim.callback={STATE_STEPS}"])
+        shared, payloads, true = server.run_protocol(user)
+        if state == "orthogonal":
+            err = orthogonality_error(payloads[0]["parameters"])
+            print(f"{path}: every kernel orthonormal on the JAX package's axes to {err:.2e} on the card (tol 1e-4)",
+                  flush=True)
+            require(err <= 1e-4, f"{path}: a kernel is {err:.2e} off orthonormal")
+        paths[path], *_ = attack_path(breaching, ops, path, cfg, setup, server, shared, payloads, true, STATE_STEPS)
+    return paths
+
+
+def run_wainakh(breaching, ops):
+    """6d: ``wainakh-whitebox`` labels on ConvNet-64, CIFAR-10, 4 images: the labels the
+    attack recovers on the card equal the CPU's, from the same fake draws (a CPU generator
+    seeded from the setup's, in the same state on both); 50 steps of the attack."""
+    overrides = WAINAKH + ["attack.optim.max_iterations=50", "attack.optim.callback=50"]
+    cfg, setup, user, server, model = build(breaching, overrides, "cpu")
+    shared, payloads, _ = server.run_protocol(user)
+    attacker = breaching.attacks.prepare_attack(server.model, server.loss, cfg.attack, setup)
+    cpu_labels = attacker.prepare_attack(payloads, shared)[1].cpu()
+    cfg, setup, user, server, model = build(breaching, overrides)
+    shared, payloads, true = server.run_protocol(user)
+    launches, result, *_ = attack_path(breaching, ops, "slice 6d wainakh-whitebox", cfg, setup, server, shared,
+                                       payloads, true, 50)
+    print(f"slice 6d wainakh-whitebox: labels on the card {result['labels'].tolist()}, on the CPU "
+          f"{cpu_labels.tolist()}, true {true['labels'].tolist()}", flush=True)
+    require(torch.equal(result["labels"].cpu(), cpu_labels), "slice 6d: the card's labels differ from the CPU's")
+    return launches
+
+
+def run_resume(breaching, ops, tmp):
+    """6e: 6a's setup with the noise off. Attacker A takes 101 steps, read back every 50 and
+    checkpointed after every chunk (steps 50, 100, 101); a fresh attacker B resumes from
+    A's file of step 100. B's restored state equals that file bit for bit; B's loss at
+    step 100 equals A's to 1e-6, and B's state after its one step equals A's after step
+    101 to 1e-6 of each tensor's largest entry, in all but 1e-4 of the entries: cuDNN's
+    backward need not repeat its bits (phase 4), and the hard sign turns a last-bit
+    difference of a gradient entry near 0 into a step the other way. Returns the launch
+    counts of A and of B."""
+    from breaching_tpu_torch import utils_checkpoint
+    from breaching_tpu_torch.attacks import optimization_based_attack as attack_module
+
+    path, at_100 = os.path.join(tmp, "state.npz"), os.path.join(tmp, "state_at_100.npz")
+    saved, restored = {}, []
+    save, restore = utils_checkpoint.save_attack_state, attack_module._RunState.restore
+
+    def save_and_keep(target, arrays, iteration):
+        save(target, arrays, iteration)
+        saved[(target, iteration)] = {k: v.copy() for k, v in arrays.items()}
+        if target == path and iteration == RESUME_STEPS:
+            shutil.copy(path, at_100)
+
+    def restore_and_compare(run_state, arrays):
+        restore(run_state, arrays)
+        now = run_state.arrays()
+        restored.append(all(now[k].tobytes() == arrays[k].tobytes() for k in arrays) and now.keys() == arrays.keys())
+
+    utils_checkpoint.save_attack_state, attack_module._RunState.restore = save_and_keep, restore_and_compare
+    try:
+        knobs = SLICE6 + [f"{LDP}.per_example_clipping={CLIP}", "attack.impl.checkpoint_every=1",
+                          f"attack.optim.max_iterations={RESUME_STEPS + 1}", f"attack.optim.callback={RESUME_STEPS // 2}"]
+        knobs += resnet_weights()[0]
+        cfg, setup, user, server, model = build(breaching, knobs + [f"attack.impl.checkpoint_path={path}"])
+        shared, payloads, true = server.run_protocol(user)
+        first, _, _, losses = attack_path(breaching, ops, "slice 6e checkpointed run", cfg, setup, server, shared,
+                                          payloads, true, RESUME_STEPS + 1)
+        cfg.attack.impl.checkpoint_path = at_100
+        second, _, stats, resumed_losses = attack_path(breaching, ops, "slice 6e resumed run", cfg, setup, server,
+                                                       shared, payloads, true, 1, require_fall=False)
+    finally:
+        utils_checkpoint.save_attack_state, attack_module._RunState.restore = save, restore
+    require(stats.get("resumed_at") == RESUME_STEPS and restored == [True],
+            f"slice 6e: resumed at {stats.get('resumed_at')}, restored state equal to the file: {restored}")
+    a, b = saved[(path, RESUME_STEPS + 1)], saved[(at_100, RESUME_STEPS + 1)]
+    loss_err = abs(resumed_losses[0] - losses[RESUME_STEPS]) / abs(losses[RESUME_STEPS])
+    errors, off = {}, {}
+    for k in a:
+        if a[k].dtype == np.float32:
+            diff, scale = np.abs(a[k].astype(np.float64) - b[k]), max(np.abs(a[k]).max(), 1e-30)
+            errors[k], off[k] = float(diff.max() / scale), float((diff > 1e-6 * scale).mean())
+    print(f"slice 6e resume: {len(a)} state entries; the restored state equals the file of step {RESUME_STEPS} bit "
+          f"for bit; the loss at step {RESUME_STEPS} {resumed_losses[0]:.9f} against {losses[RESUME_STEPS]:.9f} "
+          f"(relative {loss_err:.2e}, tol 1e-6); after one step, against the uninterrupted step "
+          f"{RESUME_STEPS + 1}: largest error over the largest entry {errors}, share of entries beyond 1e-6 of it "
+          f"{off} (tol 1e-4)", flush=True)
+    require(loss_err <= 1e-6 and max(off.values()) <= 1e-4
+            and all(np.array_equal(a[k], b[k]) for k in a if a[k].dtype != np.float32),
+            f"slice 6e: the resumed step differs: {errors}, {off}")
+    return first, second
+
+
+def run_trace(breaching, ops, tmp):
+    """6f: ``trace_dir`` on slice 1's path (10 steps read back every 5): one chunk's
+    Chrome trace names the port's kernels of the path."""
+    trace_dir = os.path.join(tmp, "trace")
+    cfg, setup, user, server, model = build(breaching, SLICE + [
+        "attack.optim.max_iterations=10", "attack.optim.callback=5", f"attack.impl.trace_dir={trace_dir}", "seed=0"])
+    shared, payloads, true = server.run_protocol(user)
+    launches, _, stats, _ = attack_path(breaching, ops, "slice 6f trace_dir", cfg, setup, server, shared, payloads,
+                                        true, 10, needs=dict.fromkeys(SLICE_KERNELS, 1))
+    with open(stats["trace_file"]) as fh:
+        names = {event.get("name", "") for event in json.load(fh)["traceEvents"]}
+    kernels = ("matching_partials", "cosine_backward_kernel", "tv_value_and_grad_kernel", "adam_box_step_kernel")
+    named = {k: any(k in name for name in names) for k in kernels}
+    print(f"slice 6f: {os.path.basename(stats['trace_file'])}, {os.path.getsize(stats['trace_file'])} bytes, "
+          f"{len(names)} event names; the port's kernels named: {named}", flush=True)
+    require(all(named.values()), f"slice 6f: the trace does not name every kernel of the path: {named}")
+    return launches
+
+
 def bound(bytes_moved, flops):
     t_bytes, t_ops = bytes_moved / PEAK_BYTES_PER_S, flops / PEAK_F32_PER_S
     return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
+
+
+def time_in_turns(kernel, library, iters):
+    """``timing.time_ms`` of a kernel and its library call taken in turns (kernel,
+    library, library, kernel) over ``TURNS`` rounds, and the median of each figure: the
+    host's speed drifts within a call by more than the two differ."""
+    from breaching_tpu_torch.timing import time_ms
+
+    runs = ([], [])
+    for _ in range(TURNS):
+        for which in (0, 1, 1, 0):
+            runs[which].append(time_ms((kernel, library)[which], iters))
+    return [tuple(float(np.median([run[i] for run in timed])) for i in range(4)) for timed in runs]
 
 
 def time_kernels(ops, n, image_shape, names=None, iters=200):
@@ -898,6 +1199,7 @@ def time_kernels(ops, n, image_shape, names=None, iters=200):
     lo = torch.tensor([-1.9, -2.0, -1.7], device=dev)
     hi = torch.tensor([2.1, 2.1, 2.0], device=dev)
     lo4, hi4 = lo.reshape(1, -1, 1, 1), hi.reshape(1, -1, 1, 1)
+    xi = x.clone()
     m = x.numel()
     grad = torch.randn(*image_shape, generator=gen).to(dev)
     mu, nu, best = torch.zeros_like(x), torch.zeros_like(x), x.clone()
@@ -927,6 +1229,11 @@ def time_kernels(ops, n, image_shape, names=None, iters=200):
                                  None, 8 * m + 8, 20 * m),
         "b4_box_project": (lambda: ops.box_project(x, lo, hi), lambda: image.box_project_plain(x, lo, hi),
                            (lambda: torch.clamp(x, lo4, hi4), "torch.clamp"), 8 * m + 24, 2 * m),
+        # the form the path takes (slice 4b-c): in place on the step's own result
+        "b4_box_project in place": (lambda: ops.box_project(xi, lo, hi, out=xi),
+                                    lambda: image.box_project_plain(xi, lo, hi, out=xi),
+                                    (lambda: torch.clamp(xi, lo4, hi4, out=xi), "torch.clamp(out=)"), 8 * m + 24,
+                                    2 * m),
         # reads x, g, mu, nu, value, best_val, lo, hi; writes x, mu, nu, best (improved) and
         # the new best value; about 15 operations per element
         "b4_adam_box_step": (lambda: ops.adam_box_step(*step_args), lambda: image.adam_box_step_plain(*step_args),
@@ -968,14 +1275,20 @@ def time_kernels(ops, n, image_shape, names=None, iters=200):
         if (names is None and name.endswith(("soft", "q=0.5"))) or (names is not None and name not in names):
             continue  # slice 4's variants run only when named
         bound_ms, bound_by = bound(nbytes, flops)
-        ms, device_ms, host_ms, device_warm_ms = time_ms(kernel, iters)
+        yardstick = seconds.get(name, None if library is None else (*library, "library"))
+        turns = name in IN_TURNS
+        if turns:  # the kernel and its library call in turns, medians
+            (ms, device_ms, host_ms, device_warm_ms), (lib_ms, lib_device_ms, lib_host_ms, lib_device_warm_ms) = \
+                time_in_turns(kernel, yardstick[0], iters)
+        else:
+            ms, device_ms, host_ms, device_warm_ms = time_ms(kernel, iters)
         plain_ms, plain_device_ms, plain_host_ms, plain_device_warm_ms = time_ms(plain, iters)
         row = dict(ms=ms, device_ms=device_ms, host_ms=host_ms, device_warm_ms=device_warm_ms, plain_ms=plain_ms,
                    plain_device_ms=plain_device_ms, plain_host_ms=plain_host_ms,
                    plain_device_warm_ms=plain_device_warm_ms, library_ms=None, bound_ms=bound_ms, bound_by=bound_by)
-        yardstick = seconds.get(name, None if library is None else (*library, "library"))
         if yardstick is not None:
-            lib_ms, lib_device_ms, lib_host_ms, lib_device_warm_ms = time_ms(yardstick[0], iters)
+            if not turns:
+                lib_ms, lib_device_ms, lib_host_ms, lib_device_warm_ms = time_ms(yardstick[0], iters)
             prefix = yardstick[2]
             row.update({f"{prefix}_call": yardstick[1], f"{prefix}_ms": lib_ms,
                         f"{prefix}_device_ms": lib_device_ms, f"{prefix}_host_ms": lib_host_ms,
@@ -987,7 +1300,8 @@ def time_kernels(ops, n, image_shape, names=None, iters=200):
         if yardstick is not None:
             line += (f"; {yardstick[1]} {lib_ms * 1e3:.2f} / {lib_device_ms * 1e3:.2f} "
                      f"({lib_device_warm_ms * 1e3:.2f}) / {lib_host_ms * 1e3:.2f} us")
-        print(f"{line}; bound {bound_ms * 1e3:.3f} us ({bound_by}); n={n} images {image_shape}", flush=True)
+        print(f"{line}; bound {bound_ms * 1e3:.3f} us ({bound_by}); n={n} images {image_shape}"
+              f"{f' (kernel and library call: medians of {2 * TURNS} in turns)' if turns else ''}", flush=True)
     return timings
 
 
@@ -1063,6 +1377,15 @@ def main():
     print(f"slice 5b: peak memory {accum10 / 2**30:.3f} GiB with grad_accum=10, {accum1 / 2**30:.3f} GiB with "
           f"grad_accum=1 ({accum1 / accum10:.2f}x)", flush=True)
     require(accum10 < accum1, "slice 5b: grad_accum=10 does not lower the peak memory")
+    paths["slice 6a local DP"] = run_dp(breaching, ops)
+    paths.update(run_model_states(breaching, ops))
+    paths["slice 6c fedavg local DP"] = run_resnet(breaching, ops, "slice 6c fedavg local DP", SLICE3, DP[:2], 50)
+    require({k: v for k, v in paths["slice 6c fedavg local DP"].items() if v} == {k: 50 for k in IMAGE_KERNELS},
+            f"slice 6c: launches {paths['slice 6c fedavg local DP']}")
+    paths["slice 6d wainakh-whitebox"] = run_wainakh(breaching, ops)
+    with tempfile.TemporaryDirectory() as tmp:
+        paths["slice 6e checkpointed run"], paths["slice 6e resumed run"] = run_resume(breaching, ops, tmp)
+        paths["slice 6f trace_dir"] = run_trace(breaching, ops, tmp)
 
     print(f"chip_smoke: phase 5 done at {time.perf_counter() - began:.1f} s", flush=True)
     timings = time_kernels(ops, n_params, image_shape)
@@ -1083,6 +1406,8 @@ def main():
                          max_abs_err=errors[name], **timings[name]))
         if f"{name} {BIG}" in timings:
             rows[-1]["at_1x3x224x224"] = timings[f"{name} {BIG}"]
+        if f"{name} in place" in timings:
+            rows[-1]["at_in_place"] = dict(shape=image_shape, **timings[f"{name} in place"])
         if name in slice2:
             rows[-1]["at_slice2"] = dict(n=N2 if name != "b4_adam_box_step" else BIG,
                                          max_abs_err=errors[f"{name} slice2"], **timings2[name])

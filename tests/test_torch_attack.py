@@ -145,14 +145,19 @@ def test_short_signed_reconstructions_match(dryrun, iterations):
 
 @pytest.mark.parametrize("override,name", [
     ("attack.attack_type=permutation-optimization", "permutation-optimization"),
-    ("attack.label_strategy=wainakh-whitebox case.user.provide_labels=False", "wainakh-whitebox"),
+    ("attack.label_strategy=bias-text case.user.provide_labels=False", "bias-text"),
     # the attack.impl knobs the JAX package acts on and the port does not (yet): each is
-    # refused by name rather than ignored
+    # refused by name rather than ignored. checkpoint_path, checkpoint_every and
+    # trace_dir run (tests/test_torch_checkpoint.py), but not a checkpoint of L-BFGS (its
+    # history is not saved), of trials run one after the other or of the multiscale attack
     ("attack.impl.mixed_precision=True", "mixed_precision"),
-    ("attack.impl.checkpoint_path=attack_state.npz", "checkpoint_path"),
-    ("attack.impl.checkpoint_every=1", "checkpoint_every"),
+    ("attack.optim.optimizer=L-BFGS attack.impl.checkpoint_path=attack_state.npz", "checkpoint_path"),
+    ("attack.optim.optimizer=gd attack.restarts.num_trials=2 attack.impl.checkpoint_path=attack_state.npz",
+     "checkpoint_path"),
+    ("attack=multiscale_ghiasi attack.impl.checkpoint_path=attack_state.npz", "checkpoint_path"),
     ("attack.impl.sharding=restarts", "sharding"),
-    ("attack.impl.trace_dir=attack_trace", "trace_dir"),
+    ("attack.impl.sharding=batch", "sharding"),
+    ("attack.impl.dtype=float64", "dtype"),
     ("attack.impl.dtype=bfloat16", "dtype")])
 def test_unported_options_are_refused(override, name):
     cfg = breaching.get_config(SLICE + override.split())

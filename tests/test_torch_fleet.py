@@ -247,9 +247,11 @@ def test_bias_corrected_labels_match_the_jax_package(num_data_points, queries):
 
 
 def test_other_label_strategies_are_refused():
-    # iDLG, analytic, yin, wainakh-simple and random are ported (tests/test_torch_presets.py)
-    cfg = breaching.get_attack_config("invertinggradients", ["attack.label_strategy=wainakh-whitebox"])
-    with pytest.raises(NotImplementedError, match="wainakh-whitebox"):
+    # iDLG, analytic, yin, wainakh-simple and random are ported (tests/test_torch_presets.py),
+    # wainakh-whitebox and exhaustive's refusal too (tests/test_torch_labels.py); bias-text
+    # waits for the text stack
+    cfg = breaching.get_attack_config("invertinggradients", ["attack.label_strategy=bias-text"])
+    with pytest.raises(NotImplementedError, match="bias-text"):
         _BaseAttacker(None, None, cfg, dict(device=torch.device("cpu")))._recover_label_information(
             [dict(gradients={}, metadata=dict(num_data_points=1, labels=None))])
 

@@ -88,6 +88,23 @@ def test_b4_matches_plain(cuda, shape):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(1, 3, 32, 32), (4, 3, 224, 224)])
+@pytest.mark.parametrize("offset", [0, 1])
+def test_b4_in_place_unaligned_and_nan_match_plain(cuda, shape, offset):
+    # offset 1 starts the images 4 bytes into their buffer: the one-element-a-thread kernel
+    n = int(np.prod(shape))
+    buffer = _randn(n + offset, 6, cuda) * 3
+    buffer[offset::101] = float("nan")
+    x = buffer[offset:].view(shape)
+    lo, hi = torch.tensor([-1.0, -2.0, 0.0], device=cuda), torch.tensor([1.0, 0.5, 2.0], device=cuda)
+    want = image.box_project_plain(x, lo, hi)
+    assert _same_bits(ops.box_project(x, lo, hi), want)
+    before = ops.box_project.launches
+    assert ops.box_project(x, lo, hi, out=x) is x and ops.box_project.launches == before + 1
+    assert _same_bits(x, want)
+
+
+@pytest.mark.cuda
 def test_kernels_refuse_non_contiguous_input(cuda):
     x = _randn((1, 3, 32, 32), 5, cuda).transpose(2, 3)
     with pytest.raises(ValueError):

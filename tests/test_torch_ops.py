@@ -154,6 +154,22 @@ def test_box_project_plain_matches_pallas():
     np.testing.assert_array_equal(got.numpy(), want)
 
 
+def test_box_project_in_place_matches_pallas():
+    """The in-place form (``out=`` the input, as the attack's L-BFGS and first-order steps
+    call it) writes the same values into its input and returns it; an ``out`` of another
+    shape is refused."""
+    x = _images((2, 3, 8, 8), 13) * 3
+    x[0, 1, 2, 2] = np.nan
+    lo, hi = np.asarray([-1.0, -2.0, 0.0], np.float32), np.asarray([1.0, 0.5, 2.0], np.float32)
+    want = _nchw(jax_box_project(_nhwc(x), jnp.asarray(lo), jnp.asarray(hi)))
+    xt = torch.from_numpy(x.copy())
+    got = ops.box_project(xt, torch.from_numpy(lo), torch.from_numpy(hi), out=xt)
+    assert got is xt
+    np.testing.assert_array_equal(xt.numpy(), want)
+    with pytest.raises(ValueError):
+        ops.box_project(xt, torch.from_numpy(lo), torch.from_numpy(hi), out=torch.empty(2, 3, 8, 7))
+
+
 def test_wrappers_refuse_shapes_and_devices_they_do_not_take():
     x = torch.zeros(1, 3, 4, 4)
     with pytest.raises(ValueError):

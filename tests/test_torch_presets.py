@@ -139,10 +139,13 @@ def test_label_strategies_match_jax(four_images, strategy):
 
 
 def test_unported_label_strategies_are_refused(four_images):
+    """``bias-text`` waits for the text stack; ``exhaustive`` raises the JAX package's
+    ``ValueError`` (``wainakh-whitebox`` runs: tests/test_torch_labels.py)."""
     attacker = four_images["attacker"]
-    for strategy in ("wainakh-whitebox", "exhaustive", "bias-text"):
+    for strategy, error, message in (("bias-text", NotImplementedError, "bias-text"),
+                                     ("exhaustive", ValueError, "Exhaustive label searching is not implemented")):
         attacker.cfg.label_strategy = strategy
-        with pytest.raises(NotImplementedError, match=strategy):
+        with pytest.raises(error, match=message):
             attacker.prepare_attack(four_images["payloads"], four_images["shared"])
 
 

@@ -65,10 +65,14 @@ def test_shared_gradients_match(public_buffers):
 
 
 def test_noise_and_clipping_are_refused():
+    """Local DP noise and clipping are ported (tests/test_torch_dp.py). What stays refused
+    of them is a noise distribution other than gaussian and laplacian, which the JAX
+    package would draw as laplacian without a word."""
     cfg = breaching.get_config(["case=1_single_image_small", "case.model=ConvNet4",
-                                "case.user.local_diff_privacy.gradient_noise=0.1"])
+                                "case.user.local_diff_privacy.gradient_noise=0.1",
+                                "case.user.local_diff_privacy.distribution=uniform"])
     setup = breaching.utils.system_startup(cfg=cfg, device="cpu")
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError, match="distribution=uniform"):
         breaching.cases.construct_case(cfg.case, setup)
 
 
