@@ -22,7 +22,7 @@ import re
 import torch
 
 from ...ops import total_variation, total_variation_trials
-from ..base_attack import head_grads
+from ...cases.models.model_preparation import head_grads
 
 
 class TotalVariation:
@@ -165,8 +165,8 @@ class FeatureRegularization:
 
     def initialize(self, models, shared_data=None, labels=None):
         self.measured_features = []
-        for user_data in shared_data:
-            w_grad, b_grad = head_grads(user_data["gradients"])
+        for model, user_data in zip(models, shared_data):
+            w_grad, b_grad = head_grads(user_data["gradients"], model.module)
             b = b_grad[:, None]
             debiased = w_grad / torch.where(b.abs() > 1e-10, b, torch.full_like(b, float("inf")))
             self.measured_features.append(debiased[torch.as_tensor(labels, device=debiased.device).long()])

@@ -1,7 +1,8 @@
 """Shared attack machinery (counterpart of ``breaching_tpu/attacks/base_attack.py``):
 payload ingestion, gradient normalization, label recovery and candidate set-up.
 The label strategies ``iDLG``, ``analytic``, ``yin``, ``wainakh-simple``,
-``wainakh-whitebox``, ``bias-corrected`` and ``random`` are ported; ``exhaustive``
+``wainakh-whitebox``, ``bias-corrected`` and ``random`` are ported; without a strategy
+(``label_strategy`` unset) the labels stay None, as in the JAX package; ``exhaustive``
 raises the JAX package's ``ValueError``, and ``bias-text`` (text) raises
 ``NotImplementedError``. ``random``, and the padding of a strategy that finds too few
 labels, draw from ``setup["python_rng"]`` (numpy). ``wainakh-whitebox`` measures the
@@ -19,6 +20,7 @@ import numpy as np
 import torch
 from torch.func import functional_call
 
+from ..cases.models.model_preparation import head_grads, head_keys
 from .auxiliaries.initializations import init_candidate
 
 log = logging.getLogger(__name__)
@@ -125,11 +127,12 @@ class _BaseAttacker:
         ``rec_models[0]`` on fake data."""
         strategy = self.cfg.label_strategy
         if strategy is None or str(strategy).lower() == "none":
-            raise NotImplementedError("An attack without labels needs a label strategy.")
+            return None
         if strategy == "bias-text":
             raise NotImplementedError(f"Label strategy {strategy} is not ported yet.")
         num_data_points = int(user_data[0]["metadata"]["num_data_points"])
-        grads = [tuple(t.detach().cpu().numpy() for t in head_grads(d["gradients"])) for d in user_data]
+        grads = [tuple(t.detach().cpu().numpy() for t in head_grads(d["gradients"], self.model_template))
+                 for d in user_data]
         num_classes, num_queries = grads[0][1].shape[0], len(user_data)
         if strategy == "iDLG":
             labels = np.unique([int(np.argmin(w.sum(axis=1))) for w, _ in grads])
@@ -202,8 +205,9 @@ class _BaseAttacker:
         other class, divided by C - 1 and by Q. The m sweep takes draws 0, ..., C - 1,
         the s sweep draws C, ..., 2C - 1."""
         model = rec_models[0]
-        head = model.params["head.weight"].detach().requires_grad_(True)
-        params = {k: head if k == "head.weight" else v.detach() for k, v in model.params.items()}
+        head_weight, _ = head_keys(model.module)
+        head = model.params[head_weight].detach().requires_grad_(True)
+        params = {k: head if k == head_weight else v.detach() for k, v in model.params.items()}
         seed = int(torch.randint(2 ** 62, (), generator=self.setup["generator"]))
         generator = torch.Generator().manual_seed(seed)
         device = head.device
@@ -225,8 +229,3 @@ class _BaseAttacker:
         m_impact = float(m_sums.sum()) * (1 + 1 / num_classes) / num_data_points / num_classes / num_queries
         return m_impact, s_sums.cpu().numpy() / num_queries
 
-
-def head_grads(gradients: dict):
-    """(weight gradient (out, in), bias gradient (out,)) of the classification head,
-    the ``nn.Linear`` named ``head`` in every model of the port."""
-    return gradients["head.weight"], gradients["head.bias"]

@@ -39,6 +39,9 @@ the joint attack run one after the other through the single step. The trials are
 then scored (``restarts.scoring``: ``cosine-similarity``, ``euclidean`` or TV) and
 the best is returned.
 
+Against the fishing server (``server_secrets["ClassAttack"]``) the attack rebuilds the one
+image the server isolated and returns it in the user's batch (``expand_class_attack``).
+
 A fedAVG user's update (a payload whose metadata carries ``local_hyperparams``) is
 matched by the objective's unrolled local steps, and scored the same way; it runs
 one trial, solo: restarts and fleets of such users are refused.
@@ -87,6 +90,16 @@ from .auxiliaries.regularizers import CAPTURING, TotalVariation, regularizer_loo
 from .base_attack import _BaseAttacker
 
 log = logging.getLogger(__name__)
+
+
+def expand_class_attack(reconstructed, info):
+    """The fishing server's single reconstruction put back in the user's batch: zeros of
+    the user's ``true_num_data`` images with the reconstruction at ``target_indx``, and
+    all the user's labels (reference: optimization_based_attack.py:98-104)."""
+    optimal = reconstructed["data"]
+    full = optimal.new_zeros((int(info["true_num_data"]), *optimal.shape[1:]))
+    full[torch.as_tensor(info["target_indx"], device=optimal.device).reshape(-1).long()] = optimal
+    return dict(data=full, labels=torch.as_tensor(info["all_labels"], device=optimal.device))
 
 
 class OptimizationBasedAttacker(_BaseAttacker):
@@ -149,7 +162,10 @@ class OptimizationBasedAttacker(_BaseAttacker):
                                        [labels] * num_trials, stats, initial_data, dryrun)
         scores = self._score_all_trials(best, labels, rec_models, shared_data)
         optimal = self._select_optimal_reconstruction(best, scores, stats)
-        return self._extract_solution(optimal, labels), stats
+        reconstructed = self._extract_solution(optimal, labels)
+        if server_secrets and "ClassAttack" in server_secrets:
+            reconstructed = expand_class_attack(reconstructed, server_secrets["ClassAttack"])
+        return reconstructed, stats
 
     def reconstruct_fleet(self, payload_lists, shared_lists, server_secrets=None, dryrun=False):
         """Run N independent single-query reconstructions as one batched attack

@@ -1,4 +1,5 @@
-"""Model factory: name -> (nn.Module, loss_fn), for the ConvNet and ResNet families.
+"""Model factory: name -> (nn.Module, loss_fn), for the ConvNet and ResNet families and
+the ``linear`` and ``none`` models.
 
 Counterpart of ``breaching_tpu/cases/models/model_preparation.py``. Weights are
 drawn from the ``setup`` generator. With ``pretrained=True`` a checkpoint in the
@@ -20,7 +21,7 @@ from torch import nn
 from .layers import BatchNorm
 from .losses import LOSSES, CrossEntropyLoss
 from .resnets import build_resnet
-from .vision_nets import ConvNet
+from .vision_nets import ConvNet, LinearModel, NoneModel
 
 log = logging.getLogger(__name__)
 REPO = os.path.dirname(os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__)))))
@@ -39,9 +40,12 @@ def construct_model(cfg_model, cfg_data, pretrained: bool = False, generator=Non
         width = int(lname[len("convnet"):] or 64)
         model = ConvNet(width=width, num_classes=int(cfg_data.classes), shape=tuple(cfg_data.shape),
                         generator=generator)
+    elif lname in ("linear", "none"):
+        model = (LinearModel if lname == "linear" else NoneModel)(
+            num_classes=int(cfg_data.classes), shape=tuple(cfg_data.shape), generator=generator)
     else:
         raise NotImplementedError(f"Model {name} is not ported yet; the port has the ConvNet and "
-                                  f"ResNet families.")
+                                  f"ResNet families, linear and none.")
     model.name = name
     if pretrained:
         _maybe_load_pretrained(model, cfg_data)
@@ -49,13 +53,38 @@ def construct_model(cfg_model, cfg_data, pretrained: bool = False, generator=Non
     return model, loss_cls()
 
 
+def head_name(model) -> str:
+    """The module name of ``model``'s classification head: ``head`` in every model of the
+    port, ``victim.head`` behind an imprint block (``ImprintedModel.head_name``)."""
+    return getattr(model, "head_name", "head")
+
+
+def head_keys(model) -> tuple[str, str]:
+    """The parameter names (weight, bias) of ``model``'s classification head."""
+    head = head_name(model)
+    return f"{head}.weight", f"{head}.bias"
+
+
+def head_grads(gradients: dict, model):
+    """(weight gradient (out, in), bias gradient (out,)) of ``model``'s classification
+    head, from ``gradients`` by parameter name."""
+    weight, bias = head_keys(model)
+    return gradients[weight], gradients[bias]
+
+
 def _flat_entries(model: nn.Module):
     """(flat key, tensor, transform) for every parameter and buffer of the model, the
     flat key in the JAX package's layout and the transform taking its array to the
-    tensor's layout (HWIO -> OIHW for convolutions, (in, out) -> (out, in) for dense)."""
+    tensor's layout (HWIO -> OIHW for convolutions, (in, out) -> (out, in) for dense).
+    The dense layers of an imprint block (``flat_param_suffixes``) are the JAX block's
+    ``<name>_kernel`` and ``<name>_bias``."""
     for path, module in model.named_modules():
         prefix = path.replace(".", "/")
-        if isinstance(module, nn.Conv2d):
+        parent = path.rpartition(".")[0]
+        if isinstance(module, nn.Linear) and getattr(model.get_submodule(parent), "flat_param_suffixes", False):
+            yield f"params/{prefix}_kernel", module.weight, np.transpose
+            yield f"params/{prefix}_bias", module.bias, None
+        elif isinstance(module, nn.Conv2d):
             yield f"params/{prefix}/conv/kernel", module.weight, lambda a: np.transpose(a, (3, 2, 0, 1))
             if module.bias is not None:
                 yield f"params/{prefix}/conv/bias", module.bias, None

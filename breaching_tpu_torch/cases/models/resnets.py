@@ -7,8 +7,13 @@ Module names are the flax names of the JAX package (``stem_conv``, ``stem_norm``
 A block takes the downsample path exactly where the JAX block does, when its
 residual's shape differs from its output's; the spatial sizes that decide this are
 followed from the input shape at construction. Not ported: GroupNorm ResNets
-(``resnetgn*``) and the malicious family's ``imprint_block``, ``linear_prefix`` and
-``identity_nonlin``.
+(``resnetgn*``).
+
+The malicious server's deep placement (``place_imprint``) runs an imprint block before
+stage ``imprint_position`` (the JAX ResNet's ``imprint_block`` and ``imprint_position``);
+with ``linear_prefix`` the ReLUs before it, the stem's and the BasicBlocks'
+(``identity_nonlin``), become identities. A Bottleneck keeps its ReLUs, as in the JAX
+package.
 """
 
 from __future__ import annotations
@@ -39,6 +44,10 @@ def resnet_depths_to_config(depth: int):
     return table[depth]
 
 
+def _identity(x: torch.Tensor) -> torch.Tensor:
+    return x
+
+
 def _out_size(size: int, stride: int) -> int:
     """Height or width after a stride-s convolution padded by kernel_size // 2 (odd
     kernels), or a 3x3 max pool padded by 1."""
@@ -47,6 +56,7 @@ def _out_size(size: int, stride: int) -> int:
 
 class BasicBlock(nn.Module):
     expansion = 1
+    identity_nonlin = False  # a linearized prefix of a deep imprint placement
 
     def __init__(self, in_channels: int, features: int, stride: int, size: tuple,
                  generator: torch.Generator | None = None):
@@ -63,12 +73,13 @@ class BasicBlock(nn.Module):
             self.downsample_norm = BatchNorm(features)
 
     def forward(self, x: torch.Tensor, train: bool = False, capture: dict | None = None) -> torch.Tensor:
-        y = F.relu(self.bn1(self.conv1(x), train=train, capture=capture))
+        act = _identity if self.identity_nonlin else F.relu
+        y = act(self.bn1(self.conv1(x), train=train, capture=capture))
         y = self.bn2(self.conv2(y), train=train, capture=capture)
         residual = x
         if self.downsample_conv is not None:
             residual = self.downsample_norm(self.downsample_conv(x), train=train, capture=capture)
-        return F.relu(y + residual)
+        return act(y + residual)
 
 
 class Bottleneck(nn.Module):
@@ -113,7 +124,8 @@ class ResNet(nn.Module):
                  generator: torch.Generator | None = None):
         super().__init__()
         channels, *size = shape
-        self.stem = stem
+        self.stem, self.block_type, self.width, self.strides = stem, block, width, tuple(strides)
+        self.imprint_block, self.imprint_position, self.linear_prefix = None, 0, False
         if stem == "ImageNet":
             self.stem_conv = Conv(channels, width, 7, 2, use_bias=False, generator=generator)
             size = [_out_size(_out_size(s, 2), 2) for s in size]  # the conv, then the pool
@@ -121,14 +133,14 @@ class ResNet(nn.Module):
             self.stem_conv = Conv(channels, width, 3, use_bias=False, generator=generator)
         self.stem_norm = BatchNorm(width)
         block_cls = BasicBlock if block == "basic" else Bottleneck
-        self.blocks = []
+        self.blocks = []  # (stage, index in the stage, module name) in execution order
         channels, features = width, width
         for stage, (num_blocks, stride) in enumerate(zip(layers, strides)):
             for idx in range(num_blocks):
                 s = stride if idx == 0 else 1
                 name = f"stage{stage}_block{idx}"
                 self.add_module(name, block_cls(channels, features, s, tuple(size), generator))
-                self.blocks.append(name)
+                self.blocks.append((stage, idx, name))
                 size = [_out_size(v, s) for v in size]
                 channels = features * block_cls.expansion
             features *= 2
@@ -139,15 +151,31 @@ class ResNet(nn.Module):
                 capture: dict | None = None) -> torch.Tensor:
         """Logits, or the pre-head features with ``features``; a ``capture`` dict
         collects the features and train-mode BatchNorm statistics (``layers.BatchNorm``)."""
-        x = F.relu(self.stem_norm(self.stem_conv(x), train=train, capture=capture))
+        x = self.stem_norm(self.stem_conv(x), train=train, capture=capture)
+        x = x if self._linear_before(0) else F.relu(x)
         if self.stem == "ImageNet":
             x = max_pool(x, 3, 2, padding=1)
-        for name in self.blocks:
+        for stage, idx, name in self.blocks:
+            if self.imprint_block is not None and stage == self.imprint_position and idx == 0:
+                x = self.imprint_block(x)
             x = getattr(self, name)(x, train=train, capture=capture)
         x = avg_pool_global(x)
         if capture is not None:
             capture["features"] = x
         return x if features else self.head(x)
+
+    def _linear_before(self, stage: int) -> bool:
+        return self.imprint_block is not None and self.linear_prefix and stage < self.imprint_position
+
+    def place_imprint(self, block: nn.Module, position: int, linear_prefix: bool) -> None:
+        """Run ``block`` before stage ``position``; with ``linear_prefix`` the ReLUs before
+        it become identities (the JAX ResNet's ``imprint_block``, ``imprint_position`` and
+        ``linear_prefix``)."""
+        self.imprint_block, self.imprint_position, self.linear_prefix = block, int(position), bool(linear_prefix)
+        for stage, _, name in self.blocks:
+            module = getattr(self, name)
+            if isinstance(module, BasicBlock):
+                module.identity_nonlin = self._linear_before(stage)
 
 
 def build_resnet(model_name: str, classes: int, is_imagenet_data: bool, shape=(3, 224, 224),

@@ -1,10 +1,12 @@
-"""Vision architectures of the port (counterpart of ``breaching_tpu/cases/models/vision_nets.py``).
+"""Vision architectures of the port (counterpart of ``breaching_tpu/cases/models/vision_nets.py``):
+the ConvNet, ``LinearModel`` (``linear``, the analytic sanity check's one dense layer) and
+``NoneModel`` (``none``, no parameters).
 
 NCHW ``nn.Module``s; ``forward(x, train=False, features=False, capture=None)`` returns
 logits, or the pre-head features with ``features=True``; a ``capture`` dict collects
-the features and train-mode BatchNorm statistics (``layers.BatchNorm``). The features are flattened in
-height-width-channel order, the JAX package's order, so that its head weights load
-with a plain transpose.
+the features and train-mode BatchNorm statistics (``layers.BatchNorm``). Features (and
+the inputs of ``linear`` and ``none``) are flattened in height-width-channel order, the
+JAX package's order, so that its dense weights load with a plain transpose.
 """
 
 from __future__ import annotations
@@ -43,7 +45,7 @@ class ConvNet(nn.Module):
             x = F.relu(getattr(self, f"bn{idx}")(x, train=train, capture=capture))
             if idx in self.POOLS_AFTER:
                 x = F.max_pool2d(x, 3)
-        x = x.permute(0, 2, 3, 1).flatten(1)
+        x = flatten_hwc(x)
         if capture is not None:
             capture["features"] = x
         return x if features else self.head(x)
@@ -66,3 +68,44 @@ class ConvNet(nn.Module):
         flatten(buffers, "buffers/")
         load_flat_state(self, flat, strict=True)
         return self
+
+
+def flatten_hwc(x: torch.Tensor) -> torch.Tensor:
+    """(N, C, H, W) -> (N, H*W*C), in the JAX package's NHWC order."""
+    return x.permute(0, 2, 3, 1).reshape(x.shape[0], -1)
+
+
+class LinearModel(nn.Module):
+    """One dense layer on the flattened input, the analytic sanity check's model
+    (reference: model_preparation.py:236-240): the FC inversion is exact here."""
+
+    def __init__(self, num_classes: int = 10, shape=(3, 32, 32), generator: torch.Generator | None = None):
+        super().__init__()
+        channels, height, width = shape
+        self.head = Dense(channels * height * width, num_classes, generator=generator)
+
+    def forward(self, x: torch.Tensor, train: bool = False, features: bool = False,
+                capture: dict | None = None) -> torch.Tensor:
+        x = flatten_hwc(x)
+        if capture is not None:
+            capture["features"] = x
+        return x if features else self.head(x)
+
+
+class NoneModel(nn.Module):
+    """No parameters: the flattened input, zero-padded to a multiple of the classes and
+    averaged into one logit per class (reference: model_preparation.py:311-313)."""
+
+    def __init__(self, num_classes: int = 10, shape=None, generator: torch.Generator | None = None):
+        super().__init__()
+        self.num_classes = num_classes
+
+    def forward(self, x: torch.Tensor, train: bool = False, features: bool = False,
+                capture: dict | None = None) -> torch.Tensor:
+        x = flatten_hwc(x)
+        if capture is not None:
+            capture["features"] = x
+        if features:
+            return x
+        x = F.pad(x, (0, -x.shape[-1] % self.num_classes))
+        return x.reshape(x.shape[0], self.num_classes, -1).mean(-1)

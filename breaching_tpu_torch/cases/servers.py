@@ -31,11 +31,28 @@ from .models.model_preparation import construct_model
 
 
 def construct_server(model, loss_fn, cfg_case, setup, external_dataloader=None):
-    """Server factory (reference: breaching/cases/servers.py:40-61)."""
+    """Server factory (reference: breaching/cases/servers.py:40-61): the honest server and
+    the malicious model and class-parameter servers (``cases/malicious/servers.py``); the
+    transformer server is not ported."""
+    if cfg_case.server.has_external_data and external_dataloader is None:
+        from .data import construct_dataloader
+
+        external_dataloader = construct_dataloader(cfg_case.data, cfg_case.impl, user_idx=None,
+                                                   return_full_dataset=True)
     name = cfg_case.server.name
     if name in ("honest_but_curious", "honest-but-curious"):
         return HonestServer(model, loss_fn, cfg_case, setup, external_dataloader)
-    raise NotImplementedError(f"Server type {name} is not ported yet.")
+    if name == "malicious_model":
+        from .malicious.servers import MaliciousModelServer
+
+        return MaliciousModelServer(model, loss_fn, cfg_case, setup, external_dataloader)
+    if name in ("class_malicious_parameters", "malicious_fishing"):
+        from .malicious.servers import MaliciousClassParameterServer
+
+        return MaliciousClassParameterServer(model, loss_fn, cfg_case, setup, external_dataloader)
+    if name in ("malicious_transformer", "malicious_transformer_parameters"):
+        raise NotImplementedError(f"Server type {name} (Decepticon's malicious_transformer) is not ported yet.")
+    raise ValueError(f"Invalid server type {name}.")
 
 
 class HonestServer:

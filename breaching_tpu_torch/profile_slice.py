@@ -1,7 +1,7 @@
 """Where the time of a slice's attack step goes, on the card.
 
-    python3 -m breaching_tpu_torch.profile_slice [--slice 1|2|3|4|5|6] [--path 5a|5b|5b'|5c] [--fleet F] [--fused]
-                                                 [--lbfgs] [--iterations N]
+    python3 -m breaching_tpu_torch.profile_slice [--slice 1|2|3|4|5|6|7] [--path 5a|5b|5b'|5c|7c|7d] [--fleet F]
+                                                 [--fused] [--lbfgs] [--iterations N]
 
 Slice 1 (the default) runs Inverting Gradients with the fused cosine objective on
 ConvNet-64 / CIFAR-10 shapes; slice 2 the JAX package's bench preset on ResNet-18
@@ -22,7 +22,11 @@ on its checkpoint at 224, seven stages 32, 64, ..., 224 of N steps each), 5b
 grad_accum=10), 5b' the same with grad_accum=1, 5c ``see_through_gradients``
 (ResNet-50 on the repo's checkpoint at 224); slice 6 its path 6a, the same ResNet-18 at
 ImageNet shapes with 4 images and their labels, the user's gradient clipped per example at 1
-with Laplace noise of scale 1e-3. Each goes through the entry points: one warm-up attack, an
+with Laplace noise of scale 1e-3; slice 7 one of the fishing server's presets, chosen by
+``--path``: 7c ``fishing`` (ResNet-50 on its checkpoint, 8 images at 224, the class attack
+on one of them) or 7d ``fishing_optimization_unique`` (ResNet-18 on its checkpoint, 50
+images of one class, the one-shot binary attack), the clsattack optimization on the one
+image the server isolates. Each goes through the entry points: one warm-up attack, an
 attack of N steps (default 200) timed with the profiler off, and the same attack
 under ``torch.profiler``. Prints one JSON line: milliseconds per step with the
 profiler off and on (wall clock around the synchronised attack; the difference
@@ -67,6 +71,14 @@ SLICE5 = {
            "case.user.num_data_points=1", "case.server.provide_public_buffers=False",
            "case.user.provide_buffers=True"],
 }
+# slice 7's fishing paths (examples/run_example.py's presets)
+SLICE7 = {
+    "7c": ["case=5_small_batch_imagenet", "attack=clsattack", "case/server=malicious-fishing",
+           "case.user.provide_labels=True", "case.user.num_data_points=8"],
+    "7d": ["case=2_single_imagenet", "attack=clsattack", "case/server=malicious-fishing",
+           "case.data.partition=unique-class", "case.user.num_data_points=50", "case.user.user_idx=1",
+           "case.user.provide_labels=True", "case.server.target_cls_idx=0"],
+}
 FUSED = ["attack.objective.type=fused-cosine-similarity"]
 # slice 4 --lbfgs: the deep_leakage preset with the fused euclidean objective (path 4a')
 LBFGS = ["case=1_single_image_small", "attack=deepleakage", "case.user.provide_labels=False",
@@ -102,8 +114,9 @@ def _timed(run):
 
 def main():
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    parser.add_argument("--slice", type=int, choices=sorted([*SLICES, 5]), default=1)
-    parser.add_argument("--path", choices=sorted(SLICE5), default="5a", help="slice 5's path")
+    parser.add_argument("--slice", type=int, choices=sorted([*SLICES, 5, 7]), default=1)
+    parser.add_argument("--path", choices=sorted([*SLICE5, *SLICE7]), default=None,
+                        help="slice 5's path (default 5a) or slice 7's (default 7c)")
     parser.add_argument("--fleet", type=int, default=1, help="experiments through reconstruct_fleet")
     parser.add_argument("--fused", action="store_true", help="slice 2 or 3 with the fused cosine objective")
     parser.add_argument("--lbfgs", action="store_true", help="slice 4: deep_leakage with fused euclidean, L-BFGS")
@@ -113,8 +126,12 @@ def main():
         raise SystemExit("profile_slice needs a CUDA device.")
     if args.lbfgs and args.slice != 4:
         parser.error("--lbfgs is a path of slice 4.")
-    if args.slice == 5:
-        overrides = SLICE5[args.path] + ["attack.optim.callback=0", "seed=7"]
+    paths = {5: SLICE5, 7: SLICE7}.get(args.slice)
+    if paths is not None:
+        args.path = args.path or min(paths)
+        if args.path not in paths:
+            parser.error(f"--path {args.path} is not a path of slice {args.slice}.")
+        overrides = paths[args.path] + ["attack.optim.callback=0", "seed=7"]
     else:
         overrides = LBFGS if args.lbfgs else SLICES[args.slice] + (FUSED if args.fused else [])
 
@@ -133,7 +150,7 @@ def main():
     objective = ("fused-euclidean" if args.lbfgs else "euclidean" if args.path == "5c" and args.slice == 5 else
                  ("fused-" if args.fused or args.slice == 1 else "") + "cosine-similarity")
     print(json.dumps(dict(
-        device=torch.cuda.get_device_name(0), slice=args.slice, path=args.path if args.slice == 5 else None,
+        device=torch.cuda.get_device_name(0), slice=args.slice, path=args.path if paths is not None else None,
         fleet=args.fleet, objective=objective,
         optimizer="L-BFGS" if args.lbfgs else "adam", iterations=steps,
         evaluations_per_step=stats.get("objective_evaluations", steps) / steps,

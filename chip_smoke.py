@@ -34,6 +34,10 @@ Phases, one line each on standard output:
      ``see_through_gradients``' on ResNet-50 at 224; for 5b the gradient of its
      objective on 100 images through grad_accum=10 against grad_accum=1 in
      float64 on the card, and float32 on the card and on the CPU against that;
+     for slice 7 the user's gradient through 7a's imprinted ResNet-18 at 224 (to 1e-4
+     of its largest entry) and the readout's images where both pick the same bins
+     (else both selections, printed), and 7c's gradient of 8 images through
+     ResNet-50's class-poisoned head (1e-4) with the class's feature (1e-3);
   5. the main paths end to end through the entry points, each with the kernels'
      launch counts set to 0 just before it and read just after: slice 1,
      Inverting Gradients with the fused cosine objective on ConvNet-64 /
@@ -72,7 +76,20 @@ Phases, one line each on standard output:
      attacker resumed from its file of step 100: the restored state bit for
      bit, its loss to 1e-6 and its one step to 1e-6 but for 1e-4 of the
      entries; 6f the Chrome trace that ``trace_dir`` writes of one chunk of
-     slice 1, which must name the path's four kernels; for each: set-up
+     slice 1, which must name the path's four kernels; slice 7, the malicious servers'
+     vision presets through ``main_process``: 7a ``robbing_the_fed`` (an imprint block of
+     64 bins in front of ResNet-18 on its checkpoint, one image at 224, which the readout
+     must recover to MSE < 5e-2 in normalized space and PSNR > 25 dB), 7a' the same with
+     16 images (the images recovered, beside ``imprint_guarantee``'s expectation), 7b
+     ``curious_abandon_honesty`` (ConvNet-64, CIFAR-10), 7c ``fishing`` (ResNet-50 on its
+     checkpoint, 8 images) and 7d ``fishing_optimization_unique`` (ResNet-18, 50 images
+     of one class, so that the binary attack runs: more than 2 user queries; each cutoff
+     query and the images behind the final gradient printed), 200 attack steps each with
+     the fused TV and Adam step once a step, 7d'' 7d's one-shot search alone at the JAX
+     package's test's feat_multiplier of 30000, which must take at least two cutoff queries
+     and leave fewer than the 50 images behind the final gradient, 7e ``sanity_check`` (the
+     ``linear`` model on ImageNet shapes, exact to MSE < 1e-6); 7a, 7a', 7b and 7e launch
+     no port kernel; for each: set-up
      seconds, loss at the start and end of every trial, PSNR and SSIM (of the
      batch put in the true images' order, and the order), it/s (the fleet's aggregate; with L-BFGS also the
      objective's evaluations per second), peak memory and launches per step;
@@ -89,8 +106,9 @@ Phases, one line each on standard output:
      and the fused TV kernel at 1x6x224x224 (slice 4's double opponents), the
      fused TV kernel and the fused Adam step at slice 5's 100x3x32x32 and
      1x3x96x96, TV at 1x3x192x192 (100 calls); the box clamp also in place (the
-     form slices 4b-c call) beside ``torch.clamp(out=)``, each form and its
-     library call timed in turns over five rounds (medians); and which device
+     form slices 4b-c call) beside ``torch.clamp(out=)``; each form of the box clamp
+     and ``b2_axpby`` (beside ``torch.add(alpha=)``, at 2,904,970 entries) timed in
+     turns with its library call over five rounds (medians); and which device
      times, if any, come in under their bound.
 Then one JSON line with the kernels, and as the last line
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -110,6 +128,7 @@ that candidate, in float64 on the CPU, must then reach a magnitude above 1e30
 magnitude on the user's own images.
 """
 
+import contextlib
 import json
 import math
 import os
@@ -190,6 +209,32 @@ DP = [f"{LDP}.per_example_clipping={CLIP}", f"{LDP}.gradient_noise=1e-3", f"{LDP
 SLICE6_STEPS, STATE_STEPS, RESUME_STEPS = 200, 50, 100
 WAINAKH = ["case=1_single_image_small", "attack=invertinggradients", "case.user.num_data_points=4",
            "case.user.provide_labels=False", "attack.label_strategy=wainakh-whitebox", "seed=7"]
+# slice 7: the malicious servers' vision presets (examples/run_example.py), seed 7:
+# path -> (overrides, attack steps (0: an analytic attack), the launches per step it needs)
+RTF = ["case=2_single_imagenet", "attack=imprint", "case/server=malicious-model-rtf", "seed=7"]
+FISHING = ["case=5_small_batch_imagenet", "attack=clsattack", "case/server=malicious-fishing",
+           "case.user.provide_labels=True", "case.user.num_data_points=8", "seed=7"]
+FISHING_UNIQUE = ["case=2_single_imagenet", "attack=clsattack", "case/server=malicious-fishing",
+                  "case.data.partition=unique-class", "case.user.num_data_points=50", "case.user.user_idx=1",
+                  "case.user.provide_labels=True", "case.server.target_cls_idx=0", "seed=7"]
+SLICE7_STEPS = 200
+# the feature multiplier of the JAX package's binary-attack test (tests/test_binary_attack.py):
+# an image then leaves the subset where its feature exceeds the cutoff by 1000 / 30000,
+# where the preset's 300 lets it leave only 1000 / 300 above it. The bias multiplier
+# stays the preset's: at the test's 0 the class attack's head saturates on ResNet-18's
+# features, and its feature estimate is 0.
+SHARP = ["case.server.feat_multiplier=30000"]
+SLICE7 = {
+    "slice 7a robbing_the_fed": (RTF, 0, {}),
+    "slice 7a' robbing_the_fed 16 images": (RTF + ["case.user.num_data_points=16"], 0, {}),
+    "slice 7b curious_abandon_honesty": (["case=1_single_image_small", "attack=imprint",
+                                          "case/server=malicious-model-cah", "seed=7"], 0, {}),
+    "slice 7c fishing": (FISHING, SLICE7_STEPS, IMAGE_KERNELS),
+    "slice 7d fishing_optimization_unique": (FISHING_UNIQUE, SLICE7_STEPS, IMAGE_KERNELS),
+    "slice 7e sanity_check": (["case=0_sanity_check", "attack=analytic", "seed=7"], 0, {}),
+}
+# a recovered image of 7a': the readout of a bin that held it alone, exact up to float32
+RECOVERED_PSNR = 40.0
 STAGE = (1, 3, 96, 96)  # a stage of 5a's pyramid (32, 64, ..., 224) that slices 1-4 do not run
 STAGE2 = (1, 3, 192, 192)
 LARGE = (100, 3, 32, 32)  # 5b's candidate: 100 CIFAR-100 images
@@ -223,7 +268,7 @@ BIG = (1, 3, 224, 224)  # the image batch of slice 2 (ResNet-18 at ImageNet shap
 BATCH = (4, 3, 224, 224)  # the image batch of slice 3 (the fedAVG user's 4 images)
 N2 = 11_380_173  # the gradient entries of slice 2
 # the kernels timed in turns with their library call (per-call figures within 2 us of each other)
-IN_TURNS, TURNS = ("b4_box_project", "b4_box_project in place"), 5
+IN_TURNS, TURNS = ("b2_axpby", "b4_box_project", "b4_box_project in place"), 5
 # (p, q) whose powers p, p-1, q, q-1 cheap_pow forms exactly: the fused TV gradient bit for bit
 TV_EXACT = ((1.0, 1.0), (2.0, 1.0), (1.5, 2.0))
 
@@ -1163,6 +1208,217 @@ def run_trace(breaching, ops, tmp):
     return launches
 
 
+def imprint_exchange(breaching, device):
+    """7a's exchange on ``device``: (the user's gradient by name on the CPU, the readout's
+    images and the bins it read them from)."""
+    cfg, setup, user, server, model = build(breaching, RTF, device)
+    shared, payloads, _ = server.run_protocol(user)
+    attacker = breaching.attacks.prepare_attack(server.model, server.loss, cfg.attack, setup)
+    attacker.prepare_attack(payloads, shared)
+    images, bins = attacker.readout(payloads, attacker._shared_data_cache, server.secrets)
+    return {k: g.cpu() for k, g in shared[0]["gradients"].items()}, images.cpu(), bins.cpu()
+
+
+def check_imprint_reference(breaching):
+    """Phase 4, 7a: the user's gradient through the imprinted ResNet-18 at 224 on the card
+    against the CPU, float32 on both, to 1e-4 of its largest entry; where the readout picks
+    the same bins on both, its images to 1e-4 of their largest entry, else both selections
+    printed (rounding can make a nearly empty bin's bias gradient nonzero)."""
+    start = time.perf_counter()
+    (grads, images, bins), (cpu_grads, cpu_images, cpu_bins) = (imprint_exchange(breaching, DEVICE),
+                                                                imprint_exchange(breaching, "cpu"))
+    flat, cpu_flat = (torch.cat([g[k].reshape(-1) for k in cpu_grads]) for g in (grads, cpu_grads))
+    err = ((flat - cpu_flat).abs().max() / cpu_flat.abs().max()).item()
+    block_err = max(((grads[k] - cpu_grads[k]).abs().max() / cpu_grads[k].abs().max()).item()
+                    for k in cpu_grads if k.startswith("block.linear0"))
+    same = torch.equal(bins, cpu_bins)
+    image_err = ((images - cpu_images).abs().max() / cpu_images.abs().max()).item() if same else math.nan
+    print(f"reference slice 7a: user gradient ({flat.numel()} entries) card against CPU {err:.2e} of the largest "
+          f"entry (tol 1e-4; the block's first layer {block_err:.2e}); readout bins card {bins.tolist()} CPU "
+          f"{cpu_bins.tolist()}{f', images {image_err:.2e} of the largest entry (tol 1e-4)' if same else ''} "
+          f"({time.perf_counter() - start:.1f} s)", flush=True)
+    require(err <= 1e-4, f"slice 7a: the user gradient on the card is {err:.2e} off the CPU's")
+    require(not same or image_err <= 1e-4, f"slice 7a: the readout's images on the card are {image_err:.2e} off")
+
+
+def fishing_exchange(breaching, device):
+    """7c's class attack on ``device``: the labels from the first query, then the user's
+    gradient through the head poisoned for the first label's class and that class's
+    feature (``reconstruct_feature``): (labels, the gradient by name on the CPU, the
+    feature on the CPU)."""
+    from breaching_tpu_torch.cases.malicious.classattack_utils import reconstruct_feature
+
+    cfg, setup, user, server, model = build(breaching, FISHING, device)
+    shared, _ = user.compute_local_updates(server.distribute_payload())
+    labels = shared["metadata"]["labels"].cpu()
+    server.reconfigure_for_class_attack(target_classes=int(labels.unique()[0]))
+    shared, _ = user.compute_local_updates(server.distribute_payload())
+    feature = reconstruct_feature(shared, int(labels.unique()[0]), server.model)
+    server.reset_model()
+    return labels, {k: g.cpu() for k, g in shared["gradients"].items()}, feature.cpu()
+
+
+def check_fishing_reference(breaching):
+    """Phase 4, 7c: the gradient of 8 images through ResNet-50's class-poisoned head on the
+    card against the CPU, float32 on both, to 1e-4 of its largest entry, and the class's
+    feature (row over bias of the head's gradient, a quotient of two entries each within
+    that) to 1e-3 of its largest entry."""
+    start = time.perf_counter()
+    (labels, grads, feature), (cpu_labels, cpu_grads, cpu_feature) = (fishing_exchange(breaching, DEVICE),
+                                                                      fishing_exchange(breaching, "cpu"))
+    flat, cpu_flat = (torch.cat([g[k].reshape(-1) for k in cpu_grads]) for g in (grads, cpu_grads))
+    err = ((flat - cpu_flat).abs().max() / cpu_flat.abs().max()).item()
+    feature_err = ((feature - cpu_feature).abs().max() / cpu_feature.abs().max()).item()
+    print(f"reference slice 7c: labels {labels.tolist()}; gradient through the poisoned head card against CPU "
+          f"{err:.2e} of the largest entry (tol 1e-4); feature of class {int(labels.unique()[0])} {feature_err:.2e} "
+          f"(tol 1e-3) ({time.perf_counter() - start:.1f} s)", flush=True)
+    require(torch.equal(labels, cpu_labels), "slice 7c: the labels differ between the card and the CPU")
+    require(err <= 1e-4 and feature_err <= 1e-3, f"slice 7c: the card is off the CPU: {err:.2e}, {feature_err:.2e}")
+
+
+@contextlib.contextmanager
+def feature_queries():
+    """Records each cutoff query of the fishing server made inside the block: (cutoff,
+    response, the images behind its gradient). The user's gradient is the mean over its
+    batch and each image of the class below the cutoff adds -1 to the class's head bias
+    gradient, so the images behind it are that entry times minus the batch size."""
+    from breaching_tpu_torch.cases.malicious.servers import MaliciousClassParameterServer
+    from breaching_tpu_torch.cases.models.model_preparation import head_grads
+
+    query, record = MaliciousClassParameterServer._query_feature, []
+
+    def recorded(self, user, cls_to_obtain, cutoff, feature_loc):
+        shared, response = query(self, user, cls_to_obtain, cutoff, feature_loc)
+        bias = head_grads(shared["gradients"], self.model)[1]
+        record.append((cutoff, response, -float(bias[cls_to_obtain]) * user.num_data_points))
+        return shared, response
+
+    MaliciousClassParameterServer._query_feature = recorded
+    try:
+        yield record
+    finally:
+        MaliciousClassParameterServer._query_feature = query
+
+
+def describe_queries(record):
+    return ", ".join(f"{cutoff:.6f} -> {response:.6f} ({images:.3f} images)" for cutoff, response, images in record)
+
+
+def run_sharp_binary_attack(breaching):
+    """Phase 5, 7d'': 7d's case and one-shot search, the protocol alone, at ``SHARP``'s
+    feature multiplier. Fails unless the search takes at least two cutoff queries and
+    shrinks the images behind the final gradient below the user's 50."""
+    start = time.perf_counter()
+    cfg, setup, user, server, model = build(breaching, FISHING_UNIQUE + SHARP)
+    require_checkpoint(server.model, CHECKPOINT)
+    with feature_queries() as record:
+        server.run_protocol(user)
+    images = record[-1][2] if record else math.nan
+    print(f"slice 7d'' the one-shot search with feat_multiplier 30000: {len(record)} cutoff "
+          f"queries (cutoff -> response): {describe_queries(record)}; the final gradient is the mean of "
+          f"{images:.3f} of the {user.num_data_points} images ({time.perf_counter() - start:.1f} s)", flush=True)
+    require(len(record) >= 2 and images < user.num_data_points - 0.5,
+            f"slice 7d'': the one-shot search did not shrink the images behind the gradient ({len(record)} "
+            f"cutoff queries, {images:.3f} images)")
+
+
+def run_slice7(breaching, ops, path, overrides, steps, needs):
+    """Phase 5, slice 7: a preset through ``main_process`` on the card, the launch counts
+    set to 0 just before it and read just after; each kernel of ``needs`` launched that
+    many times per attack step and no other. Returns (the launch counts, the metrics,
+    what ``main_process`` put out, the reconstruction's MSE against the truth in
+    normalized space)."""
+    from breaching_tpu_torch.simulate_breach import main_process
+
+    cfg = breaching.get_config(overrides + ([f"attack.optim.max_iterations={steps}", "attack.optim.callback=100"]
+                                            if steps else []))
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    start, out = time.perf_counter(), {}
+    metrics = main_process(cfg, device=DEVICE, outputs=out)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - start
+    launches = ops.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    data, true = out["reconstruction"]["data"], out["true"]["data"]
+    mse = torch.mean((data - true) ** 2).item() if data.shape == true.shape else math.nan
+    losses = out["stats"].get("Trial_0_Val", [])
+    model = out["server"].model
+    print(f"{path}: {model.name} {sum(p.numel() for p in model.parameters())} parameters, "
+          f"{out['server'].__class__.__name__}, {out['user'].num_data_points} image(s) of "
+          f"{tuple(cfg.case.data.shape)}; {out['user'].counted_queries} user queries; {seconds:.2f} s wall"
+          + (f" ({steps} attack steps, loss first={losses[0]:.6f} lowest={min(losses):.6f} last={losses[-1]:.6f})"
+             if losses else "")
+          + f"; MSE {mse:.3e} (normalized), PSNR={metrics['psnr']:.3f} SSIM={metrics['ssim']:.4f}; peak memory "
+          f"{peak / 2**30:.3f} GiB; launches { {k: v for k, v in launches.items() if v} }", flush=True)
+    require(tuple(data.shape) == tuple(true.shape) and bool(torch.isfinite(data).all()),
+            f"{path}: the reconstruction is not a finite {tuple(true.shape)} tensor: {tuple(data.shape)}")
+    want = {name: n * steps for name, n in needs.items()}
+    require({k: v for k, v in launches.items() if v} == want, f"{path}: launches {launches}, the path needs {want}")
+    if steps:
+        require(len(losses) == steps and all(map(math.isfinite, losses)) and min(losses) < losses[0],
+                f"{path}: the attack's loss did not fall, or is not finite")
+    return launches, metrics, out, mse
+
+
+def run_slice7_paths(breaching, ops):
+    """Phase 5, slice 7: 7a-7e, and the checks of each. Returns the launch counts by path."""
+    from breaching_tpu_torch.analysis import imprint_guarantee
+    from breaching_tpu_torch.cases.malicious.servers import ImprintedModel
+
+    paths, results, queries = {}, {}, {}
+    for path, (overrides, steps, needs) in SLICE7.items():
+        with feature_queries() as queries[path]:
+            paths[path], *results[path] = run_slice7(breaching, ops, path, overrides, steps, needs)
+    metrics, out, mse = results["slice 7a robbing_the_fed"]
+    require(isinstance(out["server"].model, ImprintedModel), "slice 7a: no imprint block in the model")
+    require_checkpoint(out["server"].model.victim, CHECKPOINT)
+    require(mse < 5e-2 and metrics["psnr"] > 25, f"slice 7a: MSE {mse:.3e}, PSNR {metrics['psnr']:.3f}: the image "
+            f"was not recovered (the JAX package's bar: MSE < 5e-2, PSNR > 25 dB)")
+    metrics, out, _ = results["slice 7a' robbing_the_fed 16 images"]
+    data, true = out["reconstruction"]["data"], out["true"]["data"]
+    data = data[torch.as_tensor(metrics["order"], device=data.device)]
+    dm, ds = (torch.as_tensor(v, device=data.device).reshape(1, -1, 1, 1) for v in
+              (out["server"].cfg_data.mean, out["server"].cfg_data.std))
+    per_image = torch.mean((torch.clamp(data * ds + dm, 0, 1) - torch.clamp(true * ds + dm, 0, 1)) ** 2, dim=(1, 2, 3))
+    recovered = int((10 * torch.log10(1 / per_image) > RECOVERED_PSNR).sum())
+    expected = imprint_guarantee.expected_number_of_recovered_points(16, 64)
+    # the bin of each image: its measurement (the block's shared row) against the bin edges
+    block = out["server"].model.block
+    with torch.no_grad():
+        measured = block.linear0(true.permute(0, 2, 3, 1).reshape(len(true), -1))[:, 0] - block.linear0.bias[0]
+    bins = torch.searchsorted(-block.linear0.bias.detach(), measured, right=True) - 1
+    occupied, counts = bins.unique(return_counts=True)
+    print(f"slice 7a' robbing_the_fed 16 images: {recovered} of 16 images recovered (PSNR > {RECOVERED_PSNR} dB); "
+          f"imprint_guarantee expects {expected:.3f} (16 images in 64 bins of the measurement's assumed Laplace "
+          f"law); the images' measurements (std {measured.std().item():.4f}) fall in {len(occupied)} bins, "
+          f"{int((counts == 1).sum())} of them alone", flush=True)
+    for path, checkpoint in (("slice 7c fishing", CHECKPOINT50), ("slice 7d fishing_optimization_unique", CHECKPOINT)):
+        metrics, out, _ = results[path]
+        require_checkpoint(out["server"].model, checkpoint)
+        info = out["server"].secrets["ClassAttack"]
+        classes, counts = info["all_labels"].unique(return_counts=True)
+        print(f"{path}: the attack's target is image {info['target_indx'].tolist()} of {info['true_num_data']} "
+              f"(classes {classes.tolist()}, {counts.tolist()} images each), {out['user'].counted_queries} user "
+              f"queries", flush=True)
+    path = "slice 7d fishing_optimization_unique"
+    out, record = results[path][1], queries[path]
+    labels = out["server"].secrets["ClassAttack"]["all_labels"]
+    require(len(labels) == 50 and bool((labels == labels[0]).all()) and out["user"].counted_queries > 2
+            and record, f"slice 7d: the binary attack did not run ({out['user'].counted_queries} queries)")
+    images = record[-1][2]
+    print(f"{path}: {len(record)} cutoff queries (cutoff -> response): {describe_queries(record)}; the final "
+          f"gradient is the mean of {images:.3f} of the 50 images"
+          + (" (the search kept every image)" if images > 49.5 else ""), flush=True)
+    require(0 < images <= 50 * (1 + 1e-4), f"{path}: {images:.3f} images behind the final gradient")
+    run_sharp_binary_attack(breaching)
+    mse = results["slice 7e sanity_check"][2]
+    require(mse < 1e-6, f"slice 7e: the FC inversion is {mse:.3e} off the image (the JAX package's bar: 1e-6)")
+    return paths
+
+
 def bound(bytes_moved, flops):
     t_bytes, t_ops = bytes_moved / PEAK_BYTES_PER_S, flops / PEAK_F32_PER_S
     return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
@@ -1351,6 +1607,8 @@ def main():
     check_reference(breaching, "slice 5a multiscale at a 96x96 stage", MULTISCALE + resnet_weights()[0], STAGE)
     check_large_batch(breaching, LARGE)
     check_reference(breaching, "slice 5c see_through_gradients", SEE_THROUGH, BIG)
+    check_imprint_reference(breaching)
+    check_fishing_reference(breaching)
     print(f"chip_smoke: phase 4 done at {time.perf_counter() - began:.1f} s", flush=True)
 
     paths = {"slice 1": run_slice(breaching, ops)}
@@ -1386,6 +1644,7 @@ def main():
     with tempfile.TemporaryDirectory() as tmp:
         paths["slice 6e checkpointed run"], paths["slice 6e resumed run"] = run_resume(breaching, ops, tmp)
         paths["slice 6f trace_dir"] = run_trace(breaching, ops, tmp)
+    paths.update(run_slice7_paths(breaching, ops))
 
     print(f"chip_smoke: phase 5 done at {time.perf_counter() - began:.1f} s", flush=True)
     timings = time_kernels(ops, n_params, image_shape)
