@@ -12,39 +12,49 @@
 // held on the device and the gradient the JAX package computes in regularizers.py
 // `_tv_p1q1_bwd` and `_make_tv_general` (the TPU kernel has none): the divergence
 // of the field g_x = q (px+py)^(q-1) p (|dx|+eps)^(p-1) sign(dx) (and g_y alike),
-// times scale / element count. Bound: 8 bytes per element, 8 n / 3.35 TB/s (0.0073
-// us for one 3x32x32 image, 0.36 us at 1x3x224x224), far below a launch, so the
-// design aims at one launch that reads each element once:
-// - a block of 256 threads takes a 16x16 tile of one H x W plane, one output per
-//   thread, and loads it with a one-pixel halo on every side (18x18 floats, 1.3 KB
-//   of shared memory), each element once, every thread's loads in flight together.
-//   The work is a chain of latencies, not of bytes: 16x16 tiles give the slice's
-//   3x32x32 batch 12 blocks where 32x32 tiles give 3, each with a quarter of the
-//   work to do in turn; on the card they were faster at that shape and as fast at
-//   1x3x224x224 (588 blocks, one wave).
-//   The halo wraps as the JAX VJP's rolls do, and the boundary terms are multiplied
-//   by the 0/1 mask, never selected away, so a NaN at the edge reaches the gradient
-//   where the rolls carry it, and signed zeros come out as in the plain version. At
-//   p = q = 1 the field is `_tv_p1q1_bwd`'s, the sign of the unmasked difference
-//   times the mask, so an infinite wrapped difference gives 0 there as in the JAX
-//   regularizer (the general form, (d * mask) first, gives NaN);
-// - the field is computed once per position into shared memory, over the tile's
-//   17x17 positions, then each output takes its divergence from there;
-// - the same pass sums the tile's own value terms, whose boundary differences are
-//   x - x as jnp.diff(..., append=) forms them (0, or NaN for a pixel that is not
-//   finite), not the wrapped ones;
-// - the cross-block sum needs no second launch: each block writes its partial,
-//   fences and draws a ticket from an integer counter; the block that draws the
-//   last one adds the partials in a fixed order (no float atomics: the same bits
-//   every run), writes the value and sets the counter back to 0, which keeps it
-//   right under CUDA-graph replay. The counter and the partials live in a
-//   workspace that the wrapper keeps per device and stream.
-// No tensor-core product (wgmma) has work in a stencil; a TMA tile load would do
-// for the 1.3 KB tile what the block's coalesced loads do. Every product and sum is
+// times scale / element count. One launch also takes T trials stacked as segments of
+// the batch, each with its own value (the mean over its own elements). It is called
+// through PyTorch's dispatcher (csrc/bindings.cpp). Bound: 8 bytes per element,
+// 8 n / 3.35 TB/s (0.0073 us for one 3x32x32 image, 1.44 us at 4x3x224x224), far
+// below a launch, so the design aims at one short chain of latencies per launch:
+// - one wave and no rounds: the grid is the occupancy API's blocks per SM times the
+//   SM count, shared among the segments, at most one block per tile. A block of 128
+//   threads takes a 32 x 32 tile (4x3x224x224: 588 tiles; 100x3x32x32: 300), and each
+//   thread walks 8 rows of one column with a register window: the field's y
+//   component at one row is the next row's upper neighbour. Where a block owns more
+//   than one tile, the next one's copy into a second buffer (cp.async) runs while the
+//   current one is computed, so the block waits on one cold load, not one per tile;
+// - one shared tile with its one-pixel halo (34 x 34 floats), one __syncthreads per
+//   tile. The halo wraps as the JAX VJP's rolls do, which a TMA box cannot express at
+//   the plane's edges, and a 4.6 KB tile is copied by the block's own 4-byte
+//   cp.async as fast as a bulk copy would be; so no TMA. The boundary terms are
+//   multiplied by the 0/1 mask, never selected away, so a NaN at the edge reaches the
+//   gradient where the rolls carry it, and signed zeros come out as in the plain
+//   version. At p = q = 1 the field is `_tv_p1q1_bwd`'s, the sign of the unmasked
+//   difference times the mask, so an infinite wrapped difference gives 0 there as in
+//   the JAX regularizer (the general form, (d * mask) first, gives NaN). Each output
+//   forms the two field positions it reads (its own and its left neighbour's) from
+//   the tile: at these sizes arithmetic is not what the kernel waits on;
+// - the value terms come from the same tile, their boundary differences x - x as
+//   jnp.diff(..., append=) forms them (0, or NaN for a pixel that is not finite), not
+//   the wrapped ones;
+// - the cross-block sum needs no second launch, per segment: each block sums a tile's
+//   value terms first and stores one partial per tile it took (per run of tiles, past
+//   16,384 tiles a launch) into a slot, with a flag in the same 64-bit store; the
+//   segment's first block, once its own tiles are done, reads each slot until its flag
+//   shows, adds the partials in the tiles' order (no float atomics: the same bits every
+//   run, on any grid, so a trial's value in the batched form equals its own call's),
+//   empties the slots and writes the value, which keeps the workspace right under
+//   CUDA-graph replay. The tail is one round trip to L2, where a ticket counter takes
+//   three (a release fence, the atomic, the last block's reads) and queues hundreds of
+//   blocks on one address. The slots live in a workspace that the wrapper keeps per
+//   device and stream.
+// No tensor-core product (wgmma) has work in a stencil. Every product and sum is
 // rounded on its own (__fmul_rn, __fadd_rn, __fsub_rn: no fused multiply-add), with
 // IEEE square root, in the plain version's order, so for exponents p, p-1, q and
-// q-1 in cheap_pow's set (0, 0.5, 1, 1.5, 2) the gradient equals the plain
-// version's bit for bit; other exponents go through powf.
+// q-1 in cheap_pow's set (0, 0.5, 1, 1.5, 2, and -0.5 as rsqrtf, which is what
+// PyTorch's CUDA pow(x, -0.5) computes) the gradient equals the plain version's on the
+// card bit for bit; other exponents go through powf.
 //
 // B4 `b4_box_project` replaces `box_project` (Pallas `_box_kernel`): clamps each
 // element to its channel's [lo, hi]; the channel is dim 1 of NCHW. A NaN input stays
@@ -83,9 +93,16 @@
 // max(s, 1e-3) formed on the host in float32. tanhf need not round as PyTorch's tanh
 // does, so that mode agrees with the plain version to a stated tolerance, not bit for
 // bit; the product and the quotient are rounded on their own as before.
+#include <cuda/atomic>
+#include <cuda_pipeline.h>
+
 #include "reduce.cuh"
 
 namespace breaching {
+
+// powf out of line: each call site of cheap_pow costs a call, not a copy of powf's body
+// (many copies of it made the unrolled TV kernel too large for the instruction cache).
+__device__ __noinline__ float pow_call(float x, float e) { return powf(x, e); }
 
 // x^e without transcendentals for the exponents the configs use
 // (breaching_tpu/attacks/auxiliaries/regularizers.py `_cheap_pow`), each rounding
@@ -96,7 +113,8 @@ __device__ __forceinline__ float cheap_pow(float x, float e) {
   if (e == 2.0f) return __fmul_rn(x, x);
   if (e == 0.5f) return __fsqrt_rn(x);
   if (e == 1.5f) return __fmul_rn(x, __fsqrt_rn(x));
-  return powf(x, e);
+  if (e == -0.5f) return rsqrtf(x);  // PyTorch's CUDA pow(x, -0.5) is its rsqrt kernel, rsqrtf
+  return pow_call(x, e);
 }
 
 // jnp.sign: +-1, and NaN and +-0 kept as they are.
@@ -140,11 +158,15 @@ tv_forward_partials(const float* __restrict__ x, int64_t n, TVParams t, float* _
   if (threadIdx.x == 0) partials[blockIdx.x] = v[0];
 }
 
-constexpr int kTile = 16;                  // outputs per tile side
-constexpr int kHalo = kTile + 2;           // loaded per side: the tile and a one-pixel halo
-constexpr int kField = kTile + 1;          // field positions per side: the tile and its left/top halo
-constexpr int kRows = kThreads / kTile;    // a block is kTile columns by kRows rows of threads
-constexpr int kLoads = (kHalo + kRows - 1) / kRows;  // halo rows each thread loads
+// The fused TV kernel's geometry: a block of kTvWarps warps takes a tile of kTvCols
+// columns (one a lane) by kTvRows rows of one plane, and each thread walks
+// kTvRowsPerWarp rows down its column.
+constexpr int kTvCols = 32;
+constexpr int kTvWarps = 4;
+constexpr int kTvRowsPerWarp = 8;
+constexpr int kTvRows = kTvWarps * kTvRowsPerWarp;
+constexpr int kTvThreads = kTvWarps * 32;
+constexpr int kTvMaxPartials = 16384;
 
 // i mod n for i >= -1; the modulo runs only past the plane's far edge.
 __device__ __forceinline__ int wrap(int i, int n) {
@@ -157,112 +179,204 @@ __device__ __forceinline__ float field(float outer, float a, float d, float mask
   return __fmul_rn(__fmul_rn(__fmul_rn(__fmul_rn(outer, t.p), cheap_pow(a, t.p - 1.0f)), sign_of(d)), mask);
 }
 
-// The workspace: the ticket counter, then one partial sum per block.
+// The gradient field (gx, gy) at a position holding c, with `right` and `below` its
+// wrapped neighbours and col, row its 0/1 masks. At p = q = 1 it is `_tv_p1q1_bwd`'s,
+// the sign of the unmasked difference, masked; else `_make_tv_general`'s, on the masked
+// differences.
+template <bool kP1Q1>
+__device__ __forceinline__ void field_at(float c, float right, float below, float col, float row,
+                                         const TVParams& t, float& gx, float& gy) {
+  const float dx_raw = __fsub_rn(right, c);
+  const float dy_raw = __fsub_rn(below, c);
+  if (kP1Q1) {
+    gx = __fmul_rn(sign_of(dx_raw), col);
+    gy = __fmul_rn(sign_of(dy_raw), row);
+    return;
+  }
+  const float dx = __fmul_rn(dx_raw, col);
+  const float dy = __fmul_rn(dy_raw, row);
+  const float ax = __fadd_rn(fabsf(dx), t.eps);
+  const float ay = __fadd_rn(fabsf(dy), t.eps);
+  const float outer =
+      __fmul_rn(t.q, cheap_pow(__fadd_rn(cheap_pow(ax, t.p), cheap_pow(ay, t.p)), t.q - 1.0f));
+  gx = field(outer, ax, dx, col, t);
+  gy = field(outer, ay, dy, row, t);
+}
+
+// The workspace: one slot per chunk of tiles for its partial sum, (1 << 32 | the
+// partial's bits) once written and 0 once read.
 struct TVWorkspace {
-  unsigned int counter;
-  float partials[kMaxReduceBlocks];
+  unsigned long long partials[kTvMaxPartials];
 };
 
-__global__ void __launch_bounds__(kThreads)
-tv_value_and_grad_kernel(const float* __restrict__ x, const float* __restrict__ scale_ptr, int64_t n,
-                         TVParams t, int tiles_per_plane, int tiles_w, int num_tiles,
-                         TVWorkspace* __restrict__ ws, float* __restrict__ value,
+// How the grid covers the batch: each segment's planes are cut into `tiles` tiles,
+// grouped into `chunks` runs of `chunk` consecutive tiles (one, unless the batch has
+// more tiles than the workspace has partials), and a segment's `blocks` blocks take its
+// chunks in turn (chunk k to block k mod blocks).
+struct TVGrid {
+  int tiles_w, tiles_per_plane, planes, tiles, chunk, chunks, blocks;
+};
+
+typedef float TVTile[kTvRows + 2][kTvCols + 2];
+
+// Issues the asynchronous copies of one tile and its one-pixel halo:
+// tile[i][j] = plane[(h0 - 1 + i) mod H][(w0 - 1 + j) mod W], the rolls' wrap. Lane l
+// copies column w0 + l of each of its warp's rows; lanes 0 and 1 the two halo columns.
+__device__ __forceinline__ void load_tile(TVTile& tile, const float* plane, int h0, int w0, const TVParams& t,
+                                          int lane, int warp) {
+  const int col = wrap(w0 + lane, t.W);
+  const int side = wrap(lane == 0 ? w0 - 1 : w0 + kTvCols, t.W);
+  for (int i = warp; i < kTvRows + 2; i += kTvWarps) {
+    const float* line = plane + (int64_t)wrap(h0 - 1 + i, t.H) * t.W;
+    __pipeline_memcpy_async(&tile[i][lane + 1], line + col, sizeof(float));
+    if (lane < 2) __pipeline_memcpy_async(&tile[i][lane == 0 ? 0 : kTvCols + 1], line + side, sizeof(float));
+  }
+  __pipeline_commit();
+}
+
+template <bool kP1Q1>
+__global__ void __launch_bounds__(kTvThreads)
+tv_value_and_grad_kernel(const float* __restrict__ x, const float* __restrict__ scale_ptr, TVParams t, TVGrid g,
+                         int64_t n_segment, TVWorkspace* __restrict__ ws, float* __restrict__ values,
                          float* __restrict__ grad) {
-  __shared__ float tile[kHalo][kHalo];
-  __shared__ float gx[kField][kField];
-  __shared__ float gy[kField][kField];
-  __shared__ bool last_block;
-  const int lane = threadIdx.x % kTile;
-  const int row0 = threadIdx.x / kTile;
+  __shared__ TVTile tiles[2];
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int segment = blockIdx.x / g.blocks;
+  const int first = blockIdx.x - segment * g.blocks;
   const float scale = *scale_ptr;
-  const float s = __fdiv_rn(scale, (float)n);
-  const bool p1q1 = t.p == 1.0f && t.q == 1.0f;
+  const float s = __fdiv_rn(scale, (float)n_segment);
   const int64_t hw = (int64_t)t.H * t.W;
-  float v[1] = {0.0f};
-  for (int id = blockIdx.x; id < num_tiles; id += gridDim.x) {
-    const int plane = id / tiles_per_plane;
-    const int r = id - plane * tiles_per_plane;
-    const int h0 = r / tiles_w * kTile;
-    const int w0 = (r % tiles_w) * kTile;
-    const float* in = x + plane * hw;
-    // tile[i][j] = x[(h0 - 1 + i) mod H][(w0 - 1 + j) mod W]: the rolls' wrap. Each
-    // thread issues all its loads before it stores any, so they are in flight together.
-    const int col0 = wrap(w0 - 1 + lane, t.W);
-    const int col1 = lane < kHalo - kTile ? wrap(w0 - 1 + kTile + lane, t.W) : 0;
-    float near[kLoads], far[kLoads];
-#pragma unroll
-    for (int k = 0; k < kLoads; ++k) {
-      const int i = row0 + k * kRows;
-      if (i < kHalo) {
-        const float* line = in + (int64_t)wrap(h0 - 1 + i, t.H) * t.W;
-        near[k] = line[col0];
-        if (lane < kHalo - kTile) far[k] = line[col1];
+  // tile k of the segment: its plane, top row and left column
+  struct Place {
+    int64_t plane;
+    int h0, w0;
+  };
+  auto locate = [&](int k) {
+    const int plane = k / g.tiles_per_plane;
+    const int r = k - plane * g.tiles_per_plane;
+    return Place{(int64_t)segment * g.planes + plane, r / g.tiles_w * kTvRows, (r % g.tiles_w) * kTvCols};
+  };
+  auto load = [&](const Place& place, TVTile& tile) {
+    load_tile(tile, x + place.plane * hw, place.h0, place.w0, t, lane, warp);
+  };
+  Place here{0, 0, 0}, next{0, 0, 0};  // the tile computed now, and the one loading for the next round
+  if (first < g.chunks) {
+    here = locate(first * g.chunk);
+    load(here, tiles[0]);
+  }
+  int buffer = 0;
+  for (int chunk = first; chunk < g.chunks; chunk += g.blocks) {
+    const int end = min((chunk + 1) * g.chunk, g.tiles);
+    float v[1] = {0.0f};
+    for (int k = chunk * g.chunk; k < end; ++k, buffer ^= 1, here = next) {
+      __pipeline_wait_prior(0);
+      __syncthreads();  // tile k has landed for every thread, and no thread still reads the other buffer
+      // the next tile loads while this one is computed
+      const int following = k + 1 < end ? k + 1 : chunk + g.blocks < g.chunks ? (chunk + g.blocks) * g.chunk : -1;
+      if (following >= 0) {
+        next = locate(following);
+        load(next, tiles[buffer ^ 1]);
       }
-    }
+      const int64_t plane = here.plane;
+      const int h0 = here.h0, w0 = here.w0;
+      const TVTile& tile = tiles[buffer];
+      const int w = w0 + lane;
+      const int top = h0 + warp * kTvRowsPerWarp;
+      const bool owns = w < t.W && top < t.H;  // the thread has outputs in this tile
+      const int j = lane + 1;
+      const int i0 = 1 + warp * kTvRowsPerWarp;
+      const int rows = owns ? min(kTvRowsPerWarp, t.H - top) : 0;
+      // the value's terms first, whose differences are x - x at the last column and row,
+      // as diff(append=) forms them
+      auto value_row = [&](int r) {
+        const float c = tile[i0 + r][j];
+        const float dx = __fsub_rn(w < t.W - 1 ? tile[i0 + r][j + 1] : c, c);
+        const float dy = __fsub_rn(top + r < t.H - 1 ? tile[i0 + r + 1][j] : c, c);
+        v[0] += kP1Q1 ? __fadd_rn(__fadd_rn(fabsf(dx), t.eps), __fadd_rn(fabsf(dy), t.eps)) : tv_term(dx, dy, t);
+      };
+      // a full column of rows unrolled without branches, so that its shared loads are
+      // issued together; a column cut by the plane's last row, and the general form's
+      // (unrolled, its inlined exponent tests overflow the instruction cache: 25.5 us in
+      // place of 11.2 at 1x6x224x224 on the H100), as a loop
+      const bool unrolled = kP1Q1 && rows == kTvRowsPerWarp;
+      if (unrolled) {
 #pragma unroll
-    for (int k = 0; k < kLoads; ++k) {
-      const int i = row0 + k * kRows;
-      if (i < kHalo) {
-        tile[i][lane] = near[k];
-        if (lane < kHalo - kTile) tile[i][kTile + lane] = far[k];
+        for (int r = 0; r < kTvRowsPerWarp; ++r) value_row(r);
+      } else {
+        for (int r = 0; r < rows; ++r) value_row(r);
       }
-    }
-    __syncthreads();
-    // the field at (h0 - 1 + i, w0 - 1 + j); the masks follow the wrapped index
-    for (int i = row0; i < kField; i += kRows) {
-      const float row = wrap(h0 - 1 + i, t.H) < t.H - 1 ? 1.0f : 0.0f;
-      for (int j = lane; j < kField; j += kTile) {
-        const float col = wrap(w0 - 1 + j, t.W) < t.W - 1 ? 1.0f : 0.0f;
-        const float c = tile[i][j];
-        const float dx_raw = __fsub_rn(tile[i][j + 1], c);
-        const float dy_raw = __fsub_rn(tile[i + 1][j], c);
-        if (p1q1) {  // _tv_p1q1_bwd: the sign of the unmasked difference, masked
-          gx[i][j] = __fmul_rn(sign_of(dx_raw), col);
-          gy[i][j] = __fmul_rn(sign_of(dy_raw), row);
-          continue;
+      if (k == end - 1) {
+        // one partial per chunk, in the order of the tiles: the value's bits do not depend
+        // on the grid. Its slot takes it with a flag in one 64-bit store, which no fence
+        // has to wait for.
+        block_sum<1, kTvThreads>(v);
+        if (threadIdx.x == 0) {
+          cuda::atomic_ref<unsigned long long, cuda::thread_scope_device> slot(
+              ws->partials[(int64_t)segment * g.chunks + chunk]);
+          slot.store(1ull << 32 | __float_as_uint(v[0]), cuda::memory_order_relaxed);
         }
-        const float dx = __fmul_rn(dx_raw, col);
-        const float dy = __fmul_rn(dy_raw, row);
-        const float ax = __fadd_rn(fabsf(dx), t.eps);
-        const float ay = __fadd_rn(fabsf(dy), t.eps);
-        const float outer =
-            __fmul_rn(t.q, cheap_pow(__fadd_rn(cheap_pow(ax, t.p), cheap_pow(ay, t.p)), t.q - 1.0f));
-        gx[i][j] = field(outer, ax, dx, col, t);
-        gy[i][j] = field(outer, ay, dy, row, t);
+      }
+      if (!owns) continue;
+      // the gradient: the masks follow the wrapped index, 0 at the last column and row
+      // and at the column left of 0 and the row above 0, which wrap to them
+      const float col = w < t.W - 1 ? 1.0f : 0.0f;
+      const float col_left = w > 0 ? 1.0f : 0.0f;
+      float* out = grad + (plane * t.H + top) * t.W + w;
+      float unused, gy_up;  // gy one row up, carried down the column
+      field_at<kP1Q1>(tile[i0 - 1][j], tile[i0 - 1][j + 1], tile[i0][j], col, top > 0 ? 1.0f : 0.0f, t, unused,
+                      gy_up);
+      auto grad_row = [&](int r) {
+        const int i = i0 + r;
+        const float row = top + r < t.H - 1 ? 1.0f : 0.0f;
+        const float c = tile[i][j];
+        float gx, gy, gx_left;
+        field_at<kP1Q1>(c, tile[i][j + 1], tile[i + 1][j], col, row, t, gx, gy);
+        field_at<kP1Q1>(tile[i][j - 1], c, tile[i + 1][j - 1], col_left, row, t, gx_left, unused);
+        // (roll(gx, 1) - gx) + (roll(gy, 1) - gy), times scale / n
+        out[(int64_t)r * t.W] = __fmul_rn(__fadd_rn(__fsub_rn(gx_left, gx), __fsub_rn(gy_up, gy)), s);
+        gy_up = gy;
+      };
+      if (unrolled) {
+#pragma unroll
+        for (int r = 0; r < kTvRowsPerWarp; ++r) grad_row(r);
+      } else {
+        for (int r = 0; r < rows; ++r) grad_row(r);
       }
     }
-    __syncthreads();
-    const int w = w0 + lane;
-    for (int i = row0; i < kTile && h0 + i < t.H && w < t.W; i += kRows) {
-      const int h = h0 + i;
-      // (roll(gx, 1) - gx) + (roll(gy, 1) - gy), times scale / n
-      const float div = __fadd_rn(__fsub_rn(gx[i + 1][lane], gx[i + 1][lane + 1]),
-                                  __fsub_rn(gy[i][lane + 1], gy[i + 1][lane + 1]));
-      grad[plane * hw + (int64_t)h * t.W + w] = __fmul_rn(div, s);
-      // the value's differences: x - x at the last column and row, as diff(append=) forms them
-      const float c = tile[i + 1][lane + 1];
-      const float dx = __fsub_rn(w < t.W - 1 ? tile[i + 1][lane + 2] : c, c);
-      const float dy = __fsub_rn(h < t.H - 1 ? tile[i + 2][lane + 1] : c, c);
-      v[0] += tv_term(dx, dy, t);
-    }
-    __syncthreads();  // the next tile overwrites shared memory
   }
-  block_sum<1>(v);
-  if (threadIdx.x == 0) {
-    ws->partials[blockIdx.x] = v[0];
-    __threadfence();  // the partial is visible before the ticket is drawn
-    last_block = atomicAdd(&ws->counter, 1u) == gridDim.x - 1;
-  }
-  __syncthreads();
-  if (!last_block) return;
-  __threadfence();
+  // the segment's first block adds its partials: it reads each slot until the flag of the
+  // block that stores it shows, and empties it for the next launch. Only blocks that wait
+  // on nothing store into slots, so this wait ends, on one wave or several.
+  if (first != 0) return;
+  __syncthreads();  // this block's own partials, stored by thread 0, are visible to the block
+  unsigned long long* partials = ws->partials + (int64_t)segment * g.chunks;
   float total[1] = {0.0f};
-  for (int b = threadIdx.x; b < gridDim.x; b += kThreads) total[0] += __ldcg(&ws->partials[b]);
-  block_sum<1>(total);
-  if (threadIdx.x == 0) {
-    *value = __fmul_rn(__fdiv_rn(total[0], (float)n), scale);
-    ws->counter = 0u;
+  constexpr int kReads = 4;  // slots a thread reads at once, so that their round trips overlap
+  for (int k0 = threadIdx.x; k0 < g.chunks; k0 += kReads * kTvThreads) {
+    unsigned long long bits[kReads];
+#pragma unroll
+    for (int u = 0; u < kReads; ++u) {
+      const int k = k0 + u * kTvThreads;
+      bits[u] = k < g.chunks ? cuda::atomic_ref<unsigned long long, cuda::thread_scope_device>(partials[k]).load(
+                                   cuda::memory_order_relaxed)
+                             : 0ull;
+    }
+#pragma unroll
+    for (int u = 0; u < kReads; ++u) {
+      const int k = k0 + u * kTvThreads;
+      if (k >= g.chunks) break;
+      cuda::atomic_ref<unsigned long long, cuda::thread_scope_device> slot(partials[k]);
+      while ((bits[u] >> 32) == 0) {
+        __nanosleep(64);
+        bits[u] = slot.load(cuda::memory_order_relaxed);
+      }
+      slot.store(0ull, cuda::memory_order_relaxed);
+      total[0] += __uint_as_float((unsigned int)bits[u]);
+    }
   }
+  block_sum<1, kTvThreads>(total);
+  if (threadIdx.x == 0) values[segment] = __fmul_rn(__fdiv_rn(total[0], (float)n_segment), scale);
 }
 
 __device__ __forceinline__ float clamp1(float v, float lo, float hi) {
@@ -368,24 +482,76 @@ extern "C" int b3_tv_forward(const float* x, int64_t n, int H, int W, float p, f
   return (int)cudaGetLastError();
 }
 
-// value[0] = TV of the NCHW batch x (n = N*C*H*W elements) times scale[0], and grad =
-// its gradient times scale[0]. `workspace` is a zeroed TVWorkspace (1 + 1024 4-byte words) that
-// only this stream uses; the kernel leaves its counter at 0.
-extern "C" int b3_tv_value_and_grad(const float* x, const float* scale, int64_t n, int H, int W,
-                                    float p, float q, float eps, void* workspace, float* value,
-                                    float* grad, void* stream) {
-  if (n < 1 || H < 1 || W < 1 || n % ((int64_t)H * W) != 0) return (int)cudaErrorInvalidValue;
+// The fused TV kernel's occupancy on the current device (the p = q = 1 form or the
+// general one), and in `g` how its grid covers n elements of H x W planes in
+// `segments` segments: the blocks of one wave, the lesser of the two forms', shared
+// among the segments, at most one block per chunk. False for shapes it does not take.
+static bool tv_launch(int64_t n, int H, int W, int segments, bool p1q1, TVGrid& g, Occupancy& o) {
+  static Occupancy cache[2][kMaxDevices];
+  const Occupancy general = occupancy((const void*)tv_value_and_grad_kernel<false>, kTvThreads, cache[0]);
+  const Occupancy p1 = occupancy((const void*)tv_value_and_grad_kernel<true>, kTvThreads, cache[1]);
+  o = p1q1 ? p1 : general;
+  const int64_t hw = (int64_t)H * W;
+  if (n < 1 || H < 1 || W < 1 || n % hw != 0 || segments < 1 || segments > kTvMaxPartials ||
+      (n / hw) % segments != 0 || general.wave < 1 || p1.wave < 1)
+    return false;
+  const int64_t planes = n / hw / segments;
+  const int64_t tiles_w = (W + kTvCols - 1) / kTvCols;
+  const int64_t tiles_per_plane = (int64_t)((H + kTvRows - 1) / kTvRows) * tiles_w;
+  const int64_t tiles = planes * tiles_per_plane;
+  if (tiles > INT32_MAX) return false;
+  // at most kTvMaxPartials / segments partials a segment
+  const int64_t per_segment = kTvMaxPartials / segments;
+  const int64_t chunk = (tiles + per_segment - 1) / per_segment;
+  const int64_t chunks = (tiles + chunk - 1) / chunk;
+  const int64_t wave = general.wave < p1.wave ? general.wave : p1.wave;
+  int64_t blocks = wave / segments;
+  if (blocks < 1) blocks = 1;
+  if (blocks > chunks) blocks = chunks;
+  g = TVGrid{(int)tiles_w, (int)tiles_per_plane, (int)planes, (int)tiles, (int)chunk, (int)chunks, (int)blocks};
+  return true;
+}
+
+// values[s] = TV of segment s of the NCHW batch x (n = N*C*H*W elements in `segments`
+// segments of whole images, each the mean over its own n / segments elements) times
+// scale[0], and grad = the gradient of each segment's value. `workspace` is a zeroed
+// TVWorkspace (2 * 16384 4-byte words) that only this stream uses; the kernel leaves it
+// zeroed.
+extern "C" int b3_tv_value_and_grad(const float* x, const float* scale, int64_t n, int H, int W, int segments,
+                                    float p, float q, float eps, void* workspace, float* values, float* grad,
+                                    void* stream) {
+  const bool p1q1 = p == 1.0f && q == 1.0f;
+  TVGrid g;
+  Occupancy o;
+  if (!tv_launch(n, H, W, segments, p1q1, g, o)) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const TVParams t{H, W, p, q, eps};
-  const int tiles_w = (W + kTile - 1) / kTile;
-  const int64_t tiles_per_plane = (int64_t)((H + kTile - 1) / kTile) * tiles_w;
-  const int64_t num_tiles = n / ((int64_t)H * W) * tiles_per_plane;
-  if (num_tiles > INT32_MAX) return (int)cudaErrorInvalidValue;
-  const int grid = (int)(num_tiles < kMaxReduceBlocks ? num_tiles : kMaxReduceBlocks);
-  tv_value_and_grad_kernel<<<grid, kThreads, 0, s>>>(x, scale, n, t, (int)tiles_per_plane, tiles_w,
-                                                     (int)num_tiles, static_cast<TVWorkspace*>(workspace),
-                                                     value, grad);
+  TVWorkspace* ws = static_cast<TVWorkspace*>(workspace);
+  const int64_t n_segment = n / segments;
+  if (p1q1) {
+    tv_value_and_grad_kernel<true><<<segments * g.blocks, kTvThreads, 0, s>>>(x, scale, t, g, n_segment, ws,
+                                                                              values, grad);
+  } else {
+    tv_value_and_grad_kernel<false><<<segments * g.blocks, kTvThreads, 0, s>>>(x, scale, t, g, n_segment, ws,
+                                                                               values, grad);
+  }
   return (int)cudaGetLastError();
+}
+
+// The bytes of the workspace that b3_tv_value_and_grad takes.
+extern "C" int64_t b3_tv_workspace_bytes() { return (int64_t)sizeof(TVWorkspace); }
+
+// config = (threads per block, registers per thread, static shared bytes, local bytes per
+// thread, blocks per SM, grid) of b3_tv_value_and_grad's launch, in its p = q = 1 form or
+// the general one.
+extern "C" int b3_tv_value_and_grad_config(int64_t n, int H, int W, int segments, int p1q1, int* config) {
+  TVGrid g;
+  Occupancy o;
+  if (!tv_launch(n, H, W, segments, p1q1 != 0, g, o)) return (int)cudaErrorInvalidValue;
+  const int values[6] = {kTvThreads, o.registers, o.shared_bytes, o.local_bytes, o.blocks_per_sm,
+                         segments * g.blocks};
+  for (int i = 0; i < 6; ++i) config[i] = values[i];
+  return (int)cudaSuccess;
 }
 
 // out = clamp(x, lo[c], hi[c]) for the NCHW batch x with `channels` channels of hw

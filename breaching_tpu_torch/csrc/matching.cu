@@ -11,10 +11,20 @@
 //
 // B2 `b2_axpby` replaces `_axpby` (Pallas `_axpby_kernel`): out = a x + b y with
 // scalars a, b read from device memory, so the backward of the cosine never waits
-// on the host. Bound: 12 bytes per element, 12 n / 3.35 TB/s (about 10.4 us at
-// ConvNet-64). Design: 16-byte vector loads and stores with a masked scalar tail.
-// Products and the sum are rounded separately (no fused multiply-add), which is
-// what the plain PyTorch version computes.
+// on the host. Bound: 12 bytes per element, 12 n / 3.35 TB/s (10.41 us at
+// ConvNet-64's 2,904,970 entries). It is called through PyTorch's dispatcher
+// (csrc/bindings.cpp), which checks and allocates in C++: at this size the call's
+// host work, not the pass, set its cost. The pass is a stream, so the design is
+// about bytes in flight: the grid is exactly one wave (the occupancy API's blocks
+// per SM times the SM count), each thread issues the 16-byte loads of x and y for
+// kAxpbyUnroll grid-stride iterations before any arithmetic, and reads them with
+// the evict-first hint (__ldcs), since nothing reads x or y again; `out` is stored
+// normally, since its consumer (the gradient's split into the leaves) reads it
+// next. A masked scalar tail takes the last n % 4 elements and unaligned pointers.
+// Shared memory, wgmma and TMA have no work in a 12-byte-per-element stream: no
+// element is read twice and nothing is a product of tiles. Products and the sum are
+// rounded separately (no fused multiply-add), which is what the plain PyTorch
+// version computes, so the two agree bit for bit.
 //
 // `b2_cosine_backward` is B2 rebuilt for the cosine's VJP, `_cos_bwd`
 // (breaching_tpu/ops/matching.py:135-146), whose `_axpby` calls it replaces with
@@ -78,30 +88,45 @@ __device__ __forceinline__ float axpby1(float a, float x, float b, float y) {
   return __fadd_rn(__fmul_rn(a, x), __fmul_rn(b, y));
 }
 
-template <bool kVec>
+constexpr int kAxpbyUnroll = 4;  // grid-stride iterations whose loads a thread issues together
+
+template <bool kVec, typename Index>
 __global__ void __launch_bounds__(kThreads)
 axpby_kernel(const float* __restrict__ a_ptr, const float* __restrict__ x,
              const float* __restrict__ b_ptr, const float* __restrict__ y,
-             float* __restrict__ out, int64_t n) {
+             float* __restrict__ out, Index n) {
   const float a = *a_ptr;
   const float b = *b_ptr;
-  const int64_t stride = (int64_t)gridDim.x * kThreads;
-  const int64_t tid = (int64_t)blockIdx.x * kThreads + threadIdx.x;
-  int64_t tail = 0;
+  const Index stride = (Index)gridDim.x * kThreads;
+  const Index tid = (Index)blockIdx.x * kThreads + threadIdx.x;
+  Index tail = 0;
   if (kVec) {
-    const int64_t n4 = n / 4;
+    const Index n4 = n / 4;
     const float4* x4 = reinterpret_cast<const float4*>(x);
     const float4* y4 = reinterpret_cast<const float4*>(y);
     float4* o4 = reinterpret_cast<float4*>(out);
-    for (int64_t i = tid; i < n4; i += stride) {
-      const float4 xv = x4[i];
-      const float4 yv = y4[i];
-      o4[i] = make_float4(axpby1(a, xv.x, b, yv.x), axpby1(a, xv.y, b, yv.y),
-                          axpby1(a, xv.z, b, yv.z), axpby1(a, xv.w, b, yv.w));
+    for (Index base = tid; base < n4; base += kAxpbyUnroll * stride) {
+      float4 xv[kAxpbyUnroll], yv[kAxpbyUnroll];
+#pragma unroll
+      for (int u = 0; u < kAxpbyUnroll; ++u) {
+        const Index i = base + u * stride;
+        if (i < n4) {
+          xv[u] = __ldcs(x4 + i);
+          yv[u] = y4[i];
+        }
+      }
+#pragma unroll
+      for (int u = 0; u < kAxpbyUnroll; ++u) {
+        const Index i = base + u * stride;
+        if (i < n4) {
+          o4[i] = make_float4(axpby1(a, xv[u].x, b, yv[u].x), axpby1(a, xv[u].y, b, yv[u].y),
+                              axpby1(a, xv[u].z, b, yv[u].z), axpby1(a, xv[u].w, b, yv[u].w));
+        }
+      }
     }
     tail = n4 * 4;
   }
-  for (int64_t i = tail + tid; i < n; i += stride) out[i] = axpby1(a, x[i], b, y[i]);
+  for (Index i = tail + tid; i < n; i += stride) out[i] = axpby1(a, __ldcs(x + i), b, y[i]);
 }
 
 // The scalars a, b of the cosine's VJP with respect to the vector whose squared norm
@@ -180,19 +205,57 @@ extern "C" int b1_matching_sums(const float* rec, const float* data, int64_t n, 
   return (int)cudaGetLastError();
 }
 
+// b2_axpby's kernel for n floats (32-bit indices below 2^30 elements, where an index
+// plus the grid's stride stays within 32 bits; the float4 form for 16-byte aligned
+// pointers), its occupancy on the current device and its grid: one wave at most.
+struct AxpbyLaunch {
+  Occupancy o;
+  int grid;
+};
+
+static AxpbyLaunch axpby_launch(bool vec, int64_t n) {
+  static Occupancy cache[4][kMaxDevices];
+  const bool narrow = n < ((int64_t)1 << 30);
+  const int form = (vec ? 2 : 0) + (narrow ? 1 : 0);
+  const void* kernel = vec ? (narrow ? (const void*)axpby_kernel<true, int32_t>
+                                  : (const void*)axpby_kernel<true, int64_t>)
+                           : (narrow ? (const void*)axpby_kernel<false, int32_t>
+                                     : (const void*)axpby_kernel<false, int64_t>);
+  const Occupancy o = occupancy(kernel, kThreads, cache[form]);
+  return AxpbyLaunch{o, o.wave < 1 ? 0 : grid_for(vec ? n / 4 : n, 1, o.wave)};
+}
+
 // out = a[0] * x + b[0] * y over n floats.
 extern "C" int b2_axpby(const float* a, const float* x, const float* b, const float* y,
                         float* out, int64_t n, void* stream) {
   if (n < 0) return (int)cudaErrorInvalidValue;
   if (n == 0) return (int)cudaSuccess;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int grid = grid_for(n, 4, 8192);
-  if (aligned16(x) && aligned16(y) && aligned16(out)) {
-    axpby_kernel<true><<<grid, kThreads, 0, s>>>(a, x, b, y, out, n);
+  const bool vec = aligned16(x) && aligned16(y) && aligned16(out);
+  const AxpbyLaunch launch = axpby_launch(vec, n);
+  if (launch.grid < 1) return (int)cudaErrorInvalidConfiguration;  // the occupancy query failed
+  const bool narrow = n < ((int64_t)1 << 30);
+  if (vec && narrow) {
+    axpby_kernel<true, int32_t><<<launch.grid, kThreads, 0, s>>>(a, x, b, y, out, (int32_t)n);
+  } else if (vec) {
+    axpby_kernel<true, int64_t><<<launch.grid, kThreads, 0, s>>>(a, x, b, y, out, n);
+  } else if (narrow) {
+    axpby_kernel<false, int32_t><<<launch.grid, kThreads, 0, s>>>(a, x, b, y, out, (int32_t)n);
   } else {
-    axpby_kernel<false><<<grid, kThreads, 0, s>>>(a, x, b, y, out, n);
+    axpby_kernel<false, int64_t><<<launch.grid, kThreads, 0, s>>>(a, x, b, y, out, n);
   }
   return (int)cudaGetLastError();
+}
+
+// config = (threads per block, registers per thread, static shared bytes, local bytes per
+// thread, blocks per SM, grid) of b2_axpby's launch over n aligned floats, on the current
+// device.
+extern "C" int b2_axpby_config(int64_t n, int* config) {
+  const AxpbyLaunch launch = axpby_launch(true, n);
+  const Occupancy& o = launch.o;
+  const int values[6] = {kThreads, o.registers, o.shared_bytes, o.local_bytes, o.blocks_per_sm, launch.grid};
+  for (int i = 0; i < 6; ++i) config[i] = values[i];
+  return launch.grid < 1 ? (int)cudaErrorInvalidValue : (int)cudaSuccess;
 }
 
 // out = d/d rec (wrt_data = 0) or d/d data (wrt_data = 1) of g[0] (1 - cos(rec, data)) over

@@ -14,13 +14,13 @@
 
 namespace breaching {
 
-constexpr int kThreads = 256;        // threads per block for every kernel here
+constexpr int kThreads = 256;        // threads per block, for every kernel here but the fused TV's
 constexpr int kMaxReduceBlocks = 1024;
 
-// Sums each of K values over the block; the totals are valid in thread 0.
-template <int K>
+// Sums each of K values over a block of Threads threads; the totals are valid in thread 0.
+template <int K, int Threads = kThreads>
 __device__ __forceinline__ void block_sum(float (&v)[K]) {
-  __shared__ float warp_sums[K][kThreads / 32];
+  __shared__ float warp_sums[K][Threads / 32];
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
 #pragma unroll
@@ -35,7 +35,7 @@ __device__ __forceinline__ void block_sum(float (&v)[K]) {
   if (warp == 0) {
 #pragma unroll
     for (int k = 0; k < K; ++k) {
-      v[k] = lane < kThreads / 32 ? warp_sums[k][lane] : 0.0f;
+      v[k] = lane < Threads / 32 ? warp_sums[k][lane] : 0.0f;
 #pragma unroll
       for (int offset = 16; offset > 0; offset >>= 1) {
         v[k] += __shfl_down_sync(0xffffffffu, v[k], offset);
@@ -71,5 +71,32 @@ inline int grid_for(int64_t n, int per_thread, int max_blocks) {
 }
 
 inline bool aligned16(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15u) == 0; }
+
+// How a kernel fills the current device: its registers per thread, static shared
+// memory and local (spilled) bytes per thread (cudaFuncGetAttributes), the blocks of
+// `threads` threads resident on one SM (the occupancy API) and, times the SM count, the
+// blocks of one wave. Read once per device and kept: a launcher asks on every launch.
+struct Occupancy {
+  int registers, shared_bytes, local_bytes, blocks_per_sm, wave;
+};
+
+constexpr int kMaxDevices = 64;
+
+inline Occupancy occupancy(const void* kernel, int threads, Occupancy (&cache)[kMaxDevices]) {
+  int device = 0;
+  if (cudaGetDevice(&device) != cudaSuccess || device < 0 || device >= kMaxDevices) return Occupancy{};
+  Occupancy& o = cache[device];
+  if (o.wave == 0) {
+    cudaFuncAttributes attributes;
+    int per_sm = 0, sms = 0;
+    if (cudaFuncGetAttributes(&attributes, kernel) != cudaSuccess ||
+        cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, threads, 0) != cudaSuccess ||
+        cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device) != cudaSuccess || per_sm < 1)
+      return Occupancy{};
+    o = Occupancy{attributes.numRegs, (int)attributes.sharedSizeBytes, (int)attributes.localSizeBytes, per_sm,
+                  per_sm * sms};
+  }
+  return o;
+}
 
 }  // namespace breaching

@@ -2,7 +2,7 @@
 
 from .image import (AdamStep, adam_box_step, adam_box_step_trials, box_project, sign, soft_sign_scalars,
                     total_variation, total_variation_trials, tv_backward, tv_forward,
-                    tv_value_and_grad)
+                    tv_value_and_grad, tv_value_and_grad_trials)
 from .matching import (axpby, cosine_backward, fused_cosine_similarity, fused_euclidean,
                        matching_sums)
 
@@ -47,4 +47,5 @@ __all__ = [
     "tv_backward",
     "tv_forward",
     "tv_value_and_grad",
+    "tv_value_and_grad_trials",
 ]

@@ -1,11 +1,16 @@
 """Build and load the port's CUDA kernels.
 
-All ``csrc/*.cu`` files go through ONE ``nvcc`` call into a plain-C shared
-library, loaded with ``ctypes``; no source includes PyTorch's headers, so the
-build takes seconds and needs neither ``ninja`` nor PyTorch's extension builder.
-The library lands in ``breaching_tpu_torch/_build/`` under a name keyed by a
-hash of the sources and flags, and is built at first use. Paths are resolved
-from this file, so the build works from any working directory.
+All ``csrc/*.cu`` files and ``csrc/bindings.cpp`` go through ONE ``nvcc`` call into one
+shared library. ``bindings.cpp`` registers ``b2_axpby`` and ``b3_tv_value_and_grad``
+with PyTorch's dispatcher as ``torch.ops.breaching.*`` (loaded with
+``torch.ops.load_library``, ``load_ops``); the other kernels keep a plain-C entry
+point called through ``ctypes`` (``load_library``). It is one file, loaded once by
+each. ``bindings.cpp`` is the only source that includes PyTorch's headers: it is
+compiled against the include and library paths of the torch that runs, with its C++
+ABI flag, and without ``ninja`` or PyTorch's extension builder. The library lands in
+``breaching_tpu_torch/_build/`` under a name keyed by a hash of the sources, the
+flags and the torch version, and is built at first use. Paths are resolved from this
+file, so the build works from any working directory.
 """
 
 from __future__ import annotations
@@ -22,29 +27,35 @@ import torch
 PACKAGE_ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(PACKAGE_ROOT, "csrc")
 BUILD_DIR = os.path.join(PACKAGE_ROOT, "_build")
-NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++20", "-O3",
               "-shared", "-Xcompiler", "-fPIC"]
+TORCH_LIBRARIES = ["c10", "c10_cuda", "torch_cpu", "torch_cuda"]
 
 _P, _I64, _I32, _F32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int, ctypes.c_float
-# C signature of every exported kernel entry point; each returns its cudaError_t.
+# C signature of every kernel entry point called through ctypes; each returns its cudaError_t.
 SIGNATURES = {
     "b1_matching_sums": [_P, _P, _I64, _P, _I32, _P, _P],
-    "b2_axpby": [_P, _P, _P, _P, _P, _I64, _P],
     "b2_cosine_backward": [_P, _P, _P, _P, _P, _I64, _I32, _P],
     "b3_tv_forward": [_P, _I64, _I32, _I32, _F32, _F32, _F32, _P, _I32, _P, _P],
-    "b3_tv_value_and_grad": [_P, _P, _I64, _I32, _I32, _F32, _F32, _F32, _P, _P, _P, _P],
     "b4_box_project": [_P, _P, _P, _P, _I64, _I64, _I32, _P],
     "b4_adam_box_step": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I64, _I64, _I32,
                          _F32, _F32, _F32, _F32, _F32, _F32, _F32, _F32, _F32, _F32, _I32, _P],
 }
 
 _library = None
+_ops = None
 build_seconds = None  # wall time of the nvcc call that built the loaded library, None if cached
 
 
 def sources() -> list[str]:
     return sorted(os.path.join(CSRC_DIR, f) for f in os.listdir(CSRC_DIR)
-                  if f.endswith((".cu", ".cuh")))
+                  if f.endswith((".cu", ".cuh", ".cpp")))
+
+
+def flags() -> list[str]:
+    """nvcc's flags: NVCC_FLAGS and the C++ ABI of the torch that runs, which
+    ``bindings.cpp`` must share to link against it."""
+    return [*NVCC_FLAGS, f"-D_GLIBCXX_USE_CXX11_ABI={int(torch._C._GLIBCXX_USE_CXX11_ABI)}"]
 
 
 def find_nvcc() -> str:
@@ -62,7 +73,7 @@ def find_nvcc() -> str:
 
 
 def library_path() -> str:
-    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    digest = hashlib.sha256(" ".join([*flags(), torch.__version__]).encode())
     for path in sources():
         digest.update(os.path.basename(path).encode())
         with open(path, "rb") as fh:
@@ -79,8 +90,14 @@ def build() -> str:
     os.makedirs(BUILD_DIR, exist_ok=True)
     fd, partial = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
     os.close(fd)
-    cmd = [find_nvcc(), *NVCC_FLAGS, "-o", partial,
-           *[p for p in sources() if p.endswith(".cu")]]
+    from torch.utils.cpp_extension import include_paths, library_paths
+
+    lib_dirs = library_paths()
+    cmd = [find_nvcc(), *flags(), *[f"-I{p}" for p in include_paths()], "-o", partial,
+           *[p for p in sources() if p.endswith((".cu", ".cpp"))],
+           *[f"-L{p}" for p in lib_dirs],
+           *[arg for p in lib_dirs for arg in ("-Xlinker", "-rpath", "-Xlinker", p)],
+           *[f"-l{name}" for name in TORCH_LIBRARIES]]
     start = time.perf_counter()
     proc = subprocess.run(cmd, capture_output=True, text=True)
     if proc.returncode != 0:
@@ -92,7 +109,8 @@ def build() -> str:
 
 
 def load_library() -> ctypes.CDLL:
-    """The kernels' shared library, built on first use, with argtypes set."""
+    """The kernels' shared library, built on first use, with the ctypes entry points'
+    argtypes set."""
     global _library
     if _library is None:
         lib = ctypes.CDLL(build())
@@ -104,9 +122,35 @@ def load_library() -> ctypes.CDLL:
     return _library
 
 
+def load_ops():
+    """``torch.ops.breaching``, the dispatcher's ops of the kernels' shared library,
+    built and loaded on first use. Raises if the build or the load fails."""
+    global _ops
+    if _ops is None:
+        torch.ops.load_library(build())
+        _ops = torch.ops.breaching
+    return _ops
+
+
+def op(name: str):
+    """The callable of ``torch.ops.breaching.<name>.default``, the op's one overload:
+    called directly, it skips ``OpOverload.__call__``'s Python frame (about 1.3 us of a
+    7-argument call's 5 on a CPU core)."""
+    return getattr(load_ops(), name).default._op
+
+
 def check(status: int, name: str) -> None:
     if status != 0:
         raise RuntimeError(f"CUDA kernel {name} failed: cudaError_t {status}.")
+
+
+def require_cpu(name: str, *tensors) -> None:
+    """The plain version's guard: raises unless every tensor lies on the CPU (a wrapper
+    whose kernel is a dispatcher op sends CUDA tensors to it before this)."""
+    for t in tensors:
+        if t.device.type != "cpu":
+            raise ValueError(f"{name}: tensors must all lie on the CPU or on one CUDA device, got "
+                             f"{[str(t.device) for t in tensors]}.")
 
 
 def launch_stream(name: str, *tensors) -> int | None:

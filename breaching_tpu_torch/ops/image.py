@@ -10,7 +10,8 @@ is NHWC, so the TV stencil runs along dims 3 and 2 here). Kernels
 - ``tv_value_and_grad`` is B3 rebuilt for the attack step: the TV's value times a
   scale and its gradient, the sign-divergence formula of ``regularizers._tv_p1q1_bwd``
   and ``_make_tv_general`` that the TPU kernel lacks, in one launch; bound 8 bytes
-  per element. ``tv_backward`` is its gradient alone.
+  per element. ``tv_value_and_grad_trials`` gives T trials' values and gradients in
+  the same one launch. ``tv_backward`` is its gradient alone.
 - B4 ``box_project`` replaces ``box_project`` / Pallas ``_box_kernel``; bound 8 bytes
   per element. At the attack's 12 KB its cost is the host's and the launch's, so its
   wrapper's path is lean and takes an ``out`` that may be its input (in place).
@@ -24,7 +25,9 @@ is NHWC, so the TV stencil runs along dims 3 and 2 here). Kernels
 
 Each wrapper runs its kernel on contiguous float32 CUDA tensors and counts the
 launch in its ``launches`` attribute; it runs the plain PyTorch version (``*_plain``)
-only for CPU tensors, and raises for anything else.
+only for CPU tensors, and raises for anything else. The fused TV kernel is reached
+through PyTorch's dispatcher (``torch.ops.breaching.tv_value_and_grad``), the others
+through ctypes.
 """
 
 from __future__ import annotations
@@ -125,53 +128,88 @@ def tv_value_and_grad_plain(images, scale, inner_exp=1.0, outer_exp=1.0, eps=1e-
             tv_backward_plain(images, scale, inner_exp, outer_exp, eps))
 
 
-# The kernel's workspace: its ticket counter and up to 1024 block partials
-# (csrc/image.cu TVWorkspace), zeroed once and left zeroed by every launch. One per
-# device and stream, since launches on two streams may overlap; kept for good, since
+def tv_value_and_grad_trials_plain(images, scale, inner_exp=1.0, outer_exp=1.0, eps=1e-8):
+    """``tv_value_and_grad_plain`` applied to each trial of a (T, N, C, H, W) stack: (T,)
+    values and the (T, N, C, H, W) gradient."""
+    values, grads = zip(*(tv_value_and_grad_plain(trial, scale, inner_exp, outer_exp, eps)
+                          for trial in images.unbind()))
+    return torch.stack(values), torch.stack(grads)
+
+
+# The kernel's workspace: a 64-bit slot per tile for its partial sum (csrc/image.cu
+# TVWorkspace, 2 * 16384 4-byte words), zeroed once and left zeroed by every launch. One
+# per device and stream, since launches on two streams may overlap; kept for good, since
 # a captured CUDA graph holds its address.
-_TV_WORKSPACE_WORDS = 1 + 1024
+_TV_WORKSPACE_WORDS = 2 * 16384
 _tv_workspaces = {}  # (device index, stream handle) -> workspace
 _tv_spares = {}  # device index -> workspaces zeroed outside graph capture, not yet taken
+_tv_op = None  # torch.ops.breaching.tv_value_and_grad, bound at the first launch
 
 
-def _tv_workspace(device, stream):
-    key = (device.index, stream)
+def _tv_workspace(device_index):
+    key = (device_index, torch._C._cuda_getCurrentRawStream(device_index))
     workspace = _tv_workspaces.get(key)
     if workspace is None:
         # a stream first seen while it is being captured takes a workspace zeroed before:
         # a zeroing captured into the graph would run only when the graph is replayed
-        spares = _tv_spares.setdefault(device.index, [])
+        spares = _tv_spares.setdefault(device_index, [])
         if not spares:
             if torch.cuda.is_current_stream_capturing():
                 raise RuntimeError("tv_value_and_grad: run it once on this device before capturing a "
                                    "CUDA graph, so that its workspace is zeroed outside the capture.")
+            device = torch.device("cuda", device_index)
             spares.extend(torch.zeros(8, _TV_WORKSPACE_WORDS, dtype=torch.int32, device=device).unbind())
             torch.cuda.current_stream(device).synchronize()  # zeroed before any stream takes one
         workspace = _tv_workspaces[key] = spares.pop()
     return workspace
 
 
+def _tv_launch(images, scale, inner_exp, outer_exp, eps, segments):
+    """The kernel through the dispatcher's op: (segments,) values (a 0-dim value for
+    segments = 0, the whole batch) and the gradient."""
+    global _tv_op
+    if _tv_op is None:
+        _tv_op = _build.op("tv_value_and_grad")
+    out = _tv_op(images, scale, inner_exp, outer_exp, eps, segments, _tv_workspace(images.get_device()))
+    tv_value_and_grad.launches += 1
+    return out
+
+
 def tv_value_and_grad(images, scale, inner_exp=1.0, outer_exp=1.0, eps=1e-8):
     """(scale * tv_forward(images), scale * d tv_forward / d images) of an NCHW batch,
-    for a one-element tensor ``scale``: a 0-dim value and a gradient of the images' shape."""
+    for a one-element tensor ``scale``: a 0-dim value and a gradient of the images' shape.
+
+    For CUDA images the dispatcher's op (csrc/bindings.cpp) checks shapes, devices,
+    dtypes and contiguity in C++ and raises for what the kernel does not take; for CPU
+    tensors the plain version runs."""
+    if images.is_cuda:
+        return _tv_launch(images, scale, inner_exp, outer_exp, eps, 0)
     _check_images("tv_value_and_grad", images)
     if scale.numel() != 1:
         raise ValueError(f"tv_value_and_grad takes a one-element scale, got {tuple(scale.shape)}.")
-    stream = _build.launch_stream("tv_value_and_grad", images, scale)
-    if stream is None:
-        return tv_value_and_grad_plain(images, scale, inner_exp, outer_exp, eps)
-    value = torch.empty((), device=images.device, dtype=torch.float32)
-    grad = torch.empty_like(images)
-    h, w = images.shape[-2:]
-    _build.check(_build.load_library().b3_tv_value_and_grad(
-        images.data_ptr(), scale.data_ptr(), images.numel(), h, w, inner_exp, outer_exp, eps,
-        _tv_workspace(images.device, stream).data_ptr(), value.data_ptr(), grad.data_ptr(), stream),
-        "b3_tv_value_and_grad")
-    tv_value_and_grad.launches += 1
-    return value, grad
+    _build.require_cpu("tv_value_and_grad", images, scale)
+    return tv_value_and_grad_plain(images, scale, inner_exp, outer_exp, eps)
 
 
 tv_value_and_grad.launches = 0
+
+
+def tv_value_and_grad_trials(images, scale, inner_exp=1.0, outer_exp=1.0, eps=1e-8):
+    """``tv_value_and_grad`` of each trial of a contiguous (T, N, C, H, W) stack, each the
+    mean over that trial's own elements: (T,) values and the (T, N, C, H, W) gradient. On
+    the card one launch of the kernel takes every trial, as one segment each."""
+    if images.dim() != 5 or not images.is_contiguous():
+        raise ValueError(f"tv_value_and_grad_trials takes a contiguous (T, N, C, H, W) stack, got "
+                         f"{tuple(images.shape)}.")
+    if images.is_cuda:
+        values, grad = _tv_launch(images.view(-1, *images.shape[2:]), scale, inner_exp, outer_exp, eps,
+                                  images.shape[0])
+        return values, grad.view(images.shape)
+    if images.numel() == 0 or scale.numel() != 1:
+        raise ValueError(f"tv_value_and_grad_trials takes a non-empty stack and a one-element scale, got "
+                         f"{tuple(images.shape)} and {tuple(scale.shape)}.")
+    _build.require_cpu("tv_value_and_grad_trials", images, scale)
+    return tv_value_and_grad_trials_plain(images, scale, inner_exp, outer_exp, eps)
 
 
 class _TotalVariation(torch.autograd.Function):
@@ -200,14 +238,13 @@ def total_variation(images, inner_exp=1.0, outer_exp=1.0, eps=1e-8, scale=None):
 
 class _TotalVariationTrials(torch.autograd.Function):
     """scale * TV of each trial of a (T, N, C, H, W) stack, the mean over that trial's
-    own elements: one ``tv_value_and_grad`` call per trial on its contiguous view."""
+    own elements: one ``tv_value_and_grad_trials`` call for every trial."""
 
     @staticmethod
     def forward(ctx, images, scale, inner_exp, outer_exp, eps):
-        values, grads = zip(*(tv_value_and_grad(trial, scale, inner_exp, outer_exp, eps)
-                              for trial in images.unbind()))
-        ctx.save_for_backward(torch.stack(grads))
-        return torch.stack(values)
+        values, grad = tv_value_and_grad_trials(images, scale, inner_exp, outer_exp, eps)
+        ctx.save_for_backward(grad)
+        return values
 
     @staticmethod
     def backward(ctx, g):
@@ -218,9 +255,6 @@ class _TotalVariationTrials(torch.autograd.Function):
 def total_variation_trials(images, inner_exp=1.0, outer_exp=1.0, eps=1e-8, scale=None):
     """``total_variation`` of each trial of a contiguous (T, N, C, H, W) stack: a (T,)
     vector, differentiable."""
-    if images.dim() != 5 or not images.is_contiguous():
-        raise ValueError(f"total_variation_trials takes a contiguous (T, N, C, H, W) stack, got "
-                         f"{tuple(images.shape)}.")
     if scale is None:
         scale = torch.ones(1, dtype=images.dtype, device=images.device)
     return _TotalVariationTrials.apply(images, scale, float(inner_exp), float(outer_exp), float(eps))

@@ -18,7 +18,8 @@ with respect to rec, one launch of each per evaluation.
 
 Each wrapper runs its kernel on contiguous float32 CUDA tensors and counts the
 launch in its ``launches`` attribute; it runs the plain PyTorch version (``*_plain``)
-only for CPU tensors, and raises for anything else.
+only for CPU tensors, and raises for anything else. ``axpby`` reaches its kernel
+through PyTorch's dispatcher (``torch.ops.breaching.axpby``), the others through ctypes.
 """
 
 from __future__ import annotations
@@ -58,20 +59,27 @@ def axpby_plain(a: torch.Tensor, x: torch.Tensor, b: torch.Tensor, y: torch.Tens
     return a * x + b * y
 
 
+_axpby_op = None  # torch.ops.breaching.axpby, bound at the first launch
+
+
 def axpby(a: torch.Tensor, x: torch.Tensor, b: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
-    """a x + b y for one-element tensors a, b and flat vectors x, y of one length."""
+    """a x + b y for one-element tensors a, b and flat vectors x, y of one length.
+
+    For a CUDA x the dispatcher's op (csrc/bindings.cpp) checks shapes, devices, dtypes
+    and contiguity in C++ and raises for what the kernel does not take; for CPU tensors
+    the plain version runs."""
+    global _axpby_op
+    if x.is_cuda:
+        if _axpby_op is None:
+            _axpby_op = _build.op("axpby")
+        out = _axpby_op(a, x, b, y)
+        axpby.launches += 1
+        return out
     if x.dim() != 1 or x.shape != y.shape or a.numel() != 1 or b.numel() != 1:
         raise ValueError(f"axpby takes scalars a, b and flat x, y of one length, got "
                          f"{tuple(a.shape)}, {tuple(x.shape)}, {tuple(b.shape)}, {tuple(y.shape)}.")
-    stream = _build.launch_stream("axpby", a, x, b, y)
-    if stream is None:
-        return axpby_plain(a, x, b, y)
-    out = torch.empty_like(x)
-    _build.check(_build.load_library().b2_axpby(
-        a.data_ptr(), x.data_ptr(), b.data_ptr(), y.data_ptr(), out.data_ptr(), x.numel(),
-        stream), "b2_axpby")
-    axpby.launches += 1
-    return out
+    _build.require_cpu("axpby", a, x, b, y)
+    return axpby_plain(a, x, b, y)
 
 
 axpby.launches = 0

@@ -7,11 +7,13 @@
 it times, for the port found under each ROOT in the order given, the wrappers of the
 standalone kernels B2 (``ops.axpby``) and B4 (``ops.box_project``, and its in-place
 form where the tree has it) beside their library calls, at the slice's shapes
-(ConvNet-64's 2,904,970 parameters, one 3x32x32 image); and TV at 1x3x32x32 and
-1x3x224x224: the forward and backward wrappers called in turn (``ops.tv_forward``
-then ``ops.tv_backward``), the fused ``ops.tv_value_and_grad`` where the tree has
-it, and the attack's TV regularizer (scale 0.2) with its gradient through autograd,
-which is what one attack step spends on TV. It prints one JSON line per ROOT. Give a
+(ConvNet-64's 2,904,970 parameters, one 3x32x32 image); TV at 1x3x32x32,
+1x3x224x224, 4x3x224x224 and 100x3x32x32: the forward and backward wrappers called
+in turn (``ops.tv_forward`` then ``ops.tv_backward``), the fused
+``ops.tv_value_and_grad`` where the tree has it, and the attack's TV regularizer
+(scale 0.2) with its gradient through autograd, which is what one attack step spends
+on TV; and the regularizer's trials form on the fleet's 8x1x3x224x224 stack. It
+prints one JSON line per ROOT. Give a
 checkout of the parent commit and this one as parent, change, change, parent to
 compare two launch paths on one card. Needs a CUDA device.
 """
@@ -112,7 +114,7 @@ def _time_standalone(root: str) -> dict:
         calls["torch.clamp(out=)"] = lambda: torch.clamp(xi, lo4, hi4, out=xi)
     g = torch.tensor([0.2], device="cuda")
     reg = TotalVariation(scale=0.2)
-    for shape in ((1, 3, 32, 32), (1, 3, 224, 224)):
+    for shape in ((1, 3, 32, 32), (1, 3, 224, 224), (4, 3, 224, 224), (100, 3, 32, 32)):
         img = torch.randn(*shape, generator=gen).cuda()
         leaf = img.clone().requires_grad_(True)
         at = "x".join(map(str, shape))
@@ -120,6 +122,10 @@ def _time_standalone(root: str) -> dict:
         if hasattr(ops, "tv_value_and_grad"):
             calls[f"b3_tv_value_and_grad {at}"] = lambda img=img: ops.tv_value_and_grad(img, g)
         calls[f"TV regularizer value and gradient {at}"] = lambda leaf=leaf: torch.autograd.grad(reg(leaf), leaf)
+    # the fleet's step: TV of 8 trials stacked, through the regularizer's trials form
+    stack = torch.randn(8, 1, 3, 224, 224, generator=gen).cuda().requires_grad_(True)
+    calls["TV regularizer trials value and gradient 8x1x3x224x224"] = \
+        lambda: torch.autograd.grad(reg.trials(stack).sum(), stack)
     return {name: dict(zip(("ms", "device_ms", "host_ms", "device_warm_ms"), time_ms(fn)))
             for name, fn in calls.items()}
 

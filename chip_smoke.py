@@ -20,7 +20,10 @@ Phases, one line each on standard output:
      4x3x224x224, with NaN and infinite pixels at the boundary, twice in a row
      and in a replayed CUDA graph; for slice 5 the fused TV kernel and the fused
      Adam step at 100x3x32x32 (5b) and 1x3x96x96 (a stage of 5a), TV also at
-     1x3x192x192; the rebuilt box clamp bit for bit, out of place and in place,
+     1x3x192x192; the fused TV kernel's trials form, one launch for every trial
+     of 8x1x3x224x224 (p = q = 1) and 8x1x6x224x224 (p = 2, q = 0.5) stacks,
+     against the plain version per trial and bit for bit against single-trial
+     calls; the rebuilt box clamp bit for bit, out of place and in place,
      at 1x3x32x32 and 4x3x224x224, 4 bytes off a 16-byte boundary and at a
      width that is not a multiple of 4, with NaN, infinities and values on the
      bounds;
@@ -41,10 +44,13 @@ Phases, one line each on standard output:
   5. the main paths end to end through the entry points, each with the kernels'
      launch counts set to 0 just before it and read just after: slice 1,
      Inverting Gradients with the fused cosine objective on ConvNet-64 /
-     CIFAR-10 shapes; slice 2, the bench preset on ResNet-18 at ImageNet shapes
+     CIFAR-10 shapes, and the same with 4 restarts (the batched trial step: the
+     fused TV kernel once a step for all four); slice 2, the bench preset on
+     ResNet-18 at ImageNet shapes
      (the repo's trained checkpoint where the checkout holds it, else random
      weights, printed either way) solo, the same with the fused cosine
-     objective, and as the 8-experiment fleet through ``reconstruct_fleet``;
+     objective, and as the 8-experiment fleet through ``reconstruct_fleet`` (the
+     fused TV kernel once a step for the 8);
      slice 3, the fedAVG user of case 4 on the same ResNet-18 (4 images of
      3x224x224, 4 local SGD steps of 2 images, the JAX package's notebook preset
      ``inverting_gradients_fedavg_imagenet``), with the preset's cosine objective
@@ -108,15 +114,20 @@ Phases, one line each on standard output:
      1x3x96x96, TV at 1x3x192x192 (100 calls); the box clamp also in place (the
      form slices 4b-c call) beside ``torch.clamp(out=)``; each form of the box clamp
      and ``b2_axpby`` (beside ``torch.add(alpha=)``, at 2,904,970 entries) timed in
-     turns with its library call over five rounds (medians); and which device
-     times, if any, come in under their bound.
+     turns with its library call over five rounds (medians); the fused TV
+     kernel's trials form at 8x1x3x224x224 beside 8 single-trial calls; the
+     launch of ``b2_axpby`` and the fused TV kernel at the paths' shapes
+     (registers, blocks resident per SM, grid) and each one's host time split
+     into its Python wrapper and its dispatcher op; and which device times, if
+     any, come in under their bound.
 Then one JSON line with the kernels, and as the last line
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 
 Exits non-zero, without that line, when no CUDA device is present, a kernel does
 not build, launch or agree, a kernel of a path was not launched as often as the
 path needs (on slice 4's L-BFGS paths: B1 and ``b2_axpby`` once per evaluation of
-the objective, TV once per evaluation, ``b4_box_project`` once per outer step), an
+the objective, TV once per evaluation, ``b4_box_project`` once per outer step; on the
+fleet and the restarts, TV once a step for every trial), an
 attack's loss does not fall (on slice 4: its best value stays at its first, or a
 loss is not finite; on slice 5a: a stage's), an experiment of the fleet does not
 keep its own labels, a batch's order is not a permutation, or a check of slice 6
@@ -150,6 +161,7 @@ SLICE = ["case=1_single_image_small", "attack=invertinggradients",
 SLICE2 = ["case=2_single_imagenet", "attack=invertinggradients", "attack.restarts.num_trials=1",
           "case.user.provide_labels=True", "seed=7"]
 SLICE2_STEPS, SLICE2_FUSED_STEPS, FLEET, FLEET_STEPS = 200, 100, 8, 100
+RESTARTS, RESTART_STEPS = 4, 100  # slice 1's restarts: the batched trial step on ConvNet-64
 # slice 3: the fedAVG user of case 4 on ResNet-18, the JAX package's notebook preset
 # inverting_gradients_fedavg_imagenet (examples/run_example.py)
 SLICE3 = ["case=4_fedavg_small_scale", "attack=invertinggradients", "case.user.num_data_points=4",
@@ -457,10 +469,13 @@ def check_tv_value_and_grad(ops, image, report, report_exact, randn, image_shape
                    p == q == 1.0 and record)
             if (p, q) in TV_EXACT:
                 report_exact(name, f"{shape} p={p} q={q} gradient", grad, want, p == q == 1.0 and record)
-            else:  # pow(., -0.5) is rsqrtf in PyTorch, powf in the kernel
+            else:  # q - 1 = -0.5 is rsqrtf in both; q - 1 = 0.25 is powf in the kernel, pow in PyTorch
                 slice4 = (shape, q) in ((OPPONENTS, 0.5), (image_shape, 1.25)) and f"{name} slice4 {shape} q={q}"
                 report(name, f"{shape} p={p} q={q} gradient", grad, want,
                        2.0 ** -22 * want.abs().max().item(), slice4)
+                if shape in (image_shape, OPPONENTS):
+                    print(f"check {name} {shape} p={p} q={q} gradient: {differing_bits(grad, want)} of "
+                          f"{want.numel()} entries differ from the plain version's bits", flush=True)
             if shape in (image_shape, (2, 3, 331, 1007)) and (p, q) in ((1.0, 1.0), (2.0, 0.5)):
                 xr = x.clone().requires_grad_(True)
                 auto, = torch.autograd.grad(image.tv_forward_plain(xr, p, q, 1e-8) * 0.2, xr)
@@ -492,7 +507,7 @@ def check_tv_value_and_grad(ops, image, report, report_exact, randn, image_shape
         print(f"check {name} {shape} non-finite pixels at the boundary: {cases} cases ({nan_cases} with NaN "
               f"in the gradient), gradient bits and NaN positions equal, values non-finite alike ok", flush=True)
 
-    # the same bits twice; a graph replayed on new images (the ticket counter resets)
+    # the same bits twice; a graph replayed on new images (the partials' slots are emptied)
     x, other = randn(*BIG), randn(*BIG)
     first, second = ops.tv_value_and_grad(x, scale), ops.tv_value_and_grad(x, scale)
     wants = [first, ops.tv_value_and_grad(other, scale)]
@@ -510,6 +525,36 @@ def check_tv_value_and_grad(ops, image, report, report_exact, randn, image_shape
     print(f"check {name} {BIG} repeated launch and two graph replays: "
           f"{'ok' if all(same) else 'FAILED'}", flush=True)
     require(all(same), f"{name} gives other bits when repeated or replayed: {same}")
+
+    # the trials form (the fleet's and the restarts' step): one launch for every trial
+    # of a stack, each trial against the plain version on it, and bit for bit a
+    # single-trial call's value and gradient
+    for shape, p, q in (((FLEET, *BIG), 1.0, 1.0), ((FLEET, *OPPONENTS), 2.0, 0.5)):
+        x = randn(*shape)
+        before = ops.tv_value_and_grad.launches
+        values, grad = ops.tv_value_and_grad_trials(x, scale, p, q, 1e-8)
+        launched = ops.tv_value_and_grad.launches - before
+        require(launched == 1, f"{name} trials at {shape}: {launched} launches for one call")
+        want_values, want = image.tv_value_and_grad_trials_plain(x, scale, p, q, 1e-8)
+        record = p == q == 1.0 and f"{name} trials"
+        report(name, f"{shape} trials p={p} q={q} values", values, want_values, 1e-5 * want_values.abs(), record)
+        if (p, q) in TV_EXACT:
+            report_exact(name, f"{shape} trials p={p} q={q} gradient", grad, want, record)
+        else:
+            report(name, f"{shape} trials p={p} q={q} gradient", grad, want, 2.0 ** -22 * want.abs().max().item(),
+                   False)
+        singles = [ops.tv_value_and_grad(x[t], scale, p, q, 1e-8) for t in range(shape[0])]
+        same = all(differing_bits(values[t], value) == 0 and differing_bits(grad[t], single) == 0
+                   for t, (value, single) in enumerate(singles))
+        print(f"check {name} {shape} trials p={p} q={q}: one launch, each trial's value and gradient equal to a "
+              f"single-trial call's bits: {'ok' if same else 'FAILED'}", flush=True)
+        require(same, f"{name} trials at {shape}: a trial differs from its single-trial call")
+
+
+def differing_bits(got, want):
+    """The entries whose bits differ (NaN with NaN counts as equal)."""
+    both_nan = torch.isnan(got) & torch.isnan(want)
+    return int(((got.view(torch.int32) != want.view(torch.int32)) & ~both_nan).sum())
 
 
 def check_adam_box_step(ops, image, report_exact, randn, shape, lo, hi, signed, slice_shape, report=None):
@@ -655,6 +700,20 @@ def run_slice(breaching, ops):
     require(launches["b3_tv_value_and_grad"] == len(losses) and launches["b3_tv_forward"] == 0,
             f"TV was not one fused launch per step: {launches}")
     return launches
+
+
+def run_restarts(breaching, ops):
+    """Phase 5: slice 1 with ``RESTARTS`` restarts, the batched trial step: the fused TV
+    kernel once a step for every trial, B1, the cosine backward and the Adam step once a
+    trial."""
+    cfg, setup, user, server, model = build(breaching, SLICE + [
+        f"attack.restarts.num_trials={RESTARTS}", f"attack.optim.max_iterations={RESTART_STEPS}",
+        "attack.optim.callback=50", "seed=0"])
+    shared, payloads, true = server.run_protocol(user)
+    needs = dict(b1_matching_sums=RESTARTS, b2_cosine_backward=RESTARTS, b3_tv_value_and_grad=1,
+                 b4_adam_box_step=RESTARTS)
+    return attack_path(breaching, ops, f"slice 1 restarts ({RESTARTS} trials)", cfg, setup, server, shared, payloads,
+                       true, RESTART_STEPS, needs=needs)[0]
 
 
 def resnet_weights():
@@ -1561,6 +1620,84 @@ def time_kernels(ops, n, image_shape, names=None, iters=200):
     return timings
 
 
+def time_tv_trials(ops, iters=100):
+    """Phase 6: the fused TV kernel's trials form on the fleet's (8, 1, 3, 224, 224) stack
+    (one launch) beside 8 single-trial calls and the plain version per trial."""
+    from breaching_tpu_torch.ops import image
+    from breaching_tpu_torch.timing import time_ms
+
+    shape = (FLEET, *BIG)
+    stack = torch.randn(*shape, generator=torch.Generator().manual_seed(98)).to(DEVICE)
+    g = torch.tensor([0.37], device=DEVICE)
+    m = stack.numel()
+    bound_ms, bound_by = bound(8 * m + 4 * FLEET + 4, 20 * m)
+    ms, device_ms, host_ms, device_warm_ms = time_ms(lambda: ops.tv_value_and_grad_trials(stack, g), iters)
+    single = time_ms(lambda: [ops.tv_value_and_grad(trial, g) for trial in stack], iters)
+    plain = time_ms(lambda: image.tv_value_and_grad_trials_plain(stack, g), iters)
+    print(f"time b3_tv_value_and_grad trials {shape}: one launch {ms * 1e3:.2f} us per call, "
+          f"{device_ms * 1e3:.2f} us device cold ({device_warm_ms * 1e3:.2f} warm), {host_ms * 1e3:.2f} us host; "
+          f"{FLEET} single-trial calls {single[0] * 1e3:.2f} / {single[1] * 1e3:.2f} ({single[3] * 1e3:.2f}) / "
+          f"{single[2] * 1e3:.2f} us; plain per trial {plain[0] * 1e3:.2f} / {plain[1] * 1e3:.2f} us; bound "
+          f"{bound_ms * 1e3:.3f} us ({bound_by})", flush=True)
+    return dict(shape=shape, launches_per_call=1, ms=ms, device_ms=device_ms, host_ms=host_ms,
+                device_warm_ms=device_warm_ms, single_calls_ms=single[0], single_calls_device_ms=single[1],
+                single_calls_host_ms=single[2], single_calls_device_warm_ms=single[3], plain_ms=plain[0],
+                plain_device_ms=plain[1], bound_ms=bound_ms, bound_by=bound_by)
+
+
+def launch_configs(n_params, image_shape):
+    """Phase 6: the launch of each kernel redesigned for the dispatcher binding, as the
+    binding's ``launch_config`` reads it on this card: threads per block, registers per
+    thread, static shared bytes, blocks resident per SM and the grid, at each shape the
+    paths give it."""
+    from breaching_tpu_torch.ops import _build
+
+    launch_config = _build.load_ops().launch_config.default
+    keys = ("threads", "registers", "shared_bytes", "local_bytes", "blocks_per_sm", "grid")
+    configs = {"b2_axpby": [dict(n=n_params, **dict(zip(keys, launch_config("b2_axpby", n_params, 0, 0, 1))))]}
+    tv = []
+    for shape, segments, form in ((image_shape, 1, "p=q=1"), (BIG, 1, "p=q=1"), (BATCH, 1, "p=q=1"),
+                                  (OPPONENTS, 1, "general"), (LARGE, 1, "p=q=1"), (STAGE, 1, "p=q=1"),
+                                  (STAGE2, 1, "p=q=1"), ((FLEET, *BIG), FLEET, "p=q=1")):
+        kernel = "b3_tv_value_and_grad" + (" p=q=1" if form == "p=q=1" else "")
+        tv.append(dict(shape=shape, segments=segments, form=form, **dict(zip(
+            keys, launch_config(kernel, math.prod(shape), shape[-2], shape[-1], segments)))))
+    configs["b3_tv_value_and_grad"] = tv
+    for name, rows in configs.items():
+        for row in rows:
+            where = row.get("shape", f"n={row.get('n')}")
+            print(f"launch {name} {where}{' ' + row['form'] if 'form' in row else ''}: {row['threads']} threads, "
+                  f"{row['registers']} registers a thread, {row['shared_bytes']} shared bytes, "
+                  f"{row['local_bytes']} local bytes a thread, "
+                  f"{row['blocks_per_sm']} blocks per SM, grid {row['grid']}", flush=True)
+    return configs
+
+
+def host_breakdown(ops, n_params, image_shape, iters=200):
+    """Phase 6: each redesigned wrapper's host time per call split into the Python
+    wrapper and the dispatcher op it calls (the op called directly), in turns (medians)."""
+    from breaching_tpu_torch.ops import _build, image
+
+    gen = torch.Generator().manual_seed(97)
+    r, d = torch.randn(n_params, generator=gen).to(DEVICE), torch.randn(n_params, generator=gen).to(DEVICE)
+    a, b = torch.tensor([-0.7], device=DEVICE), torch.tensor([1.3], device=DEVICE)
+    x, g = torch.randn(*image_shape, generator=gen).to(DEVICE), torch.tensor([0.37], device=DEVICE)
+    workspace = image._tv_workspace(x.get_device())
+    axpby_op, tv_op = _build.op("axpby"), _build.op("tv_value_and_grad")
+    op_calls = {"b2_axpby": (lambda: ops.axpby(a, r, b, d), lambda: axpby_op(a, r, b, d)),
+                "b3_tv_value_and_grad": (lambda: ops.tv_value_and_grad(x, g),
+                                         lambda: tv_op(x, g, 1.0, 1.0, 1e-8, 0, workspace))}
+    out = {}
+    for name, (wrapper, op) in op_calls.items():
+        (w_ms, _, w_host, _), (o_ms, _, o_host, _) = time_in_turns(wrapper, op, iters)
+        out[name] = dict(wrapper_host_ms=w_host, op_host_ms=o_host, python_host_ms=w_host - o_host,
+                         wrapper_ms=w_ms, op_ms=o_ms)
+        print(f"host {name}: {w_host * 1e3:.2f} us per call through the wrapper, {o_host * 1e3:.2f} us through "
+              f"the op alone, so {(w_host - o_host) * 1e3:.2f} us in Python (medians of {2 * TURNS} in turns)",
+              flush=True)
+    return out
+
+
 def under_bound(rows):
     """(kernel, where, shape) of every timing whose cold device time is under its bound:
     a measurement that does not see what the kernel must move."""
@@ -1611,14 +1748,14 @@ def main():
     check_fishing_reference(breaching)
     print(f"chip_smoke: phase 4 done at {time.perf_counter() - began:.1f} s", flush=True)
 
-    paths = {"slice 1": run_slice(breaching, ops)}
+    paths = {"slice 1": run_slice(breaching, ops), "slice 1 restarts": run_restarts(breaching, ops)}
     all_kernels = dict(b1_matching_sums=1, b2_cosine_backward=1, **IMAGE_KERNELS)
     # the image kernels once per attack step, not once per local step of the fedAVG user
     for path, case, overrides, steps, experiments, per_step in (
             ("slice 2 preset", SLICE2, [], SLICE2_STEPS, 1, IMAGE_KERNELS),
             ("slice 2 fused", SLICE2, fused, SLICE2_FUSED_STEPS, 1, all_kernels),
             ("slice 2 fleet", SLICE2, [], FLEET_STEPS, FLEET,
-             dict(b3_tv_value_and_grad=FLEET, b4_adam_box_step=FLEET)),
+             dict(b3_tv_value_and_grad=1, b4_adam_box_step=FLEET)),
             ("slice 3 preset", SLICE3, [], SLICE3_STEPS, 1, IMAGE_KERNELS),
             ("slice 3 fused", SLICE3, fused, SLICE3_FUSED_STEPS, 1, all_kernels)):
         launches = run_resnet(breaching, ops, path, case, overrides, steps, experiments)
@@ -1656,6 +1793,9 @@ def main():
                 **time_kernels(ops, N2, OPPONENTS, names=("b3_tv_value_and_grad q=0.5",), iters=100)}
     timings5 = {shape: time_kernels(ops, n_params, shape, names=slice3 if shape != STAGE2 else slice3[:1], iters=100)
                 for shape in (LARGE, STAGE, STAGE2)}
+    trials = time_tv_trials(ops)
+    configs = launch_configs(n_params, image_shape)
+    hosts = host_breakdown(ops, n_params, image_shape)
 
     rows = []
     for name, (source, replaces) in KERNELS.items():
@@ -1685,6 +1825,11 @@ def main():
                                       **timings5[shape][name]) for shape in timings5 if name in timings5[shape]]
         if not rows[-1]["at_slice5"]:
             del rows[-1]["at_slice5"]
+        if name == "b3_tv_value_and_grad":  # the trials form (the fleet's and the restarts' step)
+            rows[-1]["at_trials"] = dict(max_abs_err=errors[f"{name} trials"], **trials)
+        if name in configs:  # the kernels redesigned for the dispatcher binding
+            rows[-1]["launch_config"] = configs[name]
+            rows[-1]["host_breakdown"] = hosts[name]
     print(f"device times (cold) under their bound: {under_bound(rows) or 'none'}", flush=True)
     print(f"chip_smoke: phases 2-6 in {time.perf_counter() - began:.1f} s", flush=True)
     print(json.dumps({"kernels": rows}))

@@ -248,16 +248,87 @@ def test_adam_box_step_trials_matches_plain_per_trial(cuda, signed):
 
 @pytest.mark.cuda
 def test_total_variation_trials_is_one_launch_per_trial(cuda):
-    # each trial's value is the mean over its own elements, as the JAX fleet's vmap gives
+    # one launch for the 8 trials of the fleet's stack, each trial a segment; each
+    # trial's value is the mean over its own elements, as the JAX fleet's vmap gives,
+    # and value and gradient equal a single-trial call's bit for bit
     x = _randn((8, 1, 3, 224, 224), 41, cuda).requires_grad_(True)
     scale = torch.tensor([0.2], device=cuda)
     before = ops.tv_value_and_grad.launches
     values = ops.total_variation_trials(x, scale=scale)
     grad, = torch.autograd.grad(values.sum(), x)
-    assert ops.tv_value_and_grad.launches == before + 8 and values.shape == (8,)
+    assert ops.tv_value_and_grad.launches == before + 1 and values.shape == (8,)
     for t in range(8):
         value, want = ops.tv_value_and_grad(x[t].detach(), scale)
         assert _same_bits(values[t].detach(), value) and _same_bits(grad[t], want), t
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,p,q", [((8, 1, 3, 224, 224), 1.0, 1.0), ((8, 1, 6, 224, 224), 2.0, 0.5),
+                                       ((3, 2, 3, 17, 23), 2.0, 1.0)])
+def test_b3_tv_value_and_grad_trials_match_plain_per_trial(cuda, shape, p, q):
+    x, scale = _randn(shape, 42, cuda), torch.tensor([0.2], device=cuda)
+    values, grad = ops.tv_value_and_grad_trials(x, scale, p, q)
+    want_values, want = image.tv_value_and_grad_trials_plain(x, scale, p, q)
+    assert values.shape == (shape[0],) and grad.shape == shape
+    for t in range(shape[0]):
+        _assert_tv_value(values[t], want_values[t])
+    if (p, q) in TV_EXACT:
+        assert _same_bits(grad, want)
+    else:
+        assert (grad - want).abs().max().item() <= ONE_ROUNDING * want.abs().max().item()
+
+
+@pytest.mark.cuda
+def test_b3_tv_value_and_grad_trials_on_two_streams(cuda):
+    # two trials forms in flight at once on two streams, each with its own workspace:
+    # the side stream sleeps first, so the two launches overlap or run out of order
+    scale = torch.tensor([0.2], device=cuda)
+    stacks = [_randn((8, 1, 3, 224, 224), seed, cuda) for seed in (43, 44)]
+    wants = [ops.tv_value_and_grad_trials(x, scale) for x in stacks]
+    torch.cuda.synchronize()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        torch.cuda._sleep(10_000_000)
+        got_side = ops.tv_value_and_grad_trials(stacks[0], scale)
+    got_main = ops.tv_value_and_grad_trials(stacks[1], scale)
+    torch.cuda.synchronize()
+    for got, want in ((got_side, wants[0]), (got_main, wants[1])):
+        assert _same_bits(got[0], want[0]) and _same_bits(got[1], want[1])
+
+
+@pytest.mark.cuda
+def test_b3_tv_value_and_grad_trials_replay_in_a_cuda_graph(cuda):
+    # the second replay reads new images: every segment's value is right only if the
+    # first replay emptied the partials' slots it read
+    scale = torch.tensor([0.2], device=cuda)
+    x, other = _randn((8, 1, 3, 224, 224), 45, cuda), _randn((8, 1, 3, 224, 224), 46, cuda)
+    wants = [ops.tv_value_and_grad_trials(x, scale), ops.tv_value_and_grad_trials(other, scale)]
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        values, grad = ops.tv_value_and_grad_trials(x, scale)
+    for source, (want_values, want_grad) in zip((x.clone(), other), wants):
+        x.copy_(source)
+        graph.replay()
+        torch.cuda.synchronize()
+        assert _same_bits(values, want_values) and _same_bits(grad, want_grad)
+
+
+@pytest.mark.cuda
+def test_axpby_refuses_a_mixed_device_call_in_cpp(cuda):
+    # the dispatcher's op checks devices itself, as PyTorch's own ops do: a RuntimeError
+    # that names the op, and no plain fallback
+    r = _randn(1000, 47, cuda)
+    a, b = torch.tensor([-0.7], device=cuda), torch.tensor([1.3], device=cuda)
+    before = ops.axpby.launches
+    with pytest.raises(RuntimeError, match="breaching::axpby"):
+        ops.axpby(a.cpu(), r, b, r.clone())
+    with pytest.raises(RuntimeError, match="breaching::axpby"):
+        ops.axpby(a, r, b, r.cpu())
+    with pytest.raises(ValueError, match="breaching::axpby"):  # float64
+        ops.axpby(a.double(), r.double(), b.double(), r.double())
+    assert ops.axpby.launches == before
 
 
 @pytest.mark.cuda
@@ -351,8 +422,8 @@ def test_b3_tv_gradient_non_finite_at_the_boundary_matches_plain(cuda, shape, pl
 @pytest.mark.cuda
 @pytest.mark.parametrize("shape", [(1, 3, 224, 224), (2, 3, 331, 1007)])
 def test_b3_tv_value_and_grad_repeats_its_bits(cuda, shape):
-    # (2, 3, 331, 1007) has 7,938 tiles on 1,024 blocks: the partials' order is fixed,
-    # whichever block finishes last
+    # (2, 3, 331, 1007) has 2,112 tiles of 32 x 32, more than one wave of blocks: the
+    # partials' order is fixed, whichever block finishes last
     x, scale = _randn(shape, 17, cuda), torch.tensor([0.2], device=cuda)
     first = ops.tv_value_and_grad(x, scale)
     values = torch.stack([ops.tv_value_and_grad(x, scale)[0] for _ in range(1000)])
@@ -362,8 +433,8 @@ def test_b3_tv_value_and_grad_repeats_its_bits(cuda, shape):
 
 @pytest.mark.cuda
 def test_b3_tv_value_and_grad_replays_in_a_cuda_graph(cuda):
-    # the second replay reads new images: its value is written only if the first
-    # replay's last block set the ticket counter back to 0
+    # the second replay reads new images: its value is right only if the first replay
+    # emptied the partials' slots it read
     x, scale = _randn((1, 3, 224, 224), 18, cuda), torch.tensor([0.2], device=cuda)
     other = _randn((1, 3, 224, 224), 19, cuda)
     wants = [ops.tv_value_and_grad(x, scale), ops.tv_value_and_grad(other, scale)]
@@ -403,5 +474,5 @@ def test_b3_tv_value_and_grad_refuses_what_it_does_not_take(cuda):
         ops.tv_value_and_grad(x.transpose(2, 3), scale)
     with pytest.raises(ValueError):  # float64
         ops.tv_value_and_grad(x.double(), scale.double())
-    with pytest.raises(ValueError):  # the scale on the CPU
+    with pytest.raises(RuntimeError, match="breaching::tv_value_and_grad"):  # the scale on the CPU
         ops.tv_value_and_grad(x, scale.cpu())
