@@ -51,7 +51,7 @@ import torch
 from torch.func import functional_call, grad as func_grad, vmap
 
 from ...cases.models.model_preparation import jax_leaf_ranks
-from ...ops import fused_cosine_similarity, fused_euclidean
+from ...ops import fused_cosine_similarity, fused_cosine_similarity_trials, fused_euclidean
 
 log = logging.getLogger(__name__)
 
@@ -399,21 +399,25 @@ class _FlatTarget:
         return self._flat
 
 
+def _flat_trials(grads):
+    """T trials' gradients (each leaf with a leading trial axis) as one (T, n) stack."""
+    num_trials = grads[0].shape[0]
+    return torch.cat([g.reshape(num_trials, -1) for g in grads], dim=1)
+
+
 class FusedCosineSimilarity(_FlatTarget, CosineSimilarity):
     """Cosine matching over the flattened gradient through kernels B1 (one-pass
     sums) and B2 (its backward), ``breaching_tpu_torch/ops/matching.py``. For T
-    trials, one B1 and one B2 launch per trial, on that trial's row of the flattened
-    gradient."""
+    trials, one B1 launch per trial on that trial's row of the flattened gradient and
+    one B2 launch for all of them (``fused_cosine_similarity_trials``)."""
 
     def gradient_based_loss(self, grads, target_grads):
         rec = torch.cat([g.reshape(-1) for g in grads])
         return fused_cosine_similarity(rec, self._flat_target(target_grads)) * self.scale
 
     def trial_distances(self, grads, target_grads):
-        num_trials = grads[0].shape[0]
-        rec = torch.cat([g.reshape(num_trials, -1) for g in grads], dim=1)
-        return torch.stack([fused_cosine_similarity(r, d) for r, d in
-                            zip(rec.unbind(), self._flat_target(target_grads, num_trials).unbind())]) * self.scale
+        rec = _flat_trials(grads)
+        return fused_cosine_similarity_trials(rec, self._flat_target(target_grads, rec.shape[0])) * self.scale
 
     def __repr__(self):
         return f"Fused (CUDA) Cosine Similarity with scale={self.scale}"
@@ -421,11 +425,19 @@ class FusedCosineSimilarity(_FlatTarget, CosineSimilarity):
 
 class FusedEuclidean(_FlatTarget, Euclidean):
     """Euclidean matching over the flattened gradient through B1 (the forward) and
-    ``b2_axpby`` (the backward): one launch of each per evaluation."""
+    ``b2_axpby`` (the backward): one launch of each per evaluation, and per trial."""
 
     def gradient_based_loss(self, grads, target_grads):
         rec = torch.cat([g.reshape(-1) for g in grads])
         return fused_euclidean(rec, self._flat_target(target_grads)) * self.scale
+
+    def trial_distances(self, grads, target_grads):
+        """Each trial's row of the flattened gradient against its row of the target,
+        flattened once for the attack (the per-trial route would pass a new tuple of
+        target rows each time, and flatten the target again)."""
+        rec = _flat_trials(grads)
+        data = self._flat_target(target_grads, rec.shape[0])
+        return torch.stack([fused_euclidean(r, d) for r, d in zip(rec.unbind(), data.unbind())]) * self.scale
 
     def __repr__(self):
         return f"Fused (CUDA) Euclidean with scale={self.scale}"

@@ -32,9 +32,9 @@ except the loss readout every ``optim.callback`` steps.
 One trial runs that step alone. Two or more trials of an Adam attack on the data
 alone (``restarts.num_trials > 1``, and ``reconstruct_fleet``, which stacks
 independent experiments on the trials axis) run a batched step: the objective of
-every trial at once (``objectives.trials``), one double backward for all, and per
-trial one TV launch and one ``adam_box_step`` launch on its contiguous views, each
-trial keeping its own best value and iterate. The trials of other optimizers and of
+every trial at once (``objectives.trials``), one double backward for all, one TV
+launch and one ``adam_box_step_trials`` launch for all the trials, each trial keeping
+its own best value and iterate. The trials of other optimizers and of
 the joint attack run one after the other through the single step. The trials are
 then scored (``restarts.scoring``: ``cosine-similarity``, ``euclidean`` or TV) and
 the best is returned.

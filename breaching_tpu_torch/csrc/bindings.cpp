@@ -1,22 +1,35 @@
-// The kernels that PyTorch's dispatcher calls, as ops of the `breaching` namespace:
+// The kernels as ops of PyTorch's dispatcher, in the `breaching` namespace:
 //
+//   torch.ops.breaching.matching_sums(rec, data) -> sums          (csrc/matching.cu b1_matching_sums)
+//   torch.ops.breaching.matching_sums_into(rec, data, out)        B1 into a 3-float `out`, a row of a
+//                                                                 (T, 3) tensor for the trials form
 //   torch.ops.breaching.axpby(a, x, b, y) -> out                  (csrc/matching.cu b2_axpby)
+//   torch.ops.breaching.cosine_backward(sums, g, rec, data, wrt_data) -> out
+//       (csrc/matching.cu b2_cosine_backward) flat rec and data with sums (3,) and a
+//       one-element g, or T rows (T, n) with sums (T, 3) and g (T,): one launch either way
+//   torch.ops.breaching.tv_forward(x, p, q, eps) -> value          (csrc/image.cu b3_tv_forward)
 //   torch.ops.breaching.tv_value_and_grad(x, scale, p, q, eps, segments, workspace)
 //       -> (values, grad)                                         (csrc/image.cu b3_tv_value_and_grad)
 //       values has shape (segments,), one per segment of x's images; segments = 0 takes
 //       the batch as one segment and gives a 0-dim value, the form the TV regularizer
 //       returns, with no view to make on the host
+//   torch.ops.breaching.box_project(x, lo, hi) -> out             (csrc/image.cu b4_box_project)
+//   torch.ops.breaching.box_project_out(x, lo, hi, out)           the same into `out`, which may be x
+//   torch.ops.breaching.adam_box_step(x, grad, mu, nu, best, lo, hi, values, best_vals,
+//       new_best_vals, lr, b1, b2, eps, bias1, bias2, soft_scale, soft_div, flags)
+//       (csrc/image.cu b4_adam_box_step) in place on x, mu, nu, best and new_best_vals: an
+//       NCHW candidate with one-element values, or a (T, N, C, H, W) stack with (T,)
+//       values, one launch either way
 //   torch.ops.breaching.launch_config(kernel, n, h, w, segments) -> the launch's geometry
 //
-// Each op checks its tensors, allocates its outputs (at::detail::empty_cuda, the
-// caching allocator without a second trip through the dispatcher) and reads the
-// current stream in C++, then calls the kernel's plain-C launcher: a call through the dispatcher costs
-// about what one PyTorch op costs, where the ctypes path's checks, allocations and
-// argument conversion in Python cost more than the kernels at the attack's sizes.
-// Only CUDA implementations are registered: the Python wrappers (ops/matching.py,
-// ops/image.py) run the plain versions for CPU tensors, and their autograd Functions
-// define the gradients. This is the one source that includes PyTorch's headers; the
-// .cu files keep to the CUDA runtime.
+// Each op checks its tensors, allocates its outputs and scratch (at::detail::empty_cuda,
+// the caching allocator without a second trip through the dispatcher) and reads the
+// current stream in C++, then calls the kernel's plain-C launcher: a call through the
+// dispatcher costs about what one PyTorch op costs. Only CUDA implementations are
+// registered: the Python wrappers (ops/matching.py, ops/image.py) run the plain
+// versions for CPU tensors, and their autograd Functions define the gradients. This is
+// the one source that includes PyTorch's headers; the .cu files keep to the CUDA
+// runtime.
 #include <ATen/core/Tensor.h>
 #include <ATen/cuda/EmptyTensor.h>
 #include <c10/cuda/CUDAGuard.h>
@@ -30,16 +43,40 @@
 #include <vector>
 
 extern "C" {
+int b1_matching_sums(const float* rec, const float* data, int64_t n, float* partials, int num_blocks, float* sums,
+                     void* stream);
 int b2_axpby(const float* a, const float* x, const float* b, const float* y, float* out, int64_t n,
              void* stream);
 int b2_axpby_config(int64_t n, int* config);
+int b2_cosine_backward(const float* sums, const float* g, const float* rec, const float* data, float* out,
+                       int64_t rows, int64_t n, int wrt_data, void* stream);
+int b2_cosine_backward_config(int64_t rows, int64_t n, int* config);
+int b3_tv_forward(const float* x, int64_t n, int H, int W, float p, float q, float eps, float* partials,
+                  int num_blocks, float* out, void* stream);
 int b3_tv_value_and_grad(const float* x, const float* scale, int64_t n, int H, int W, int segments, float p,
                          float q, float eps, void* workspace, float* values, float* grad, void* stream);
 int64_t b3_tv_workspace_bytes();
 int b3_tv_value_and_grad_config(int64_t n, int H, int W, int segments, int p1q1, int* config);
+int b4_box_project(const float* x, const float* lo, const float* hi, float* out, int64_t n, int64_t hw,
+                   int channels, void* stream);
+int b4_adam_box_step(float* x, const float* grad, float* mu, float* nu, float* best, const float* lo,
+                     const float* hi, const float* values, const float* best_vals, float* new_best_vals,
+                     int64_t trials, int64_t per, int64_t hw, int channels, double lr, double b1, double b2,
+                     double eps, double bias1, double bias2, double soft_scale, double soft_div, int flags,
+                     void* stream);
+int b4_adam_box_step_config(int64_t trials, int64_t per, int64_t hw, int* config);
 }
 
 namespace {
+
+constexpr int64_t kMaxTrials = 1 << 16;
+
+// The device of the op's first tensor, which must be a CUDA device.
+at::Device cuda_device(const char* op, const char* name, const at::Tensor& t) {
+  TORCH_CHECK(t.device().is_cuda(), "breaching::", op, ": ", name, " lies on ", t.device(),
+              ", not on a CUDA device");
+  return t.device();
+}
 
 // One CUDA device for every tensor (RuntimeError, as PyTorch's own ops raise), then
 // float32 and contiguous (ValueError, as the wrappers raise for the CPU).
@@ -60,9 +97,48 @@ void* current_stream(const at::Device& device) {
   return c10::cuda::getCurrentCUDAStream(device.index()).stream();
 }
 
+// Blocks of a two-pass reduction over n elements (at least 16 per thread, at most 1024
+// blocks, as csrc/reduce.cuh allows).
+int reduce_blocks(int64_t n) {
+  return (int)std::max<int64_t>(1, std::min<int64_t>(1024, (n + 256 * 16 - 1) / (256 * 16)));
+}
+
+void launch_matching_sums(const at::Tensor& rec, const at::Tensor& data, const at::Tensor& sums,
+                          const at::Device& device) {
+  const int blocks = reduce_blocks(rec.numel());
+  at::Tensor partials = at::detail::empty_cuda({(int64_t)3 * blocks}, rec.options());
+  check_launch(b1_matching_sums(rec.data_ptr<float>(), data.data_ptr<float>(), rec.numel(),
+                                partials.data_ptr<float>(), blocks, sums.data_ptr<float>(), current_stream(device)),
+               "b1_matching_sums");
+}
+
+at::Device check_matching_sums(const char* op, const at::Tensor& rec, const at::Tensor& data) {
+  const at::Device device = cuda_device(op, "rec", rec);
+  check_tensor(op, "rec", rec, device);
+  check_tensor(op, "data", data, device);
+  TORCH_CHECK_VALUE(rec.dim() == 1 && data.sizes() == rec.sizes(), "breaching::", op,
+                    " takes two flat vectors of one length, got ", rec.sizes(), " and ", data.sizes());
+  return device;
+}
+
+at::Tensor matching_sums_cuda(const at::Tensor& rec, const at::Tensor& data) {
+  const at::Device device = check_matching_sums("matching_sums", rec, data);
+  const c10::cuda::CUDAGuard guard(device);
+  at::Tensor sums = at::detail::empty_cuda({3}, rec.options());
+  launch_matching_sums(rec, data, sums, device);
+  return sums;
+}
+
+void matching_sums_into_cuda(const at::Tensor& rec, const at::Tensor& data, const at::Tensor& out) {
+  const at::Device device = check_matching_sums("matching_sums_into", rec, data);
+  check_tensor("matching_sums_into", "out", out, device);
+  TORCH_CHECK_VALUE(out.numel() == 3, "breaching::matching_sums_into writes 3 floats, got out of ", out.sizes());
+  const c10::cuda::CUDAGuard guard(device);
+  launch_matching_sums(rec, data, out, device);
+}
+
 at::Tensor axpby_cuda(const at::Tensor& a, const at::Tensor& x, const at::Tensor& b, const at::Tensor& y) {
-  const at::Device device = x.device();
-  TORCH_CHECK(device.is_cuda(), "breaching::axpby: x lies on ", device, ", not on a CUDA device");
+  const at::Device device = cuda_device("axpby", "x", x);
   check_tensor("axpby", "a", a, device);
   check_tensor("axpby", "x", x, device);
   check_tensor("axpby", "b", b, device);
@@ -78,11 +154,59 @@ at::Tensor axpby_cuda(const at::Tensor& a, const at::Tensor& x, const at::Tensor
   return out;
 }
 
+at::Tensor cosine_backward_cuda(const at::Tensor& sums, const at::Tensor& g, const at::Tensor& rec,
+                                const at::Tensor& data, bool wrt_data) {
+  const at::Device device = cuda_device("cosine_backward", "rec", rec);
+  check_tensor("cosine_backward", "sums", sums, device);
+  check_tensor("cosine_backward", "g", g, device);
+  check_tensor("cosine_backward", "rec", rec, device);
+  check_tensor("cosine_backward", "data", data, device);
+  const bool flat = rec.dim() == 1;
+  const int64_t rows = flat ? 1 : rec.size(0);
+  TORCH_CHECK_VALUE(
+      data.sizes() == rec.sizes() &&
+          (flat ? sums.dim() == 1 && sums.size(0) == 3 && g.numel() == 1
+                : rec.dim() == 2 && rows >= 1 && rows <= kMaxTrials && sums.dim() == 2 && sums.size(0) == rows &&
+                      sums.size(1) == 3 && g.dim() == 1 && g.size(0) == rows),
+      "breaching::cosine_backward takes flat rec, data of one length with sums (3,) and a one-element g, or rows "
+      "(T, n) with sums (T, 3) and g (T,), got ",
+      sums.sizes(), ", ", g.sizes(), ", ", rec.sizes(), ", ", data.sizes());
+  const c10::cuda::CUDAGuard guard(device);
+  at::Tensor out = at::detail::empty_cuda(rec.sizes(), rec.options());
+  check_launch(b2_cosine_backward(sums.data_ptr<float>(), g.data_ptr<float>(), rec.data_ptr<float>(),
+                                  data.data_ptr<float>(), out.data_ptr<float>(), rows, flat ? rec.numel() : rec.size(1),
+                                  wrt_data ? 1 : 0, current_stream(device)),
+               "b2_cosine_backward");
+  return out;
+}
+
+// A non-empty NCHW batch whose planes fit 32-bit sizes.
+void check_images(const char* op, const at::Tensor& x) {
+  TORCH_CHECK_VALUE(x.dim() == 4 && x.numel() > 0, "breaching::", op, " takes a non-empty NCHW batch, got ",
+                    x.sizes());
+  TORCH_CHECK_VALUE(x.size(1) <= INT32_MAX && x.size(2) <= INT32_MAX && x.size(3) <= INT32_MAX, "breaching::", op,
+                    ": images of ", x.sizes(), " are too large");
+}
+
+at::Tensor tv_forward_cuda(const at::Tensor& x, double p, double q, double eps) {
+  const at::Device device = cuda_device("tv_forward", "x", x);
+  check_tensor("tv_forward", "x", x, device);
+  check_images("tv_forward", x);
+  const c10::cuda::CUDAGuard guard(device);
+  const int blocks = reduce_blocks(x.numel());
+  at::Tensor partials = at::detail::empty_cuda({(int64_t)blocks}, x.options());
+  at::Tensor out = at::detail::empty_cuda({}, x.options());
+  check_launch(b3_tv_forward(x.data_ptr<float>(), x.numel(), (int)x.size(2), (int)x.size(3), (float)p, (float)q,
+                             (float)eps, partials.data_ptr<float>(), blocks, out.data_ptr<float>(),
+                             current_stream(device)),
+               "b3_tv_forward");
+  return out;
+}
+
 std::tuple<at::Tensor, at::Tensor> tv_value_and_grad_cuda(const at::Tensor& x, const at::Tensor& scale, double p,
                                                           double q, double eps, int64_t segments,
                                                           const at::Tensor& workspace) {
-  const at::Device device = x.device();
-  TORCH_CHECK(device.is_cuda(), "breaching::tv_value_and_grad: x lies on ", device, ", not on a CUDA device");
+  const at::Device device = cuda_device("tv_value_and_grad", "x", x);
   check_tensor("tv_value_and_grad", "x", x, device);
   check_tensor("tv_value_and_grad", "scale", scale, device);
   TORCH_CHECK(workspace.device() == device, "breaching::tv_value_and_grad: the workspace lies on ",
@@ -110,18 +234,106 @@ std::tuple<at::Tensor, at::Tensor> tv_value_and_grad_cuda(const at::Tensor& x, c
   return {values, grad};
 }
 
+at::Device check_box(const char* op, const at::Tensor& x, const at::Tensor& lo, const at::Tensor& hi) {
+  const at::Device device = cuda_device(op, "x", x);
+  check_tensor(op, "x", x, device);
+  check_tensor(op, "lo", lo, device);
+  check_tensor(op, "hi", hi, device);
+  TORCH_CHECK_VALUE(x.dim() == 4 && lo.dim() == 1 && lo.size(0) == x.size(1) && hi.sizes() == lo.sizes() &&
+                        x.size(1) <= INT32_MAX,
+                    "breaching::", op, " takes an NCHW batch and bounds of shape (C,), got ", x.sizes(), ", ",
+                    lo.sizes(), ", ", hi.sizes());
+  return device;
+}
+
+void launch_box(const at::Tensor& x, const at::Tensor& lo, const at::Tensor& hi, const at::Tensor& out,
+                const at::Device& device) {
+  if (x.numel() == 0) return;  // nothing to clamp
+  check_launch(b4_box_project(x.data_ptr<float>(), lo.data_ptr<float>(), hi.data_ptr<float>(),
+                              out.data_ptr<float>(), x.numel(), x.size(2) * x.size(3), (int)x.size(1),
+                              current_stream(device)),
+               "b4_box_project");
+}
+
+at::Tensor box_project_cuda(const at::Tensor& x, const at::Tensor& lo, const at::Tensor& hi) {
+  const at::Device device = check_box("box_project", x, lo, hi);
+  const c10::cuda::CUDAGuard guard(device);
+  at::Tensor out = at::detail::empty_cuda(x.sizes(), x.options());
+  launch_box(x, lo, hi, out, device);
+  return out;
+}
+
+void box_project_out_cuda(const at::Tensor& x, const at::Tensor& lo, const at::Tensor& hi, const at::Tensor& out) {
+  const at::Device device = check_box("box_project_out", x, lo, hi);
+  check_tensor("box_project_out", "out", out, device);
+  TORCH_CHECK_VALUE(out.sizes() == x.sizes(), "breaching::box_project_out writes into an out of x's shape ",
+                    x.sizes(), ", got ", out.sizes());
+  const c10::cuda::CUDAGuard guard(device);
+  launch_box(x, lo, hi, out, device);
+}
+
+void adam_box_step_cuda(const at::Tensor& x, const at::Tensor& grad, const at::Tensor& mu, const at::Tensor& nu,
+                        const at::Tensor& best, const at::Tensor& lo, const at::Tensor& hi, const at::Tensor& values,
+                        const at::Tensor& best_vals, const at::Tensor& new_best_vals, double lr, double b1, double b2,
+                        double eps, double bias1, double bias2, double soft_scale, double soft_div, int64_t flags) {
+  const char* op = "adam_box_step";
+  const at::Device device = cuda_device(op, "x", x);
+  const at::Tensor* tensors[] = {&x, &grad, &mu, &nu, &best, &lo, &hi, &values, &best_vals, &new_best_vals};
+  const char* names[] = {"x", "grad", "mu", "nu", "best", "lo", "hi", "values", "best_vals", "new_best_vals"};
+  for (int i = 0; i < 10; ++i) check_tensor(op, names[i], *tensors[i], device);
+  const bool stacked = x.dim() == 5;
+  const int64_t trials = stacked ? x.size(0) : 1;
+  TORCH_CHECK_VALUE((x.dim() == 4 || stacked) && x.numel() > 0 && trials <= kMaxTrials,
+                    "breaching::adam_box_step takes a non-empty NCHW candidate or a (T, N, C, H, W) stack of "
+                    "trials, got ",
+                    x.sizes());
+  const int64_t channels = x.size(-3);
+  TORCH_CHECK_VALUE(grad.sizes() == x.sizes() && mu.sizes() == x.sizes() && nu.sizes() == x.sizes() &&
+                        best.sizes() == x.sizes() && lo.dim() == 1 && lo.size(0) == channels &&
+                        hi.sizes() == lo.sizes() && channels <= INT32_MAX,
+                    "breaching::adam_box_step takes x, grad, mu, nu and best of one shape and bounds of shape "
+                    "(C,), got ",
+                    x.sizes(), ", ", grad.sizes(), ", ", mu.sizes(), ", ", nu.sizes(), ", ", best.sizes(), ", ",
+                    lo.sizes(), ", ", hi.sizes());
+  const bool one_each = values.numel() == trials && best_vals.numel() == trials && new_best_vals.numel() == trials;
+  const bool shaped = !stacked || (values.dim() == 1 && best_vals.dim() == 1 && new_best_vals.dim() == 1);
+  TORCH_CHECK_VALUE(one_each && shaped, "breaching::adam_box_step takes one-element values, best_vals and "
+                    "new_best_vals for a candidate, (T,) each for a stack of T trials, got ", values.sizes(), ", ",
+                    best_vals.sizes(), ", ", new_best_vals.sizes(), " for x of ", x.sizes());
+  TORCH_CHECK_VALUE(new_best_vals.data_ptr() != best_vals.data_ptr(),
+                    "breaching::adam_box_step writes new_best_vals while it reads best_vals: pass two buffers");
+  TORCH_CHECK_VALUE(flags >= 0 && flags < 8 && (flags & 5) != 5, "breaching::adam_box_step: flags ", flags,
+                    " (bit 0 the hard sign, bit 1 the box, bit 2 the soft sign, not both signs)");
+  const c10::cuda::CUDAGuard guard(device);
+  check_launch(b4_adam_box_step(x.data_ptr<float>(), grad.data_ptr<float>(), mu.data_ptr<float>(),
+                                nu.data_ptr<float>(), best.data_ptr<float>(), lo.data_ptr<float>(),
+                                hi.data_ptr<float>(), values.data_ptr<float>(), best_vals.data_ptr<float>(),
+                                new_best_vals.data_ptr<float>(), trials, x.numel() / trials, x.size(-2) * x.size(-1),
+                                (int)channels, lr, b1, b2, eps, bias1, bias2, soft_scale, soft_div, (int)flags,
+                                current_stream(device)),
+               "b4_adam_box_step");
+}
+
 // (threads per block, registers per thread, static shared bytes, local (spilled) bytes
-// per thread, blocks resident per SM, grid) of one kernel's launch on the current device: "b2_axpby" over n floats,
+// per thread, blocks resident per SM, grid) of one kernel's launch on the current device:
+// "b2_axpby" over n floats; "b2_cosine_backward" over n floats in `segments` rows;
 // "b3_tv_value_and_grad" (general exponents) or "b3_tv_value_and_grad p=q=1" over n
-// elements of h x w planes in `segments` segments. Nothing is launched.
+// elements of h x w planes in `segments` segments; "b4_adam_box_step" over n elements of
+// h x w planes in `segments` trials. Nothing is launched.
 std::vector<int64_t> launch_config(const std::string& kernel, int64_t n, int64_t h, int64_t w, int64_t segments) {
   int config[6] = {0, 0, 0, 0, 0, 0};
   int status = 0;
+  TORCH_CHECK_VALUE(segments >= 1 && n % segments == 0, "breaching::launch_config: ", segments,
+                    " segments do not divide ", n);
   if (kernel == "b2_axpby") {
     status = b2_axpby_config(n, config);
+  } else if (kernel == "b2_cosine_backward") {
+    status = b2_cosine_backward_config(segments, n / segments, config);
   } else if (kernel == "b3_tv_value_and_grad" || kernel == "b3_tv_value_and_grad p=q=1") {
     status = b3_tv_value_and_grad_config(n, (int)h, (int)w, (int)segments, kernel != "b3_tv_value_and_grad",
                                          config);
+  } else if (kernel == "b4_adam_box_step") {
+    status = b4_adam_box_step_config(segments, n / segments, h * w, config);
   } else {
     TORCH_CHECK_VALUE(false, "breaching::launch_config: no kernel ", kernel);
   }
@@ -132,13 +344,29 @@ std::vector<int64_t> launch_config(const std::string& kernel, int64_t n, int64_t
 }  // namespace
 
 TORCH_LIBRARY(breaching, m) {
+  m.def("matching_sums(Tensor rec, Tensor data) -> Tensor");
+  m.def("matching_sums_into(Tensor rec, Tensor data, Tensor(a!) out) -> ()");
   m.def("axpby(Tensor a, Tensor x, Tensor b, Tensor y) -> Tensor");
+  m.def("cosine_backward(Tensor sums, Tensor g, Tensor rec, Tensor data, bool wrt_data) -> Tensor");
+  m.def("tv_forward(Tensor x, float p, float q, float eps) -> Tensor");
   m.def("tv_value_and_grad(Tensor x, Tensor scale, float p, float q, float eps, int segments, "
         "Tensor(a!) workspace) -> (Tensor, Tensor)");
+  m.def("box_project(Tensor x, Tensor lo, Tensor hi) -> Tensor");
+  m.def("box_project_out(Tensor x, Tensor lo, Tensor hi, Tensor(a!) out) -> ()");
+  m.def("adam_box_step(Tensor(a!) x, Tensor grad, Tensor(b!) mu, Tensor(c!) nu, Tensor(d!) best, Tensor lo, "
+        "Tensor hi, Tensor values, Tensor best_vals, Tensor(e!) new_best_vals, float lr, float b1, float b2, "
+        "float eps, float bias1, float bias2, float soft_scale, float soft_div, int flags) -> ()");
   m.def("launch_config(str kernel, int n, int h, int w, int segments) -> int[]", &launch_config);
 }
 
 TORCH_LIBRARY_IMPL(breaching, CUDA, m) {
+  m.impl("matching_sums", &matching_sums_cuda);
+  m.impl("matching_sums_into", &matching_sums_into_cuda);
   m.impl("axpby", &axpby_cuda);
+  m.impl("cosine_backward", &cosine_backward_cuda);
+  m.impl("tv_forward", &tv_forward_cuda);
   m.impl("tv_value_and_grad", &tv_value_and_grad_cuda);
+  m.impl("box_project", &box_project_cuda);
+  m.impl("box_project_out", &box_project_out_cuda);
+  m.impl("adam_box_step", &adam_box_step_cuda);
 }

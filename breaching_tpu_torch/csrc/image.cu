@@ -75,16 +75,30 @@
 // never runs its box kernel in the attack: it clips with jnp.clip inside the
 // optimizer update (breaching_tpu/attacks/optimization_based_attack.py:206-217), and
 // XLA fuses the sign (:401), optax.adam's update and apply_updates (:456-457), the
-// clip (:459), the finite guard and the best-iterate update (:460-466) into one pass.
-// This kernel is that pass: one launch in place of about 23 eager launches. It
-// reads x, g, mu and nu and writes x, mu, nu and, when the loss improved, best, in
-// place: each element is read and written by one thread only. Bound: at most 32
-// bytes per element, 32 n / 3.35 TB/s (0.029 us for one 3x32x32 image, a single
-// wave of 12 blocks), far below a launch, so the design has one aim: one launch,
-// each operand read once and written once. No tensor-core product (wgmma), bulk copy (TMA) or shared memory has work
-// here. Arithmetic follows optax's order with each product and sum rounded on its
-// own (__fmul_rn / __fadd_rn, never contracted into a fused multiply-add) and IEEE
-// division and square root, so it equals the plain PyTorch sequence bit for bit.
+// clip (:459), the finite guard and the best-iterate update (:460-466) into one pass,
+// vmapped over the trials (:487-532). This kernel is that pass for every trial at once:
+// T candidates stacked (T, N, C, H, W), each with its own loss, best value and best
+// iterate, in one launch. It reads x, g, mu and nu and writes x, mu, nu and, where the
+// trial's loss improved, best, in place: each element is read and written by one
+// thread only. Bound: at most 32 bytes per element, 32 n / 3.35 TB/s: 0.029 us at
+// 1x3x32x32, 5.75 us at 4x3x224x224, 11.50 us at 8x1x3x224x224 (the fleet). The design
+// is about bytes in flight and one wave:
+// - one float4 a thread where the five tensors are 16-byte aligned and a plane's
+//   H*W is a multiple of 4, so that a float4 lies in one channel of one trial and its
+//   channel is found once (a scalar form for the rest); 32-bit indices below 2^30
+//   elements a trial;
+// - one wave from the occupancy API, shared among the trials: a trial's blocks are
+//   consecutive, so each thread reads its trial's loss and best value once, and the
+//   trial's first block writes its new best value. Beyond one wave a grid-stride loop
+//   issues the loads of kAdamUnroll iterations before their arithmetic;
+// - the gradient is read evict-first (__ldcs): nothing reads it again. x, mu and nu
+//   are stored normally: the next step reads them.
+// No tensor-core product (wgmma), bulk copy (TMA) or shared memory has work here:
+// each element is read once and written once by one thread, and nothing is a tile
+// read twice. Arithmetic follows optax's order with each product and sum rounded on
+// its own (__fmul_rn / __fadd_rn, never contracted into a fused multiply-add) and IEEE
+// division and square root, so it equals the plain PyTorch sequence bit for bit, and
+// each trial of a stack equals its own single call.
 // The step's new best value goes to a second buffer: were blocks to read and write
 // one buffer, a block that wrote first would change what the others compare with.
 // Its soft-sign mode (the `modern` and `legacy` presets) takes tanh(g s) / max(s, 1e-3)
@@ -93,6 +107,9 @@
 // max(s, 1e-3) formed on the host in float32. tanhf need not round as PyTorch's tanh
 // does, so that mode agrees with the plain version to a stated tolerance, not bit for
 // bit; the product and the quotient are rounded on their own as before.
+//
+// Every kernel here is called through PyTorch's dispatcher (csrc/bindings.cpp), which
+// checks the tensors and allocates outputs and scratch in C++.
 #include <cuda/atomic>
 #include <cuda_pipeline.h>
 
@@ -431,35 +448,153 @@ struct AdamParams {
 
 enum SignMode { kUnsigned = 0, kHardSign = 1, kSoftSign = 2 };
 
+// The step's tensors: T trials of `per` elements stacked, each trial with its own loss
+// values[t], best value best_vals[t] and new best value new_best_vals[t].
+struct AdamOperands {
+  float* x;
+  const float* grad;
+  float* mu;
+  float* nu;
+  float* best;
+  const float* lo;
+  const float* hi;
+  const float* values;
+  const float* best_vals;
+  float* new_best_vals;
+};
+
+// One element's step in optax's order: the sign, the moments (updated in place), the
+// update, the box [l, h] and the finite guard; returns the element's new value.
+template <SignMode kMode>
+__device__ __forceinline__ float adam_element(float x0, float g, float& m, float& s, const AdamParams& a,
+                                              bool boxed, float l, float h, bool finite) {
+  const float gs = kMode == kHardSign   ? sign_of(g)
+                   : kMode == kSoftSign ? __fdiv_rn(tanhf(__fmul_rn(g, a.soft_scale)), a.soft_div)
+                                        : g;
+  m = __fadd_rn(__fmul_rn(a.one_minus_b1, gs), __fmul_rn(a.b1, m));
+  s = __fadd_rn(__fmul_rn(a.one_minus_b2, __fmul_rn(gs, gs)), __fmul_rn(a.b2, s));
+  const float u = __fdiv_rn(__fdiv_rn(m, a.bias1), __fadd_rn(__fsqrt_rn(__fdiv_rn(s, a.bias2)), a.eps));
+  float x1 = __fadd_rn(x0, __fmul_rn(-a.lr, u));
+  if (boxed) x1 = clamp1(x1, l, h);
+  return finite ? x1 : x0;
+}
+
+// A trial's loss and best value, read by each thread once, after its first loads of the
+// tensors are issued: nothing is stored before those loads, so the two round trips
+// overlap.
+struct TrialStatus {
+  float v = 0.0f, bv = 0.0f;
+  bool finite = false, improved = false, read = false;
+
+  __device__ __forceinline__ void fetch(const AdamOperands& o, int trial) {
+    if (read) return;
+    v = o.values[trial];
+    bv = o.best_vals[trial];
+    finite = isfinite(v);
+    improved = finite && v < bv;
+    read = true;
+  }
+};
+
+constexpr int kAdamUnroll = 2;  // grid-stride iterations whose loads a thread issues together
+
+// blocks_per_trial consecutive blocks take one trial; kVec: one float4 a thread, which
+// lies in one channel (hw % 4 == 0) of one trial. The trial's first block writes its new
+// best value last.
+template <bool kVec, SignMode kMode, typename Index>
 __global__ void __launch_bounds__(kThreads)
-adam_box_step_kernel(float* __restrict__ x, const float* __restrict__ grad, float* __restrict__ mu,
-                     float* __restrict__ nu, float* __restrict__ best, const float* __restrict__ lo,
-                     const float* __restrict__ hi, const float* __restrict__ value,
-                     const float* __restrict__ best_val, float* __restrict__ new_best_val, int64_t n,
-                     int64_t hw, int channels, AdamParams a, SignMode mode, bool boxed) {
-  const float v = *value;
-  const float bv = *best_val;
-  const bool finite = isfinite(v);
-  const bool improved = finite && v < bv;
-  if (blockIdx.x == 0 && threadIdx.x == 0) *new_best_val = improved ? v : bv;
-  const int64_t stride = (int64_t)gridDim.x * kThreads;
-  for (int64_t i = (int64_t)blockIdx.x * kThreads + threadIdx.x; i < n; i += stride) {
-    const float x0 = x[i];
-    const float g = mode == kHardSign ? sign_of(grad[i])
-                    : mode == kSoftSign ? __fdiv_rn(tanhf(__fmul_rn(grad[i], a.soft_scale)), a.soft_div)
-                                        : grad[i];
-    const float m = __fadd_rn(__fmul_rn(a.one_minus_b1, g), __fmul_rn(a.b1, mu[i]));
-    const float s = __fadd_rn(__fmul_rn(a.one_minus_b2, __fmul_rn(g, g)), __fmul_rn(a.b2, nu[i]));
-    mu[i] = m;
-    nu[i] = s;
-    const float u = __fdiv_rn(__fdiv_rn(m, a.bias1), __fadd_rn(__fsqrt_rn(__fdiv_rn(s, a.bias2)), a.eps));
-    float x1 = __fadd_rn(x0, __fmul_rn(-a.lr, u));
-    if (boxed) {
-      const int c = (int)((i / hw) % channels);
-      x1 = clamp1(x1, lo[c], hi[c]);
+adam_box_step_kernel(AdamOperands o, Index per, Index hw, int channels, int blocks_per_trial, AdamParams a,
+                     bool boxed) {
+  const int trial = blockIdx.x / blocks_per_trial;
+  const int block = blockIdx.x - trial * blocks_per_trial;
+  const int64_t base = (int64_t)trial * per;
+  float* __restrict__ x = o.x + base;
+  const float* __restrict__ grad = o.grad + base;
+  float* __restrict__ mu = o.mu + base;
+  float* __restrict__ nu = o.nu + base;
+  float* __restrict__ best = o.best + base;
+  const Index stride = (Index)blocks_per_trial * kThreads;
+  const Index tid = (Index)block * kThreads + threadIdx.x;
+  TrialStatus st;
+  if (kVec) {
+    const Index n4 = per / 4, hw4 = hw / 4;
+    float4* x4 = reinterpret_cast<float4*>(x);
+    const float4* g4 = reinterpret_cast<const float4*>(grad);
+    float4* m4 = reinterpret_cast<float4*>(mu);
+    float4* s4 = reinterpret_cast<float4*>(nu);
+    float4* b4 = reinterpret_cast<float4*>(best);
+    for (Index start = tid; start < n4; start += kAdamUnroll * stride) {
+      float4 xv[kAdamUnroll], gv[kAdamUnroll], mv[kAdamUnroll], sv[kAdamUnroll];
+#pragma unroll
+      for (int u = 0; u < kAdamUnroll; ++u) {
+        const Index i = start + u * stride;
+        if (i < n4) {
+          xv[u] = x4[i];
+          gv[u] = __ldcs(g4 + i);  // evict-first: nothing reads the gradient again
+          mv[u] = m4[i];
+          sv[u] = s4[i];
+        }
+      }
+      st.fetch(o, trial);
+#pragma unroll
+      for (int u = 0; u < kAdamUnroll; ++u) {
+        const Index i = start + u * stride;
+        if (i < n4) {
+          float l = 0.0f, h = 0.0f;
+          if (boxed) {
+            const int c = (int)((i / hw4) % channels);
+            l = __ldg(o.lo + c);
+            h = __ldg(o.hi + c);
+          }
+          const float4 x0 = xv[u];
+          float4 x1;
+          x1.x = adam_element<kMode>(x0.x, gv[u].x, mv[u].x, sv[u].x, a, boxed, l, h, st.finite);
+          x1.y = adam_element<kMode>(x0.y, gv[u].y, mv[u].y, sv[u].y, a, boxed, l, h, st.finite);
+          x1.z = adam_element<kMode>(x0.z, gv[u].z, mv[u].z, sv[u].z, a, boxed, l, h, st.finite);
+          x1.w = adam_element<kMode>(x0.w, gv[u].w, mv[u].w, sv[u].w, a, boxed, l, h, st.finite);
+          m4[i] = mv[u];
+          s4[i] = sv[u];
+          if (st.improved) b4[i] = x0;
+          x4[i] = x1;
+        }
+      }
     }
-    if (improved) best[i] = x0;
-    x[i] = finite ? x1 : x0;
+  } else {
+    for (Index start = tid; start < per; start += kAdamUnroll * stride) {
+      float xv[kAdamUnroll], gv[kAdamUnroll], mv[kAdamUnroll], sv[kAdamUnroll];
+#pragma unroll
+      for (int u = 0; u < kAdamUnroll; ++u) {
+        const Index i = start + u * stride;
+        if (i < per) {
+          xv[u] = x[i];
+          gv[u] = __ldcs(grad + i);
+          mv[u] = mu[i];
+          sv[u] = nu[i];
+        }
+      }
+      st.fetch(o, trial);
+#pragma unroll
+      for (int u = 0; u < kAdamUnroll; ++u) {
+        const Index i = start + u * stride;
+        if (i < per) {
+          float l = 0.0f, h = 0.0f;
+          if (boxed) {
+            const int c = (int)((i / hw) % channels);
+            l = __ldg(o.lo + c);
+            h = __ldg(o.hi + c);
+          }
+          const float x1 = adam_element<kMode>(xv[u], gv[u], mv[u], sv[u], a, boxed, l, h, st.finite);
+          mu[i] = mv[u];
+          nu[i] = sv[u];
+          if (st.improved) best[i] = xv[u];
+          x[i] = x1;
+        }
+      }
+    }
+  }
+  if (block == 0 && threadIdx.x == 0) {
+    st.fetch(o, trial);
+    o.new_best_vals[trial] = st.improved ? st.v : st.bv;
   }
 }
 
@@ -569,23 +704,90 @@ extern "C" int b4_box_project(const float* x, const float* lo, const float* hi, 
   return (int)cudaGetLastError();
 }
 
-// One attack step on the NCHW candidate x (n elements, `channels` channels of hw
-// pixels), in place on x, mu, nu and best; new_best_val[0] gets the step's best value.
-// flags: bit 0 takes the gradient's sign, bit 1 clamps to [lo[c], hi[c]], bit 2 takes
-// the soft sign tanh(g soft_scale) / soft_div (bits 0 and 2 exclude each other).
-extern "C" int b4_adam_box_step(float* x, const float* grad, float* mu, float* nu, float* best,
-                                const float* lo, const float* hi, const float* value,
-                                const float* best_val, float* new_best_val, int64_t n, int64_t hw,
-                                int channels, float lr, float one_minus_b1, float b1,
-                                float one_minus_b2, float b2, float eps, float bias1, float bias2,
-                                float soft_scale, float soft_div, int flags, void* stream) {
-  if (n < 1 || hw < 1 || channels < 1 || best_val == new_best_val || (flags & 5) == 5)
+// b4_adam_box_step's kernel for trials of `per` elements: one instance per sign mode,
+// 32-bit indices below 2^30 elements a trial, the float4 form where the five tensors are
+// 16-byte aligned and a plane's hw pixels a multiple of 4.
+template <typename Index>
+using AdamKernel = void (*)(AdamOperands, Index, Index, int, int, AdamParams, bool);
+
+template <typename Index>
+static AdamKernel<Index> adam_kernel(bool vec, SignMode mode) {
+  if (vec) {
+    return mode == kHardSign   ? adam_box_step_kernel<true, kHardSign, Index>
+           : mode == kSoftSign ? adam_box_step_kernel<true, kSoftSign, Index>
+                               : adam_box_step_kernel<true, kUnsigned, Index>;
+  }
+  return mode == kHardSign   ? adam_box_step_kernel<false, kHardSign, Index>
+         : mode == kSoftSign ? adam_box_step_kernel<false, kSoftSign, Index>
+                             : adam_box_step_kernel<false, kUnsigned, Index>;
+}
+
+// The kernel's occupancy on the current device and its blocks per trial: one wave shared
+// among the trials, at most what a trial needs.
+struct AdamLaunch {
+  Occupancy o;
+  int blocks_per_trial;
+  bool narrow;
+};
+
+static AdamLaunch adam_launch(bool vec, SignMode mode, int64_t trials, int64_t per) {
+  static Occupancy cache[12][kMaxDevices];
+  const bool narrow = per < ((int64_t)1 << 30);
+  const int form = ((vec ? 2 : 0) + (narrow ? 1 : 0)) * 3 + (int)mode;
+  const void* kernel =
+      narrow ? (const void*)adam_kernel<int32_t>(vec, mode) : (const void*)adam_kernel<int64_t>(vec, mode);
+  const Occupancy o = occupancy(kernel, kThreads, cache[form]);
+  return AdamLaunch{o, o.wave < 1 ? 0 : blocks_per_segment(o.wave, trials, vec ? per / 4 : per), narrow};
+}
+
+// One attack step on `trials` stacked NCHW candidates x of `per` elements each
+// (`channels` channels of hw pixels), in place on x, mu, nu and best; trial t's loss is
+// values[t], its best value best_vals[t], and new_best_vals[t] gets its new best value.
+// The scalars come as doubles and are rounded to float32 here, as PyTorch rounds a
+// Python scalar (1 - b1 and 1 - b2 formed in double first). flags: bit 0 takes the
+// gradient's sign, bit 1 clamps to [lo[c], hi[c]], bit 2 takes the soft sign
+// tanh(g soft_scale) / soft_div (bits 0 and 2 exclude each other).
+extern "C" int b4_adam_box_step(float* x, const float* grad, float* mu, float* nu, float* best, const float* lo,
+                                const float* hi, const float* values, const float* best_vals, float* new_best_vals,
+                                int64_t trials, int64_t per, int64_t hw, int channels, double lr, double b1,
+                                double b2, double eps, double bias1, double bias2, double soft_scale,
+                                double soft_div, int flags, void* stream) {
+  if (trials < 1 || per < 1 || hw < 1 || channels < 1 || per % (hw * channels) != 0 || best_vals == new_best_vals ||
+      (flags & 5) == 5)
     return (int)cudaErrorInvalidValue;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const AdamParams a{lr, one_minus_b1, b1, one_minus_b2, b2, eps, bias1, bias2, soft_scale, soft_div};
+  const bool vec = hw % 4 == 0 && aligned16(x) && aligned16(grad) && aligned16(mu) && aligned16(nu) &&
+                   aligned16(best);
   const SignMode mode = (flags & 1) ? kHardSign : (flags & 4) ? kSoftSign : kUnsigned;
-  adam_box_step_kernel<<<grid_for(n, 1, 8192), kThreads, 0, s>>>(
-      x, grad, mu, nu, best, lo, hi, value, best_val, new_best_val, n, hw, channels, a, mode,
-      (flags & 2) != 0);
+  const AdamLaunch launch = adam_launch(vec, mode, trials, per);
+  if (launch.blocks_per_trial < 1) return (int)cudaErrorInvalidConfiguration;  // the occupancy query failed
+  if (trials * launch.blocks_per_trial > INT32_MAX) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const AdamOperands o{x, grad, mu, nu, best, lo, hi, values, best_vals, new_best_vals};
+  const AdamParams a{(float)lr, (float)(1.0 - b1), (float)b1, (float)(1.0 - b2), (float)b2, (float)eps,
+                     (float)bias1, (float)bias2, (float)soft_scale, (float)soft_div};
+  const bool boxed = (flags & 2) != 0;
+  const int grid = (int)(trials * launch.blocks_per_trial);
+  const int bpt = launch.blocks_per_trial;
+  if (launch.narrow) {
+    const AdamKernel<int32_t> kernel = adam_kernel<int32_t>(vec, mode);
+    kernel<<<grid, kThreads, 0, s>>>(o, (int32_t)per, (int32_t)hw, channels, bpt, a, boxed);
+  } else {
+    const AdamKernel<int64_t> kernel = adam_kernel<int64_t>(vec, mode);
+    kernel<<<grid, kThreads, 0, s>>>(o, per, hw, channels, bpt, a, boxed);
+  }
   return (int)cudaGetLastError();
+}
+
+// config = (threads per block, registers per thread, static shared bytes, local bytes per
+// thread, blocks per SM, grid) of b4_adam_box_step's hard-sign launch over `trials`
+// trials of `per` elements with planes of hw pixels (the float4 form where hw % 4 == 0),
+// on the current device.
+extern "C" int b4_adam_box_step_config(int64_t trials, int64_t per, int64_t hw, int* config) {
+  if (trials < 1 || per < 1 || hw < 1) return (int)cudaErrorInvalidValue;
+  const AdamLaunch launch = adam_launch(hw % 4 == 0, kHardSign, trials, per);
+  const Occupancy& o = launch.o;
+  const int values[6] = {kThreads, o.registers, o.shared_bytes, o.local_bytes, o.blocks_per_sm,
+                         (int)(trials * launch.blocks_per_trial)};
+  for (int i = 0; i < 6; ++i) config[i] = values[i];
+  return launch.blocks_per_trial < 1 ? (int)cudaErrorInvalidValue : (int)cudaSuccess;
 }

@@ -28,22 +28,33 @@
 //
 // `b2_cosine_backward` is B2 rebuilt for the cosine's VJP, `_cos_bwd`
 // (breaching_tpu/ops/matching.py:135-146), whose `_axpby` calls it replaces with
-// the scalar arithmetic before them. Every thread reads B1's three sums and the
-// upstream gradient g from device memory and forms, in registers and in
-// `_cos_bwd`'s order, rec_n = sqrt(|rec|^2), data_n = sqrt(|data|^2),
-// a = -g / (rec_n data_n + 1e-12) and b = g dot / (rec_n^3 data_n + 1e-12), with
-// rec_n^3 = (rec_n rec_n) rec_n as PyTorch's pow(x, 3) forms it (data's roles swap
-// for d/d data); then it streams a data + b rec. One launch in place of about
-// eleven scalar launches and `b2_axpby`. Bound: 12 bytes per element, 12 n / 3.35
-// TB/s (10.41 us at ConvNet-64's 2,904,970 parameters); the scalar work is a few
-// dozen operations per thread from cached loads. The pass is bound by memory, so
-// the design is about bandwidth: 16-byte loads and stores with adjacent threads on
-// adjacent addresses, a grid of 8 blocks of 256 threads per SM (the SM's 2,048
-// threads, each with 32 bytes in flight per iteration) and a grid-stride loop
-// over the rest, and a scalar path for unaligned pointers and the ragged tail.
-// Nothing here is a matrix product or a tile to stage, so wgmma and TMA do not
-// apply. No fused multiply-add and IEEE division and square root: the result
-// equals the plain PyTorch version bit for bit.
+// the scalar arithmetic before them, for T rows at once: the JAX package vmaps the
+// cosine over the attack's trials, and one launch takes every trial's row here. Every
+// thread reads its row's three sums from B1 and its upstream gradient g from device
+// memory and forms, in registers and in `_cos_bwd`'s order, rec_n = sqrt(|rec|^2),
+// data_n = sqrt(|data|^2), a = -g / (rec_n data_n + 1e-12) and
+// b = g dot / (rec_n^3 data_n + 1e-12), with rec_n^3 = (rec_n rec_n) rec_n as
+// PyTorch's pow(x, 3) forms it (data's roles swap for d/d data); then it streams
+// a data + b rec. One launch in place of about eleven scalar launches and `b2_axpby`
+// per trial. Bound: 12 bytes per element, 12 n / 3.35 TB/s (10.41 us at ConvNet-64's
+// 2,904,970 parameters, 41.6 us for 4 trials of them, 40.76 us at ResNet-18's
+// 11,380,173); the scalar work is a few dozen operations per thread from cached loads.
+// The pass is a stream, so the design is `b2_axpby`'s, measured on the card: a grid
+// of one wave from the occupancy API, shared among the rows; each thread issues the
+// 16-byte loads of kAxpbyUnroll grid-stride iterations before any arithmetic; 32-bit
+// indices below 2^30 elements a row. Only the fresh gradient (rec, or data where the
+// gradient is taken with respect to it) is read evict-first (__ldcs): the other
+// vector is the attack's cached target, which the next evaluation reads again. A row
+// of n % 4 != 0 floats starts off a 16-byte boundary where the row before it ends, so
+// each row takes a scalar head up to its first boundary, then float4s, then a scalar
+// tail, wherever rec, data and out lie alike against 16-byte boundaries (else all
+// scalar). Nothing here is a matrix product or a tile to stage, so wgmma, TMA and
+// shared memory do not apply. No fused multiply-add and IEEE division and square root:
+// the result equals the plain PyTorch version bit for bit, and each row of the trials
+// form equals its own single call.
+//
+// Every kernel here is called through PyTorch's dispatcher (csrc/bindings.cpp), which
+// checks the tensors and allocates outputs and scratch in C++.
 #include "reduce.cuh"
 
 namespace breaching {
@@ -145,44 +156,70 @@ __device__ __forceinline__ void cosine_coefficients(const float* __restrict__ su
   b = __fdiv_rn(__fmul_rn(g, dot), __fadd_rn(__fmul_rn(cube, other_n), 1e-12f));
 }
 
-// out = a other + b self, with self = rec and other = data, or the reverse if wrt_data.
-template <bool kVec>
+// out = a other + b self for each of the grid's rows of n floats, with self = rec and
+// other = data, or the reverse if wrt_data; row r's a and b come from sums[3 r ..] and
+// g[r]. blocks_per_row consecutive blocks take one row. kVec: the three vectors lie
+// alike against 16-byte boundaries, so each row is a scalar head up to its first
+// boundary, float4s, and a scalar tail.
+template <bool kVec, typename Index>
 __global__ void __launch_bounds__(kThreads)
 cosine_backward_kernel(const float* __restrict__ sums, const float* __restrict__ g,
                        const float* __restrict__ self, const float* __restrict__ other,
-                       float* __restrict__ out, int64_t n, int wrt_data) {
-  float a, b;
-  cosine_coefficients(sums, g, wrt_data, a, b);
-  const int64_t stride = (int64_t)gridDim.x * kThreads;
-  const int64_t tid = (int64_t)blockIdx.x * kThreads + threadIdx.x;
-  int64_t tail = 0;
+                       float* __restrict__ out, Index n, int blocks_per_row, int wrt_data) {
+  const int row = blockIdx.x / blocks_per_row;
+  const Index stride = (Index)blocks_per_row * kThreads;
+  const Index tid = (Index)(blockIdx.x - row * blocks_per_row) * kThreads + threadIdx.x;
+  // the row's a and b, formed once after the thread's first loads are issued, so that
+  // the round trip for the sums overlaps theirs
+  float a = 0.0f, b = 0.0f;
+  bool formed = false;
+  const int64_t offset = (int64_t)row * n;
+  self += offset;
+  other += offset;
+  out += offset;
+  Index head = 0, n4 = 0;
   if (kVec) {
-    const int64_t n4 = n / 4;
-    const float4* o4_in = reinterpret_cast<const float4*>(other);
-    const float4* s4 = reinterpret_cast<const float4*>(self);
-    float4* out4 = reinterpret_cast<float4*>(out);
-    for (int64_t i = tid; i < n4; i += stride) {
-      const float4 ov = o4_in[i];
-      const float4 sv = s4[i];
-      out4[i] = make_float4(axpby1(a, ov.x, b, sv.x), axpby1(a, ov.y, b, sv.y),
-                            axpby1(a, ov.z, b, sv.z), axpby1(a, ov.w, b, sv.w));
+    head = (Index)(((16u - (unsigned)(reinterpret_cast<uintptr_t>(self) & 15u)) & 15u) >> 2);
+    if (head > n) head = n;
+    n4 = (n - head) / 4;
+    const float4* s4 = reinterpret_cast<const float4*>(self + head);
+    const float4* o4 = reinterpret_cast<const float4*>(other + head);
+    float4* out4 = reinterpret_cast<float4*>(out + head);
+    for (Index base = tid; base < n4; base += kAxpbyUnroll * stride) {
+      float4 ov[kAxpbyUnroll], sv[kAxpbyUnroll];
+#pragma unroll
+      for (int u = 0; u < kAxpbyUnroll; ++u) {
+        const Index i = base + u * stride;
+        if (i < n4) {
+          ov[u] = o4[i];           // the cached vector: the next evaluation reads it again
+          sv[u] = __ldcs(s4 + i);  // the fresh gradient: read once
+        }
+      }
+      if (!formed) {
+        cosine_coefficients(sums + 3 * row, g + row, wrt_data, a, b);
+        formed = true;
+      }
+#pragma unroll
+      for (int u = 0; u < kAxpbyUnroll; ++u) {
+        const Index i = base + u * stride;
+        if (i < n4) {
+          out4[i] = make_float4(axpby1(a, ov[u].x, b, sv[u].x), axpby1(a, ov[u].y, b, sv[u].y),
+                                axpby1(a, ov[u].z, b, sv[u].z), axpby1(a, ov[u].w, b, sv[u].w));
+        }
+      }
     }
-    tail = n4 * 4;
   }
-  for (int64_t i = tail + tid; i < n; i += stride) out[i] = axpby1(a, other[i], b, self[i]);
-}
-
-// Blocks for a bandwidth-bound pass: 8 blocks of kThreads on each SM of the current device.
-inline int resident_blocks() {
-  static int sm_count[64] = {0};
-  int device = 0;
-  if (cudaGetDevice(&device) != cudaSuccess || device < 0 || device >= 64) return 132 * 8;
-  if (sm_count[device] == 0) {
-    int count = 0;
-    if (cudaDeviceGetAttribute(&count, cudaDevAttrMultiProcessorCount, device) != cudaSuccess) return 132 * 8;
-    sm_count[device] = count;
+  // the scalar rest: the head [0, head) and the tail [head + 4 n4, n)
+  const Index rest = n - 4 * n4;
+  for (Index j = tid; j < rest; j += stride) {
+    const Index i = j < head ? j : j + 4 * n4;
+    const float o = other[i], v = __ldcs(self + i);
+    if (!formed) {
+      cosine_coefficients(sums + 3 * row, g + row, wrt_data, a, b);
+      formed = true;
+    }
+    out[i] = axpby1(a, o, b, v);
   }
-  return sm_count[device] * 8;
 }
 
 }  // namespace breaching
@@ -258,21 +295,68 @@ extern "C" int b2_axpby_config(int64_t n, int* config) {
   return launch.grid < 1 ? (int)cudaErrorInvalidValue : (int)cudaSuccess;
 }
 
-// out = d/d rec (wrt_data = 0) or d/d data (wrt_data = 1) of g[0] (1 - cos(rec, data)) over
-// n floats, from sums = (<rec, data>, |rec|^2, |data|^2).
-extern "C" int b2_cosine_backward(const float* sums, const float* g, const float* rec,
-                                  const float* data, float* out, int64_t n, int wrt_data,
-                                  void* stream) {
-  if (n < 0 || (wrt_data != 0 && wrt_data != 1)) return (int)cudaErrorInvalidValue;
+// b2_cosine_backward's kernel for rows of n floats (32-bit indices below 2^30 floats a
+// row; the float4 form where rec, data and out lie alike against 16-byte boundaries),
+// its occupancy on the current device and its blocks per row: one wave shared among
+// the rows, at most what a row needs in one round.
+struct CosineLaunch {
+  Occupancy o;
+  int blocks_per_row;
+  bool narrow;
+};
+
+static CosineLaunch cosine_launch(bool vec, int64_t rows, int64_t n) {
+  static Occupancy cache[4][kMaxDevices];
+  const bool narrow = n < ((int64_t)1 << 30);
+  const int form = (vec ? 2 : 0) + (narrow ? 1 : 0);
+  const void* kernel = vec ? (narrow ? (const void*)cosine_backward_kernel<true, int32_t>
+                                     : (const void*)cosine_backward_kernel<true, int64_t>)
+                           : (narrow ? (const void*)cosine_backward_kernel<false, int32_t>
+                                     : (const void*)cosine_backward_kernel<false, int64_t>);
+  const Occupancy o = occupancy(kernel, kThreads, cache[form]);
+  return CosineLaunch{o, o.wave < 1 ? 0 : blocks_per_segment(o.wave, rows, vec ? n / 4 : n), narrow};
+}
+
+// out[r] = d/d rec[r] (wrt_data = 0) or d/d data[r] (wrt_data = 1) of g[r] (1 - cos(rec[r],
+// data[r])) for `rows` rows of n floats, from sums[r] = (<rec, data>, |rec|^2, |data|^2).
+extern "C" int b2_cosine_backward(const float* sums, const float* g, const float* rec, const float* data,
+                                  float* out, int64_t rows, int64_t n, int wrt_data, void* stream) {
+  if (rows < 1 || n < 0 || (wrt_data != 0 && wrt_data != 1)) return (int)cudaErrorInvalidValue;
   if (n == 0) return (int)cudaSuccess;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float* self = wrt_data ? data : rec;
   const float* other = wrt_data ? rec : data;
-  const int grid = grid_for(n, 4, resident_blocks());
-  if (aligned16(self) && aligned16(other) && aligned16(out)) {
-    cosine_backward_kernel<true><<<grid, kThreads, 0, s>>>(sums, g, self, other, out, n, wrt_data);
+  const uintptr_t phase = reinterpret_cast<uintptr_t>(self) & 15u;
+  const bool vec = (reinterpret_cast<uintptr_t>(other) & 15u) == phase &&
+                   (reinterpret_cast<uintptr_t>(out) & 15u) == phase && (phase & 3u) == 0;
+  const CosineLaunch launch = cosine_launch(vec, rows, n);
+  if (launch.blocks_per_row < 1) return (int)cudaErrorInvalidConfiguration;  // the occupancy query failed
+  if (rows * launch.blocks_per_row > INT32_MAX) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int grid = (int)(rows * launch.blocks_per_row);
+  const int bpr = launch.blocks_per_row;
+  if (vec && launch.narrow) {
+    cosine_backward_kernel<true, int32_t><<<grid, kThreads, 0, s>>>(sums, g, self, other, out, (int32_t)n, bpr,
+                                                                    wrt_data);
+  } else if (vec) {
+    cosine_backward_kernel<true, int64_t><<<grid, kThreads, 0, s>>>(sums, g, self, other, out, n, bpr, wrt_data);
+  } else if (launch.narrow) {
+    cosine_backward_kernel<false, int32_t><<<grid, kThreads, 0, s>>>(sums, g, self, other, out, (int32_t)n, bpr,
+                                                                     wrt_data);
   } else {
-    cosine_backward_kernel<false><<<grid, kThreads, 0, s>>>(sums, g, self, other, out, n, wrt_data);
+    cosine_backward_kernel<false, int64_t><<<grid, kThreads, 0, s>>>(sums, g, self, other, out, n, bpr, wrt_data);
   }
   return (int)cudaGetLastError();
+}
+
+// config = (threads per block, registers per thread, static shared bytes, local bytes per
+// thread, blocks per SM, grid) of b2_cosine_backward's launch over `rows` aligned rows of
+// n floats, on the current device.
+extern "C" int b2_cosine_backward_config(int64_t rows, int64_t n, int* config) {
+  if (rows < 1 || n < 1) return (int)cudaErrorInvalidValue;
+  const CosineLaunch launch = cosine_launch(true, rows, n);
+  const Occupancy& o = launch.o;
+  const int values[6] = {kThreads, o.registers, o.shared_bytes, o.local_bytes, o.blocks_per_sm,
+                         (int)(rows * launch.blocks_per_row)};
+  for (int i = 0; i < 6; ++i) config[i] = values[i];
+  return launch.blocks_per_row < 1 ? (int)cudaErrorInvalidValue : (int)cudaSuccess;
 }

@@ -70,6 +70,16 @@ inline int grid_for(int64_t n, int per_thread, int max_blocks) {
   return (int)(blocks < max_blocks ? blocks : max_blocks);
 }
 
+// Blocks for each of `segments` segments of `units` units (one unit a thread a round)
+// when one wave of `wave` blocks is shared among them: at least one, at most what one
+// round of the segment needs.
+inline int blocks_per_segment(int wave, int64_t segments, int64_t units) {
+  int64_t share = wave / (segments < 1 ? 1 : segments);
+  const int64_t need = (units + kThreads - 1) / kThreads;
+  if (share > need) share = need;
+  return share < 1 ? 1 : (int)share;
+}
+
 inline bool aligned16(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15u) == 0; }
 
 // How a kernel fills the current device: its registers per thread, static shared

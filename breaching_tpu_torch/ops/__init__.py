@@ -3,8 +3,8 @@
 from .image import (AdamStep, adam_box_step, adam_box_step_trials, box_project, sign, soft_sign_scalars,
                     total_variation, total_variation_trials, tv_backward, tv_forward,
                     tv_value_and_grad, tv_value_and_grad_trials)
-from .matching import (axpby, cosine_backward, fused_cosine_similarity, fused_euclidean,
-                       matching_sums)
+from .matching import (axpby, cosine_backward, fused_cosine_similarity, fused_cosine_similarity_trials,
+                       fused_euclidean, matching_sums)
 
 # Every kernel wrapper; each carries a `launches` count of its kernel launches.
 KERNELS = {
@@ -36,6 +36,7 @@ __all__ = [
     "box_project",
     "cosine_backward",
     "fused_cosine_similarity",
+    "fused_cosine_similarity_trials",
     "fused_euclidean",
     "launch_counts",
     "matching_sums",

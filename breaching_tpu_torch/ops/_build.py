@@ -1,13 +1,12 @@
 """Build and load the port's CUDA kernels.
 
 All ``csrc/*.cu`` files and ``csrc/bindings.cpp`` go through ONE ``nvcc`` call into one
-shared library. ``bindings.cpp`` registers ``b2_axpby`` and ``b3_tv_value_and_grad``
-with PyTorch's dispatcher as ``torch.ops.breaching.*`` (loaded with
-``torch.ops.load_library``, ``load_ops``); the other kernels keep a plain-C entry
-point called through ``ctypes`` (``load_library``). It is one file, loaded once by
-each. ``bindings.cpp`` is the only source that includes PyTorch's headers: it is
-compiled against the include and library paths of the torch that runs, with its C++
-ABI flag, and without ``ninja`` or PyTorch's extension builder. The library lands in
+shared library. ``bindings.cpp`` registers every kernel with PyTorch's dispatcher as
+an op of ``torch.ops.breaching`` (loaded with ``torch.ops.load_library``,
+``load_ops``; ``op`` gives one op's callable). ``bindings.cpp`` is the only source that
+includes PyTorch's headers: it is compiled against the include and library paths of
+the torch that runs, with its C++ ABI flag, and without ``ninja`` or PyTorch's
+extension builder. The library lands in
 ``breaching_tpu_torch/_build/`` under a name keyed by a hash of the sources, the
 flags and the torch version, and is built at first use. Paths are resolved from this
 file, so the build works from any working directory.
@@ -15,7 +14,6 @@ file, so the build works from any working directory.
 
 from __future__ import annotations
 
-import ctypes
 import hashlib
 import os
 import subprocess
@@ -31,19 +29,8 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++20", "-O3",
               "-shared", "-Xcompiler", "-fPIC"]
 TORCH_LIBRARIES = ["c10", "c10_cuda", "torch_cpu", "torch_cuda"]
 
-_P, _I64, _I32, _F32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int, ctypes.c_float
-# C signature of every kernel entry point called through ctypes; each returns its cudaError_t.
-SIGNATURES = {
-    "b1_matching_sums": [_P, _P, _I64, _P, _I32, _P, _P],
-    "b2_cosine_backward": [_P, _P, _P, _P, _P, _I64, _I32, _P],
-    "b3_tv_forward": [_P, _I64, _I32, _I32, _F32, _F32, _F32, _P, _I32, _P, _P],
-    "b4_box_project": [_P, _P, _P, _P, _I64, _I64, _I32, _P],
-    "b4_adam_box_step": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I64, _I64, _I32,
-                         _F32, _F32, _F32, _F32, _F32, _F32, _F32, _F32, _F32, _F32, _I32, _P],
-}
-
-_library = None
 _ops = None
+_op_callables = {}  # name -> the op's callable, bound at its first call
 build_seconds = None  # wall time of the nvcc call that built the loaded library, None if cached
 
 
@@ -108,20 +95,6 @@ def build() -> str:
     return target
 
 
-def load_library() -> ctypes.CDLL:
-    """The kernels' shared library, built on first use, with the ctypes entry points'
-    argtypes set."""
-    global _library
-    if _library is None:
-        lib = ctypes.CDLL(build())
-        for name, argtypes in SIGNATURES.items():
-            fn = getattr(lib, name)
-            fn.argtypes = argtypes
-            fn.restype = ctypes.c_int
-        _library = lib
-    return _library
-
-
 def load_ops():
     """``torch.ops.breaching``, the dispatcher's ops of the kernels' shared library,
     built and loaded on first use. Raises if the build or the load fails."""
@@ -135,50 +108,17 @@ def load_ops():
 def op(name: str):
     """The callable of ``torch.ops.breaching.<name>.default``, the op's one overload:
     called directly, it skips ``OpOverload.__call__``'s Python frame (about 1.3 us of a
-    7-argument call's 5 on a CPU core)."""
-    return getattr(load_ops(), name).default._op
-
-
-def check(status: int, name: str) -> None:
-    if status != 0:
-        raise RuntimeError(f"CUDA kernel {name} failed: cudaError_t {status}.")
+    7-argument call's 5 on a CPU core). Bound once per name, at the first call."""
+    fn = _op_callables.get(name)
+    if fn is None:
+        fn = _op_callables[name] = getattr(load_ops(), name).default._op
+    return fn
 
 
 def require_cpu(name: str, *tensors) -> None:
-    """The plain version's guard: raises unless every tensor lies on the CPU (a wrapper
-    whose kernel is a dispatcher op sends CUDA tensors to it before this)."""
+    """The plain version's guard: raises unless every tensor lies on the CPU (every
+    wrapper sends CUDA tensors to its dispatcher op before this)."""
     for t in tensors:
         if t.device.type != "cpu":
             raise ValueError(f"{name}: tensors must all lie on the CPU or on one CUDA device, got "
                              f"{[str(t.device) for t in tensors]}.")
-
-
-def launch_stream(name: str, *tensors) -> int | None:
-    """Where a wrapper's work runs. The raw handle of the current CUDA stream if every
-    tensor is a contiguous float32 tensor on one CUDA device (the kernel runs there);
-    None if every tensor lies on the CPU (the plain version runs). Raises for anything
-    else: a CUDA tensor never falls back to the plain version.
-
-    The common case, the kernel's, is decided in one pass over the tensors' devices,
-    dtypes and contiguity, and the stream handle is read without building a
-    ``torch.cuda.Stream``: at the slice's sizes this host work is the call's cost."""
-    device = tensors[0].device
-    if device.type == "cuda":
-        for t in tensors:
-            if t.device != device or t.dtype is not torch.float32 or not t.is_contiguous():
-                break
-        else:
-            return torch._C._cuda_getCurrentRawStream(device.index)
-    devices = {t.device for t in tensors}
-    if devices == {torch.device("cpu")}:
-        return None
-    if len(devices) != 1 or device.type != "cuda":
-        raise ValueError(f"{name}: tensors must all lie on the CPU or on one CUDA device, got {devices}.")
-    raise ValueError(f"{name}: the kernel takes contiguous float32 tensors, got "
-                     f"{[(t.dtype, t.stride()) for t in tensors]}.")
-
-
-def reduce_blocks(n: int) -> int:
-    """Blocks of a two-pass reduction over n elements (at least 16 per thread, at most
-    1024 blocks, as csrc/reduce.cuh allows)."""
-    return max(1, min(1024, -(-n // (256 * 16))))

@@ -19,15 +19,17 @@ is NHWC, so the TV stencil runs along dims 3 and 2 here). Kernels
   sign, optax's Adam, the box clamp, the finite guard and the best-iterate update, which
   the JAX package runs as one XLA fusion with ``jnp.clip`` in place of the box
   kernel (``breaching_tpu/attacks/optimization_based_attack.py:206-217, 401-466``).
-  One launch in place of about 23; bound at most 32 bytes per element. Its soft sign
-  takes ``tanhf``, which need not round as PyTorch's tanh does; on the H100 it gave
-  the plain version's bits at every shape ``chip_smoke.py`` checks.
+  One launch in place of about 23; bound at most 32 bytes per element.
+  ``adam_box_step_trials`` takes T trials stacked (T, N, C, H, W), each with its own
+  loss and best value, in the same one launch. Its soft sign takes ``tanhf``, which
+  need not round as PyTorch's tanh does; on the H100 it gave the plain version's bits
+  at every shape ``chip_smoke.py`` checks.
 
-Each wrapper runs its kernel on contiguous float32 CUDA tensors and counts the
+Each wrapper sends CUDA tensors to its kernel's op in PyTorch's dispatcher
+(``torch.ops.breaching.*``, csrc/bindings.cpp), which checks shapes, devices, dtypes
+and contiguity in C++ and raises for what the kernel does not take, and counts the
 launch in its ``launches`` attribute; it runs the plain PyTorch version (``*_plain``)
-only for CPU tensors, and raises for anything else. The fused TV kernel is reached
-through PyTorch's dispatcher (``torch.ops.breaching.tv_value_and_grad``), the others
-through ctypes.
+only for CPU tensors, and raises for anything else.
 """
 
 from __future__ import annotations
@@ -76,19 +78,13 @@ def tv_forward_plain(images, inner_exp=1.0, outer_exp=1.0, eps=1e-8):
 
 def tv_forward(images, inner_exp=1.0, outer_exp=1.0, eps=1e-8):
     """Mean of ((|dx|+eps)^p + (|dy|+eps)^p)^q over an NCHW batch, as a 0-dim tensor."""
+    if images.is_cuda:
+        out = _build.op("tv_forward")(images, inner_exp, outer_exp, eps)
+        tv_forward.launches += 1
+        return out
     _check_images("tv_forward", images)
-    stream = _build.launch_stream("tv_forward", images)
-    if stream is None:
-        return tv_forward_plain(images, inner_exp, outer_exp, eps)
-    n, (h, w) = images.numel(), images.shape[-2:]
-    blocks = _build.reduce_blocks(n)
-    partials = torch.empty(blocks, device=images.device, dtype=torch.float32)
-    out = torch.empty((), device=images.device, dtype=torch.float32)
-    _build.check(_build.load_library().b3_tv_forward(
-        images.data_ptr(), n, h, w, inner_exp, outer_exp, eps, partials.data_ptr(), blocks,
-        out.data_ptr(), stream), "b3_tv_forward")
-    tv_forward.launches += 1
-    return out
+    _build.require_cpu("tv_forward", images)
+    return tv_forward_plain(images, inner_exp, outer_exp, eps)
 
 
 tv_forward.launches = 0
@@ -143,7 +139,6 @@ def tv_value_and_grad_trials_plain(images, scale, inner_exp=1.0, outer_exp=1.0, 
 _TV_WORKSPACE_WORDS = 2 * 16384
 _tv_workspaces = {}  # (device index, stream handle) -> workspace
 _tv_spares = {}  # device index -> workspaces zeroed outside graph capture, not yet taken
-_tv_op = None  # torch.ops.breaching.tv_value_and_grad, bound at the first launch
 
 
 def _tv_workspace(device_index):
@@ -167,10 +162,8 @@ def _tv_workspace(device_index):
 def _tv_launch(images, scale, inner_exp, outer_exp, eps, segments):
     """The kernel through the dispatcher's op: (segments,) values (a 0-dim value for
     segments = 0, the whole batch) and the gradient."""
-    global _tv_op
-    if _tv_op is None:
-        _tv_op = _build.op("tv_value_and_grad")
-    out = _tv_op(images, scale, inner_exp, outer_exp, eps, segments, _tv_workspace(images.get_device()))
+    out = _build.op("tv_value_and_grad")(images, scale, inner_exp, outer_exp, eps, segments,
+                                         _tv_workspace(images.get_device()))
     tv_value_and_grad.launches += 1
     return out
 
@@ -273,50 +266,20 @@ def _check_box(name, x, lo, hi):
                          f"{tuple(x.shape)}, {tuple(lo.shape)}, {tuple(hi.shape)}.")
 
 
-_box_entry = None  # the kernel's ctypes entry point, bound at its first launch
-
-
 def box_project(x, lo, hi, out=None):
     """Clamp an NCHW batch to the per-channel bounds lo[c] <= x <= hi[c], into a new
-    tensor, or into ``out`` of x's shape, which may be ``x`` itself (in place).
-
-    The call is mostly host work at the attack's sizes, so the kernel's path checks only
-    what the kernel needs, one attribute at a time: the shapes, one CUDA device,
-    float32 and contiguity; anything else goes to ``_box_project_checked``, which runs
-    the plain version for CPU tensors and raises for the rest."""
-    global _box_entry
-    shape = x.shape
-    if x.is_cuda and len(shape) == 4:
-        n, c, h, w = shape
-        device = x.get_device()
-        ready = (lo.shape == hi.shape == (c,) and lo.get_device() == hi.get_device() == device
-                 and x.dtype is lo.dtype is hi.dtype is torch.float32
-                 and x.is_contiguous() and lo.is_contiguous() and hi.is_contiguous())
-        if ready and out is not None and out is not x:
-            ready = (out.shape == shape and out.get_device() == device and out.dtype is torch.float32
-                     and out.is_contiguous())
-        if ready:
-            if out is None:
-                out = torch.empty_like(x)
-            if _box_entry is None:
-                _box_entry = _build.load_library().b4_box_project
-            status = _box_entry(x.data_ptr(), lo.data_ptr(), hi.data_ptr(), out.data_ptr(), n * c * h * w, h * w, c,
-                                torch._C._cuda_getCurrentRawStream(device))
-            if status:
-                _build.check(status, "b4_box_project")
-            box_project.launches += 1
-            return out
-    return _box_project_checked(x, lo, hi, out)
-
-
-def _box_project_checked(x, lo, hi, out):
-    """``box_project`` off the kernel's path: the plain version for CPU tensors; a
-    ValueError for shapes, devices, dtypes or layouts the kernel does not take."""
+    tensor, or into ``out`` of x's shape, which may be ``x`` itself (in place)."""
+    if x.is_cuda:
+        if out is None:
+            out = _build.op("box_project")(x, lo, hi)
+        else:
+            _build.op("box_project_out")(x, lo, hi, out)
+        box_project.launches += 1
+        return out
     _check_box("box_project", x, lo, hi)
     if out is not None and out.shape != x.shape:
         raise ValueError(f"box_project writes into an out of x's shape {tuple(x.shape)}, got {tuple(out.shape)}.")
-    # every case the kernel takes went to it: this returns None for CPU tensors, else raises
-    _build.launch_stream("box_project", x, lo, hi, *(() if out is None else (out,)))
+    _build.require_cpu("box_project", x, lo, hi, *(() if out is None else (out,)))
     return box_project_plain(x, lo, hi, out)
 
 
@@ -379,6 +342,45 @@ def adam_box_step_plain(x, grad, mu, nu, best, lo, hi, value, best_val, new_best
     x.copy_(torch.where(finite, new, x))
 
 
+def adam_box_step_trials_plain(x, grad, mu, nu, best, lo, hi, values, best_vals, new_best_vals, step,
+                               signed=True, boxed=True, soft_scale=None):
+    """``adam_box_step_plain`` on each trial of a (T, N, C, H, W) stack in turn, with the
+    trial's own loss, best value and new best value."""
+    for t in range(x.shape[0]):
+        adam_box_step_plain(x[t], grad[t], mu[t], nu[t], best[t], lo, hi, values[t], best_vals[t],
+                            new_best_vals[t], step, signed, boxed, soft_scale)
+
+
+def _adam_launch(x, grad, mu, nu, best, lo, hi, values, best_vals, new_best_vals, step, signed, boxed,
+                 soft_scale):
+    """The kernel through the dispatcher's op, one launch for a candidate or a stack."""
+    mode = _sign_mode(signed, soft_scale)
+    s, div = soft_scale if mode == 4 else (1.0, 1.0)
+    _build.op("adam_box_step")(x, grad, mu, nu, best, lo, hi, values, best_vals, new_best_vals, *step, s, div,
+                               mode | int(boxed) << 1)
+    adam_box_step.launches += 1
+
+
+def _check_adam(name, x, grad, mu, nu, best, lo, hi, values, best_vals, new_best_vals, stacked):
+    """The plain route's checks: a non-empty NCHW candidate (a (T, N, C, H, W) stack if
+    ``stacked``), grad, mu, nu and best of its shape, bounds of shape (C,), one element
+    each in values, best_vals and new_best_vals (T each for a stack), the last two in two
+    buffers, all on the CPU."""
+    shape = x.shape
+    if x.dim() != (5 if stacked else 4) or x.numel() == 0 or any(t.shape != shape for t in (grad, mu, nu, best)) \
+            or lo.shape != (shape[-3],) or hi.shape != (shape[-3],):
+        raise ValueError(f"{name} takes a non-empty {'(T, N, C, H, W) stack' if stacked else 'NCHW candidate'} x "
+                         f"with grad, mu, nu and best of its shape and bounds of shape (C,), got "
+                         f"{[tuple(t.shape) for t in (x, grad, mu, nu, best, lo, hi)]}.")
+    per_trial = (values, best_vals, new_best_vals)
+    if not all(t.shape == (shape[0],) if stacked else t.numel() == 1 for t in per_trial):
+        raise ValueError(f"{name} takes {f'({shape[0]},)' if stacked else 'one-element'} values, best_vals "
+                         f"and new_best_vals, got {[tuple(t.shape) for t in per_trial]}.")
+    if new_best_vals.data_ptr() == best_vals.data_ptr():
+        raise ValueError(f"{name} writes new_best_vals while it reads best_vals: pass two buffers.")
+    _build.require_cpu(name, x, grad, mu, nu, best, lo, hi, values, best_vals, new_best_vals)
+
+
 def adam_box_step(x, grad, mu, nu, best, lo, hi, value, best_val, new_best_val, step,
                   signed=True, boxed=True, soft_scale=None):
     """One step of the optimization attack from the candidate's gradient on, in place.
@@ -392,25 +394,12 @@ def adam_box_step(x, grad, mu, nu, best, lo, hi, value, best_val, new_best_val, 
     ``value`` is finite and below ``best_val``, ``best`` takes the candidate from before
     the step. ``new_best_val`` receives the lesser of the two: it is a second buffer,
     never ``best_val`` itself, so that the caller swaps the two after every step."""
-    _check_box("adam_box_step", x, lo, hi)
-    shape = x.shape
-    if grad.shape != shape or mu.shape != shape or nu.shape != shape or best.shape != shape \
-            or value.numel() != 1 or best_val.numel() != 1 or new_best_val.numel() != 1:
-        raise ValueError("adam_box_step takes x, grad, mu, nu and best of one shape and "
-                         "one-element value, best_val and new_best_val.")
-    if new_best_val.data_ptr() == best_val.data_ptr():
-        raise ValueError("adam_box_step writes new_best_val while it reads best_val: pass two buffers.")
-    mode = _sign_mode(signed, soft_scale)
-    tensors = (x, grad, mu, nu, best, lo, hi, value, best_val, new_best_val)
-    stream = _build.launch_stream("adam_box_step", *tensors)
-    if stream is None:
-        return adam_box_step_plain(*tensors, step, signed, boxed, soft_scale)
-    s, div = soft_scale if mode == 4 else (1.0, 1.0)
-    _build.check(_build.load_library().b4_adam_box_step(
-        *(t.data_ptr() for t in tensors), x.numel(), x.shape[2] * x.shape[3], x.shape[1],
-        step.lr, 1 - step.b1, step.b1, 1 - step.b2, step.b2, step.eps, step.bias1, step.bias2,
-        s, div, mode | int(boxed) << 1, stream), "b4_adam_box_step")
-    adam_box_step.launches += 1
+    if x.is_cuda:
+        return _adam_launch(x, grad, mu, nu, best, lo, hi, value, best_val, new_best_val, step, signed, boxed,
+                            soft_scale)
+    _check_adam("adam_box_step", x, grad, mu, nu, best, lo, hi, value, best_val, new_best_val, False)
+    adam_box_step_plain(x, grad, mu, nu, best, lo, hi, value, best_val, new_best_val, step, signed, boxed,
+                        soft_scale)
 
 
 adam_box_step.launches = 0
@@ -420,8 +409,11 @@ def adam_box_step_trials(x, grad, mu, nu, best, lo, hi, values, best_vals, new_b
                          signed=True, boxed=True, soft_scale=None):
     """``adam_box_step`` for T trials stacked on a leading axis, (T, N, C, H, W), each with
     its own loss, best value and best iterate: ``values``, ``best_vals`` and
-    ``new_best_vals`` hold one entry per trial. One launch per trial, on the trial's
-    contiguous views; the step's scalars are shared."""
-    for t in range(x.shape[0]):
-        adam_box_step(x[t], grad[t], mu[t], nu[t], best[t], lo, hi, values[t], best_vals[t],
-                      new_best_vals[t], step, signed, boxed, soft_scale)
+    ``new_best_vals`` hold one entry per trial; the step's scalars are shared. On the
+    card one launch takes every trial, each trial's result equal to its own call's bits."""
+    if x.is_cuda:
+        return _adam_launch(x, grad, mu, nu, best, lo, hi, values, best_vals, new_best_vals, step, signed, boxed,
+                            soft_scale)
+    _check_adam("adam_box_step_trials", x, grad, mu, nu, best, lo, hi, values, best_vals, new_best_vals, True)
+    adam_box_step_trials_plain(x, grad, mu, nu, best, lo, hi, values, best_vals, new_best_vals, step, signed,
+                               boxed, soft_scale)

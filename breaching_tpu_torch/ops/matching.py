@@ -4,22 +4,25 @@ Counterpart of ``breaching_tpu/ops/matching.py``. Kernels (``csrc/matching.cu``)
 
 - B1 ``matching_sums`` replaces ``_matching_sums`` / Pallas ``_reduction_kernel``:
   (<rec, data>, |rec|^2, |data|^2) in one pass, float32 accumulation. Bound: 8 bytes
-  per element over 3.35 TB/s.
+  per element over 3.35 TB/s. It writes into ``out`` where given, a row of the (T, 3)
+  sums of the trials form.
 - B2 ``axpby`` replaces ``_axpby`` / Pallas ``_axpby_kernel``: a x + b y with
   scalars a, b held on the device. Bound: 12 bytes per element over 3.35 TB/s.
 - ``cosine_backward`` is B2 rebuilt for the cosine's VJP (``_cos_bwd``, which calls
   ``_axpby``): each thread forms a and b from B1's sums and the upstream gradient in
   registers, in ``_cos_bwd``'s order, then streams a x + b y. One launch in place of
-  the eleven scalar launches and ``axpby``. Bound: 12 bytes per element.
+  the eleven scalar launches and ``axpby``, and one launch for T rows (the trials form
+  of ``fused_cosine_similarity_trials``). Bound: 12 bytes per element.
 
 ``fused_euclidean`` (B5, the JAX package's ``fused_euclidean``) is built on them:
 B1 gives 0.5 (|r|^2 - 2 <r, d> + |d|^2) and ``axpby(g, rec, -g, data)`` its gradient
 with respect to rec, one launch of each per evaluation.
 
-Each wrapper runs its kernel on contiguous float32 CUDA tensors and counts the
+Each wrapper sends CUDA tensors to its kernel's op in PyTorch's dispatcher
+(``torch.ops.breaching.*``, csrc/bindings.cpp), which checks shapes, devices, dtypes
+and contiguity in C++ and raises for what the kernel does not take, and counts the
 launch in its ``launches`` attribute; it runs the plain PyTorch version (``*_plain``)
-only for CPU tensors, and raises for anything else. ``axpby`` reaches its kernel
-through PyTorch's dispatcher (``torch.ops.breaching.axpby``), the others through ctypes.
+only for CPU tensors, and raises for anything else.
 """
 
 from __future__ import annotations
@@ -33,23 +36,23 @@ def matching_sums_plain(rec: torch.Tensor, data: torch.Tensor) -> torch.Tensor:
     return torch.stack([(rec * data).sum(), (rec * rec).sum(), (data * data).sum()])
 
 
-def matching_sums(rec: torch.Tensor, data: torch.Tensor) -> torch.Tensor:
-    """(<rec, data>, |rec|^2, |data|^2) of two flat vectors, as a float32 tensor of 3."""
-    if rec.dim() != 1 or rec.shape != data.shape:
-        raise ValueError(f"matching_sums takes two flat vectors of one length, got "
-                         f"{tuple(rec.shape)} and {tuple(data.shape)}.")
-    stream = _build.launch_stream("matching_sums", rec, data)
-    if stream is None:
-        return matching_sums_plain(rec, data)
-    n = rec.numel()
-    blocks = _build.reduce_blocks(n)
-    partials = torch.empty(3 * blocks, device=rec.device, dtype=torch.float32)
-    sums = torch.empty(3, device=rec.device, dtype=torch.float32)
-    _build.check(_build.load_library().b1_matching_sums(
-        rec.data_ptr(), data.data_ptr(), n, partials.data_ptr(), blocks, sums.data_ptr(),
-        stream), "b1_matching_sums")
-    matching_sums.launches += 1
-    return sums
+def matching_sums(rec: torch.Tensor, data: torch.Tensor, out: torch.Tensor | None = None) -> torch.Tensor:
+    """(<rec, data>, |rec|^2, |data|^2) of two flat vectors, as a float32 tensor of 3, or
+    written into ``out``, a contiguous tensor of 3 (a row of the trials' (T, 3) sums)."""
+    if rec.is_cuda:
+        if out is None:
+            out = _build.op("matching_sums")(rec, data)
+        else:
+            _build.op("matching_sums_into")(rec, data, out)
+        matching_sums.launches += 1
+        return out
+    if rec.dim() != 1 or rec.shape != data.shape or (out is not None and out.shape != (3,)):
+        raise ValueError(f"matching_sums takes two flat vectors of one length and an out of 3, got "
+                         f"{tuple(rec.shape)}, {tuple(data.shape)} and "
+                         f"{None if out is None else tuple(out.shape)}.")
+    _build.require_cpu("matching_sums", rec, data, *(() if out is None else (out,)))
+    sums = matching_sums_plain(rec, data)
+    return sums if out is None else out.copy_(sums)
 
 
 matching_sums.launches = 0
@@ -59,20 +62,10 @@ def axpby_plain(a: torch.Tensor, x: torch.Tensor, b: torch.Tensor, y: torch.Tens
     return a * x + b * y
 
 
-_axpby_op = None  # torch.ops.breaching.axpby, bound at the first launch
-
-
 def axpby(a: torch.Tensor, x: torch.Tensor, b: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
-    """a x + b y for one-element tensors a, b and flat vectors x, y of one length.
-
-    For a CUDA x the dispatcher's op (csrc/bindings.cpp) checks shapes, devices, dtypes
-    and contiguity in C++ and raises for what the kernel does not take; for CPU tensors
-    the plain version runs."""
-    global _axpby_op
+    """a x + b y for one-element tensors a, b and flat vectors x, y of one length."""
     if x.is_cuda:
-        if _axpby_op is None:
-            _axpby_op = _build.op("axpby")
-        out = _axpby_op(a, x, b, y)
+        out = _build.op("axpby")(a, x, b, y)
         axpby.launches += 1
         return out
     if x.dim() != 1 or x.shape != y.shape or a.numel() != 1 or b.numel() != 1:
@@ -88,36 +81,45 @@ axpby.launches = 0
 def cosine_backward_plain(sums, g, rec, data, wrt_data=False):
     """d/d rec of g (1 - <rec, data> / (|rec| |data| + 1e-12)), or d/d data if
     ``wrt_data``, from sums = (<rec, data>, |rec|^2, |data|^2): ``_cos_bwd``'s scalar
-    arithmetic, then ``axpby_plain``."""
-    dot, rec_sq, data_sq = sums.unbind()
+    arithmetic, then ``axpby_plain``. Flat rec and data with sums (3,) and a one-element
+    g, or T rows (T, n) with sums (T, 3) and g (T,), each row from its own sums and g."""
+    dot, rec_sq, data_sq = sums.unbind(-1)
     rec_n, data_n = torch.sqrt(rec_sq), torch.sqrt(data_sq)
-    a = (-g / (rec_n * data_n + 1e-12)).reshape(1)
+    shape = (-1, 1) if rec.dim() == 2 else (1,)
+    a = (-g / (rec_n * data_n + 1e-12)).reshape(shape)
     if wrt_data:
-        b = (g * dot / (data_n ** 3 * rec_n + 1e-12)).reshape(1)
+        b = (g * dot / (data_n ** 3 * rec_n + 1e-12)).reshape(shape)
         return axpby_plain(a, rec, b, data)
-    b = (g * dot / (rec_n ** 3 * data_n + 1e-12)).reshape(1)
+    b = (g * dot / (rec_n ** 3 * data_n + 1e-12)).reshape(shape)
     return axpby_plain(a, data, b, rec)
 
 
 def cosine_backward(sums, g, rec, data, wrt_data=False):
     """The cosine distance's gradient with respect to rec (or data, if ``wrt_data``),
-    times the one-element upstream gradient g, from the three sums of ``matching_sums``."""
-    if rec.dim() != 1 or rec.shape != data.shape or sums.shape != (3,) or g.numel() != 1:
-        raise ValueError(f"cosine_backward takes sums of shape (3,), a one-element g and flat rec, "
-                         f"data of one length, got {tuple(sums.shape)}, {tuple(g.shape)}, "
+    times the upstream gradient g, from the sums of ``matching_sums``: for flat rec and
+    data, sums (3,) and a one-element g; for T rows (T, n), sums (T, 3) and g (T,), in
+    one launch."""
+    if rec.is_cuda:
+        out = _build.op("cosine_backward")(sums, g, rec, data, wrt_data)
+        cosine_backward.launches += 1
+        return out
+    rows = rec.shape[0] if rec.dim() == 2 else None
+    flat = rec.dim() == 1 and sums.shape == (3,) and g.numel() == 1
+    stacked = rows is not None and sums.shape == (rows, 3) and g.shape == (rows,)
+    if rec.shape != data.shape or not (flat or stacked):
+        raise ValueError(f"cosine_backward takes flat rec, data of one length with sums (3,) and a one-element g, "
+                         f"or rows (T, n) with sums (T, 3) and g (T,), got {tuple(sums.shape)}, {tuple(g.shape)}, "
                          f"{tuple(rec.shape)}, {tuple(data.shape)}.")
-    stream = _build.launch_stream("cosine_backward", sums, g, rec, data)
-    if stream is None:
-        return cosine_backward_plain(sums, g, rec, data, wrt_data)
-    out = torch.empty_like(rec)
-    _build.check(_build.load_library().b2_cosine_backward(
-        sums.data_ptr(), g.data_ptr(), rec.data_ptr(), data.data_ptr(), out.data_ptr(), rec.numel(),
-        int(wrt_data), stream), "b2_cosine_backward")
-    cosine_backward.launches += 1
-    return out
+    _build.require_cpu("cosine_backward", sums, g, rec, data)
+    return cosine_backward_plain(sums, g, rec, data, wrt_data)
 
 
 cosine_backward.launches = 0
+
+
+def _cosine_value(sums):
+    dot, rec_sq, data_sq = sums.unbind(-1)
+    return 1.0 - dot / (torch.sqrt(rec_sq) * torch.sqrt(data_sq) + 1e-12)
 
 
 class _FusedCosine(torch.autograd.Function):
@@ -127,9 +129,8 @@ class _FusedCosine(torch.autograd.Function):
     @staticmethod
     def forward(ctx, rec, data):
         sums = matching_sums(rec, data)
-        dot, rec_sq, data_sq = sums.unbind()
         ctx.save_for_backward(rec, data, sums)
-        return 1.0 - dot / (torch.sqrt(rec_sq) * torch.sqrt(data_sq) + 1e-12)
+        return _cosine_value(sums)
 
     @staticmethod
     def backward(ctx, g):
@@ -143,6 +144,30 @@ class _FusedCosine(torch.autograd.Function):
 def fused_cosine_similarity(rec: torch.Tensor, data: torch.Tensor) -> torch.Tensor:
     """Cosine distance of two flat float32 vectors through kernels B1 and B2."""
     return _FusedCosine.apply(rec, data)
+
+
+class _FusedCosineTrials(_FusedCosine):
+    """``_FusedCosine`` of each row of (T, n) stacks (the JAX package vmaps
+    ``fused_cosine_similarity`` over the trials): one B1 launch a row into the rows of
+    one (T, 3) tensor, one value per row; its backward, ``_FusedCosine``'s, launches the
+    cosine backward once for every row."""
+
+    @staticmethod
+    def forward(ctx, rec, data):
+        if rec.dim() != 2 or rec.shape != data.shape:
+            raise ValueError(f"fused_cosine_similarity_trials takes two (T, n) stacks of one shape, got "
+                             f"{tuple(rec.shape)} and {tuple(data.shape)}.")
+        sums = torch.empty(rec.shape[0], 3, dtype=rec.dtype, device=rec.device)
+        for r, d, row in zip(rec.unbind(), data.unbind(), sums.unbind()):
+            matching_sums(r, d, out=row)
+        ctx.save_for_backward(rec, data, sums)
+        return _cosine_value(sums)
+
+
+def fused_cosine_similarity_trials(rec: torch.Tensor, data: torch.Tensor) -> torch.Tensor:
+    """``fused_cosine_similarity`` of each row of two contiguous (T, n) float32 stacks: a
+    (T,) vector, each entry equal to the row's own call, differentiable."""
+    return _FusedCosineTrials.apply(rec, data)
 
 
 class _FusedEuclidean(torch.autograd.Function):

@@ -6,8 +6,8 @@
 Phases, one line each on standard output:
   1. the card, as ``nvidia-smi --query-gpu=name,power.limit --format=csv,noheader``
      gives it;
-  2. the kernels' build with ``nvcc`` (breaching_tpu_torch/ops/_build.py), with
-     its seconds;
+  2. the kernels' build with ``nvcc`` (breaching_tpu_torch/ops/_build.py) into the
+     ops of ``torch.ops.breaching``, with its seconds;
   3. each kernel against its plain PyTorch version on the card, at every slice's
      shapes and at ragged shapes, with the tolerance stated (the fused
      kernels bit for bit, NaN positions included; the fused Adam step's soft
@@ -15,8 +15,11 @@ Phases, one line each on standard output:
      tolerance; ``fused_euclidean``, B1 and ``b2_axpby``, against its plain
      version at ConvNet-64's 2,904,970 entries): B1 and the fused cosine
      backward also at ResNet-18's 11,380,173 gradient entries, the fused Adam
-     step also at 1x3x224x224, at slice 3's 4x3x224x224 and per trial on an
-     8x1x3x224x224 stack, the fused TV kernel also at 1x3x224x224 and
+     step also at 1x3x224x224, at slice 3's 4x3x224x224 and in its trials form on
+     the fleet's 8x1x3x224x224 stack and the restarts' 4x1x3x32x32 (one launch, each
+     trial bit for bit its own single call's), the fused cosine backward's trials
+     form on the restarts' 4 rows of 2,904,970 (one launch, each row bit for bit its
+     own call's), the fused TV kernel also at 1x3x224x224 and
      4x3x224x224, with NaN and infinite pixels at the boundary, twice in a row
      and in a replayed CUDA graph; for slice 5 the fused TV kernel and the fused
      Adam step at 100x3x32x32 (5b) and 1x3x96x96 (a stage of 5a), TV also at
@@ -45,12 +48,13 @@ Phases, one line each on standard output:
      launch counts set to 0 just before it and read just after: slice 1,
      Inverting Gradients with the fused cosine objective on ConvNet-64 /
      CIFAR-10 shapes, and the same with 4 restarts (the batched trial step: the
-     fused TV kernel once a step for all four); slice 2, the bench preset on
+     fused TV kernel, the cosine backward and the Adam step once a step for all
+     four, B1 once a trial); slice 2, the bench preset on
      ResNet-18 at ImageNet shapes
      (the repo's trained checkpoint where the checkout holds it, else random
      weights, printed either way) solo, the same with the fused cosine
      objective, and as the 8-experiment fleet through ``reconstruct_fleet`` (the
-     fused TV kernel once a step for the 8);
+     fused TV kernel and the Adam step once a step for the 8);
      slice 3, the fedAVG user of case 4 on the same ResNet-18 (4 images of
      3x224x224, 4 local SGD steps of 2 images, the JAX package's notebook preset
      ``inverting_gradients_fedavg_imagenet``), with the preset's cosine objective
@@ -113,13 +117,18 @@ Phases, one line each on standard output:
      fused TV kernel and the fused Adam step at slice 5's 100x3x32x32 and
      1x3x96x96, TV at 1x3x192x192 (100 calls); the box clamp also in place (the
      form slices 4b-c call) beside ``torch.clamp(out=)``; each form of the box clamp
-     and ``b2_axpby`` (beside ``torch.add(alpha=)``, at 2,904,970 entries) timed in
-     turns with its library call over five rounds (medians); the fused TV
-     kernel's trials form at 8x1x3x224x224 beside 8 single-trial calls; the
-     launch of ``b2_axpby`` and the fused TV kernel at the paths' shapes
-     (registers, blocks resident per SM, grid) and each one's host time split
-     into its Python wrapper and its dispatcher op; and which device times, if
-     any, come in under their bound.
+     and ``b2_axpby`` (beside ``torch.add(alpha=)``, at 2,904,970 entries), the
+     fused Adam step (beside ``torch.clamp``) and the fused cosine backward (beside
+     ``torch.add(alpha=)``) timed in turns with its library call over five rounds
+     (medians); the fused Adam step also beside ``torch._fused_adam_`` on one tensor
+     of the candidate's shape, where the installed torch has it; the trials forms
+     of the fused TV kernel and the fused Adam step at 8x1x3x224x224 and of the
+     fused cosine backward at 4 rows of 2,904,970, each beside its T single calls;
+     the launch of ``b2_axpby``, the fused cosine backward, the fused TV kernel and
+     the fused Adam step at the paths' shapes (registers, blocks resident per SM,
+     grid) and the host time of every kernel's wrapper split into its Python
+     wrapper and its dispatcher op; and which device times, if any, come in under
+     their bound.
 Then one JSON line with the kernels, and as the last line
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 
@@ -127,7 +136,8 @@ Exits non-zero, without that line, when no CUDA device is present, a kernel does
 not build, launch or agree, a kernel of a path was not launched as often as the
 path needs (on slice 4's L-BFGS paths: B1 and ``b2_axpby`` once per evaluation of
 the objective, TV once per evaluation, ``b4_box_project`` once per outer step; on the
-fleet and the restarts, TV once a step for every trial), an
+fleet and the restarts, TV and the Adam step once a step for every trial, and on the
+restarts the cosine backward too), an
 attack's loss does not fall (on slice 4: its best value stays at its first, or a
 loss is not finite; on slice 5a: a stage's), an experiment of the fleet does not
 keep its own labels, a batch's order is not a permutation, or a check of slice 6
@@ -280,7 +290,8 @@ BIG = (1, 3, 224, 224)  # the image batch of slice 2 (ResNet-18 at ImageNet shap
 BATCH = (4, 3, 224, 224)  # the image batch of slice 3 (the fedAVG user's 4 images)
 N2 = 11_380_173  # the gradient entries of slice 2
 # the kernels timed in turns with their library call (per-call figures within 2 us of each other)
-IN_TURNS, TURNS = ("b2_axpby", "b4_box_project", "b4_box_project in place"), 5
+IN_TURNS = ("b2_axpby", "b4_box_project", "b4_box_project in place", "b2_cosine_backward", "b4_adam_box_step")
+TURNS = 5
 # (p, q) whose powers p, p-1, q, q-1 cheap_pow forms exactly: the fused TV gradient bit for bit
 TV_EXACT = ((1.0, 1.0), (2.0, 1.0), (1.5, 2.0))
 
@@ -366,6 +377,7 @@ def check_kernels(ops, n_params, image_shape):
             want = matching.cosine_backward_plain(sums, upstream, r, d, wrt_data)
             report_exact("b2_cosine_backward", f"{shape} wrt_data={wrt_data}", got, want,
                          at("b2_cosine_backward"))
+    check_cosine_trials(ops, matching, report_exact, randn, n_params)
 
     for shape in (image_shape, (2, 3, 331, 1007)):
         x = randn(*shape)
@@ -382,11 +394,12 @@ def check_kernels(ops, n_params, image_shape):
     for shape in (image_shape, BIG, (2, 3, 331, 1007)):  # slice 4d-e's soft sign
         check_adam_box_step(ops, image, report_exact, randn, shape, lo, hi, "soft",
                             shape == BIG and "b4_adam_box_step soft", report)
-    for signed in (True, False):  # slice 2: one image, and per trial on the fleet's stack
+    for signed in (True, False):  # slice 2: one image, and the trials form on the fleet's stack
         check_adam_box_step(ops, image, report_exact, randn, BIG, lo, hi, signed,
                             signed and "b4_adam_box_step slice2")
         check_adam_box_step(ops, image, report_exact, randn, (FLEET, *BIG), lo, hi, signed,
-                            signed and "b4_adam_box_step slice2")
+                            signed and "b4_adam_box_step trials")
+        check_adam_box_step(ops, image, report_exact, randn, (RESTARTS, *image_shape), lo, hi, signed, False)
         check_adam_box_step(ops, image, report_exact, randn, BATCH, lo, hi, signed,
                             signed and "b4_adam_box_step slice3")
         for shape in (LARGE, STAGE):  # slice 5: 5b's 100 images, a stage of 5a's pyramid
@@ -440,6 +453,30 @@ def check_fused_euclidean(ops, matching, report, randn, n):
            1e-5 * 0.5 * (sums[1] + sums[2]).item(), False)
     report("fused_euclidean (b1 + b2_axpby)", f"n={n} gradient", grad, want,
            2.0 ** -22 * (0.37 * (rec.abs() + data.abs())).max().item(), False)
+
+
+def check_cosine_trials(ops, matching, report_exact, randn, n):
+    """The fused cosine backward's trials form on slice 1's restarts: ``RESTARTS`` rows
+    of n in one launch, each row with its own sums and upstream gradient, bit for bit
+    against the plain version and against the kernel's single call on each row (n % 4
+    = 2 at ConvNet-64's n: every other row starts 8 bytes off a 16-byte boundary)."""
+    rec, data = randn(RESTARTS, n), randn(RESTARTS, n)
+    sums = torch.stack([ops.matching_sums(r, d) for r, d in zip(rec, data)])
+    upstream = torch.linspace(0.2, 0.9, RESTARTS, device=rec.device)
+    for wrt_data in (False, True):
+        before = ops.cosine_backward.launches
+        got = ops.cosine_backward(sums, upstream, rec, data, wrt_data)
+        launched = ops.cosine_backward.launches - before
+        require(launched == 1, f"b2_cosine_backward trials: {launched} launches for one call")
+        where = f"{RESTARTS}x{n} trials wrt_data={wrt_data}"
+        report_exact("b2_cosine_backward", where, got, matching.cosine_backward_plain(sums, upstream, rec, data,
+                                                                                      wrt_data),
+                     "b2_cosine_backward trials")
+        same = all(differing_bits(got[t], ops.cosine_backward(sums[t], upstream[t], rec[t], data[t], wrt_data)) == 0
+                   for t in range(RESTARTS))
+        print(f"check b2_cosine_backward {where}: one launch, each row equal to its own single call's bits: "
+              f"{'ok' if same else 'FAILED'}", flush=True)
+        require(same, f"b2_cosine_backward {where}: a row differs from its single call")
 
 
 def check_tv_value_and_grad(ops, image, report, report_exact, randn, image_shape):
@@ -562,8 +599,9 @@ def check_adam_box_step(ops, image, report_exact, randn, shape, lo, hi, signed, 
     zeros planted in the gradient and a loss that improves, does not, then improves,
     so that the two best-value buffers swap and the best iterate is taken and kept.
     A 5-dimensional shape is a stack of trials: ``ops.adam_box_step_trials`` (one
-    launch per trial, each trial with its own loss and best value) against the plain
-    version run on each trial in turn. ``signed="soft"``: the soft sign at steps 3-5 of
+    launch a step for every trial, each trial with its own loss and best value) against
+    the plain version run on each trial in turn, and bit for bit against the kernel's
+    single calls on each trial in turn. ``signed="soft"``: the soft sign at steps 3-5 of
     10 (s = 0.7, 0.6, 0.5), whose tanhf need not round as PyTorch's tanh: NaN in the
     same places, and elsewhere within 4 float32 ulps of each tensor's largest entry
     (``report``); the best values equal."""
@@ -578,15 +616,15 @@ def check_adam_box_step(ops, image, report_exact, randn, shape, lo, hi, signed, 
     # each trial's losses differ by a small offset, so that no two trials share a value
     offsets = torch.arange(max(trials, 1), device=dev) * 1e-3 if trials else torch.zeros((), device=dev)
 
-    def plain_trials(x, grad, mu, nu, best, lo, hi, value, best_val, new_best_val, step, signed, soft_scale):
+    def singles(x, grad, mu, nu, best, lo, hi, value, best_val, new_best_val, step, signed, soft_scale):
         for t in range(trials):
-            image.adam_box_step_plain(x[t], grad[t], mu[t], nu[t], best[t], lo, hi, value[t], best_val[t],
-                                      new_best_val[t], step, signed, soft_scale=soft_scale)
+            ops.adam_box_step(x[t], grad[t], mu[t], nu[t], best[t], lo, hi, value[t], best_val[t], new_best_val[t],
+                              step, signed, soft_scale=soft_scale)
 
-    fused_fn, plain_fn = ((ops.adam_box_step_trials, plain_trials) if trials
-                          else (ops.adam_box_step, image.adam_box_step_plain))
+    runs = ((ops.adam_box_step_trials, image.adam_box_step_trials_plain, singles) if trials
+            else (ops.adam_box_step, image.adam_box_step_plain))
     states = []
-    for fused in (True, False):
+    for run, fn in enumerate(runs):
         st = {k: v.clone() for k, v in start.items()}
         vals = [torch.full(offsets.shape, float("inf"), device=dev), torch.empty(offsets.shape, device=dev)]
         seen = []
@@ -595,14 +633,24 @@ def check_adam_box_step(ops, image, report_exact, randn, shape, lo, hi, signed, 
                                 bias2=1 - 0.999 ** t)
             args = (st["x"], grad, st["mu"], st["nu"], st["best"], lo, hi, value + offsets, *vals, step)
             soft = ops.soft_sign_scalars(t, 10) if signed == "soft" else None
-            (fused_fn if fused else plain_fn)(*args, signed=signed, soft_scale=soft)
+            before = ops.adam_box_step.launches
+            fn(*args, signed=signed, soft_scale=soft)
+            if run == 0:
+                launched = ops.adam_box_step.launches - before
+                require(launched == 1, f"b4_adam_box_step at {shape}: {launched} launches for one step")
             vals.reverse()
             seen.append({**{k: v.clone() for k, v in st.items()}, "best_val": vals[0].reshape(-1).clone()})
         states.append(seen)
+    if trials:  # each trial of the stack against its own single calls, bit for bit
+        same = all(differing_bits(got[key], single[key]) == 0 for got, single in zip(states[0], states[2])
+                   for key in ("x", "mu", "nu", "best", "best_val"))
+        print(f"check b4_adam_box_step {shape} signed={signed} trials: one launch a step, each trial equal to "
+              f"its own single calls' bits over three steps: {'ok' if same else 'FAILED'}", flush=True)
+        require(same, f"b4_adam_box_step trials at {shape}: a trial differs from its single calls")
     best_vals = [s["best_val"][0].item() for s in states[0]]
     require(best_vals == [0.5, 0.5, float(torch.tensor(0.3))],
             f"b4_adam_box_step best values over three steps: {best_vals}")
-    for step, (got, want) in enumerate(zip(*states)):
+    for step, (got, want) in enumerate(zip(states[0], states[1])):
         for key in ("x", "mu", "nu", "best", "best_val"):
             where = f"{shape} signed={signed} step={step} {key}"
             if signed == "soft" and key != "best_val":
@@ -704,14 +752,13 @@ def run_slice(breaching, ops):
 
 def run_restarts(breaching, ops):
     """Phase 5: slice 1 with ``RESTARTS`` restarts, the batched trial step: the fused TV
-    kernel once a step for every trial, B1, the cosine backward and the Adam step once a
+    kernel, the cosine backward and the Adam step once a step for every trial, B1 once a
     trial."""
     cfg, setup, user, server, model = build(breaching, SLICE + [
         f"attack.restarts.num_trials={RESTARTS}", f"attack.optim.max_iterations={RESTART_STEPS}",
         "attack.optim.callback=50", "seed=0"])
     shared, payloads, true = server.run_protocol(user)
-    needs = dict(b1_matching_sums=RESTARTS, b2_cosine_backward=RESTARTS, b3_tv_value_and_grad=1,
-                 b4_adam_box_step=RESTARTS)
+    needs = dict(b1_matching_sums=RESTARTS, b2_cosine_backward=1, b3_tv_value_and_grad=1, b4_adam_box_step=1)
     return attack_path(breaching, ops, f"slice 1 restarts ({RESTARTS} trials)", cfg, setup, server, shared, payloads,
                        true, RESTART_STEPS, needs=needs)[0]
 
@@ -1617,39 +1664,102 @@ def time_kernels(ops, n, image_shape, names=None, iters=200):
                      f"({lib_device_warm_ms * 1e3:.2f}) / {lib_host_ms * 1e3:.2f} us")
         print(f"{line}; bound {bound_ms * 1e3:.3f} us ({bound_by}); n={n} images {image_shape}"
               f"{f' (kernel and library call: medians of {2 * TURNS} in turns)' if turns else ''}", flush=True)
+        if name == "b4_adam_box_step":
+            row["fused_adam"] = time_fused_adam(image_shape, iters)
     return timings
 
 
-def time_tv_trials(ops, iters=100):
-    """Phase 6: the fused TV kernel's trials form on the fleet's (8, 1, 3, 224, 224) stack
-    (one launch) beside 8 single-trial calls and the plain version per trial."""
-    from breaching_tpu_torch.ops import image
+def time_fused_adam(shape, iters):
+    """The fused Adam step's second yardstick: ``torch._fused_adam_`` (PyTorch's own
+    fused Adam, without the sign, box, guard and best iterate) on one tensor of the
+    candidate's shape, where the installed torch has it."""
     from breaching_tpu_torch.timing import time_ms
 
+    if not hasattr(torch, "_fused_adam_"):
+        print(f"time torch._fused_adam_ {shape}: not in torch {torch.__version__}", flush=True)
+        return None
+    gen = torch.Generator().manual_seed(96)
+    p, g = (torch.randn(*shape, generator=gen).to(DEVICE) for _ in range(2))
+    m, v, step = torch.zeros_like(p), torch.zeros_like(p), torch.ones((), device=DEVICE)
+
+    def call():
+        torch._fused_adam_([p], [g], [m], [v], [], [step], lr=0.1, beta1=0.9, beta2=0.999, weight_decay=0.0,
+                           eps=1e-8, amsgrad=False, maximize=False)
+
+    try:
+        ms, device_ms, host_ms, device_warm_ms = time_ms(call, iters)
+    except RuntimeError as err:  # not capturable in a CUDA graph on this torch
+        print(f"time torch._fused_adam_ {shape}: {err}", flush=True)
+        return None
+    print(f"time torch._fused_adam_ {shape}: {ms * 1e3:.2f} us per call, {device_ms * 1e3:.2f} us device cold "
+          f"({device_warm_ms * 1e3:.2f} warm), {host_ms * 1e3:.2f} us host", flush=True)
+    return dict(ms=ms, device_ms=device_ms, host_ms=host_ms, device_warm_ms=device_warm_ms)
+
+
+def time_trials(ops, n_params, iters=100):
+    """Phase 6: each trials form in one launch beside its T single calls and the plain
+    version per trial: the fused TV kernel and the fused Adam step on the fleet's
+    (8, 1, 3, 224, 224) stack, the fused cosine backward on the restarts' 4 rows of
+    ConvNet-64's gradient."""
+    from breaching_tpu_torch.ops import image, matching
+    from breaching_tpu_torch.timing import time_ms
+
+    gen = torch.Generator().manual_seed(98)
     shape = (FLEET, *BIG)
-    stack = torch.randn(*shape, generator=torch.Generator().manual_seed(98)).to(DEVICE)
+    stack = torch.randn(*shape, generator=gen).to(DEVICE)
     g = torch.tensor([0.37], device=DEVICE)
     m = stack.numel()
-    bound_ms, bound_by = bound(8 * m + 4 * FLEET + 4, 20 * m)
-    ms, device_ms, host_ms, device_warm_ms = time_ms(lambda: ops.tv_value_and_grad_trials(stack, g), iters)
-    single = time_ms(lambda: [ops.tv_value_and_grad(trial, g) for trial in stack], iters)
-    plain = time_ms(lambda: image.tv_value_and_grad_trials_plain(stack, g), iters)
-    print(f"time b3_tv_value_and_grad trials {shape}: one launch {ms * 1e3:.2f} us per call, "
-          f"{device_ms * 1e3:.2f} us device cold ({device_warm_ms * 1e3:.2f} warm), {host_ms * 1e3:.2f} us host; "
-          f"{FLEET} single-trial calls {single[0] * 1e3:.2f} / {single[1] * 1e3:.2f} ({single[3] * 1e3:.2f}) / "
-          f"{single[2] * 1e3:.2f} us; plain per trial {plain[0] * 1e3:.2f} / {plain[1] * 1e3:.2f} us; bound "
-          f"{bound_ms * 1e3:.3f} us ({bound_by})", flush=True)
-    return dict(shape=shape, launches_per_call=1, ms=ms, device_ms=device_ms, host_ms=host_ms,
-                device_warm_ms=device_warm_ms, single_calls_ms=single[0], single_calls_device_ms=single[1],
-                single_calls_host_ms=single[2], single_calls_device_warm_ms=single[3], plain_ms=plain[0],
-                plain_device_ms=plain[1], bound_ms=bound_ms, bound_by=bound_by)
+    lo = torch.tensor([-1.9, -2.0, -1.7], device=DEVICE)
+    hi = torch.tensor([2.1, 2.1, 2.0], device=DEVICE)
+    adam = [stack.clone(), torch.randn(*shape, generator=gen).to(DEVICE), torch.zeros_like(stack),
+            torch.zeros_like(stack), stack.clone(), lo, hi, torch.full((FLEET,), 0.5, device=DEVICE),
+            torch.full((FLEET,), float("inf"), device=DEVICE), torch.empty(FLEET, device=DEVICE),
+            ops.AdamStep(lr=0.1, b1=0.9, b2=0.999, eps=1e-8, bias1=1 - 0.9 ** 3, bias2=1 - 0.999 ** 3)]
+
+    def adam_singles():
+        for t in range(FLEET):
+            ops.adam_box_step(*(a[t] for a in adam[:5]), lo, hi, *(a[t] for a in adam[7:10]), adam[10])
+
+    rec, data = (torch.randn(RESTARTS, n_params, generator=gen).to(DEVICE) for _ in range(2))
+    sums = torch.stack([ops.matching_sums(r, d) for r, d in zip(rec, data)])
+    upstream = torch.linspace(0.2, 0.9, RESTARTS, device=DEVICE)
+    forms = {  # name: (shape, one launch, T single calls, plain per trial, bytes, flops)
+        "b3_tv_value_and_grad": (shape, lambda: ops.tv_value_and_grad_trials(stack, g),
+                                 lambda: [ops.tv_value_and_grad(trial, g) for trial in stack],
+                                 lambda: image.tv_value_and_grad_trials_plain(stack, g), 8 * m + 4 * FLEET + 4, 20 * m),
+        # every trial improves (best value inf): the most bytes a step moves
+        "b4_adam_box_step": (shape, lambda: ops.adam_box_step_trials(*adam), adam_singles,
+                             lambda: image.adam_box_step_trials_plain(*adam), 32 * m + 12 * FLEET + 24, 15 * m),
+        "b2_cosine_backward": ((RESTARTS, n_params), lambda: ops.cosine_backward(sums, upstream, rec, data),
+                               lambda: [ops.cosine_backward(sums[t], upstream[t], rec[t], data[t])
+                                        for t in range(RESTARTS)],
+                               lambda: matching.cosine_backward_plain(sums, upstream, rec, data),
+                               12 * RESTARTS * n_params + 16 * RESTARTS, 3 * RESTARTS * n_params),
+    }
+    out = {}
+    for name, (at, one, single, plain, nbytes, flops) in forms.items():
+        bound_ms, bound_by = bound(nbytes, flops)
+        ms, device_ms, host_ms, device_warm_ms = time_ms(one, iters)
+        singles = time_ms(single, iters)
+        plain_t = time_ms(plain, iters)
+        print(f"time {name} trials {at}: one launch {ms * 1e3:.2f} us per call, {device_ms * 1e3:.2f} us device "
+              f"cold ({device_warm_ms * 1e3:.2f} warm), {host_ms * 1e3:.2f} us host; {at[0]} single calls "
+              f"{singles[0] * 1e3:.2f} / {singles[1] * 1e3:.2f} ({singles[3] * 1e3:.2f}) / {singles[2] * 1e3:.2f} us; "
+              f"plain per trial {plain_t[0] * 1e3:.2f} / {plain_t[1] * 1e3:.2f} us; bound {bound_ms * 1e3:.3f} us "
+              f"({bound_by})", flush=True)
+        out[name] = dict(shape=at, launches_per_call=1, ms=ms, device_ms=device_ms, host_ms=host_ms,
+                         device_warm_ms=device_warm_ms, single_calls_ms=singles[0], single_calls_device_ms=singles[1],
+                         single_calls_host_ms=singles[2], single_calls_device_warm_ms=singles[3], plain_ms=plain_t[0],
+                         plain_device_ms=plain_t[1], bound_ms=bound_ms, bound_by=bound_by)
+    return out
 
 
 def launch_configs(n_params, image_shape):
-    """Phase 6: the launch of each kernel redesigned for the dispatcher binding, as the
-    binding's ``launch_config`` reads it on this card: threads per block, registers per
-    thread, static shared bytes, blocks resident per SM and the grid, at each shape the
-    paths give it."""
+    """Phase 6: the launch of each kernel redesigned for the dispatcher binding (``b2_axpby``,
+    the fused cosine backward, the fused TV kernel, the fused Adam step), as the binding's
+    ``launch_config`` reads it on this card: threads per block, registers per thread,
+    static shared bytes, blocks resident per SM and the grid, at each shape the paths give
+    it."""
     from breaching_tpu_torch.ops import _build
 
     launch_config = _build.load_ops().launch_config.default
@@ -1663,9 +1773,17 @@ def launch_configs(n_params, image_shape):
         tv.append(dict(shape=shape, segments=segments, form=form, **dict(zip(
             keys, launch_config(kernel, math.prod(shape), shape[-2], shape[-1], segments)))))
     configs["b3_tv_value_and_grad"] = tv
+    configs["b4_adam_box_step"] = [
+        dict(shape=shape, trials=trials, **dict(zip(keys, launch_config(
+            "b4_adam_box_step", math.prod(shape), shape[-2], shape[-1], trials))))
+        for shape, trials in ((image_shape, 1), (BIG, 1), (BATCH, 1), (LARGE, 1), (STAGE, 1),
+                              ((RESTARTS, *image_shape), RESTARTS), ((FLEET, *BIG), FLEET))]
+    configs["b2_cosine_backward"] = [
+        dict(n=n, rows=rows, **dict(zip(keys, launch_config("b2_cosine_backward", n * rows, 0, 0, rows))))
+        for n, rows in ((n_params, 1), (N2, 1), (n_params, RESTARTS))]
     for name, rows in configs.items():
         for row in rows:
-            where = row.get("shape", f"n={row.get('n')}")
+            where = row.get("shape", f"n={row.get('n')}" + (f" x {row['rows']} rows" if "rows" in row else ""))
             print(f"launch {name} {where}{' ' + row['form'] if 'form' in row else ''}: {row['threads']} threads, "
                   f"{row['registers']} registers a thread, {row['shared_bytes']} shared bytes, "
                   f"{row['local_bytes']} local bytes a thread, "
@@ -1674,22 +1792,39 @@ def launch_configs(n_params, image_shape):
 
 
 def host_breakdown(ops, n_params, image_shape, iters=200):
-    """Phase 6: each redesigned wrapper's host time per call split into the Python
-    wrapper and the dispatcher op it calls (the op called directly), in turns (medians)."""
+    """Phase 6: each wrapper's host time per call at slice 1's shapes, split into the
+    Python wrapper and the dispatcher op it calls (the op called directly), in turns
+    (medians)."""
     from breaching_tpu_torch.ops import _build, image
 
     gen = torch.Generator().manual_seed(97)
     r, d = torch.randn(n_params, generator=gen).to(DEVICE), torch.randn(n_params, generator=gen).to(DEVICE)
     a, b = torch.tensor([-0.7], device=DEVICE), torch.tensor([1.3], device=DEVICE)
     x, g = torch.randn(*image_shape, generator=gen).to(DEVICE), torch.tensor([0.37], device=DEVICE)
+    lo = torch.tensor([-1.9, -2.0, -1.7], device=DEVICE)
+    hi = torch.tensor([2.1, 2.1, 2.0], device=DEVICE)
+    sums, upstream = ops.matching_sums(r, d), torch.tensor(0.37, device=DEVICE)
     workspace = image._tv_workspace(x.get_device())
-    axpby_op, tv_op = _build.op("axpby"), _build.op("tv_value_and_grad")
-    op_calls = {"b2_axpby": (lambda: ops.axpby(a, r, b, d), lambda: axpby_op(a, r, b, d)),
-                "b3_tv_value_and_grad": (lambda: ops.tv_value_and_grad(x, g),
-                                         lambda: tv_op(x, g, 1.0, 1.0, 1e-8, 0, workspace))}
+    adam = (x.clone(), torch.randn(*image_shape, generator=gen).to(DEVICE), torch.zeros_like(x), torch.zeros_like(x),
+            x.clone(), lo, hi, torch.tensor(0.5, device=DEVICE), torch.tensor(float("inf"), device=DEVICE),
+            torch.empty((), device=DEVICE))
+    step = ops.AdamStep(lr=0.1, b1=0.9, b2=0.999, eps=1e-8, bias1=1 - 0.9 ** 3, bias2=1 - 0.999 ** 3)
+    op = _build.op
+    op_calls = {
+        "b1_matching_sums": (lambda: ops.matching_sums(r, d), lambda: op("matching_sums")(r, d)),
+        "b2_axpby": (lambda: ops.axpby(a, r, b, d), lambda: op("axpby")(a, r, b, d)),
+        "b2_cosine_backward": (lambda: ops.cosine_backward(sums, upstream, r, d),
+                               lambda: op("cosine_backward")(sums, upstream, r, d, False)),
+        "b3_tv_forward": (lambda: ops.tv_forward(x), lambda: op("tv_forward")(x, 1.0, 1.0, 1e-8)),
+        "b3_tv_value_and_grad": (lambda: ops.tv_value_and_grad(x, g),
+                                 lambda: op("tv_value_and_grad")(x, g, 1.0, 1.0, 1e-8, 0, workspace)),
+        "b4_box_project": (lambda: ops.box_project(x, lo, hi), lambda: op("box_project")(x, lo, hi)),
+        "b4_adam_box_step": (lambda: ops.adam_box_step(*adam, step),
+                             lambda: op("adam_box_step")(*adam, *step, 1.0, 1.0, 3)),
+    }
     out = {}
-    for name, (wrapper, op) in op_calls.items():
-        (w_ms, _, w_host, _), (o_ms, _, o_host, _) = time_in_turns(wrapper, op, iters)
+    for name, (wrapper, direct) in op_calls.items():
+        (w_ms, _, w_host, _), (o_ms, _, o_host, _) = time_in_turns(wrapper, direct, iters)
         out[name] = dict(wrapper_host_ms=w_host, op_host_ms=o_host, python_host_ms=w_host - o_host,
                          wrapper_ms=w_ms, op_ms=o_ms)
         print(f"host {name}: {w_host * 1e3:.2f} us per call through the wrapper, {o_host * 1e3:.2f} us through "
@@ -1721,7 +1856,7 @@ def main():
     print(card_line(), flush=True)
 
     start = began = time.perf_counter()
-    _build.load_library()
+    _build.load_ops()
     print(f"build: {os.path.relpath(_build.library_path(), REPO)} ready in "
           f"{time.perf_counter() - start:.1f} s (nvcc {_build.build_seconds or 0.0:.1f} s)", flush=True)
 
@@ -1755,7 +1890,7 @@ def main():
             ("slice 2 preset", SLICE2, [], SLICE2_STEPS, 1, IMAGE_KERNELS),
             ("slice 2 fused", SLICE2, fused, SLICE2_FUSED_STEPS, 1, all_kernels),
             ("slice 2 fleet", SLICE2, [], FLEET_STEPS, FLEET,
-             dict(b3_tv_value_and_grad=1, b4_adam_box_step=FLEET)),
+             dict(b3_tv_value_and_grad=1, b4_adam_box_step=1)),
             ("slice 3 preset", SLICE3, [], SLICE3_STEPS, 1, IMAGE_KERNELS),
             ("slice 3 fused", SLICE3, fused, SLICE3_FUSED_STEPS, 1, all_kernels)):
         launches = run_resnet(breaching, ops, path, case, overrides, steps, experiments)
@@ -1793,7 +1928,7 @@ def main():
                 **time_kernels(ops, N2, OPPONENTS, names=("b3_tv_value_and_grad q=0.5",), iters=100)}
     timings5 = {shape: time_kernels(ops, n_params, shape, names=slice3 if shape != STAGE2 else slice3[:1], iters=100)
                 for shape in (LARGE, STAGE, STAGE2)}
-    trials = time_tv_trials(ops)
+    trials = time_trials(ops, n_params)
     configs = launch_configs(n_params, image_shape)
     hosts = host_breakdown(ops, n_params, image_shape)
 
@@ -1825,11 +1960,11 @@ def main():
                                       **timings5[shape][name]) for shape in timings5 if name in timings5[shape]]
         if not rows[-1]["at_slice5"]:
             del rows[-1]["at_slice5"]
-        if name == "b3_tv_value_and_grad":  # the trials form (the fleet's and the restarts' step)
-            rows[-1]["at_trials"] = dict(max_abs_err=errors[f"{name} trials"], **trials)
+        if name in trials:  # the trials form (the fleet's and the restarts' step)
+            rows[-1]["at_trials"] = dict(max_abs_err=errors[f"{name} trials"], **trials[name])
         if name in configs:  # the kernels redesigned for the dispatcher binding
             rows[-1]["launch_config"] = configs[name]
-            rows[-1]["host_breakdown"] = hosts[name]
+        rows[-1]["host_breakdown"] = hosts[name]
     print(f"device times (cold) under their bound: {under_bound(rows) or 'none'}", flush=True)
     print(f"chip_smoke: phases 2-6 in {time.perf_counter() - began:.1f} s", flush=True)
     print(json.dumps({"kernels": rows}))

@@ -87,7 +87,7 @@ def _run_port(overrides, mode, batched, x0):
     return results, stats
 
 
-@pytest.mark.parametrize("objective", ["cosine-similarity", "fused-cosine-similarity"])
+@pytest.mark.parametrize("objective", ["cosine-similarity", "fused-cosine-similarity", "fused-euclidean"])
 @pytest.mark.parametrize("signed", [False, True])
 @pytest.mark.parametrize("mode", ["restarts", "fleet"])
 def test_batched_trials_match_the_per_trial_loop(mode, signed, objective):

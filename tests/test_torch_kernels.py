@@ -219,8 +219,8 @@ def test_b4_adam_box_step_swaps_best_values_over_three_steps(cuda):
 @pytest.mark.cuda
 @pytest.mark.parametrize("signed", [True, False])
 def test_adam_box_step_trials_matches_plain_per_trial(cuda, signed):
-    # the fleet's step tail: one launch per trial on the trial's views of an 8x1x3x224x224
-    # stack, each trial with its own loss and best value
+    # the fleet's step tail: one launch for every trial of an 8x1x3x224x224 stack, each
+    # trial with its own loss and best value
     lo, hi = torch.tensor([-1.0, -2.0, 0.0], device=cuda), torch.tensor([1.0, 0.5, 2.0], device=cuda)
     shape, trials = (8, 1, 3, 224, 224), 8
     start = dict(x=_randn(shape, 31, cuda) * 2, grad=_randn(shape, 32, cuda), mu=_randn(shape, 33, cuda) * 0.1,
@@ -234,7 +234,7 @@ def test_adam_box_step_trials_matches_plain_per_trial(cuda, signed):
     before = ops.adam_box_step.launches
     ops.adam_box_step_trials(got["x"], got["grad"], got["mu"], got["nu"], got["best"], lo, hi, values,
                              best_vals, got_best_val, step, signed=signed)
-    assert ops.adam_box_step.launches == before + trials
+    assert ops.adam_box_step.launches == before + 1
     want = {k: v.clone() for k, v in start.items()}
     want_best_val = torch.empty(trials, device=cuda)
     for t in range(trials):
@@ -364,7 +364,7 @@ def test_new_kernels_refuse_what_they_do_not_take(cuda):
     with pytest.raises(ValueError):  # one buffer for the best value read and written
         ops.adam_box_step(x, x.clone(), x.clone(), x.clone(), x.clone(), lo, hi, one, one, one, step)
     r = _randn(1000, 14, cuda)
-    with pytest.raises(ValueError):  # the sums on the CPU
+    with pytest.raises(RuntimeError, match="breaching::cosine_backward"):  # the sums on the CPU
         ops.cosine_backward(torch.zeros(3), one, r, r.clone())
 
 
@@ -476,3 +476,175 @@ def test_b3_tv_value_and_grad_refuses_what_it_does_not_take(cuda):
         ops.tv_value_and_grad(x.double(), scale.double())
     with pytest.raises(RuntimeError, match="breaching::tv_value_and_grad"):  # the scale on the CPU
         ops.tv_value_and_grad(x, scale.cpu())
+
+
+# ---------------------------------------------------------------- the trials forms
+#
+# b4_adam_box_step and b2_cosine_backward take every trial of a stack in one launch;
+# each trial's result equals its own single call's bits (the same arithmetic per
+# element, whatever the launch's geometry).
+
+
+def _adam_stack(shape, seed, cuda, offset=0):
+    """Fresh (x, grad, mu, nu, best) of `shape`, each `offset` floats into its buffer
+    (1: off a 16-byte boundary, the scalar form), NaN and signed zeros in the gradient."""
+    n = int(np.prod(shape))
+
+    def tensor(k, scale=1.0):
+        return (_randn(n + offset, seed + k, cuda) * scale)[offset:].view(shape)
+
+    st = dict(x=tensor(0, 2.0), grad=tensor(1), mu=tensor(2, 0.1), nu=tensor(3) ** 2 * 0.01, best=tensor(4))
+    st["grad"].view(-1)[::997] = float("nan")
+    st["grad"].view(-1)[1::499] = -0.0
+    return st
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,offset", [((8, 1, 3, 224, 224), 0), ((3, 2, 3, 17, 23), 0),
+                                          ((4, 1, 3, 32, 32), 1), ((2, 1, 1, 1, 10), 0)])
+@pytest.mark.parametrize("signed", [True, False, "soft"])
+def test_adam_box_step_trials_match_single_calls_bit_for_bit(cuda, shape, offset, signed):
+    # one launch for the stack; each trial's candidate, moments, best iterate and best
+    # value equal to its own call's bits (losses NaN, infinite, improving, not improving)
+    trials = shape[0]
+    lo = torch.linspace(-1.0, 0.0, shape[2], device=cuda)
+    hi = torch.linspace(0.5, 2.0, shape[2], device=cuda)
+    start = _adam_stack(shape, 50, cuda, offset)
+    values = torch.tensor([float("nan"), float("inf"), 0.4, 0.6, 0.3, 0.5, 0.45, 0.55][:trials], device=cuda)
+    best_vals = torch.full((trials,), 0.5, device=cuda)
+    step = ops.AdamStep(lr=0.1, b1=0.9, b2=0.999, eps=1e-8, bias1=1 - 0.9 ** 3, bias2=1 - 0.999 ** 3)
+    soft = ops.soft_sign_scalars(3, 10) if signed == "soft" else None
+    got = {k: v.clone() for k, v in start.items()}
+    got_best = torch.empty(trials, device=cuda)
+    before = ops.adam_box_step.launches
+    ops.adam_box_step_trials(got["x"], got["grad"], got["mu"], got["nu"], got["best"], lo, hi, values, best_vals,
+                             got_best, step, signed=signed, soft_scale=soft)
+    assert ops.adam_box_step.launches == before + 1
+    for t in range(trials):
+        single = {k: v[t].clone() for k, v in start.items()}
+        single_best = torch.empty((), device=cuda)
+        ops.adam_box_step(single["x"], single["grad"], single["mu"], single["nu"], single["best"], lo, hi,
+                          values[t], best_vals[t], single_best, step, signed=signed, soft_scale=soft)
+        for key in ("x", "mu", "nu", "best"):
+            assert _same_bits(got[key][t], single[key]), (t, key)
+        assert _same_bits(got_best[t], single_best), t
+    want = {k: v.clone() for k, v in start.items()}
+    want_best = torch.empty(trials, device=cuda)
+    image.adam_box_step_trials_plain(want["x"], want["grad"], want["mu"], want["nu"], want["best"], lo, hi, values,
+                                     best_vals, want_best, step, signed=signed, soft_scale=soft)
+    assert _same_bits(got_best, want_best)
+    for key in ("x", "mu", "nu", "best"):
+        if signed == "soft":  # tanhf: 4 float32 ulps of the largest entry, NaN in the same places
+            g, w = got[key], want[key]
+            nan = torch.isnan(w)
+            assert torch.equal(torch.isnan(g), nan), key
+            assert bool(((g[~nan] - w[~nan]).abs() <= 4 * 2.0 ** -23 * w[~nan].abs().max()).all()), key
+        else:
+            assert _same_bits(got[key], want[key]), key
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows,n,offset", [(4, 2_904_970, 0), (3, 1001, 0), (2, 1000, 1), (1, 7, 0)])
+@pytest.mark.parametrize("wrt_data", [False, True])
+def test_cosine_backward_rows_match_single_calls_bit_for_bit(cuda, rows, n, offset, wrt_data):
+    # one launch for every row; n % 4 != 0 puts every other row off a 16-byte boundary,
+    # offset 1 every row
+    r = _randn(rows * n + offset, 51, cuda)[offset:].view(rows, n)
+    d = _randn(rows * n + offset, 52, cuda)[offset:].view(rows, n)
+    sums = torch.stack([ops.matching_sums(r[t], d[t]) for t in range(rows)])
+    g = torch.linspace(0.2, 0.9, rows, device=cuda)
+    before = ops.cosine_backward.launches
+    got = ops.cosine_backward(sums, g, r, d, wrt_data)
+    assert ops.cosine_backward.launches == before + 1 and got.shape == (rows, n)
+    assert _same_bits(got, matching.cosine_backward_plain(sums, g, r, d, wrt_data))
+    for t in range(rows):
+        assert _same_bits(got[t], ops.cosine_backward(sums[t], g[t], r[t], d[t], wrt_data)), t
+
+
+@pytest.mark.cuda
+def test_fused_cosine_similarity_trials_match_single_calls(cuda):
+    # the batched trial step's objective: one B1 launch a trial, one backward launch
+    rows, n = 4, 2_904_970
+    rec = _randn(rows * n, 53, cuda).view(rows, n).requires_grad_(True)
+    data = _randn(rows * n, 54, cuda).view(rows, n)
+    g = torch.linspace(0.2, 0.9, rows, device=cuda)
+    before = (ops.matching_sums.launches, ops.cosine_backward.launches)
+    values = ops.fused_cosine_similarity_trials(rec, data)
+    grad, = torch.autograd.grad(values, rec, g)
+    assert (ops.matching_sums.launches, ops.cosine_backward.launches) == (before[0] + rows, before[1] + 1)
+    for t in range(rows):
+        r = rec[t].detach().clone().requires_grad_(True)
+        value = ops.fused_cosine_similarity(r, data[t])
+        want, = torch.autograd.grad(value, r, g[t])
+        assert _same_bits(values[t].detach(), value.detach()) and _same_bits(grad[t], want), t
+
+
+@pytest.mark.cuda
+def test_trials_forms_replay_in_a_cuda_graph(cuda):
+    # the Adam step's stack and the cosine backward's rows captured once, replayed on new
+    # inputs copied into the captured ones
+    shape, rows, n = (4, 1, 3, 224, 224), 4, 100_003
+    lo, hi = torch.tensor([-1.0, -2.0, 0.0], device=cuda), torch.tensor([1.0, 0.5, 2.0], device=cuda)
+    step = ops.AdamStep(lr=0.1, b1=0.9, b2=0.999, eps=1e-8, bias1=0.271, bias2=0.002997)
+    values, best_vals = torch.tensor([0.4, 0.6, float("nan"), 0.2], device=cuda), torch.full((4,), 0.5, device=cuda)
+    r, d = _randn(rows * n, 55, cuda).view(rows, n), _randn(rows * n, 56, cuda).view(rows, n)
+    sums, g = torch.stack([ops.matching_sums(r[t], d[t]) for t in range(rows)]), torch.rand(rows, device=cuda)
+    static = _adam_stack(shape, 57, cuda)
+    static_best = torch.empty(4, device=cuda)
+
+    def run(st, out_best):
+        ops.adam_box_step_trials(st["x"], st["grad"], st["mu"], st["nu"], st["best"], lo, hi, values, best_vals,
+                                 out_best, step)
+        return ops.cosine_backward(sums, g, r, d)
+
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        static_out = run(static, static_best)
+    for seed in (58, 59):
+        fresh = _adam_stack(shape, seed, cuda)
+        want = {k: v.clone() for k, v in fresh.items()}
+        want_best = torch.empty(4, device=cuda)
+        want_out = run(want, want_best)
+        for k, v in fresh.items():
+            static[k].copy_(v)
+        graph.replay()
+        torch.cuda.synchronize()
+        for key in ("x", "mu", "nu", "best"):
+            assert _same_bits(static[key], want[key]), (seed, key)
+        assert _same_bits(static_best, want_best) and _same_bits(static_out, want_out), seed
+
+
+@pytest.mark.cuda
+def test_ops_refuse_in_cpp_what_their_kernels_do_not_take(cuda):
+    # each op checks in C++: a RuntimeError naming the op for a tensor on another device,
+    # a ValueError for shapes, dtypes and layouts; nothing launches
+    x, lo, hi = _randn((2, 1, 3, 8, 8), 60, cuda), torch.zeros(3, device=cuda), torch.ones(3, device=cuda)
+    vals = [torch.zeros(2, device=cuda) for _ in range(3)]
+    step = ops.AdamStep(0.1, 0.9, 0.999, 1e-8, 0.1, 0.001)
+    r = _randn(2000, 61, cuda).view(2, 1000)
+    sums = torch.zeros(2, 3, device=cuda)
+    counts = ops.launch_counts()
+    with pytest.raises(ValueError, match="breaching::adam_box_step"):  # values of the wrong length
+        ops.adam_box_step_trials(x, x.clone(), x.clone(), x.clone(), x.clone(), lo, hi, vals[0][:1], vals[1],
+                                 vals[2], step)
+    with pytest.raises(RuntimeError, match="breaching::adam_box_step"):  # the losses on the CPU
+        ops.adam_box_step_trials(x, x.clone(), x.clone(), x.clone(), x.clone(), lo, hi, vals[0].cpu(), vals[1],
+                                 vals[2], step)
+    with pytest.raises(ValueError, match="breaching::adam_box_step"):  # a gradient of another shape
+        ops.adam_box_step_trials(x, x[:1].clone(), x.clone(), x.clone(), x.clone(), lo, hi, *vals, step)
+    with pytest.raises(ValueError, match="breaching::cosine_backward"):  # g of the wrong length
+        ops.cosine_backward(sums, torch.zeros(3, device=cuda), r, r.clone())
+    with pytest.raises(ValueError, match="breaching::cosine_backward"):  # rec not contiguous
+        ops.cosine_backward(sums, torch.zeros(2, device=cuda), r.t().contiguous().t(), r.clone())
+    with pytest.raises(ValueError, match="breaching::matching_sums_into"):  # an out of 4
+        ops.matching_sums(r[0], r[1], out=torch.empty(4, device=cuda))
+    with pytest.raises(RuntimeError, match="breaching::matching_sums"):  # data on the CPU
+        ops.matching_sums(r[0], r[1].cpu())
+    with pytest.raises(ValueError, match="breaching::box_project_out"):  # an out of another shape
+        ops.box_project(x[0], lo, hi, out=torch.empty(1, 3, 8, 7, device=cuda))
+    with pytest.raises(ValueError, match="breaching::box_project"):  # bounds of the wrong length
+        ops.box_project(x[0], lo[:2], hi[:2])
+    with pytest.raises(ValueError, match="breaching::tv_forward"):  # not a batch of images
+        ops.tv_forward(r)
+    assert ops.launch_counts() == counts

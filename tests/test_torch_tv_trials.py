@@ -142,6 +142,7 @@ def _cpu_calls():
     leaf = img.clone().requires_grad_(True)
     leaves = stack.clone().requires_grad_(True)
     rec = vec[0].clone().requires_grad_(True)
+    step = ops.AdamStep(0.1, 0.9, 0.999, 1e-8, 0.1, 0.001)
     return {
         "axpby": lambda: ops.axpby(one, vec[0], -one, vec[1]),
         "matching_sums": lambda: ops.matching_sums(*vec),
@@ -155,6 +156,18 @@ def _cpu_calls():
         "fused_cosine_similarity": lambda: torch.autograd.grad(ops.fused_cosine_similarity(rec, vec[1]), rec),
         "box_project": lambda: ops.box_project(img, lo, hi),
         "cosine_backward": lambda: matching.cosine_backward(ops.matching_sums(*vec), one, *vec),
+        "matching_sums into a row": lambda: ops.matching_sums(*vec, out=torch.empty(2, 3)[1]),
+        "box_project in place": lambda: ops.box_project(img.clone(), lo, hi, out=img.clone()),
+        "cosine_backward of rows": lambda: matching.cosine_backward(
+            torch.stack([ops.matching_sums(*vec)] * 2), torch.tensor([0.2, 0.3]), *(torch.stack([v] * 2) for v in vec)),
+        "fused_cosine_similarity_trials": lambda: torch.autograd.grad(
+            ops.fused_cosine_similarity_trials(torch.stack([rec] * 2), torch.stack(vec)).sum(), rec),
+        "adam_box_step": lambda: ops.adam_box_step(
+            img.clone(), img.clone(), img * 0, img * 0, img.clone(), lo, hi, one[0], one[0] + 1, torch.empty(()),
+            step),
+        "adam_box_step_trials": lambda: ops.adam_box_step_trials(
+            stack.clone(), stack.clone(), stack * 0, stack * 0, stack.clone(), lo, hi, torch.ones(2),
+            torch.full((2,), 2.0), torch.empty(2), step),
     }
 
 
@@ -163,7 +176,7 @@ def test_cpu_wrappers_never_load_the_library(name, monkeypatch):
     def refuse():
         raise AssertionError("a CPU wrapper loaded the kernels' library")
 
-    for loader in ("build", "load_library", "load_ops"):
+    for loader in ("build", "load_ops", "op"):
         monkeypatch.setattr(_build, loader, refuse)
     monkeypatch.setattr(torch.ops, "load_library", lambda path: refuse())
     _cpu_calls()[name]()
