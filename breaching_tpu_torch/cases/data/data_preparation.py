@@ -44,7 +44,7 @@ def construct_dataloader(cfg_data, cfg_impl, user_idx: int = 0, return_full_data
         full = VisionDataset(cfg_data, split=cfg_data.examples_from_split)
         dataset = split_dataset(full, cfg_data, user_idx, return_full_dataset)
     else:
-        raise ValueError(f"Data modality {cfg_data.modality} is not ported yet.")
+        raise NotImplementedError(f"Data modality {cfg_data.modality} is not ported yet.")
 
     return DataLoader(
         dataset,

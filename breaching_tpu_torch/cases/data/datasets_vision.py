@@ -279,6 +279,30 @@ def _load_cifar_pickles(folder: str, split: str, fine: bool):
 # Federated partitions (reference: datasets_vision.py:84-148)
 # ---------------------------------------------------------------------------
 
+def measure_mean_std(dataset, max_items=None):
+    """Per-channel mean and standard deviation of the un-normalized pixels of a
+    dataset, by a parallel Welford merge over its images (reference: _get_meanstd,
+    datasets_vision.py:178-197): the tool that calibrates a data config's mean and std
+    from a dataset on disk. Returns two lists of floats."""
+    mean = np.zeros(3, np.float64)
+    m2 = np.zeros(3, np.float64)
+    n = 0
+    count = len(dataset) if max_items is None else min(len(dataset), max_items)
+    channel = (-1, 1, 1)
+    for i in range(count):
+        sample = dataset[i]["inputs"]  # CHW, normalized by the view
+        pixels = np.asarray(sample, np.float64) * dataset.std.reshape(channel) + dataset.mean.reshape(channel)
+        pixels = pixels.reshape(pixels.shape[0], -1)
+        n_b = pixels.shape[1]
+        dm = pixels.mean(axis=1)
+        ds = pixels.var(axis=1, ddof=1)
+        n_a, n = n, n + n_b
+        delta = dm - mean
+        mean += delta * n_b / n
+        m2 += ds * (n_b - 1) + delta ** 2 * n_a * n_b / n
+    return mean.tolist(), np.sqrt(m2 / max(n - 1, 1)).tolist()
+
+
 def split_dataset(dataset: VisionDataset, cfg_data, user_idx: int, return_full_dataset=False):
     if return_full_dataset:
         return dataset

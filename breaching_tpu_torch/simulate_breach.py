@@ -5,10 +5,14 @@
 Overrides take the JAX package's ``key=value`` form. From the command line it runs
 on the CUDA device; ``main_process(cfg, device="cpu")`` runs the same on the CPU.
 It logs the attack's progress and a ``METRICS:`` line with the reconstruction's
-quality (``analysis.report``). With ``case.server.feature_estimation_users`` N > 0 the
-fishing server first polls the users of the next N ``user_idx`` slots to estimate the
-target class's feature distribution, then cuts the target user. Not ported: the summary
-table and the saved reconstruction of the JAX entry point.
+quality (``analysis.report``), appends the run's row to
+``<base_dir>/tables/table_breach_<case>.csv``, writes the metrics to
+``<base_dir>/metrics_<name>.yaml`` and, with ``save_reconstruction=True``, the
+reconstruction to ``<base_dir>/reconstructions/``; a dry run writes no table row, as in
+the JAX package. With
+``case.server.feature_estimation_users`` N > 0 the fishing server first polls the users
+of the next N ``user_idx`` slots to estimate the target class's feature distribution,
+then cuts the target user.
 """
 
 from __future__ import annotations
@@ -24,10 +28,11 @@ log = logging.getLogger(__name__)
 
 
 def main_process(cfg, device="cuda", outputs=None):
-    """Build the case and the attacker, run the exchange and the attack, and report
-    (reference simulate_breach.py:22-58). Returns the metrics. ``outputs``, where given,
+    """Build the case and the attacker, run the exchange and the attack, report, and
+    write the run's records (reference simulate_breach.py:22-58). Returns the metrics. ``outputs``, where given,
     receives what the JAX entry point saves beside them: the user, the server, the
     attack's stats, the reconstruction and the user's true data."""
+    total_time = time.time()
     n_extra = int(cfg.case.server.get("feature_estimation_users", 0) or 0)
     if n_extra and cfg.case.server.name not in ("class_malicious_parameters", "malicious_fishing"):
         raise NotImplementedError(f"Feature-estimation users need the class-parameter (fishing) server, not "
@@ -54,9 +59,13 @@ def main_process(cfg, device="cuda", outputs=None):
     if outputs is not None:
         outputs.update(user=user, server=server, stats=stats, reconstruction=reconstructed_user_data,
                        true=true_user_data)
-    return breaching.analysis.report(reconstructed_user_data, true_user_data, payloads, server.model,
-                                     order_batch=True, compute_full_iip=False, cfg_case=cfg.case,
-                                     setup=setup)
+    metrics = breaching.analysis.report(reconstructed_user_data, true_user_data, payloads, server.model,
+                                        order_batch=True, compute_full_iip=False, cfg_case=cfg.case, setup=setup)
+    breaching.utils.save_summary(cfg, metrics, stats, time.time() - total_time)
+    breaching.utils.dump_metrics(cfg, metrics)
+    if cfg.save_reconstruction:
+        breaching.utils.save_reconstruction(reconstructed_user_data, payloads, true_user_data, cfg)
+    return metrics
 
 
 def main_launcher(argv=None):

@@ -99,7 +99,21 @@ Phases, one line each on standard output:
      package's test's feat_multiplier of 30000, which must take at least two cutoff queries
      and leave fewer than the 50 images behind the final gradient, 7e ``sanity_check`` (the
      ``linear`` model on ImageNet shapes, exact to MSE < 1e-6); 7a, 7a', 7b and 7e launch
-     no port kernel; for each: set-up
+     no port kernel; slice 10, the full report and the run's records: the port's
+     ``benchmark_breaches`` on case 2 (ResNet-18 on its checkpoint at 224) as one wave of
+     8 users, 50 steps of the fused cosine objective (B1 once a step for each user, the
+     cosine backward, the fused TV kernel and the Adam step once a step for all 8), every
+     user reported with ``compute_full_iip=True`` and LPIPS on random AlexNet weights from
+     ``LPIPS.random_init``: a report of every key of the JAX package's for each of the 8
+     users (a user's failure fails the phase), registered PSNR at least the PSNR, the
+     benchmark table of 8 rows and the averaged row, 8 PNGs of 224x224x3 holding the
+     reconstructions' pixels, the report's seconds per user and in its registered PSNR,
+     DTCWT CW-SSIM, LPIPS and IIP, and user 7's report held against the same tensors'
+     report on the CPU (the CPU tests' tolerances; registered PSNR to 0.1 dB), and every
+     user's registered PSNR registered again on the card and on the CPU in float32 and
+     float64 (the card held to the CPU's float32 to 0.1 dB); then ``simulate_breach`` on
+     slice 1 (100 steps) with ``save_reconstruction=True``, whose table row, metrics YAML
+     (read back to the metrics) and PNG it checks; for each: set-up
      seconds, loss at the start and end of every trial, PSNR and SSIM (of the
      batch put in the true images' order, and the order), it/s (the fleet's aggregate; with L-BFGS also the
      objective's evaluations per second), peak memory and launches per step;
@@ -141,7 +155,7 @@ restarts the cosine backward too), an
 attack's loss does not fall (on slice 4: its best value stays at its first, or a
 loss is not finite; on slice 5a: a stage's), an experiment of the fleet does not
 keep its own labels, a batch's order is not a permutation, or a check of slice 6
-fails. A loss that turns non-finite fails every path but the fedAVG users' (slices
+or slice 10 fails. A loss that turns non-finite fails every path but the fedAVG users' (slices
 3, 5d and 6c): there the simulated local SGD of the fedAVG user can overflow float32 on the attack's candidates, as it does in the
 JAX package, and the attack stops at such a candidate. The same local steps at
 that candidate, in float64 on the CPU, must then reach a magnitude above 1e30
@@ -265,6 +279,26 @@ CHECKPOINT50 = os.path.join(REPO, "assets", "checkpoints", "ResNet50.npz")
 # sums of such terms in a convolution's backward leave float32 (largest value 3.4e38)
 DIVERGED = 1e30
 CHECKPOINT = os.path.join(REPO, "assets", "checkpoints", "ResNet18.npz")
+# slice 10: the full report and the run's records, through the port's benchmark_breaches on
+# case 2 (ResNet-18 at 224 on its checkpoint) as one wave of 8 users, 50 steps of the fused
+# cosine objective, every user reported with its IIP scores and LPIPS (random weights from
+# the port's own LPIPS.random_init); then simulate_breach's records on slice 1
+BENCHMARK = ["case=2_single_imagenet", "attack=invertinggradients", "attack.objective.type=fused-cosine-similarity",
+             "num_trials=8", "fleet=8", "attack.optim.max_iterations=50", "attack.optim.callback=25",
+             "save_reconstruction=True", "seed=7", "name=fleet"]
+BENCHMARK_USERS, BENCHMARK_STEPS, RECORDS_STEPS = 8, 50, 100
+REPORT_KEYS = ("mse", "psnr", "ssim", "cw_ssim", "gabor_cw_ssim", "rpsnr", "max_mse", "lpips", "order", "IIP-pixel",
+               "IIP-lpips", "IIP-self", "label_acc", "feat_mse", "parameters")
+# one user's report on the card against the same tensors' on the CPU, at the tolerances the
+# CPU tests hold the port to the JAX package (tests/test_torch_metrics_full.py): relative,
+# absolute for the indices in [-1, 1], and exact for the IIP, the labels and the count.
+# Registered PSNR runs 500 Adam steps of registration on each side, and float32 rounding
+# moves where they end: on the H100 user 7 of BENCHMARK ended 0.028 dB from the CPU (the card
+# 0.033 dB and the CPU 0.0055 dB from the CPU's float64 registration), past a first 1e-3 dB.
+# Held to 0.1 dB; check_rpsnr_of_every_user prints each user's gaps to the CPU and float64
+REPORT_RELATIVE = dict(mse=1e-5, psnr=1e-5, max_mse=1e-5, lpips=1e-5, feat_mse=1e-4)
+REPORT_ABSOLUTE = dict(ssim=1e-5, cw_ssim=1e-5, gabor_cw_ssim=1e-5)
+RPSNR_TOLERANCE = 0.1
 # H100 SXM peaks (NVIDIA data sheet): HBM bytes/s and float32 FLOP/s outside the tensor cores.
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_PER_S = 67e12
@@ -1525,6 +1559,275 @@ def run_slice7_paths(breaching, ops):
     return paths
 
 
+@contextlib.contextmanager
+def timed_report_parts(breaching):
+    """The seconds of every report and of its registered PSNR, DTCWT CW-SSIM, LPIPS
+    distance and IIP (the last with its LPIPS and model features), each call between two
+    synchronizations of the card: label -> list of seconds."""
+    from breaching_tpu_torch.analysis import analysis, lpips
+
+    seconds = {}
+    targets = [(breaching.analysis, "report", "report"), (analysis.M, "registered_psnr", "registered PSNR"),
+               (analysis, "dtcwt_cw_ssim", "DTCWT CW-SSIM"), (lpips.LPIPS, "__call__", "LPIPS"),
+               (analysis, "_compute_iip", "IIP")]
+    originals = [(owner, name, getattr(owner, name)) for owner, name, _ in targets]
+    for (owner, name, label), (_, _, real) in zip(targets, originals):
+        def timed(*args, _real=real, _label=label, **kwargs):
+            torch.cuda.synchronize()
+            start = time.perf_counter()
+            out = _real(*args, **kwargs)
+            torch.cuda.synchronize()
+            seconds.setdefault(_label, []).append(time.perf_counter() - start)
+            return out
+
+        setattr(owner, name, timed)
+    try:
+        yield seconds
+    finally:
+        for owner, name, real in originals:
+            setattr(owner, name, real)
+
+
+def read_png(path):
+    """The (H, W, 3) uint8 pixels of an 8-bit RGB PNG whose rows carry no filter, as
+    ``utils.write_png`` writes them (the machine with the card has no PIL)."""
+    import struct
+    import zlib
+
+    with open(path, "rb") as fh:
+        blob = fh.read()
+    require(blob[:8] == b"\x89PNG\r\n\x1a\n", f"{path} is not a PNG")
+    pos, idat, header = 8, b"", None
+    while pos < len(blob):
+        length, tag = struct.unpack(">I4s", blob[pos:pos + 8])
+        body = blob[pos + 8:pos + 8 + length]
+        require(zlib.crc32(tag + body) == struct.unpack(">I", blob[pos + 8 + length:pos + 12 + length])[0],
+                f"{path}: bad CRC in {tag}")
+        if tag == b"IHDR":
+            header = struct.unpack(">IIBBBBB", body)
+        elif tag == b"IDAT":
+            idat += body
+        pos += 12 + length
+    width, height, depth, color = header[:4]
+    require(depth == 8 and color == 2, f"{path}: not 8-bit RGB: {header}")
+    rows = np.frombuffer(zlib.decompress(idat), np.uint8).reshape(height, 1 + 3 * width)
+    require(not rows[:, 0].any(), f"{path}: filtered rows")
+    return rows[:, 1:].reshape(height, width, 3)
+
+
+def saved_pixels(data, metadata):
+    """The 8-bit pixels a reconstruction's images should be saved as: denormalized,
+    clipped and truncated as ``(img * 255).astype(np.uint8)`` truncates."""
+    rec = np.transpose(data.detach().cpu().numpy().astype(np.float32), (0, 2, 3, 1))
+    rec = np.clip(rec * np.asarray(metadata.std) + np.asarray(metadata.mean), 0, 1)
+    return (rec * 255).astype(np.uint8)
+
+
+def read_table(path):
+    require(os.path.exists(path), f"{path} was not written")
+    with open(path) as fh:
+        return [line.rstrip("\n").split("\t") for line in fh]
+
+
+def check_report_on_cpu(breaching, cfg, model, reported):
+    """One user's report on the card against the report of the same tensors on the CPU
+    (``compute_full_iip=True``, the same LPIPS weights)."""
+    import copy
+
+    user_idx, card, _, rec, true, payloads = reported
+
+    def cpu(tree):
+        return {k: v.cpu() if isinstance(v, torch.Tensor) else v for k, v in tree.items()}
+
+    payload = dict(payloads[0], parameters=cpu(payloads[0]["parameters"]),
+                   buffers=None if payloads[0]["buffers"] is None else cpu(payloads[0]["buffers"]))
+    start = time.perf_counter()
+    on_cpu = breaching.analysis.report(cpu(rec), cpu(true), [payload], copy.deepcopy(model).cpu(), order_batch=True,
+                                       compute_full_iip=True, cfg_case=cfg.case)
+    seconds = time.perf_counter() - start
+    failed = []
+    for key in REPORT_KEYS:
+        a, b = card[key], on_cpu[key]
+        if key in REPORT_RELATIVE:
+            ok = a == b or abs(a - b) <= REPORT_RELATIVE[key] * abs(b)
+        elif key in REPORT_ABSOLUTE:
+            ok = abs(a - b) <= REPORT_ABSOLUTE[key]
+        elif key == "rpsnr":
+            ok = abs(a - b) <= RPSNR_TOLERANCE
+        elif key == "order":
+            ok = (a is None and b is None) or np.array_equal(a, b)
+        else:
+            ok = a == b or (isinstance(a, float) and math.isnan(a) and math.isnan(b))
+        if not ok:
+            failed.append(key)
+        print(f"slice 10 report user {user_idx} card against CPU: {key} card={a} cpu={b}"
+              f"{'' if ok else ' FAILED'}", flush=True)
+    print(f"slice 10 report user {user_idx}: registered PSNR card={card['rpsnr']:.6f} cpu={on_cpu['rpsnr']:.6f} "
+          f"(|difference| {abs(card['rpsnr'] - on_cpu['rpsnr']):.3e} dB, tolerance {RPSNR_TOLERANCE:.0e}); the CPU's "
+          f"report took {seconds:.1f} s", flush=True)
+    require(not failed, f"slice 10: user {user_idx}'s report on the card disagrees with the CPU in {failed}")
+
+
+def check_rpsnr_of_every_user(reports):
+    """Registered PSNR of every benchmark user on the same tensors: the card's report,
+    the card once more, the CPU in float32 and the CPU in float64. Each user's card
+    figure is held to the CPU's float32 within ``RPSNR_TOLERANCE``; the gaps to float64
+    say whether the card's registration drifts further than the CPU's."""
+    from breaching_tpu_torch.analysis import metrics as M
+
+    def den(x, metadata, device, dtype):
+        dm, ds = (torch.as_tensor(v, dtype=dtype, device=device).reshape(1, -1, 1, 1)
+                  for v in (metadata.mean, metadata.std))
+        return torch.clamp(x["data"].detach().to(device, dtype) * ds + dm, 0, 1)
+
+    gaps, start = [], time.perf_counter()
+    for user_idx, metrics, _, rec, true, payloads in reports:
+        metadata = payloads[0]["metadata"]
+        again = float(M.registered_psnr(den(rec, metadata, DEVICE, torch.float32),
+                                        den(true, metadata, DEVICE, torch.float32)))
+        cpu32, cpu64 = (float(M.registered_psnr(den(rec, metadata, "cpu", dtype), den(true, metadata, "cpu", dtype)))
+                        for dtype in (torch.float32, torch.float64))
+        card = metrics["rpsnr"]
+        gaps.append((abs(card - cpu32), abs(card - cpu64), abs(cpu32 - cpu64), abs(card - again)))
+        print(f"slice 10 registered PSNR user {user_idx}: card={card:.6f} card again={again:.6f} "
+              f"cpu float32={cpu32:.6f} cpu float64={cpu64:.6f}; |card - cpu| {gaps[-1][0]:.3e} dB, from float64 "
+              f"the card {gaps[-1][1]:.3e} and the CPU {gaps[-1][2]:.3e}", flush=True)
+    card_cpu, card_64, cpu_64, rerun = (np.asarray(g) for g in zip(*gaps))
+    print(f"slice 10 registered PSNR of {len(gaps)} users: |card - cpu| max {card_cpu.max():.3e} mean "
+          f"{card_cpu.mean():.3e} dB (tolerance {RPSNR_TOLERANCE:.0e}); from float64 the card max {card_64.max():.3e} "
+          f"mean {card_64.mean():.3e}, the CPU max {cpu_64.max():.3e} mean {cpu_64.mean():.3e}; the card's second "
+          f"registration off its report's by at most {rerun.max():.3e} dB; {time.perf_counter() - start:.1f} s",
+          flush=True)
+    require(card_cpu.max() <= RPSNR_TOLERANCE, f"slice 10: registered PSNR on the card is {card_cpu.max():.3e} dB "
+            f"from the CPU's, past {RPSNR_TOLERANCE}")
+
+
+def run_benchmark(breaching, ops, tmp):
+    """Phase 5, slice 10: the port's ``benchmark_breaches.main_process`` on ``BENCHMARK``,
+    the launch counts set to 0 just before it and read just after. Requires a report of
+    every key for each of the 8 users (no user's failure swallowed), registered PSNR at
+    least the PSNR, the benchmark table (a header and 8 rows) and the averaged row, 8 PNGs
+    of 224x224x3 with the reconstructions' pixels, and the fused path's launches: B1 once
+    a step for every user, the cosine backward, the fused TV kernel and the Adam step once
+    a step for all 8. Returns the launch counts."""
+    from breaching_tpu_torch import benchmark_breaches
+
+    weight_overrides, weights = resnet_weights()
+    run_dir = os.path.join(tmp, "benchmark")
+    cfg = breaching.get_config(BENCHMARK + weight_overrides + [f"base_dir={run_dir}"])
+    outputs = {}
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    start = time.perf_counter()
+    with timed_report_parts(breaching) as seconds:
+        average = benchmark_breaches.main_process(cfg, device=DEVICE, outputs=outputs)
+    torch.cuda.synchronize()
+    total = time.perf_counter() - start
+    launches = ops.launch_counts()
+    reports = outputs["reports"]
+    print(f"slice 10 benchmark: ResNet-18 on {weights}, {BENCHMARK_USERS} users of 1 image of "
+          f"{tuple(cfg.case.data.shape)} in one wave, {BENCHMARK_STEPS} fused-cosine steps; {total:.2f} s in all; "
+          f"peak memory {torch.cuda.max_memory_allocated() / 2**30:.3f} GiB; launches "
+          f"{ {k: v for k, v in launches.items() if v} }; failures "
+          f"{[(users, repr(e)) for users, e in outputs['failures']]}", flush=True)
+    require(not outputs["failures"], f"slice 10: users failed in the benchmark: {outputs['failures']}")
+    require([r[0] for r in reports] == list(range(BENCHMARK_USERS)), f"slice 10: users reported "
+            f"{[r[0] for r in reports]}")
+    for user_idx, metrics, stats, rec, true, payloads in reports:
+        losses = stats["Trial_0_Val"]
+        print(f"slice 10 user {user_idx}: loss first={losses[0]:.6f} last={losses[-1]:.6f}; " + ", ".join(
+            f"{k}={metrics[k]:.6g}" if isinstance(metrics[k], float) else f"{k}={metrics[k]}" for k in REPORT_KEYS),
+            flush=True)
+        missing = [k for k in REPORT_KEYS if k not in metrics]
+        require(not missing, f"slice 10: user {user_idx}'s report lacks {missing}")
+        require(math.isfinite(metrics["lpips"]), f"slice 10: user {user_idx}'s LPIPS is not finite")
+        require(metrics["rpsnr"] >= metrics["psnr"], f"slice 10: user {user_idx}'s registered PSNR "
+                f"{metrics['rpsnr']} is below its PSNR {metrics['psnr']}")
+        require(len(losses) == BENCHMARK_STEPS and all(map(math.isfinite, losses)) and min(losses) < losses[0],
+                f"slice 10: user {user_idx}'s loss did not fall, or is not finite")
+        pixels = read_png(os.path.join(run_dir, "reconstructions", f"{cfg.name}_user{user_idx}_rec_0.png"))
+        require(pixels.shape == (*cfg.case.data.shape[1:], 3) and np.array_equal(pixels, saved_pixels(
+            rec["data"], payloads[0]["metadata"])[0]), f"slice 10: user {user_idx}'s PNG is not its reconstruction")
+    rows = read_table(os.path.join(run_dir, "tables", f"table_benchmark_{cfg.case.name}.csv"))
+    require(len(rows) == 1 + BENCHMARK_USERS and all(k in rows[0] for k in REPORT_KEYS),
+            f"slice 10: the benchmark table has {len(rows)} lines, header {rows[0]}")
+    bench = read_table(os.path.join(tmp, "outputs", "tables",
+                                    f"BENCHMARK_breach_{cfg.case.name}_{cfg.attack.type}.csv"))
+    require(len(bench) == 2 and bench[0] == list(average), f"slice 10: the averaged table holds {bench}")
+    want = dict(b1_matching_sums=BENCHMARK_USERS * BENCHMARK_STEPS, b2_cosine_backward=BENCHMARK_STEPS,
+                b3_tv_value_and_grad=BENCHMARK_STEPS, b4_adam_box_step=BENCHMARK_STEPS)
+    require({k: v for k, v in launches.items() if v} == want, f"slice 10: launches {launches}, the path needs {want}")
+    per_user = {label: sum(times) / BENCHMARK_USERS for label, times in seconds.items()}
+    shape = "x".join(map(str, (1, *cfg.case.data.shape)))
+    print(f"slice 10 report seconds per user (mean of {BENCHMARK_USERS}, {shape}, IIP pool of "
+          f"{cfg.case.impl.get('iip_pool_cap', 256)}): " + ", ".join(f"{k} {v:.3f}" for k, v in per_user.items())
+          + f"; report calls {[round(t, 3) for t in seconds['report']]}", flush=True)
+    print(f"slice 10 average row: {average}", flush=True)
+    check_report_on_cpu(breaching, cfg, outputs["model"], reports[-1])
+    check_rpsnr_of_every_user(reports)
+    return launches
+
+
+def run_simulate_records(breaching, ops, tmp):
+    """Phase 5, slice 10: ``simulate_breach.main_process`` on slice 1 (fused cosine,
+    ``RECORDS_STEPS`` steps) with ``save_reconstruction=True``: its table row, its
+    metrics' YAML (read back by ``config.loader.parse_yaml`` to the metrics themselves)
+    and its PNG (the reconstruction's pixels). Returns the launch counts."""
+    from breaching_tpu_torch.config.loader import parse_yaml
+    from breaching_tpu_torch.simulate_breach import main_process
+
+    run_dir = os.path.join(tmp, "simulate")
+    cfg = breaching.get_config(SLICE + [f"attack.optim.max_iterations={RECORDS_STEPS}", "attack.optim.callback=50",
+                                        "save_reconstruction=True", "seed=0", "name=records", f"base_dir={run_dir}"])
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    outputs = {}
+    metrics = main_process(cfg, device=DEVICE, outputs=outputs)
+    torch.cuda.synchronize()
+    launches = ops.launch_counts()
+    rows = read_table(os.path.join(run_dir, "tables", f"table_breach_{cfg.case.name}.csv"))
+    with open(os.path.join(run_dir, f"metrics_{cfg.name}.yaml")) as fh:
+        loaded = parse_yaml(fh.read())
+    pixels = read_png(os.path.join(run_dir, "reconstructions", f"{cfg.name}_rec_0.png"))
+    print(f"slice 10 simulate_breach records: table of {len(rows)} lines ({len(rows[0])} columns), metrics YAML of "
+          f"{len(loaded)} keys, PNG of {pixels.shape}; PSNR={metrics['psnr']:.3f} R-PSNR={metrics['rpsnr']:.3f}; "
+          f"launches { {k: v for k, v in launches.items() if v} }", flush=True)
+    require(len(rows) == 2 and all(k in rows[0] for k in REPORT_KEYS if not k.startswith("IIP")),
+            f"slice 10: simulate_breach's table holds {rows}")
+    same = sorted(loaded) == sorted(metrics) and all(loaded[k] == v or (
+        isinstance(v, float) and math.isnan(v) and math.isnan(loaded[k])) for k, v in metrics.items())
+    require(same, f"slice 10: the metrics' YAML reads back as {loaded}, not {metrics}")
+    require(pixels.shape == (*cfg.case.data.shape[1:], 3) and np.array_equal(pixels, saved_pixels(
+        outputs["reconstruction"]["data"], cfg.case.data)[0]),
+        "slice 10: simulate_breach's PNG is not its reconstruction")
+    want = {name: RECORDS_STEPS for name in SLICE_KERNELS}
+    require({k: v for k, v in launches.items() if v} == want, f"slice 10: launches {launches}, the path needs {want}")
+    return launches
+
+
+def run_records(breaching, ops):
+    """Phase 5, slice 10, in a temporary directory that is also the working directory
+    (the averaged benchmark row goes to ``outputs/tables`` there), with LPIPS weights that
+    ``LPIPS.random_init`` draws from a seeded generator. Returns the launch counts by path."""
+    from breaching_tpu_torch.analysis.lpips import LPIPS
+
+    previous = os.environ.get("BREACHING_LPIPS_WEIGHTS")
+    with tempfile.TemporaryDirectory() as tmp, contextlib.chdir(tmp):
+        weights = os.path.join(tmp, "lpips_alex.npz")
+        LPIPS.random_init("alex", generator=torch.Generator().manual_seed(0)).save_npz(weights)
+        os.environ["BREACHING_LPIPS_WEIGHTS"] = weights
+        try:
+            return {"slice 10 benchmark fleet": run_benchmark(breaching, ops, tmp),
+                    "slice 10 simulate_breach records": run_simulate_records(breaching, ops, tmp)}
+        finally:
+            if previous is None:
+                os.environ.pop("BREACHING_LPIPS_WEIGHTS", None)
+            else:
+                os.environ["BREACHING_LPIPS_WEIGHTS"] = previous
+
+
 def bound(bytes_moved, flops):
     t_bytes, t_ops = bytes_moved / PEAK_BYTES_PER_S, flops / PEAK_F32_PER_S
     return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
@@ -1917,6 +2220,8 @@ def main():
         paths["slice 6e checkpointed run"], paths["slice 6e resumed run"] = run_resume(breaching, ops, tmp)
         paths["slice 6f trace_dir"] = run_trace(breaching, ops, tmp)
     paths.update(run_slice7_paths(breaching, ops))
+    print(f"chip_smoke: slice 7 done at {time.perf_counter() - began:.1f} s", flush=True)
+    paths.update(run_records(breaching, ops))
 
     print(f"chip_smoke: phase 5 done at {time.perf_counter() - began:.1f} s", flush=True)
     timings = time_kernels(ops, n_params, image_shape)

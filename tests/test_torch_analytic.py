@@ -91,7 +91,9 @@ def test_analytic_attack_on_the_linear_model_matches_jax(num_data_points):
         assert float(torch.mean((rec["data"] - true["data"]) ** 2)) < 1e-6
 
 
-def test_sanity_check_through_the_entry_point_is_exact():
-    metrics = main_process(breaching.get_config(SANITY + ["case.user.num_data_points=1"]), device="cpu")
+def test_sanity_check_through_the_entry_point_is_exact(tmp_path):
+    cfg = breaching.get_config(SANITY + ["case.user.num_data_points=1"])
+    cfg.base_dir = str(tmp_path)  # the run's records stay out of the checkout
+    metrics = main_process(cfg, device="cpu")
     assert metrics["mse"] < 1e-6 and metrics["label_acc"] == 1.0
     assert metrics["parameters"] == 16 * 16 * 3 * 10 + 10

@@ -169,6 +169,16 @@ def test_unported_options_are_refused(override, name):
         attacker.reconstruct(payloads, shared, server.secrets, dryrun=True)
 
 
+@pytest.mark.parametrize("modality", ["text", "audio"])
+def test_unported_modality_is_refused(modality):
+    """A data modality the port has no datasets for is refused by name, as the attack
+    options above are."""
+    cfg = breaching.get_config(SLICE)
+    cfg.case.data.modality = modality
+    with pytest.raises(NotImplementedError, match=modality):
+        breaching.cases.construct_dataloader(cfg.case.data, cfg.case.impl)
+
+
 @pytest.mark.parametrize("optimizer,trials", [("adam", 1), ("adam", 2), ("L-BFGS", 1)])
 def test_an_interrupt_returns_the_best_iterate_so_far(optimizer, trials, monkeypatch):
     """Ctrl-C at the start of step k (here k = 3, inside the second readout chunk of 2

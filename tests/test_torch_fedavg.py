@@ -312,11 +312,12 @@ def test_restarts_and_fleets_of_fedavg_users_are_refused(convnet):
     ["case.user.num_local_updates=4", "case.user.num_data_per_local_update_step=2",
      "case.user.provide_labels=True", "case.user.user_idx=1"],  # the notebook preset
 ], ids=["case-defaults", "notebook-preset"])
-def test_entry_point_dry_run_on_the_cpu(overrides, caplog):
+def test_entry_point_dry_run_on_the_cpu(overrides, caplog, tmp_path):
     """Case 4 (ResNet-18 on the repo's checkpoint, ImageNetAnimals cut to 32x32)
     through ``main_process``; the report orders the batch of 4."""
     cfg = breaching.get_config(["case=4_fedavg_small_scale", "attack=invertinggradients", "dryrun=True",
                                 "case.data.shape=[3, 32, 32]", "case.data.batch_size=4", "seed=7"] + overrides)
+    cfg.base_dir = str(tmp_path)  # the run's records stay out of the checkout
     with caplog.at_level(logging.INFO):
         metrics = main_process(cfg, device="cpu")
     assert "User (of type UserMultiStep)" in caplog.text and "METRICS: | MSE:" in caplog.text

@@ -187,7 +187,8 @@ def test_classattack_utils_match_jax():
     np.testing.assert_array_equal(e["server"]._recover_labels(bias, 5), e["j_server"]._recover_labels(bias, 5))
 
 
-def test_entry_point_runs_the_feature_estimation_users():
+def test_entry_point_runs_the_feature_estimation_users(tmp_path):
     cfg = breaching.get_config(FEATURE_ESTIMATION + ["case.server.feature_estimation_users=3", "dryrun=True"])
+    cfg.base_dir = str(tmp_path)  # the run's records stay out of the checkout
     metrics = main_process(cfg, device="cpu")
     assert np.isfinite(metrics["mse"]) and metrics["label_acc"] == 1.0

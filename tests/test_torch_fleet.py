@@ -256,11 +256,12 @@ def test_other_label_strategies_are_refused():
             [dict(gradients={}, metadata=dict(num_data_points=1, labels=None))])
 
 
-def test_entry_point_dry_run_on_the_cpu(caplog):
+def test_entry_point_dry_run_on_the_cpu(caplog, tmp_path):
     """The slice-2 case at a reduced image size (ResNet-18 on the repo's checkpoint at
     32x32, labels left to the attack) through ``main_process``."""
     cfg = breaching.get_config(["case=2_single_imagenet", "attack=invertinggradients", "dryrun=True",
                                 "case.data.shape=[3, 32, 32]", "case.data.batch_size=2", "seed=7"])
+    cfg.base_dir = str(tmp_path)  # the run's records stay out of the checkout
     with caplog.at_level(logging.INFO):
         metrics = main_process(cfg, device="cpu")
     assert "METRICS: | MSE:" in caplog.text

@@ -1,5 +1,5 @@
-"""The PyTorch port and chip_smoke.py import nothing of JAX, its libraries, PyYAML or
-the JAX package: the machine with the card has none of them."""
+"""The PyTorch port and chip_smoke.py import nothing of JAX, its libraries, PyYAML, PIL
+or the JAX package: the machine with the card has none of them."""
 
 import os
 import subprocess
@@ -11,7 +11,7 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SCRIPT = textwrap.dedent("""
     import importlib, importlib.abc, os, pkgutil, sys
 
-    BANNED = ("jax", "jaxlib", "flax", "optax", "chex", "yaml", "breaching_tpu")
+    BANNED = ("jax", "jaxlib", "flax", "optax", "chex", "yaml", "PIL", "breaching_tpu")
 
     class Refuse(importlib.abc.MetaPathFinder):
         def find_spec(self, name, path=None, target=None):

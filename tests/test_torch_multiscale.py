@@ -161,11 +161,12 @@ def test_three_stages_match_jax(augmented, monkeypatch):
     assert np.isfinite(metrics["psnr"])
 
 
-def test_multiscale_dry_run_through_the_entry_point():
+def test_multiscale_dry_run_through_the_entry_point(tmp_path):
     """``attack=multiscale_ghiasi`` through ``main_process``: a dry run stops after stage 0
     and resizes its result to the full shape."""
     cfg = breaching.get_config(["case=2_single_imagenet", "case.data.shape=[3, 32, 32]", "case.model=resnet18",
                                 "attack=multiscale_ghiasi", "dryrun=True", "seed=7"])
+    cfg.base_dir = str(tmp_path)  # the run's records stay out of the checkout
     metrics = main_process(cfg, device="cpu")
     assert np.isfinite(metrics["mse"]) and np.isfinite(metrics["psnr"])
 

@@ -152,8 +152,9 @@ def test_unported_label_strategies_are_refused(four_images):
 # ---------------------------------------------------------------- presets
 
 @pytest.mark.parametrize("preset", sorted(PRESETS))
-def test_preset_dry_run_through_the_entry_point(preset, caplog):
+def test_preset_dry_run_through_the_entry_point(preset, caplog, tmp_path):
     cfg = breaching.get_config(PRESETS[preset] + ["dryrun=True"])
+    cfg.base_dir = str(tmp_path)  # the run's records stay out of the checkout
     metrics = main_process(cfg, device="cpu")
     assert np.isfinite(metrics["mse"]) and np.isfinite(metrics["psnr"])
     assert 0.0 <= metrics["label_acc"] <= 1.0

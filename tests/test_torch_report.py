@@ -104,8 +104,9 @@ def batch_cases():
 def test_report_on_a_batch_of_4_matches_the_jax_package(batch_cases, with_labels):
     """The truth shuffled and perturbed as the reconstruction: the report orders it
     back, and its order, PSNR, SSIM, worst-image MSE and label accuracy are the JAX
-    package's; LPIPS is NaN on both (no LPIPS weights in the repo). Without labels the
-    JAX package also takes the feature-space MSE in the new order, and it agrees."""
+    package's; LPIPS is NaN on both (no LPIPS weights in the repo). The feature-space
+    MSE agrees in both cases: without labels both packages take it in the new order,
+    with labels in the caller's own (the order then stays out of the caller's dict)."""
     port, ref = batch_cases
     truth = port["true"]["data"].numpy()
     rng = np.random.default_rng(5)
@@ -127,4 +128,4 @@ def test_report_on_a_batch_of_4_matches_the_jax_package(batch_cases, with_labels
         assert got["label_acc"] == want["label_acc"] == 1.0
     else:
         assert np.isnan(got["label_acc"]) and np.isnan(want["label_acc"])
-        assert got["feat_mse"] == pytest.approx(want["feat_mse"], rel=1e-4)
+    assert got["feat_mse"] == pytest.approx(want["feat_mse"], rel=1e-4)
