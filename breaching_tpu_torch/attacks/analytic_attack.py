@@ -1,19 +1,24 @@
 """Analytic attacks (counterpart of ``breaching_tpu/attacks/analytic_attack.py``): the FC
-inversion of a linear model (``AnalyticAttacker``, ``attack_type: analytic``) and the
-readout of a malicious imprint block (``ImprintAttacker``, ``imprint-readout``).
+inversion of a linear model (``AnalyticAttacker``, ``attack_type: analytic``), the
+readout of a malicious imprint block (``ImprintAttacker``, ``imprint-readout``) and
+APRIL's closed-form inversion of a ViT (``AprilAttacker``, ``april-analytic``).
 
-Both are a few tensor operations on the user's gradient, a product, a difference, a
-division and a selection, run where the gradient lies. The readout's weight-over-bias
-division cancels the common factor of a bin's rows only if both were computed in full
-float32: ``system_startup`` turns TF32 off on the card. The recovered rows are in the JAX
-package's (H, W, C) order and are reshaped to NCHW here. ``AprilAttacker`` (it needs the
-ViT) is not ported.
+The first two are a few tensor operations on the user's gradient, a product, a
+difference, a division and a selection, run where the gradient lies. The readout's
+weight-over-bias division cancels the common factor of a bin's rows only if both were
+computed in full float32: ``system_startup`` turns TF32 off on the card. The recovered
+rows are in the JAX package's (H, W, C) order and are reshaped to NCHW here; a deep
+placement's rows, read at a feature map smaller than the input, are resized to it with
+``jax.image.resize``'s cubic interpolation (``cubic_resize``). APRIL's two least-squares
+solves run in float64 on the host with ``numpy.linalg.lstsq``, as the JAX package runs
+them.
 """
 
 from __future__ import annotations
 
 import logging
 
+import numpy as np
 import torch
 
 from ..cases.models.model_preparation import head_grads
@@ -35,6 +40,37 @@ def invert_fc_layer(weight_grad, bias_grad, image_positions=None, eps=1e-12):
         valid = (bias_grad.abs() > eps).to(weight_grad.dtype)
         return (intermediates * valid[:, None]).sum(dim=0) / torch.clamp(valid.sum(), min=1)
     return intermediates[torch.as_tensor(image_positions, device=weight_grad.device).long()]
+
+
+def _keys_cubic(x: torch.Tensor) -> torch.Tensor:
+    """Keys' cubic kernel (a = -0.5) at distances x >= 0, as jax.image's."""
+    out = ((1.5 * x - 2.5) * x) * x + 1.0
+    out = torch.where(x >= 1.0, ((-0.5 * x + 2.5) * x - 4.0) * x + 2.0, out)
+    return torch.where(x >= 2.0, torch.zeros_like(x), out)
+
+
+def _cubic_weights(in_size: int, out_size: int, device) -> torch.Tensor:
+    """jax.image's (in_size, out_size) weights of a cubic resize with antialiasing:
+    half-pixel sample positions, the kernel widened by the scale where it shrinks, each
+    output's weights divided by their sum (0 where the sum is within 1000 float32 eps of
+    0), and 0 for a sample outside the input."""
+    inv_scale = torch.tensor(1.0 / (out_size / in_size), dtype=torch.float32, device=device)
+    sample = (torch.arange(out_size, dtype=torch.float32, device=device) + 0.5) * inv_scale - 0.5
+    x = (sample[None, :] - torch.arange(in_size, dtype=torch.float32, device=device)[:, None]).abs()
+    weights = _keys_cubic(x / torch.clamp(inv_scale, min=1.0))
+    total = weights.sum(dim=0, keepdim=True)
+    weights = torch.where(total.abs() > 1000.0 * float(np.finfo(np.float32).eps),
+                          weights / torch.where(total != 0, total, torch.ones_like(total)), torch.zeros_like(weights))
+    inside = (sample >= -0.5) & (sample <= in_size - 0.5)
+    return torch.where(inside[None, :], weights, torch.zeros_like(weights))
+
+
+def cubic_resize(x: torch.Tensor, size) -> torch.Tensor:
+    """NCHW images resized to ``size`` (H, W) as ``jax.image.resize(..., "cubic")``
+    resizes NHWC ones: separable Keys cubic weights, one contraction per spatial axis."""
+    wh = _cubic_weights(x.shape[2], int(size[0]), x.device).to(x.dtype)
+    ww = _cubic_weights(x.shape[3], int(size[1]), x.device).to(x.dtype)
+    return torch.einsum("nchw,hy,wz->ncyz", x, wh, ww)
 
 
 class AnalyticAttacker(_BaseAttacker):
@@ -118,8 +154,55 @@ class ImprintAttacker(AnalyticAttacker):
         h, w, c = secrets["shape"]
         inputs = layer_inputs.reshape(layer_inputs.shape[0], h, w, c)[..., :3].permute(0, 3, 1, 2)
         if tuple(inputs.shape[2:]) != tuple(self.data_shape[1:]):
-            raise NotImplementedError(
-                f"The cubic resize of an imprint readout at {(h, w)} to the data's {tuple(self.data_shape[1:])} "
-                f"(a deep placement whose feature map is smaller than the input) is not ported yet.")
+            inputs = cubic_resize(inputs, self.data_shape[1:])
         dm, ds = self.dm.reshape(1, -1, 1, 1), self.ds.reshape(1, -1, 1, 1)
         return torch.clamp(inputs, -dm / ds, (1 - dm) / ds)
+
+
+class AprilAttacker(AnalyticAttacker):
+    """APRIL's closed-form inversion of a ViT whose first block has no norm and no
+    residuals (reference: analytic_attack.py:827-896; JAX ``AprilAttacker``): two
+    least-squares solves, attention then patch embedding, and the patches tiled back into
+    an image. The image fills slot 0 of a batch of ``num_data_points`` zeros, or, against
+    the fishing server (``server_secrets["ClassAttack"]``), the target's slot of the whole
+    batch, with every label of the batch."""
+
+    def reconstruct(self, server_payload, shared_data, server_secrets=None, dryrun=False):
+        rec_models, labels, stats = self.prepare_attack(server_payload, shared_data)
+        shared_data = self._shared_data_cache
+        len_data = int(shared_data[0]["metadata"]["num_data_points"] or 1)
+        x = self.closed_form_april(rec_models[0], shared_data[0]).to(self.dm.device)
+        dm, ds = self.dm.reshape(-1, 1, 1), self.ds.reshape(-1, 1, 1)
+        inputs = torch.clamp(x, -dm / ds, (1 - dm) / ds)
+        data = inputs.new_zeros((len_data, *inputs.shape))
+        data[0] = inputs
+        reconstructed = dict(data=data, labels=labels)
+        if server_secrets and "ClassAttack" in server_secrets:
+            info = server_secrets["ClassAttack"]
+            full = inputs.new_zeros((int(info["true_num_data"]), *inputs.shape))
+            full[int(np.asarray(info["target_indx"]).reshape(-1)[0])] = inputs
+            reconstructed = dict(data=full, labels=torch.as_tensor(info["all_labels"], device=inputs.device))
+        return reconstructed, stats
+
+    @staticmethod
+    def closed_form_april(model, shared_data) -> torch.Tensor:
+        """The (C, H, W) image, float32, from the payload model and the user's gradient
+        (reference: closed_form_april, analytic_attack.py:869-896). Both solves in float64:
+        the second inverts a poorly conditioned (P*P*C x D) embedding."""
+        module = model.module
+        if not hasattr(module, "april_refs"):
+            raise ValueError(f"Model {getattr(module, 'name', type(module).__name__)} has no april_refs: APRIL "
+                             f"inverts the ViT's first block (vit_base_april, vit_small_april).")
+        as64 = lambda refs: {k: v.detach().cpu().double().numpy() for k, v in refs.items()}
+        refs, g_refs = as64(module.april_refs(model.params)), as64(module.april_refs(shared_data["gradients"]))
+        q_w, k_w, v_w = np.split(refs["qkv_kernel"], 3, axis=1)    # (D, 3D): flax's (in, out)
+        q_g, k_g, v_g = np.split(g_refs["qkv_kernel"], 3, axis=1)
+        b = q_w @ q_g.T + k_w @ k_g.T + v_w @ v_g.T                 # (D, D)
+        a = g_refs["pos_embed"][0]                                  # (T, D)
+        log.info(f"Attention Inversion: ||A||={np.linalg.norm(a):.3f}, ||b||={np.linalg.norm(b):.3f}")
+        z = np.linalg.lstsq(a.T, b, rcond=None)[0] - refs["pos_embed"][0]
+        x = z[1:] - refs["patch_bias"]                              # the patch tokens, without the class token
+        em_w = refs["patch_kernel"]                                 # (P*P*C, D)
+        log.info(f"Embedding Inversion: ||A||={np.linalg.norm(em_w):.3f}, ||b||={np.linalg.norm(x):.3f}")
+        patches = np.linalg.lstsq(em_w.T, x.T, rcond=None)[0]       # (P*P*C, T-1)
+        return torch.as_tensor(module.april_retile(patches.astype(np.float32)))

@@ -4,6 +4,14 @@
   the statistics of torch's default init, from an explicit generator.
 - ``max_pool`` pads with -inf, as flax's ``max_pool`` does; ``avg_pool_global`` is
   the mean over height and width.
+- ``GroupNorm`` and ``LayerNorm`` are flax's: statistics with var = E[x^2] - mean^2
+  (clipped at 0) and eps 1e-6, where torch's modules take the two-pass variance and
+  1e-5.
+- The weight bridge (``model_preparation.load_flat_state``) names a ``Conv`` and a
+  ``Dense`` as the JAX package's wrappers do (``<name>/conv/kernel``,
+  ``<name>/dense/kernel``); a layer made with ``direct`` is a flax ``nn.Conv`` or
+  ``nn.Dense`` used without the wrapper (``<name>/kernel``). A module with parameters
+  of its own layout lists them in ``flax_entries``.
 - ``BatchNorm`` is the JAX package's BatchNorm, not ``nn.BatchNorm2d``: in train
   mode it normalizes with var = E[x^2] - mean^2 and folds the batch statistics into
   a cumulative running average (torch's ``momentum=None``), so after one batch the
@@ -50,6 +58,68 @@ def Dense(in_features: int, out_features: int, generator: torch.Generator | None
     return dense
 
 
+def direct(layer: nn.Module) -> nn.Module:
+    """Mark a Conv2d or Linear as a flax ``nn.Conv`` or ``nn.Dense`` used directly, whose
+    parameters the JAX package names ``<name>/kernel`` and ``<name>/bias``."""
+    layer.flax_direct = True
+    return layer
+
+
+def lecun_normal_(tensor: torch.Tensor, fan_in: int, generator: torch.Generator | None) -> torch.Tensor:
+    """flax's ``lecun_normal``: a normal truncated at two standard deviations, with variance
+    1 / fan_in."""
+    std = math.sqrt(1.0 / fan_in) / 0.87962566103423978
+    with torch.no_grad():
+        return nn.init.trunc_normal_(tensor, 0.0, std, -2 * std, 2 * std, generator=generator)
+
+
+def _fast_normalize(x: torch.Tensor, dims, eps: float) -> torch.Tensor:
+    """(x - mean) * rsqrt(var + eps) over ``dims``, with flax's var = E[x^2] - mean^2
+    clipped at 0."""
+    mean = x.mean(dim=dims, keepdim=True)
+    var = torch.clamp((x * x).mean(dim=dims, keepdim=True) - mean * mean, min=0)
+    return (x - mean) * torch.rsqrt(var + eps)
+
+
+class GroupNorm(nn.Module):
+    """flax's ``nn.GroupNorm`` over NCHW: ``num_groups`` groups of consecutive channels,
+    capped at the channel count, eps 1e-6 (the JAX package's ``layers.GroupNorm``, whose
+    parameters it names ``<name>/gn/scale`` and ``<name>/gn/bias``)."""
+
+    def __init__(self, features: int, num_groups: int = 32, eps: float = 1e-6):
+        super().__init__()
+        self.num_groups = min(num_groups, features)
+        self.eps = eps
+        self.weight = nn.Parameter(torch.ones(features))
+        self.bias = nn.Parameter(torch.zeros(features))
+
+    def forward(self, x: torch.Tensor, train: bool = False, capture: dict | None = None) -> torch.Tensor:
+        y = _fast_normalize(x.reshape(x.shape[0], self.num_groups, -1), -1, self.eps).reshape(x.shape)
+        shape = (1, -1) + (1,) * (x.dim() - 2)
+        return y * self.weight.reshape(shape) + self.bias.reshape(shape)
+
+    def flax_entries(self, prefix: str):
+        yield f"params/{prefix}/gn/scale", self.weight, None
+        yield f"params/{prefix}/gn/bias", self.bias, None
+
+
+class LayerNorm(nn.Module):
+    """flax's ``nn.LayerNorm`` over the last dimension, eps 1e-6."""
+
+    def __init__(self, features: int, eps: float = 1e-6):
+        super().__init__()
+        self.eps = eps
+        self.weight = nn.Parameter(torch.ones(features))
+        self.bias = nn.Parameter(torch.zeros(features))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return _fast_normalize(x, -1, self.eps) * self.weight + self.bias
+
+    def flax_entries(self, prefix: str):
+        yield f"params/{prefix}/scale", self.weight, None
+        yield f"params/{prefix}/bias", self.bias, None
+
+
 class BatchNorm(nn.Module):
     """BatchNorm over dim 1 with cumulative running statistics."""
 
@@ -88,6 +158,11 @@ class BatchNorm(nn.Module):
 def max_pool(x: torch.Tensor, window: int, stride: int | None = None, padding: int = 0) -> torch.Tensor:
     """Max pooling over NCHW; padded places are -inf, so they never win."""
     return F.max_pool2d(x, window, stride or window, padding)
+
+
+def avg_pool(x: torch.Tensor, window: int) -> torch.Tensor:
+    """flax's ``avg_pool`` with a window and stride of ``window``, no padding."""
+    return F.avg_pool2d(x, window, window)
 
 
 def avg_pool_global(x: torch.Tensor) -> torch.Tensor:

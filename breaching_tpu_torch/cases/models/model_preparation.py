@@ -1,5 +1,8 @@
-"""Model factory: name -> (nn.Module, loss_fn), for the ConvNet and ResNet families and
-the ``linear`` and ``none`` models.
+"""Model factory: name -> (nn.Module, loss_fn), for every vision name of the JAX
+package's dispatch: the ResNets (BatchNorm and GroupNorm; the WSL, SWSL, SSL and MoCo
+names as the ResNet-50 or -101 they are built on), DenseNet, VGG, NFNet, the ConvNets,
+``ConvNetSmall``, LeNet, CNN6 (with R-GAP's ``rgap_layers``), MLP, ``linear``, ``none`` and
+the ViTs (with APRIL's ``april_refs`` and ``april_retile``).
 
 Counterpart of ``breaching_tpu/cases/models/model_preparation.py``. Weights are
 drawn from the ``setup`` generator. With ``pretrained=True`` a checkpoint in the
@@ -21,7 +24,8 @@ from torch import nn
 from .layers import BatchNorm
 from .losses import LOSSES, CrossEntropyLoss
 from .resnets import build_resnet
-from .vision_nets import ConvNet, LinearModel, NoneModel
+from .vision_nets import (CNN6, MLP, ConvNet, ConvNetBeyond, ConvNetSmall, ConvNetTrivial, LeNetZhu, LinearModel,
+                          NoneModel)
 
 log = logging.getLogger(__name__)
 REPO = os.path.dirname(os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__)))))
@@ -33,19 +37,56 @@ def construct_model(cfg_model, cfg_data, pretrained: bool = False, generator=Non
         raise NotImplementedError(f"{cfg_data.modality} models are not ported yet.")
     name = str(cfg_model)
     lname = name.lower()
-    if "resnet" in lname and not any(tag in lname for tag in ("wsl", "ssl", "moco")):
-        model = build_resnet(name, int(cfg_data.classes), "ImageNet" in str(cfg_data.name),
-                             shape=tuple(cfg_data.shape), generator=generator)
-    elif lname.startswith("convnet") and (lname == "convnet" or lname[len("convnet"):].isdigit()):
-        width = int(lname[len("convnet"):] or 64)
-        model = ConvNet(width=width, num_classes=int(cfg_data.classes), shape=tuple(cfg_data.shape),
-                        generator=generator)
+    classes, shape = int(cfg_data.classes), tuple(cfg_data.shape)
+    imagenet = "ImageNet" in str(cfg_data.name)
+    pretrained_tags = ("wsl", "swsl", "ssl", "moco")
+    small = dict(num_classes=classes, shape=shape, generator=generator)
+    if "resnet" in lname and not any(tag in lname for tag in pretrained_tags):
+        model = build_resnet(name, classes, imagenet, shape=shape, generator=generator)
+    elif any(tag in lname for tag in pretrained_tags):
+        # the JAX package builds the torch.hub WSL/SWSL/SSL/MoCo names as the ImageNet
+        # ResNet they are made from (no download): ResNet-101 where the name says so
+        depth = "101" if "101" in lname else "50"
+        model = build_resnet(f"resnet{depth}", classes, True, shape=shape, generator=generator)
+    elif "densenet" in lname:
+        from .densenets import DenseNet, densenet_depths_to_config
+
+        growth, blocks, init_feats = densenet_depths_to_config(int("".join(filter(str.isdigit, lname))))
+        model = DenseNet(growth_rate=growth, block_config=blocks, num_init_features=init_feats,
+                         stem="ImageNet" if imagenet else "CIFAR", **small)
+    elif "vgg" in lname:
+        from .vgg import VGG
+
+        model = VGG(plan_name=name, head="ImageNet" if imagenet else "CIFAR", **small)
+    elif "nfnet" in lname:
+        from .nfnets import NFNet, nfnet_params
+
+        variant = next((v for v in nfnet_params if v.lower() in lname), "F0")
+        model = NFNet(variant=variant, stem="ImageNet" if imagenet else "CIFAR", **small)
+    elif lname == "convnet-trivial":
+        model = ConvNetTrivial(**small)
+    elif lname == "convnet_beyond":
+        model = ConvNetBeyond(**small)
+    elif lname.startswith("convnetsmall"):  # ConvNetSmall is 256 wide, ConvNetSmall16 16
+        digits = "".join(filter(str.isdigit, lname))
+        model = ConvNetSmall(width=int(digits) if digits else 256, **small)
+    elif lname.startswith("convnet"):  # ConvNet is 64 wide, ConvNet8 8
+        digits = "".join(filter(str.isdigit, lname))
+        model = ConvNet(width=int(digits) if digits else 64, **small)
+    elif lname in ("lenet_zhu", "lenetzhu"):
+        model = LeNetZhu(**small)
+    elif lname == "cnn6":
+        model = CNN6(**small)
+    elif lname == "mlp":
+        model = MLP(**small)
     elif lname in ("linear", "none"):
-        model = (LinearModel if lname == "linear" else NoneModel)(
-            num_classes=int(cfg_data.classes), shape=tuple(cfg_data.shape), generator=generator)
+        model = (LinearModel if lname == "linear" else NoneModel)(**small)
+    elif "vit" in lname:
+        from .vit import build_vit
+
+        model = build_vit(name, classes, shape=shape, generator=generator)
     else:
-        raise NotImplementedError(f"Model {name} is not ported yet; the port has the ConvNet and "
-                                  f"ResNet families, linear and none.")
+        raise ValueError(f"Unknown vision model {cfg_model}.")
     model.name = name
     if pretrained:
         _maybe_load_pretrained(model, cfg_data)
@@ -76,27 +117,37 @@ def _flat_entries(model: nn.Module):
     """(flat key, tensor, transform) for every parameter and buffer of the model, the
     flat key in the JAX package's layout and the transform taking its array to the
     tensor's layout (HWIO -> OIHW for convolutions, (in, out) -> (out, in) for dense).
-    The dense layers of an imprint block (``flat_param_suffixes``) are the JAX block's
-    ``<name>_kernel`` and ``<name>_bias``."""
+    A Conv2d or Linear is the JAX package's ``Conv`` or ``Dense`` wrapper
+    (``<name>/conv/kernel``), or with ``layers.direct`` a flax layer used directly
+    (``<name>/kernel``). The dense layers of an imprint block (``flat_param_suffixes``)
+    are the JAX block's ``<name>_kernel`` and ``<name>_bias``. A module with a layout of
+    its own (a norm, the ViT's tokens, NFNet's WSConv) gives its entries through
+    ``flax_entries(prefix)``."""
     for path, module in model.named_modules():
         prefix = path.replace(".", "/")
         parent = path.rpartition(".")[0]
-        if isinstance(module, nn.Linear) and getattr(model.get_submodule(parent), "flat_param_suffixes", False):
+        if hasattr(module, "flax_entries"):
+            yield from module.flax_entries(prefix)
+        elif isinstance(module, nn.Linear) and getattr(model.get_submodule(parent), "flat_param_suffixes", False):
             yield f"params/{prefix}_kernel", module.weight, np.transpose
             yield f"params/{prefix}_bias", module.bias, None
-        elif isinstance(module, nn.Conv2d):
-            yield f"params/{prefix}/conv/kernel", module.weight, lambda a: np.transpose(a, (3, 2, 0, 1))
+        elif isinstance(module, (nn.Conv2d, nn.Linear)):
+            key = f"params/{prefix}" if getattr(module, "flax_direct", False) else \
+                f"params/{prefix}/{'conv' if isinstance(module, nn.Conv2d) else 'dense'}"
+            yield f"{key}/kernel", module.weight, conv_kernel if isinstance(module, nn.Conv2d) else np.transpose
             if module.bias is not None:
-                yield f"params/{prefix}/conv/bias", module.bias, None
-        elif isinstance(module, nn.Linear):
-            yield f"params/{prefix}/dense/kernel", module.weight, np.transpose
-            yield f"params/{prefix}/dense/bias", module.bias, None
+                yield f"{key}/bias", module.bias, None
         elif isinstance(module, BatchNorm):
             yield f"params/{prefix}/scale", module.weight, None
             yield f"params/{prefix}/bias", module.bias, None
             yield f"buffers/{prefix}/mean", module.running_mean, None
             yield f"buffers/{prefix}/var", module.running_var, None
             yield f"buffers/{prefix}/num_batches_tracked", module.num_batches_tracked, None
+
+
+def conv_kernel(kernel: np.ndarray) -> np.ndarray:
+    """A flax convolution kernel (H, W, I, O) in PyTorch's layout (O, I, H, W)."""
+    return np.transpose(kernel, (3, 2, 0, 1))
 
 
 def jax_leaf_ranks(model: nn.Module) -> list[int]:

@@ -1,13 +1,14 @@
-"""ResNets with the CIFAR and ImageNet stems, BasicBlock or Bottleneck, BatchNorm
-(counterpart of ``breaching_tpu/cases/models/resnets.py``), NCHW.
+"""ResNets with the CIFAR and ImageNet stems, BasicBlock or Bottleneck, BatchNorm or
+GroupNorm (counterpart of ``breaching_tpu/cases/models/resnets.py``), NCHW.
 
 Module names are the flax names of the JAX package (``stem_conv``, ``stem_norm``,
 ``stage{s}_block{b}.conv1`` / ``bn1`` / ... / ``downsample_conv`` / ``downsample_norm``,
 ``head``), so that its checkpoints load through ``load_flat_state`` by a rename.
 A block takes the downsample path exactly where the JAX block does, when its
 residual's shape differs from its output's; the spatial sizes that decide this are
-followed from the input shape at construction. Not ported: GroupNorm ResNets
-(``resnetgn*``).
+followed from the input shape at construction. The GroupNorm ResNets (``resnetgn*``)
+take flax's GroupNorm of 4 groups (``norm="groupnorm4th"``; 32 for another GroupNorm
+name), capped at the channel count, as the JAX package's ``_make_norm`` does.
 
 The malicious server's deep placement (``place_imprint``) runs an imprint block before
 stage ``imprint_position`` (the JAX ResNet's ``imprint_block`` and ``imprint_position``);
@@ -24,7 +25,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from .layers import BatchNorm, Conv, Dense, avg_pool_global, max_pool, name_batchnorms
+from .layers import BatchNorm, Conv, Dense, GroupNorm, avg_pool_global, max_pool, name_batchnorms
 
 
 def resnet_depths_to_config(depth: int):
@@ -44,6 +45,12 @@ def resnet_depths_to_config(depth: int):
     return table[depth]
 
 
+def _make_norm(norm: str, features: int) -> nn.Module:
+    if norm.lower().startswith("group"):
+        return GroupNorm(features, num_groups=4 if "4th" in norm else 32)
+    return BatchNorm(features)
+
+
 def _identity(x: torch.Tensor) -> torch.Tensor:
     return x
 
@@ -59,18 +66,18 @@ class BasicBlock(nn.Module):
     identity_nonlin = False  # a linearized prefix of a deep imprint placement
 
     def __init__(self, in_channels: int, features: int, stride: int, size: tuple,
-                 generator: torch.Generator | None = None):
+                 generator: torch.Generator | None = None, norm: str = "BatchNorm2d"):
         super().__init__()
         self.conv1 = Conv(in_channels, features, 3, stride, use_bias=False, generator=generator)
-        self.bn1 = BatchNorm(features)
+        self.bn1 = _make_norm(norm, features)
         self.conv2 = Conv(features, features, 3, use_bias=False, generator=generator)
-        self.bn2 = BatchNorm(features)
+        self.bn2 = _make_norm(norm, features)
         self.downsample_conv = self.downsample_norm = None
         out = tuple(_out_size(s, stride) for s in size)
         if (in_channels, *size) != (features, *out):
             self.downsample_conv = Conv(in_channels, features, 1, stride, use_bias=False,
                                         generator=generator)
-            self.downsample_norm = BatchNorm(features)
+            self.downsample_norm = _make_norm(norm, features)
 
     def forward(self, x: torch.Tensor, train: bool = False, capture: dict | None = None) -> torch.Tensor:
         act = _identity if self.identity_nonlin else F.relu
@@ -86,20 +93,20 @@ class Bottleneck(nn.Module):
     expansion = 4
 
     def __init__(self, in_channels: int, features: int, stride: int, size: tuple,
-                 generator: torch.Generator | None = None):
+                 generator: torch.Generator | None = None, norm: str = "BatchNorm2d"):
         super().__init__()
         self.conv1 = Conv(in_channels, features, 1, use_bias=False, generator=generator)
-        self.bn1 = BatchNorm(features)
+        self.bn1 = _make_norm(norm, features)
         self.conv2 = Conv(features, features, 3, stride, use_bias=False, generator=generator)
-        self.bn2 = BatchNorm(features)
+        self.bn2 = _make_norm(norm, features)
         self.conv3 = Conv(features, 4 * features, 1, use_bias=False, generator=generator)
-        self.bn3 = BatchNorm(4 * features)
+        self.bn3 = _make_norm(norm, 4 * features)
         self.downsample_conv = self.downsample_norm = None
         out = tuple(_out_size(s, stride) for s in size)
         if (in_channels, *size) != (4 * features, *out):
             self.downsample_conv = Conv(in_channels, 4 * features, 1, stride, use_bias=False,
                                         generator=generator)
-            self.downsample_norm = BatchNorm(4 * features)
+            self.downsample_norm = _make_norm(norm, 4 * features)
 
     def forward(self, x: torch.Tensor, train: bool = False, capture: dict | None = None) -> torch.Tensor:
         y = F.relu(self.bn1(self.conv1(x), train=train, capture=capture))
@@ -121,7 +128,7 @@ class ResNet(nn.Module):
     def __init__(self, block: str = "basic", layers: Sequence[int] = (2, 2, 2, 2),
                  num_classes: int = 1000, stem: str = "ImageNet", width: int = 64,
                  strides: Sequence[int] = (1, 2, 2, 2), shape=(3, 224, 224),
-                 generator: torch.Generator | None = None):
+                 generator: torch.Generator | None = None, norm: str = "BatchNorm2d"):
         super().__init__()
         channels, *size = shape
         self.stem, self.block_type, self.width, self.strides = stem, block, width, tuple(strides)
@@ -131,7 +138,7 @@ class ResNet(nn.Module):
             size = [_out_size(_out_size(s, 2), 2) for s in size]  # the conv, then the pool
         else:
             self.stem_conv = Conv(channels, width, 3, use_bias=False, generator=generator)
-        self.stem_norm = BatchNorm(width)
+        self.stem_norm = _make_norm(norm, width)
         block_cls = BasicBlock if block == "basic" else Bottleneck
         self.blocks = []  # (stage, index in the stage, module name) in execution order
         channels, features = width, width
@@ -139,7 +146,7 @@ class ResNet(nn.Module):
             for idx in range(num_blocks):
                 s = stride if idx == 0 else 1
                 name = f"stage{stage}_block{idx}"
-                self.add_module(name, block_cls(channels, features, s, tuple(size), generator))
+                self.add_module(name, block_cls(channels, features, s, tuple(size), generator, norm))
                 self.blocks.append((stage, idx, name))
                 size = [_out_size(v, s) for v in size]
                 channels = features * block_cls.expansion
@@ -180,10 +187,9 @@ class ResNet(nn.Module):
 
 def build_resnet(model_name: str, classes: int, is_imagenet_data: bool, shape=(3, 224, 224),
                  generator: torch.Generator | None = None) -> ResNet:
-    """Parse names like resnet18 / resnet50 / ResNet32-10 into a ResNet."""
+    """Parse names like resnet18 / resnet50 / ResNet32-10 / resnetgn20-4 into a ResNet."""
     lname = model_name.lower()
-    if "resnetgn" in lname:
-        raise NotImplementedError(f"GroupNorm ResNets ({model_name}) are not ported yet.")
+    norm = "groupnorm4th" if "resnetgn" in lname else "BatchNorm2d"
     if "-" in lname:
         depth = int("".join(filter(str.isdigit, lname.split("-")[0])))
         width_mult = int("".join(filter(str.isdigit, lname.split("-")[1])))
@@ -200,4 +206,4 @@ def build_resnet(model_name: str, classes: int, is_imagenet_data: bool, shape=(3
         strides = (1, 2, 2, 2)[: len(layers)]
     return ResNet(block=block, layers=layers, num_classes=classes, stem=stem,
                   width=base_width * width_mult, strides=strides, shape=tuple(shape),
-                  generator=generator)
+                  generator=generator, norm=norm)

@@ -1,5 +1,6 @@
-"""The fedSGD and fedAVG users (counterparts of ``breaching_tpu/cases/users.py``
-``UserSingleStep`` and ``UserMultiStep``).
+"""The fedSGD and fedAVG users and the secure-aggregation silo (counterparts of
+``breaching_tpu/cases/users.py`` ``UserSingleStep``, ``UserMultiStep`` and
+``MultiUserAggregate``).
 
 The fedSGD update is ``torch.autograd.grad`` of the task loss over the payload's
 parameters, evaluated with ``torch.func.functional_call`` on the user's copy of
@@ -7,8 +8,15 @@ the architecture; the fedAVG update is the parameter delta after several local S
 steps of that kind. BatchNorm follows the JAX package: with server-provided buffers
 the model runs in eval mode on them; without, it runs in train mode and the
 user's running statistics (cumulative, so exactly its batch statistics after one
-step, and carried from one local step to the next) are shared. ``MultiUserAggregate``
-is not ported: a config that asks for it is refused.
+step, and carried from one local step to the next) are shared.
+
+``MultiUserAggregate`` shares only the mean of its users' updates, as secure aggregation
+would. A single-step silo sums the users' fedSGD gradients one user at a time and divides
+by their number once (the JAX package's scan: one gradient tree in memory for any silo
+size); a multi-step silo keeps the running mean acc + (delta - acc) * (1 / (i + 1)) of
+its fedAVG users' deltas, as the JAX package's loop does. Each user is its own
+``UserSingleStep`` or ``UserMultiStep`` with its own dataloader and its own noise
+generator.
 
 Local differential privacy (``user.local_diff_privacy``), as the JAX package's users
 apply it:
@@ -61,8 +69,13 @@ def global_norm(grads) -> torch.Tensor:
 
 
 def construct_user(model, loss_fn, cfg_case, setup):
-    """User factory (reference: breaching/cases/users.py:13-28)."""
+    """User factory (reference: breaching/cases/users.py:13-28); a silo of
+    ``multiuser_aggregate`` holds the users of ``range(*user_range)``."""
     cfg_user = cfg_case.user
+    if cfg_user.user_type == "multiuser_aggregate":
+        indices = list(range(*cfg_user.user_range))
+        dataloaders = [construct_dataloader(cfg_case.data, cfg_case.impl, user_idx=idx) for idx in indices]
+        return MultiUserAggregate(model, loss_fn, dataloaders, setup, indices, cfg_user)
     user_types = {"local_gradient": UserSingleStep, "local_update": UserMultiStep}
     if cfg_user.user_type not in user_types:
         raise NotImplementedError(f"User type {cfg_user.user_type} is not ported yet.")
@@ -148,12 +161,10 @@ class UserSingleStep:
         count = inputs.shape[0]
         return {k: t / count for k, t in zip(params, total)}, torch.stack(norms)
 
-    def compute_local_updates(self, server_payload, custom_data=None):
-        self.counted_queries += 1
-        inputs, labels = self._user_tensors(custom_data)
-        parameters = server_payload["parameters"]
-        bn_train, local_buffers = self._local_buffers(server_payload["buffers"])
-
+    def gradient(self, parameters, local_buffers, inputs, labels, bn_train) -> dict:
+        """The shared gradient by parameter name: input noise, the batch gradient (or
+        with clipping the clipped per-example mean) and gradient noise. In train mode the
+        running statistics of ``local_buffers`` are updated in place."""
         seen = inputs + self.input_noise * self._noise([inputs.shape])[0] if self.input_noise > 0 else inputs
         if self.clip_value > 0:
             grads, _ = self.clipped_gradient(parameters, local_buffers, seen, labels, bn_train)
@@ -167,6 +178,13 @@ class UserSingleStep:
             grads = {k: g.detach() for k, g in zip(params, grads)}
         if self.gradient_noise > 0:
             grads = self._add_gradient_noise(grads)
+        return grads
+
+    def compute_local_updates(self, server_payload, custom_data=None):
+        self.counted_queries += 1
+        inputs, labels = self._user_tensors(custom_data)
+        bn_train, local_buffers = self._local_buffers(server_payload["buffers"])
+        grads = self.gradient(server_payload["parameters"], local_buffers, inputs, labels, bn_train)
 
         shared_buffers = local_buffers if bn_train else None
         metadata = dict(
@@ -290,3 +308,88 @@ class UserMultiStep(UserSingleStep):
         )
         true_user_data = dict(data=inputs, labels=labels, buffers=shared_buffers)
         return shared_data, true_user_data
+
+
+class MultiUserAggregate(UserMultiStep):
+    """A secure-aggregation silo over the users ``user_indices`` (reference:
+    users.py:431-533; JAX ``MultiUserAggregate``). ``num_data_points`` is per user: the
+    shared metadata says ``num_data_points * num_users``, the sorted labels of all users
+    under ``provide_labels``, always ``num_users``, and under
+    ``provide_local_hyperparams`` every user's per-step label lists, one after the other
+    (none for a single-step silo). The true data are all users' images, user by user."""
+
+    def __init__(self, model, loss_fn, dataloaders, setup, user_indices, cfg_user):
+        super().__init__(model, loss_fn, dataloaders[0], setup, user_indices[0], cfg_user)
+        self.dataloaders = dataloaders
+        self.user_indices = list(user_indices)
+        self.num_users = len(self.user_indices)
+        self.user_idx = f"{self.user_indices[0]}-{self.user_indices[-1]}"
+        user_cls = UserSingleStep if self.num_local_updates == 1 else UserMultiStep
+        self.users = [user_cls(model, loss_fn, loader, setup, idx, cfg_user)
+                      for idx, loader in zip(self.user_indices, dataloaders)]
+
+    def __repr__(self):
+        return super().__repr__() + f"\n    Aggregating over {self.num_users} users."
+
+    def compute_local_updates(self, server_payload, custom_data=None):
+        self.counted_queries += 1
+        aggregate = self._aggregate_single_step if self.num_local_updates == 1 else self._aggregate_multi_step
+        gradients, buffers, true_buffers, data, labels, label_lists = aggregate(server_payload)
+        metadata = dict(
+            num_data_points=self.num_data_points * self.num_users if self.provide_num_data_points else None,
+            labels=torch.sort(labels).values if self.provide_labels else None,
+            num_users=self.num_users,
+            local_hyperparams=dict(
+                lr=self.local_learning_rate,
+                steps=self.num_local_updates,
+                data_per_step=self.num_data_per_local_update_step,
+                labels=label_lists,
+            ) if self.provide_local_hyperparams else None,
+            data_key="inputs",
+        )
+        shared_data = dict(gradients=gradients, buffers=buffers, metadata=metadata)
+        return shared_data, dict(data=data, labels=labels, buffers=true_buffers)
+
+    def _aggregate_single_step(self, server_payload):
+        """The fedSGD gradients summed user by user, then divided by the number of users;
+        in train mode the users' running statistics likewise, each user starting from the
+        same buffers. Returns (the aggregate, the shared and the true buffers, the data,
+        the labels, the per-step label lists)."""
+        parameters = server_payload["parameters"]
+        bn_train, local_buffers = self._local_buffers(server_payload["buffers"])
+        grad_sum = buffer_sum = None
+        all_data, all_labels = [], []
+        for user in self.users:
+            inputs, labels = user._user_tensors(None)
+            buffers = {k: v.clone() for k, v in local_buffers.items()}
+            grads = user.gradient(parameters, buffers, inputs, labels, bn_train)
+            grad_sum = grads if grad_sum is None else {k: grad_sum[k] + g for k, g in grads.items()}
+            if bn_train:
+                buffer_sum = buffers if buffer_sum is None else {k: buffer_sum[k] + b for k, b in buffers.items()}
+            all_data.append(inputs)
+            all_labels.append(labels)
+        aggregate = {k: g / self.num_users for k, g in grad_sum.items()}
+        buffers = {k: b / self.num_users for k, b in buffer_sum.items()} if bn_train else None
+        shared_buffers = buffers if self.provide_buffers else None
+        return aggregate, shared_buffers, buffers, torch.cat(all_data), torch.cat(all_labels), []
+
+    def _aggregate_multi_step(self, server_payload):
+        """The running mean of the fedAVG users' deltas (and of their buffers, where they
+        share them)."""
+        aggregate = buffers = None
+        all_data, all_labels, label_lists = [], [], []
+        for position, user in enumerate(self.users):
+            shared, true = user.compute_local_updates(server_payload)
+            weight = 1.0 / (position + 1)
+            if aggregate is None:
+                aggregate, buffers = shared["gradients"], shared["buffers"]
+            else:
+                aggregate = {k: acc + (shared["gradients"][k] - acc) * weight for k, acc in aggregate.items()}
+                if buffers is not None and shared["buffers"] is not None:
+                    buffers = {k: acc + (shared["buffers"][k] - acc) * weight for k, acc in buffers.items()}
+            hyper = shared["metadata"]["local_hyperparams"]
+            if hyper is not None:
+                label_lists.extend(hyper["labels"])
+            all_data.append(true["data"])
+            all_labels.append(true["labels"])
+        return aggregate, buffers, buffers, torch.cat(all_data), torch.cat(all_labels), label_lists

@@ -9,7 +9,9 @@ the same hyperparameters:
   of them cannot be initialized, ROADMAP Queue C);
 - the imprinted model's user gradient, the readout (cumulative and sparse, ``sort_by_bias``,
   both ``breach_reduction``s, with and without the padding, on a gradient with tied and
-  invalid rows), the deep placement at ``position=1`` with the identity prefix and
+  invalid rows), the deep placement at ``position=1`` with the identity prefix (and at
+  ``position=2``, whose 8x8 readout is resized to the input's 16x16 as the JAX package
+  resizes it) and
   ``_normalize_throughput`` on the JAX package's probe batch, each to 1e-5 of the
   largest entry;
 - ``imprint_guarantee``'s formulas; the repaired ``label_strategy: None`` (labels None,
@@ -272,6 +274,18 @@ def test_deep_placement_with_the_identity_prefix_matches_jax():
     assert float(torch.mean((rec["data"] - true["data"]) ** 2)) < 1e-4
 
 
+def test_deep_placement_on_a_smaller_map_is_resized_as_jax():
+    """At ``position=2`` ResNet-20's stage sees 8x8 maps of 3x16x16 images: the readout's
+    rows are resized to 16x16 by ``jax.image.resize``'s cubic interpolation in both
+    packages, to 1e-5 of the largest entry."""
+    e = _cases([o.replace("position=1", "position=2") for o in DEEP])
+    assert e["server"].secrets["ImprintBlock"]["shape"][:2] == (8, 8)
+    shared, payloads, _, j_shared, j_payloads, _ = _exchange(e)
+    rec, j_rec = _readouts(e, shared, payloads, j_shared, j_payloads)
+    assert rec["data"].shape == (1, 3, 16, 16)
+    _close(_nhwc(rec["data"]), j_rec["data"])
+
+
 @pytest.mark.parametrize("model_name", ["resnet20", "ConvNet8"])
 def test_normalize_throughput_matches_jax_on_its_probe_batch(model_name):
     """Two rounds on the JAX package's probe batch (``jax.random.normal`` of key 7): each
@@ -354,7 +368,7 @@ def test_parameter_utils_address_parameters_by_name(rtf):
     ("case.server.model_modification.position=1 case.server.model_modification.handle_preceding_layers=VAE",
      "VAE"),
     ("case/server=malicious-transformer", "malicious_transformer"),
-    ("attack=april_analytic", "april-analytic"),
+    ("attack=decepticon", "decepticon-readout"),
 ])
 def test_unported_malicious_options_are_refused(override, message):
     cfg = breaching.get_config(RTF[:2] + ["case/server=malicious-model-rtf", "case.model=resnet20",
