@@ -1,4 +1,5 @@
-"""Attack-quality report for vision data (counterpart of ``breaching_tpu/analysis/analysis.py``).
+"""Attack-quality report for vision and text data (counterpart of
+``breaching_tpu/analysis/analysis.py``).
 
 ``report`` returns, in the JAX package's order: MSE, PSNR, SSIM, CW-SSIM on the DTCWT
 (``cw_ssim``) and on a Gabor bank (``gabor_cw_ssim``), registered PSNR (``rpsnr``),
@@ -7,7 +8,9 @@ the worst image's MSE, LPIPS (NaN unless LPIPS weights are on disk:
 identifiability precision in pixel space, LPIPS features (with weights) and the
 attacked model's own features (``IIP-pixel``, ``IIP-lpips``, ``IIP-self``), then the
 label accuracy, the feature-space MSE through the payload model and the parameter
-count.
+count. For text (``text_metrics.run_text_metrics``): the positional ``accuracy``, the
+multiset ``token_acc``, BLEU (``bleu``, ``google_bleu``, ``sacrebleu`` x 100, on token
+ids), ROUGE-1/2/L and the batch order, then the same three.
 
 With ``order_batch`` a batch of several reconstructions is put in the order that
 matches the true images (by LPIPS features where a scorer exists, else by pixels) and
@@ -36,17 +39,27 @@ log = logging.getLogger(__name__)
 def report(reconstructed_user_data, true_user_data, server_payload, model,
            order_batch=True, compute_full_iip=False, cfg_case=None, setup=None, loss_fn=None):
     metadata = server_payload[0]["metadata"]
-    if metadata.modality != "vision":
+    if metadata.modality == "vision":
+        test_metrics = _run_vision_metrics(reconstructed_user_data, true_user_data, server_payload, model,
+                                           order_batch, compute_full_iip, cfg_case)
+    elif metadata.modality == "text":
+        from .text_metrics import run_text_metrics
+
+        test_metrics = run_text_metrics(reconstructed_user_data, true_user_data, server_payload, model, order_batch)
+    else:
         raise NotImplementedError(f"{metadata.modality} metrics are not ported yet.")
-    test_metrics = _run_vision_metrics(reconstructed_user_data, true_user_data, server_payload, model,
-                                       order_batch, compute_full_iip, cfg_case)
     test_metrics["label_acc"] = _label_accuracy(reconstructed_user_data, true_user_data)
     test_metrics["feat_mse"] = _feature_space_mse(reconstructed_user_data, true_user_data, server_payload, model)
     test_metrics["parameters"] = int(sum(p.numel() for p in server_payload[0]["parameters"].values()))
-    log.info(f"METRICS: | MSE: {test_metrics['mse']:2.4f} | PSNR: {test_metrics['psnr']:4.2f} | "
-             f"FMSE: {test_metrics['feat_mse']:2.4e} | LPIPS: {test_metrics['lpips']:4.2f} | "
-             f"R-PSNR: {test_metrics['rpsnr']:4.2f} | SSIM: {test_metrics['ssim']:2.4f} | "
-             f"Label Acc: {test_metrics['label_acc']:2.2%}")
+    if metadata.modality == "vision":
+        log.info(f"METRICS: | MSE: {test_metrics['mse']:2.4f} | PSNR: {test_metrics['psnr']:4.2f} | "
+                 f"FMSE: {test_metrics['feat_mse']:2.4e} | LPIPS: {test_metrics['lpips']:4.2f} | "
+                 f"R-PSNR: {test_metrics['rpsnr']:4.2f} | SSIM: {test_metrics['ssim']:2.4f} | "
+                 f"Label Acc: {test_metrics['label_acc']:2.2%}")
+    else:
+        log.info(f"METRICS: | Accuracy: {test_metrics['accuracy']:2.4f} | "
+                 f"S-BLEU (local): {test_metrics['sacrebleu']:4.2f} | "
+                 f"Token Acc: {test_metrics['token_acc']:2.2%} | Label Acc: {test_metrics['label_acc']:2.2%}")
     return test_metrics
 
 
@@ -154,12 +167,18 @@ def _label_accuracy(rec_data, true_data):
 
 def _feature_space_mse(rec_data, true_data, server_payload, model):
     """MSE between the pre-head features of the caller's reconstruction (in the order
-    its dict holds) and the truth through the payload model (reference: analysis.py:57-76)."""
+    its dict holds) and the truth through the payload model (reference: analysis.py:57-76).
+    Token ids stay integers: a float tensor is read as embeddings."""
     payload = server_payload[0]
     buffers = payload["buffers"] if payload["buffers"] is not None else dict(model.named_buffers())
     state = {**payload["parameters"], **buffers}
-    rec = torch.as_tensor(rec_data["data"], dtype=torch.float32)
-    ref = torch.as_tensor(true_data["data"], dtype=torch.float32, device=rec.device)
+
+    def as_input(data, device=None):
+        data = torch.as_tensor(data, device=device)
+        return data if not torch.is_floating_point(data) else data.to(torch.float32)
+
+    rec = as_input(rec_data["data"])
+    ref = as_input(true_data["data"], rec.device)
     with torch.no_grad():
         rec_feats = functional_call(model, state, (rec,), dict(features=True))
         ref_feats = functional_call(model, state, (ref,), dict(features=True))

@@ -3,6 +3,7 @@
 from .analytic_attack import AnalyticAttacker, AprilAttacker, ImprintAttacker
 from .multiscale_optimization_attack import MultiScaleOptimizationAttacker
 from .optimization_based_attack import OptimizationBasedAttacker
+from .optimization_permutation_attack import OptimizationPermutationAttacker
 from .optimization_with_label_attack import OptimizationJointAttacker
 from .recursive_attack import RecursiveAttacker
 
@@ -10,6 +11,7 @@ ATTACKS = {
     "optimization": OptimizationBasedAttacker,
     "multiscale": MultiScaleOptimizationAttacker,
     "joint-optimization": OptimizationJointAttacker,
+    "permutation-optimization": OptimizationPermutationAttacker,
     "analytic": AnalyticAttacker,
     "april-analytic": AprilAttacker,
     "imprint-readout": ImprintAttacker,
@@ -25,4 +27,5 @@ def prepare_attack(model, loss, cfg_attack, setup):
 
 
 __all__ = ["prepare_attack", "AnalyticAttacker", "AprilAttacker", "ImprintAttacker", "OptimizationBasedAttacker",
-           "OptimizationJointAttacker", "MultiScaleOptimizationAttacker", "RecursiveAttacker"]
+           "OptimizationJointAttacker", "OptimizationPermutationAttacker", "MultiScaleOptimizationAttacker",
+           "RecursiveAttacker"]

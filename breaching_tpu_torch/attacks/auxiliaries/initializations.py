@@ -10,7 +10,8 @@ before N. Draws come from the explicit CPU generator and then move to the device
 - ``patterned-N`` (``wei`` too): one N x N tile per image, normal (uniform in [-1, 1)
   for ``patterned-rand-N``), repeated over the image and cut to its size; N is 4
   when the name has no digits.
-Text shapes are not ported.
+A text candidate, embeddings (..., T, D) (``text=True``), takes only ``randn``,
+``randn-trunc``, ``rand`` and ``zeros``.
 """
 
 from __future__ import annotations
@@ -26,11 +27,13 @@ def tile_pattern(seed: torch.Tensor, height: int, width: int) -> torch.Tensor:
 
 
 def init_candidate(generator, init_type: str, data_shape, dtype=torch.float32, device="cpu",
-                   mean=None, std=None):
-    """A candidate of ``data_shape`` (..., C, H, W); ``mean`` and ``std`` (C,) are the
-    data's normalization, read by the ``-true`` colours."""
-    if len(data_shape) < 4:
-        raise NotImplementedError("Text candidates are not ported yet.")
+                   mean=None, std=None, text=False):
+    """A candidate of ``data_shape`` (..., C, H, W), or with ``text`` (..., T, D); ``mean`` and
+    ``std`` (C,) are the data's normalization, read by the ``-true`` colours."""
+    if text and init_type not in ("randn", "randn-trunc", "rand", "zeros"):
+        raise ValueError(f"Initialization {init_type} undefined for shape {tuple(data_shape)}.")
+    if len(data_shape) < 4 and not text:
+        raise ValueError(f"Image candidates are (..., C, H, W), not {tuple(data_shape)}.")
     if init_type == "randn":
         x = torch.randn(data_shape, generator=generator, dtype=dtype)
     elif init_type == "randn-trunc":

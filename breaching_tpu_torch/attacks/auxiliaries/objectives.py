@@ -3,7 +3,9 @@
 The simulated user gradient is ``torch.autograd.grad(..., create_graph=True)`` of
 the task loss through ``torch.func.functional_call``, so the attack's gradient
 with respect to the candidate is a double backward, which cuDNN runs for the
-convolutions. Gradients are tuples of tensors in the order of the parameter dict.
+convolutions. Gradients are tuples of tensors in the order of the parameter dict; a
+parameter the candidate does not reach (a text model's embedding table, when the
+candidate is embeddings) has a zero gradient, as under ``jax.grad``.
 
 For a fedAVG user (``initialize`` with its local hyperparameters) the simulated
 update is the parameter delta after K local SGD steps, unrolled: each step's
@@ -69,7 +71,7 @@ class _MicroBatchGradient(torch.autograd.Function):
         with torch.enable_grad():
             leaves = tuple(p.detach().requires_grad_(True) for p in params)
             loss = task_loss(leaves, x.detach(), y.detach())
-            grads = torch.autograd.grad(loss, leaves)
+            grads = torch.autograd.grad(loss, leaves, allow_unused=True, materialize_grads=True)
         return (loss.detach(), *grads)
 
     @staticmethod
@@ -79,9 +81,10 @@ class _MicroBatchGradient(torch.autograd.Function):
         with torch.enable_grad():
             leaves = tuple(p.detach().requires_grad_(True) for p in ctx.params)
             loss = ctx.task_loss(leaves, *inputs)
-            grads = torch.autograd.grad(loss, leaves, create_graph=True)
+            grads = torch.autograd.grad(loss, leaves, create_graph=True, allow_unused=True, materialize_grads=True)
             wanted = [t for t, need in zip(inputs, needs) if need]
-            bars = iter(torch.autograd.grad((loss, *grads), wanted, (loss_bar, *grads_bar)))
+            outputs = [(o, bar) for o, bar in zip((loss, *grads), (loss_bar, *grads_bar)) if o.requires_grad]
+            bars = iter(torch.autograd.grad([o for o, _ in outputs], wanted, [b for _, b in outputs]))
         return (None, None, *(next(bars) if need else None for need in needs))
 
 
@@ -143,7 +146,8 @@ class GradientLoss:
         outputs = functional_call(self.model, {**params, **buffers}, (candidate,),
                                   dict(train=bn_train, capture=capture))
         task_loss = self.loss_fn(outputs, labels)
-        grads = torch.autograd.grad(task_loss, tuple(params.values()), create_graph=True)
+        grads = torch.autograd.grad(task_loss, tuple(params.values()), create_graph=True, allow_unused=True,
+                                    materialize_grads=True)
         return grads, task_loss
 
     def _micro_batched(self, params, buffers, candidate, labels, accum):
@@ -185,7 +189,8 @@ class GradientLoss:
             outputs = functional_call(self.model, {**dict(zip(params, current)), **buffers}, (batch,),
                                       dict(train=bn_train))
             task_loss = self.loss_fn(outputs, hp["labels"][k])
-            grads = torch.autograd.grad(task_loss, current, create_graph=True)
+            grads = torch.autograd.grad(task_loss, current, create_graph=True, allow_unused=True,
+                                        materialize_grads=True)
             current = tuple(p - lr * g for p, g in zip(current, grads))
         return tuple(p - p0 for p, p0 in zip(current, initial)), task_loss
 

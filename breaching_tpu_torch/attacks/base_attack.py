@@ -1,10 +1,16 @@
 """Shared attack machinery (counterpart of ``breaching_tpu/attacks/base_attack.py``):
 payload ingestion, gradient normalization, label recovery and candidate set-up.
 The label strategies ``iDLG``, ``analytic``, ``yin``, ``wainakh-simple``,
-``wainakh-whitebox``, ``bias-corrected`` and ``random`` are ported; without a strategy
-(``label_strategy`` unset) the labels stay None, as in the JAX package; ``exhaustive``
-raises the JAX package's ``ValueError``, and ``bias-text`` (text) raises
-``NotImplementedError``. ``random``, and the padding of a strategy that finds too few
+``wainakh-whitebox``, ``bias-corrected``, ``random`` and, on a text payload,
+``bias-text`` (the num_data_points x seq_len tokens from the decoder bias's gradient,
+seeded with the tokens whose embedding rows received gradient) are ported; without a
+strategy (``label_strategy`` unset) the labels stay None, as in the JAX package;
+``exhaustive`` raises the JAX package's ``ValueError``.
+
+A text payload (``modality`` text) goes through ``text_utils.prepare_text_attack`` after
+the gradients are cast and normalized; without shared labels its tokens come from
+``text_utils.recover_token_information`` where ``attack.token_strategy`` is set, else
+from the label strategy. ``random``, and the padding of a strategy that finds too few
 labels, draw from ``setup["python_rng"]`` (numpy). ``wainakh-whitebox`` measures the
 impact of one example on the head's gradient with fake images (``_fake_data``: standard
 normal, from a CPU generator seeded from the setup's, so that the CPU and the card see
@@ -59,9 +65,11 @@ class _BaseAttacker:
         metadata = server_payload[0]["metadata"]
         self.data_shape = tuple(metadata.shape)  # (C, H, W)
         self.modality = metadata.modality
-        if self.modality != "vision":
+        if self.modality not in ("vision", "text"):
             raise NotImplementedError(f"{self.modality} attacks are not ported yet.")
-        if metadata.get("mean") is not None:
+        if self.modality == "text":
+            self.dm, self.ds = torch.zeros(1, device=device), torch.ones(1, device=device)
+        elif metadata.get("mean") is not None:
             self.dm = torch.as_tensor(metadata.mean, dtype=torch.float32, device=device)
             self.ds = torch.as_tensor(metadata.std, dtype=torch.float32, device=device)
         else:
@@ -72,11 +80,20 @@ class _BaseAttacker:
         shared_data = self._cast_shared_data(shared_data)
         if self.cfg.normalize_gradients:
             shared_data = self._normalize_gradients(shared_data)
+        if self.modality == "text":
+            from .auxiliaries.text_utils import prepare_text_attack
+
+            shared_data = prepare_text_attack(self, shared_data, rec_models)
         self._shared_data_cache = shared_data
 
         labels = self._shared_data_cache[0]["metadata"]["labels"]
         if labels is None:
-            labels = self._recover_label_information(self._shared_data_cache, rec_models)
+            if self.modality == "text" and self.cfg.get("token_strategy"):
+                from .auxiliaries.text_utils import recover_token_information
+
+                labels = recover_token_information(self, self._shared_data_cache, server_payload, rec_models[0])
+            else:
+                labels = self._recover_label_information(self._shared_data_cache, rec_models)
         return rec_models, None if labels is None else torch.as_tensor(labels, device=device), stats
 
     def _construct_models_from_payload_and_buffers(self, server_payload, shared_data):
@@ -118,8 +135,9 @@ class _BaseAttacker:
         return shared_data
 
     def _initialize_data(self, data_shape):
-        return init_candidate(self.setup["generator"], self.cfg.init, data_shape,
-                              dtype=self.setup["dtype"], device=self.setup["device"], mean=self.dm, std=self.ds)
+        return init_candidate(self.setup["generator"], self.cfg.init, data_shape, dtype=self.setup["dtype"],
+                              device=self.setup["device"], mean=self.dm, std=self.ds,
+                              text=getattr(self, "modality", "vision") == "text")
 
     def _recover_label_information(self, user_data, rec_models=None):
         """Label recovery from the classification head's gradients (reference
@@ -128,8 +146,9 @@ class _BaseAttacker:
         strategy = self.cfg.label_strategy
         if strategy is None or str(strategy).lower() == "none":
             return None
-        if strategy == "bias-text":
-            raise NotImplementedError(f"Label strategy {strategy} is not ported yet.")
+        if strategy == "bias-text" and getattr(self, "modality", None) != "text":
+            raise NotImplementedError("Label strategy bias-text recovers a text payload's tokens; it is not "
+                                      "ported for other payloads.")
         num_data_points = int(user_data[0]["metadata"]["num_data_points"])
         grads = [tuple(t.detach().cpu().numpy() for t in head_grads(d["gradients"], self.model_template))
                  for d in user_data]
@@ -177,6 +196,8 @@ class _BaseAttacker:
                 selected.append(idx)
                 avg_bias[idx] -= m_impact
             labels = np.asarray(selected)
+        elif strategy == "bias-text":
+            return self._bias_text(user_data, grads, num_data_points)
         elif strategy == "random":
             labels = self.setup["python_rng"].integers(0, num_classes, num_data_points)
         else:
@@ -188,6 +209,29 @@ class _BaseAttacker:
         labels = np.sort(labels[:num_data_points])
         log.info(f"Recovered labels {labels.tolist()} through strategy {strategy}.")
         return labels
+
+    def _bias_text(self, user_data, grads, num_data_points):
+        """``bias-text`` (reference base_attack.py:426-452): the tokens whose decoder-bias
+        gradient is negative, then those whose embedding row in the first query's gradient
+        is nonzero (after ``prepare_text_attack``, which zeroes that leaf, none), then the
+        least bias gradient, each pick lowering it by the mean impact; (N, seq_len)."""
+        num_missing = num_data_points * int(self.data_shape[0])
+        avg_bias = np.stack([b for _, b in grads]).mean(axis=0).copy()
+        valid = np.nonzero(avg_bias < 0)[0]
+        selected = valid.tolist()
+        embedding = self.model_template.registry["embedding"]
+        rows = user_data[0]["gradients"][embedding].detach().cpu().numpy()
+        for token in np.nonzero(np.linalg.norm(rows, axis=-1) > 0)[0].tolist():
+            if token not in selected:
+                selected.append(token)
+        m_impact = avg_bias[valid].sum() / max(num_missing, 1)
+        avg_bias[valid] -= m_impact
+        while len(selected) < num_missing:
+            idx = int(np.argmin(avg_bias))
+            selected.append(idx)
+            avg_bias[idx] -= m_impact
+        log.info(f"Recovered {num_missing} tokens through strategy bias-text.")
+        return np.asarray(selected[:num_missing]).reshape(num_data_points, int(self.data_shape[0]))
 
     def _fake_data(self, generator, index, count):
         """``count`` standard normal images of the data's shape, the fake data of

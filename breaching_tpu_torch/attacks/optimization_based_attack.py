@@ -2,26 +2,30 @@
 ``breaching_tpu/attacks/optimization_based_attack.py``).
 
 The optimization variable is a dict of tensors, the candidate tree: ``data`` (NCHW
-images), and for the joint attack (``optimization_with_label_attack.py``) also
-``labels`` (label logits). Each step computes its loss, the gradient matching
-objective plus the regularizers, and the loss's gradient with respect to every leaf
-by double backward. Regularizers that read the model's intermediates
-(``DeepInversion``, ``FeatureRegularization``) take them from the objective's own
-forward pass; the others read the candidate alone. What follows depends on the
-optimizer (``optim.optimizer``):
+images, or for a text payload embeddings (N, T, D) fed to the model in place of token
+ids), and for the joint attack (``optimization_with_label_attack.py``) also ``labels``
+(label logits). A text reconstruction's embeddings end as token ids
+(``text_utils.postprocess_text_data``); embeddings have no box. Each step computes its
+loss, the gradient matching objective plus the regularizers, and the loss's gradient
+with respect to every leaf by double backward. Regularizers that read the model's
+intermediates (``DeepInversion``, ``FeatureRegularization``) take them from the
+objective's own forward pass; the others read the candidate alone. What follows depends
+on the optimizer (``optim.optimizer``):
 
 - Adam and ``adam-safe``: the gradient transforms that the kernel does not take
   (Langevin noise, ``grad_clip``) in PyTorch operations, then per leaf one call of
   ``ops.adam_box_step`` (one kernel launch on the card), which takes the hard or
-  soft sign, the Adam step, the box clamp (data only), rejects a step whose loss is
-  not finite and keeps the best iterate. The leaves of one step share its loss and
+  soft sign, the Adam step, the box clamp (image data only), rejects a step whose loss
+  is not finite and keeps the best iterate; a projection of another kind
+  (``_project_accepted``, the permutation attack's) follows on the result where the
+  step was accepted. The leaves of one step share its loss and
   best value, so they keep the best iterate of the same step.
 - ``bert-adam``, ``momgd`` and ``gd``: the transforms and the update in PyTorch
-  operations, then ``ops.box_project`` on the data when boxed (kernel B4), then the
-  finite guard and the best iterate.
+  operations, then when boxed ``_project_tree`` (``ops.box_project`` on images, kernel
+  B4), then the finite guard and the best iterate.
 - L-BFGS: the untransformed gradient and a closure of the full loss go to
-  ``LBFGS.update`` (up to 20 more evaluations of the loss), then the box on the
-  data through ``ops.box_project``, the guard and the best iterate.
+  ``LBFGS.update`` (up to 20 more evaluations of the loss), then ``_project_tree``, the
+  guard and the best iterate.
 
 A single trial whose loss ends non-finite also leaves the candidate it stopped at in
 ``stats["Trial_<t>_nonfinite_candidate"]``. ``stats["objective_evaluations"]``
@@ -31,7 +35,7 @@ except the loss readout every ``optim.callback`` steps.
 
 One trial runs that step alone. Two or more trials of an Adam attack on the data
 alone (``restarts.num_trials > 1``, and ``reconstruct_fleet``, which stacks
-independent experiments on the trials axis) run a batched step: the objective of
+independent experiments on the trials axis) on images run a batched step: the objective of
 every trial at once (``objectives.trials``), one double backward for all, one TV
 launch and one ``adam_box_step_trials`` launch for all the trials, each trial keeping
 its own best value and iterate. The trials of other optimizers and of
@@ -163,6 +167,8 @@ class OptimizationBasedAttacker(_BaseAttacker):
         scores = self._score_all_trials(best, labels, rec_models, shared_data)
         optimal = self._select_optimal_reconstruction(best, scores, stats)
         reconstructed = self._extract_solution(optimal, labels)
+        if self.modality == "text":
+            reconstructed = self._postprocess_text_data(reconstructed)
         if server_secrets and "ClassAttack" in server_secrets:
             reconstructed = expand_class_attack(reconstructed, server_secrets["ClassAttack"])
         return reconstructed, stats
@@ -229,6 +235,23 @@ class OptimizationBasedAttacker(_BaseAttacker):
 
     def _extract_solution(self, tree, labels):
         return dict(data=tree["data"], labels=labels)
+
+    def _postprocess_text_data(self, reconstructed):
+        from .auxiliaries.text_utils import postprocess_text_data
+
+        return postprocess_text_data(self, reconstructed)
+
+    def _project_tree(self, tree, box):
+        """The box on image data (``ops.box_project``, in place: ``tree`` is the step's own
+        result); text embeddings have none."""
+        if self.modality != "vision":
+            return tree
+        data = tree["data"].contiguous()
+        return dict(tree, data=box_project(data, *box, out=data))
+
+    def _project_accepted(self, tree, value):
+        """After ``adam_box_step``: a projection the kernel does not take, applied where the
+        step was accepted (its loss finite). The box of images is the kernel's own."""
 
     # ---------------------------------------------------------------- loss
 
@@ -330,7 +353,7 @@ class OptimizationBasedAttacker(_BaseAttacker):
                                            device=tree["data"].device).expand_as(tree["data"])
         box = (-self.dm / self.ds).contiguous(), ((1 - self.dm) / self.ds).contiguous()
         adam = isinstance(self._optimizer(max_iterations), Adam)
-        if num_trials > 1 and self.batched_trials and adam and list(tree) == ["data"]:
+        if num_trials > 1 and self.batched_trials and adam and list(tree) == ["data"] and self.modality == "vision":
             if any(model.bn_train for model in rec_models):
                 raise NotImplementedError("BatchNorm in train mode is not ported under the batched "
                                           "trial step; the server must share its buffers.")
@@ -466,7 +489,9 @@ class OptimizationBasedAttacker(_BaseAttacker):
                     adam_box_step(view(leaf), view(grad.contiguous()), view(states[k]["mu"]),
                                   view(states[k]["nu"]), view(best[k]), *(box if image else (no_box, no_box)),
                                   value, *best_vals, optimizer.advance(states[k]), signed=mode,
-                                  boxed=boxed and k == "data", soft_scale=soft)
+                                  boxed=boxed and image and k == "data", soft_scale=soft)
+                if boxed:
+                    self._project_accepted(tree, value)
                 best_vals.reverse()
                 return value, task_loss
         elif isinstance(optimizer, LBFGS):
@@ -514,16 +539,14 @@ class OptimizationBasedAttacker(_BaseAttacker):
             stats[f"Trial_{trial}_nonfinite_candidate"] = tree["data"].clone()
         return best, float(best_vals[0])
 
-    @staticmethod
-    def _finish_step(tree, new, best, best_vals, value, box, boxed):
-        """The step's tail in PyTorch operations, for optimizers other than Adam: the box
-        on the data (``ops.box_project``, in place: ``new`` is the step's own result,
-        which neither the optimizer's state nor L-BFGS's history holds), then the
-        candidate takes ``new`` if the loss is finite, and the best iterate the candidate
-        from before the step if the loss is finite and below the best value."""
+    def _finish_step(self, tree, new, best, best_vals, value, box, boxed):
+        """The step's tail in PyTorch operations, for optimizers other than Adam: with
+        ``boxed`` ``_project_tree`` (in place: ``new`` is the step's own result, which
+        neither the optimizer's state nor L-BFGS's history holds), then the candidate
+        takes ``new`` if the loss is finite, and the best iterate the candidate from before
+        the step if the loss is finite and below the best value."""
         if boxed:
-            data = new["data"].contiguous()
-            new = dict(new, data=box_project(data, *box, out=data))
+            new = self._project_tree(new, box)
         finite = torch.isfinite(value)
         improved = finite & (value < best_vals[0])
         for k, leaf in tree.items():

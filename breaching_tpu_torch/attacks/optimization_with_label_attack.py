@@ -1,8 +1,10 @@
 """Joint data and label optimization, the original DLG (Zhu et al.; counterpart of
 ``breaching_tpu/attacks/optimization_with_label_attack.py``).
 
-The candidate tree gains a ``labels`` leaf of label logits (N, classes), drawn
-standard normal after the data; the task loss takes their softmax as soft labels.
+The candidate tree gains a ``labels`` leaf of label logits, (N, classes) for
+classification or one row of token logits per position (N, T, vocab) for a sequence task
+(causal or masked LM), drawn standard normal after the data; the task loss takes their
+softmax as soft labels.
 L-BFGS flattens the data, then the labels, as ``ravel_pytree`` orders the JAX
 package's dict; the box applies to the data only. Adam gives the label leaf the same
 step tail with the box off, a second ``adam_box_step`` launch that shares the step's
@@ -27,9 +29,9 @@ class OptimizationJointAttacker(OptimizationBasedAttacker):
             raise ValueError("Joint optimization only makes sense if no labels are provided. "
                              "Switch to attack.attack_type=optimization instead.")
         metadata = server_payload[0]["metadata"]
-        if metadata.get("task", "classification") != "classification":
-            raise NotImplementedError("Joint optimization of sequence labels is not ported yet.")
-        self._num_classes = int(metadata["classes"])
+        self._task = metadata.get("task", "classification")
+        self._num_classes = metadata.get("classes")
+        self._vocab_size = metadata.get("vocab_size")
         return super().reconstruct(server_payload, shared_data, server_secrets, initial_data, dryrun)
 
     def _recover_label_information(self, user_data, rec_models=None):
@@ -37,7 +39,11 @@ class OptimizationJointAttacker(OptimizationBasedAttacker):
 
     def _init_candidate_tree(self, num_trials, num_points):
         tree = super()._init_candidate_tree(num_trials, num_points)
-        tree["labels"] = self._initialize_labels((num_trials, num_points, self._num_classes))
+        if self._task == "classification":
+            shape = (num_trials, num_points, int(self._num_classes))
+        else:  # sequence tasks: soft tokens at every position
+            shape = (num_trials, num_points, int(self.data_shape[0]), int(self._vocab_size))
+        tree["labels"] = self._initialize_labels(shape)
         return tree
 
     def _initialize_labels(self, shape):

@@ -1,8 +1,9 @@
 """Dataloader factory, a copy of ``breaching_tpu/cases/data/data_preparation.py``
-(reference: breaching/cases/data/data_preparation.py:17-73) for vision data.
+(reference: breaching/cases/data/data_preparation.py:17-73) for vision and text data.
 
 Returns a lightweight numpy-batch loader over the user's partition. Batches are
-dicts of host numpy arrays, images NCHW; the user moves them to its device.
+dicts of host numpy arrays, images NCHW (``inputs``) or token ids (``input_ids``); the
+user moves them to its device.
 """
 
 from __future__ import annotations
@@ -43,6 +44,10 @@ def construct_dataloader(cfg_data, cfg_impl, user_idx: int = 0, return_full_data
     if cfg_data.modality == "vision":
         full = VisionDataset(cfg_data, split=cfg_data.examples_from_split)
         dataset = split_dataset(full, cfg_data, user_idx, return_full_dataset)
+    elif cfg_data.modality == "text":
+        from .datasets_text import build_text_dataset
+
+        dataset = build_text_dataset(cfg_data, user_idx, return_full_dataset)
     else:
         raise NotImplementedError(f"Data modality {cfg_data.modality} is not ported yet.")
 

@@ -1,8 +1,9 @@
-"""Model factory: name -> (nn.Module, loss_fn), for every vision name of the JAX
-package's dispatch: the ResNets (BatchNorm and GroupNorm; the WSL, SWSL, SSL and MoCo
-names as the ResNet-50 or -101 they are built on), DenseNet, VGG, NFNet, the ConvNets,
-``ConvNetSmall``, LeNet, CNN6 (with R-GAP's ``rgap_layers``), MLP, ``linear``, ``none`` and
-the ViTs (with APRIL's ``april_refs`` and ``april_retile``).
+"""Model factory: name -> (nn.Module, loss_fn), for the text models of
+``language_models.py`` and every vision name of the JAX package's dispatch: the ResNets
+(BatchNorm and GroupNorm; the WSL, SWSL, SSL and MoCo names as the ResNet-50 or -101 they
+are built on), DenseNet, VGG, NFNet, the ConvNets, ``ConvNetSmall``, LeNet, CNN6 (with
+R-GAP's ``rgap_layers``), MLP, ``linear``, ``none`` and the ViTs (with APRIL's
+``april_refs`` and ``april_retile``).
 
 Counterpart of ``breaching_tpu/cases/models/model_preparation.py``. Weights are
 drawn from the ``setup`` generator. With ``pretrained=True`` a checkpoint in the
@@ -33,6 +34,14 @@ REPO = os.path.dirname(os.path.dirname(os.path.dirname(os.path.dirname(os.path.a
 
 def construct_model(cfg_model, cfg_data, pretrained: bool = False, generator=None):
     """Build (model, loss_fn) on the CPU from a model name and a data config."""
+    if cfg_data.modality == "text":
+        from .language_models import construct_text_model
+
+        model, loss_cls = construct_text_model(cfg_model, cfg_data, generator=generator)
+        model.name = str(cfg_model)
+        if pretrained:
+            _maybe_load_pretrained(model, cfg_data)
+        return model, loss_cls()
     if cfg_data.modality != "vision":
         raise NotImplementedError(f"{cfg_data.modality} models are not ported yet.")
     name = str(cfg_model)
@@ -101,7 +110,10 @@ def head_name(model) -> str:
 
 
 def head_keys(model) -> tuple[str, str]:
-    """The parameter names (weight, bias) of ``model``'s classification head."""
+    """The parameter names (weight, bias) of ``model``'s classification head; a text
+    model names its own (``head_param_keys``: a tied decoder's weight is the embedding)."""
+    if hasattr(model, "head_param_keys"):
+        return model.head_param_keys
     head = head_name(model)
     return f"{head}.weight", f"{head}.bias"
 

@@ -10,6 +10,11 @@ the model runs in eval mode on them; without, it runs in train mode and the
 user's running statistics (cumulative, so exactly its batch statistics after one
 step, and carried from one local step to the next) are shared.
 
+On text (token ids, ``input_ids``) the fedSGD user takes the same gradient of the task
+loss on the ids, which stay int64; the fedAVG user and the silo are not ported for text.
+``print``, ``print_with_confidence`` and ``print_and_mark_correct`` print a user's
+token ids, decoded where a tokenizer is given.
+
 ``MultiUserAggregate`` shares only the mean of its users' updates, as secure aggregation
 would. A single-step silo sums the users' fedSGD gradients one user at a time and divides
 by their number once (the JAX package's scan: one gradient tree in memory for any silo
@@ -72,6 +77,9 @@ def construct_user(model, loss_fn, cfg_case, setup):
     """User factory (reference: breaching/cases/users.py:13-28); a silo of
     ``multiuser_aggregate`` holds the users of ``range(*user_range)``."""
     cfg_user = cfg_case.user
+    if cfg_case.data.modality == "text" and cfg_user.user_type != "local_gradient":
+        raise NotImplementedError(f"The {cfg_user.user_type} user on text is not ported yet; the fedSGD "
+                                  f"user (local_gradient) is.")
     if cfg_user.user_type == "multiuser_aggregate":
         indices = list(range(*cfg_user.user_range))
         dataloaders = [construct_dataloader(cfg_case.data, cfg_case.impl, user_idx=idx) for idx in indices]
@@ -165,6 +173,8 @@ class UserSingleStep:
         """The shared gradient by parameter name: input noise, the batch gradient (or
         with clipping the clipped per-example mean) and gradient noise. In train mode the
         running statistics of ``local_buffers`` are updated in place."""
+        if self.input_noise > 0 and not torch.is_floating_point(inputs):
+            raise ValueError("local_diff_privacy.input_noise cannot perturb token ids.")
         seen = inputs + self.input_noise * self._noise([inputs.shape])[0] if self.input_noise > 0 else inputs
         if self.clip_value > 0:
             grads, _ = self.clipped_gradient(parameters, local_buffers, seen, labels, bn_train)
@@ -185,13 +195,14 @@ class UserSingleStep:
         inputs, labels = self._user_tensors(custom_data)
         bn_train, local_buffers = self._local_buffers(server_payload["buffers"])
         grads = self.gradient(server_payload["parameters"], local_buffers, inputs, labels, bn_train)
+        data_key = "inputs" if torch.is_floating_point(inputs) else "input_ids"
 
         shared_buffers = local_buffers if bn_train else None
         metadata = dict(
             num_data_points=self.num_data_points if self.provide_num_data_points else None,
             labels=torch.sort(labels).values if self.provide_labels else None,
             local_hyperparams=None,
-            data_key="inputs",
+            data_key=data_key,
         )
         shared_data = dict(
             gradients=grads,
@@ -202,11 +213,15 @@ class UserSingleStep:
         return shared_data, true_user_data
 
     def _user_tensors(self, custom_data):
-        """The user's inputs and labels on its device."""
+        """The user's inputs (images in the setup's dtype, token ids as int64) and labels on
+        its device."""
         data = self._load_data() if custom_data is None else custom_data
         device = self.setup["device"]
-        return (torch.as_tensor(data["inputs"], dtype=self.setup["dtype"], device=device),
-                torch.as_tensor(data["labels"], dtype=torch.int64, device=device))
+        if "input_ids" in data:
+            inputs = torch.as_tensor(data["input_ids"], dtype=torch.int64, device=device)
+        else:
+            inputs = torch.as_tensor(data["inputs"], dtype=self.setup["dtype"], device=device)
+        return inputs, torch.as_tensor(data["labels"], dtype=torch.int64, device=device)
 
     def _local_buffers(self, buffers):
         """(BatchNorm in train mode, the user's copy of the buffers): eval mode on the
@@ -236,6 +251,40 @@ class UserSingleStep:
             key: np.concatenate([b[key] for b in blocks])[: self.num_data_points]
             for key in blocks[0]
         }
+
+
+    @staticmethod
+    def _token_rows(user_data, key="data"):
+        data = user_data[key]
+        data = data.detach().cpu().numpy() if isinstance(data, torch.Tensor) else np.asarray(data)
+        return data.reshape(data.shape[0], -1)
+
+    @staticmethod
+    def _token_text(token, tokenizer):
+        return tokenizer.decode([int(token)]) if tokenizer is not None else str(int(token))
+
+    def print(self, user_data, tokenizer=None, **kwargs):
+        """Print each sequence of ``user_data["data"]``: decoded with ``tokenizer``, else its
+        token ids (reference: users.py:229-234)."""
+        for row in self._token_rows(user_data):
+            print(tokenizer.decode(row.tolist()) if tokenizer is not None else " ".join(str(int(t)) for t in row))
+
+    def print_with_confidence(self, user_data, tokenizer=None, **kwargs):
+        """Print each token with its ``confidence`` (1 where none is given) (reference:
+        users.py:236-250)."""
+        rows = self._token_rows(user_data)
+        confidence = user_data.get("confidence")
+        confidence = np.ones(rows.shape, np.float32) if confidence is None else \
+            np.asarray(torch.as_tensor(confidence).cpu()).reshape(rows.shape)
+        for row, conf in zip(rows, confidence):
+            print(" ".join(f"{self._token_text(t, tokenizer)}[{float(c):.2f}]" for t, c in zip(row, conf)))
+
+    def print_and_mark_correct(self, user_data, true_user_data, tokenizer=None, **kwargs):
+        """Print each token marked by whether it equals the true token at its place
+        (reference: users.py:252-266)."""
+        for row, truth in zip(self._token_rows(user_data), self._token_rows(true_user_data)):
+            print(" ".join(f"{self._token_text(t, tokenizer)}{'✓' if int(t) == int(g) else '✗'}"
+                           for t, g in zip(row, truth)))
 
 
 class UserMultiStep(UserSingleStep):

@@ -1,7 +1,7 @@
 """Where the time of a slice's attack step goes, on the card.
 
-    python3 -m breaching_tpu_torch.profile_slice [--slice 1|2|3|4|5|6|7] [--path 5a|5b|5b'|5c|7c|7d] [--fleet F]
-                                                 [--fused] [--lbfgs] [--iterations N]
+    python3 -m breaching_tpu_torch.profile_slice [--slice 1|2|3|4|5|6|7|12] [--path 5a|...|7d|12a|...|12e']
+                                                 [--fleet F] [--fused] [--lbfgs] [--iterations N]
 
 Slice 1 (the default) runs Inverting Gradients with the fused cosine objective on
 ConvNet-64 / CIFAR-10 shapes; slice 2 the JAX package's bench preset on ResNet-18
@@ -26,7 +26,11 @@ with Laplace noise of scale 1e-3; slice 7 one of the fishing server's presets, c
 ``--path``: 7c ``fishing`` (ResNet-50 on its checkpoint, 8 images at 224, the class attack
 on one of them) or 7d ``fishing_optimization_unique`` (ResNet-18 on its checkpoint, 50
 images of one class, the one-shot binary attack), the clsattack optimization on the one
-image the server isolates. Each goes through the entry points: one warm-up attack, an
+image the server isolates; slice 12 one of the honest server's text presets, chosen by
+``--path``: 12a ``tag`` (case 10's transformer3, one sentence of 32 tokens of the GPT-2
+vocabulary), 12b ``permutation``, 12c ``dlg_text`` (L-BFGS; a step is an outer step, 10 by
+default), 12d case 9's ``bert-base-uncased`` with ``tag``, 12e ``tag`` on ``gpt2`` and 12e'
+``permutation`` on ``gpt2`` with 8 sentences. Each goes through the entry points: one warm-up attack, an
 attack of N steps (default 200) timed with the profiler off, and the same attack
 under ``torch.profiler``. Prints one JSON line: milliseconds per step with the
 profiler off and on (wall clock around the synchronised attack; the difference
@@ -79,6 +83,16 @@ SLICE7 = {
            "case.data.partition=unique-class", "case.user.num_data_points=50", "case.user.user_idx=1",
            "case.user.provide_labels=True", "case.server.target_cls_idx=0"],
 }
+# slice 12's text paths (examples/run_example.py's presets)
+SLICE12 = {
+    "12a": ["case=10_causal_lang_training", "attack=tag"],
+    "12b": ["case=10_causal_lang_training", "attack=permutation"],
+    "12c": ["case=10_causal_lang_training", "attack=deepleakage", "case.user.provide_labels=False"],
+    "12d": ["case=9_bert_training", "attack=tag"],
+    "12e": ["case=10_causal_lang_training", "attack=tag", "case.model=gpt2"],
+    "12e'": ["case=10_causal_lang_training", "attack=permutation", "case.model=gpt2", "case.user.num_data_points=8",
+             "case.data.default_clients=1000"],
+}
 FUSED = ["attack.objective.type=fused-cosine-similarity"]
 # slice 4 --lbfgs: the deep_leakage preset with the fused euclidean objective (path 4a')
 LBFGS = ["case=1_single_image_small", "attack=deepleakage", "case.user.provide_labels=False",
@@ -114,9 +128,9 @@ def _timed(run):
 
 def main():
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    parser.add_argument("--slice", type=int, choices=sorted([*SLICES, 5, 7]), default=1)
-    parser.add_argument("--path", choices=sorted([*SLICE5, *SLICE7]), default=None,
-                        help="slice 5's path (default 5a) or slice 7's (default 7c)")
+    parser.add_argument("--slice", type=int, choices=sorted([*SLICES, 5, 7, 12]), default=1)
+    parser.add_argument("--path", choices=sorted([*SLICE5, *SLICE7, *SLICE12]), default=None,
+                        help="slice 5's path (default 5a), slice 7's (default 7c) or slice 12's (default 12a)")
     parser.add_argument("--fleet", type=int, default=1, help="experiments through reconstruct_fleet")
     parser.add_argument("--fused", action="store_true", help="slice 2 or 3 with the fused cosine objective")
     parser.add_argument("--lbfgs", action="store_true", help="slice 4: deep_leakage with fused euclidean, L-BFGS")
@@ -126,7 +140,7 @@ def main():
         raise SystemExit("profile_slice needs a CUDA device.")
     if args.lbfgs and args.slice != 4:
         parser.error("--lbfgs is a path of slice 4.")
-    paths = {5: SLICE5, 7: SLICE7}.get(args.slice)
+    paths = {5: SLICE5, 7: SLICE7, 12: SLICE12}.get(args.slice)
     if paths is not None:
         args.path = args.path or min(paths)
         if args.path not in paths:
@@ -135,8 +149,10 @@ def main():
     else:
         overrides = LBFGS if args.lbfgs else SLICES[args.slice] + (FUSED if args.fused else [])
 
-    _attack(overrides, 5 if args.lbfgs else 20, args.fleet)()  # warm-up: kernel build, cuDNN heuristics
-    iterations = args.iterations or (20 if args.lbfgs else 200)
+    cfg = breaching.get_config(overrides)
+    lbfgs = cfg.attack.optim.optimizer.lower() == "l-bfgs"
+    _attack(overrides, 5 if lbfgs else 20, args.fleet)()  # warm-up: kernel build, cuDNN heuristics
+    iterations = args.iterations or (10 if args.path == "12c" else 20 if lbfgs else 200)
     run = _attack(overrides, iterations, args.fleet)
     wall_ms, (_, stats) = _timed(run)
     steps = len(stats["Trial_0_Val"])  # on 5a, the iterations of every stage
@@ -147,12 +163,10 @@ def main():
     top = sorted(kernels, key=lambda e: e.self_device_time_total, reverse=True)[:12]
     # the port's kernels by name, without the return type that templates carry
     port = {e.key.removeprefix("void ").split("(")[0]: e for e in kernels if "breaching::" in e.key}
-    objective = ("fused-euclidean" if args.lbfgs else "euclidean" if args.path == "5c" and args.slice == 5 else
-                 ("fused-" if args.fused or args.slice == 1 else "") + "cosine-similarity")
     print(json.dumps(dict(
         device=torch.cuda.get_device_name(0), slice=args.slice, path=args.path if paths is not None else None,
-        fleet=args.fleet, objective=objective,
-        optimizer="L-BFGS" if args.lbfgs else "adam", iterations=steps,
+        fleet=args.fleet, objective=cfg.attack.objective.type, optimizer=cfg.attack.optim.optimizer,
+        model=cfg.case.model, iterations=steps,
         evaluations_per_step=stats.get("objective_evaluations", steps) / steps,
         peak_memory_gib=torch.cuda.max_memory_allocated() / 2**30,
         ms_per_step=wall_ms / steps, profiled_ms_per_step=profiled_ms / steps,

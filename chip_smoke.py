@@ -29,7 +29,8 @@ Phases, one line each on standard output:
      calls; the rebuilt box clamp bit for bit, out of place and in place,
      at 1x3x32x32 and 4x3x224x224, 4 bytes off a 16-byte boundary and at a
      width that is not a multiple of 4, with NaN, infinities and values on the
-     bounds;
+     bounds; the fused Adam step also as the permutation attack calls it on its (P, P)
+     matrix (one unboxed row, no sign) at P = 32 and 256;
   4. the attack gradient of each slice on the card against the same computation
      on the CPU, through the plain versions (and whether the card gives the same
      bits twice, which is reported, not required); for slice 3 the gradient
@@ -43,7 +44,10 @@ Phases, one line each on standard output:
      for slice 7 the user's gradient through 7a's imprinted ResNet-18 at 224 (to 1e-4
      of its largest entry) and the readout's images where both pick the same bins
      (else both selections, printed), and 7c's gradient of 8 images through
-     ResNet-50's class-poisoned head (1e-4) with the class's feature (1e-3);
+     ResNet-50's class-poisoned head (1e-4) with the class's feature (1e-3); for slice 12
+     the TAG gradient on ``gpt2`` (768 x 12, the GPT-2 vocabulary) at one sentence of 32
+     tokens, with respect to the embeddings and the token-label logits (1e-3 of each
+     leaf's largest entry, the measured figure printed);
   5. the main paths end to end through the entry points, each with the kernels'
      launch counts set to 0 just before it and read just after: slice 1,
      Inverting Gradients with the fused cosine objective on ConvNet-64 /
@@ -61,20 +65,20 @@ Phases, one line each on standard output:
      and with the fused one; slice 4, the JAX package's other named optimization
      presets (examples/run_example.py): ``deep_leakage`` (the joint attack of data
      and label logits with L-BFGS), the same with the fused euclidean objective,
-     ``wei_framework`` and ``beyond_inferring`` on ConvNet-64 (20 outer L-BFGS
+     ``wei_framework`` and ``beyond_inferring`` on ConvNet-64 (10 outer L-BFGS
      steps each), ``modern_hyperparams`` and ``legacy_hyperparams`` on ResNet-18
-     (200 steps each); slice 5, the remaining vision presets: 5a ``multiscale``
-     (ResNet-18 on its checkpoint at 224, seven stages 32, 64, ..., 224 of 50
+     (100 steps each); slice 5, the remaining vision presets: 5a ``multiscale``
+     (ResNet-18 on its checkpoint at 224, seven stages 32, 64, ..., 224 of 25
      steps), 5b ``inverting_large_batch_cifar`` (ResNet32-10 on 100 images of
-     CIFAR-100's shape with grad_accum=10, 50 steps) and 5b' (the same with
+     CIFAR-100's shape with grad_accum=10, 20 steps) and 5b' (the same with
      grad_accum=1, 5 steps, for the peak memory, which grad_accum=10 must
      lower), 5c ``see_through_gradients`` (ResNet-50 on the checkout's
-     ResNet50.npz, which it must hold, at 224, 200 steps), 5d
+     ResNet50.npz, which it must hold, at 224, 100 steps), 5d
      ``inverting_gradients_fedavg``, ``inverting_gradients_fedavg_cifar`` and
      ``inverting_gradients_resnet18`` (50 steps each); slices 1 and 2 solo take
-     1,000 and 200 steps; slice 6, the honest server's remaining configuration
+     500 and 100 steps, slice 3's preset 50; slice 6, the honest server's remaining configuration
      surface: 6a the fedSGD user with per-example clipping (C = 1) and Laplace
-     gradient noise on ResNet-18 at 224 (the checkpoint, 4 images, 200 steps),
+     gradient noise on ResNet-18 at 224 (the checkpoint, 4 images, 100 steps),
      where every clipped per-example norm is at most C (1 + 1e-5) and, with
      the noise off, the clipped gradient on the card equals the CPU's to
      1e-12 of its largest entry in float64 and to 1e-4 in float32; 6b the server's model states ``linearized``,
@@ -94,7 +98,7 @@ Phases, one line each on standard output:
      ``curious_abandon_honesty`` (ConvNet-64, CIFAR-10), 7c ``fishing`` (ResNet-50 on its
      checkpoint, 8 images) and 7d ``fishing_optimization_unique`` (ResNet-18, 50 images
      of one class, so that the binary attack runs: more than 2 user queries; each cutoff
-     query and the images behind the final gradient printed), 200 attack steps each with
+     query and the images behind the final gradient printed), 100 attack steps each with
      the fused TV and Adam step once a step, 7d'' 7d's one-shot search alone at the JAX
      package's test's feat_multiplier of 30000, which must take at least two cutoff queries
      and leave fewer than the 50 images behind the final gradient, 7e ``sanity_check`` (the
@@ -118,12 +122,20 @@ Phases, one line each on standard output:
      11a ``rgap`` (cnn6 at 1x3x32x32) and 11b ``april`` (ViT-B/16 APRIL at 224, random
      weights), each attacked again on the CPU on the card's gradient (the largest
      difference printed), 11c ``fishing_optimization_cross_silo`` (ResNet-18, a silo of one
-     user with 256 images, 200 steps), 11d ``fishing_analytic_cross_silo`` and
+     user with 256 images, 100 steps), 11d ``fishing_analytic_cross_silo`` and
      ``fishing_feature_cross_device`` on ViT-S/16 APRIL at 224 (the image's PSNR and whether
      the fishing isolated it), 11e case 8's silo of 16 users x 8 images at 224 (its aggregate
      to 2e-6 of the users' gradients averaged in float64, then 50 steps), 11f one float32
      gradient of each new model at ImageNet width against float64 on the card (1e-4); 11a,
-     11b and 11d launch no port kernel; for each: set-up
+     11b and 11d launch no port kernel; slice 12, the honest server's text presets: 12a
+     ``tag`` (case 10's transformer3, one sentence of 32 tokens of the GPT-2 vocabulary,
+     200 steps, no port kernel), 12b ``permutation`` (200 steps, the fused Adam step once a
+     step and no other kernel), 12c ``dlg_text`` (10 outer L-BFGS steps) and 12c' the same
+     with the fused euclidean objective (B1 and ``b2_axpby`` once per evaluation), 12d case
+     9's ``bert-base-uncased`` with ``attack=tag`` and 12e ``tag`` on ``gpt2`` (768 x 12, 50
+     steps each, no port kernel), 12e ``permutation`` on ``gpt2`` with 8 sentences (P = 256,
+     50 steps): every path's token ids of the vocabulary, its text report complete and
+     finite, the permutation's tokens an order of the leaked bag; for each: set-up
      seconds, loss at the start and end of every trial, PSNR and SSIM (of the
      batch put in the true images' order, and the order), it/s (the fleet's aggregate; with L-BFGS also the
      objective's evaluations per second), peak memory and launches per step;
@@ -147,7 +159,9 @@ Phases, one line each on standard output:
      (medians); the fused Adam step also beside ``torch._fused_adam_`` on one tensor
      of the candidate's shape, where the installed torch has it; the trials forms
      of the fused TV kernel and the fused Adam step at 8x1x3x224x224 and of the
-     fused cosine backward at 4 rows of 2,904,970, each beside its T single calls;
+     fused cosine backward at 4 rows of 2,904,970, each beside its T single calls; the
+     fused Adam step at the permutation attack's (P, P) matrix, P = 32 and 256, beside
+     ``torch._fused_adam_`` on that matrix;
      the launch of ``b2_axpby``, the fused cosine backward, the fused TV kernel and
      the fused Adam step at the paths' shapes (registers, blocks resident per SM,
      grid) and the host time of every kernel's wrapper split into its Python
@@ -187,37 +201,37 @@ import numpy as np
 import torch
 
 REPO = os.path.dirname(os.path.abspath(__file__))
-ITERATIONS = 1000
+ITERATIONS = 500
 DEVICE = "cuda"
 SLICE = ["case=1_single_image_small", "attack=invertinggradients",
          "attack.objective.type=fused-cosine-similarity"]
 # slice 2: the JAX package's bench.py preset (ResNet-18, ImageNetAnimals shapes)
 SLICE2 = ["case=2_single_imagenet", "attack=invertinggradients", "attack.restarts.num_trials=1",
           "case.user.provide_labels=True", "seed=7"]
-SLICE2_STEPS, SLICE2_FUSED_STEPS, FLEET, FLEET_STEPS = 200, 100, 8, 100
+SLICE2_STEPS, SLICE2_FUSED_STEPS, FLEET, FLEET_STEPS = 100, 100, 8, 100
 RESTARTS, RESTART_STEPS = 4, 100  # slice 1's restarts: the batched trial step on ConvNet-64
 # slice 3: the fedAVG user of case 4 on ResNet-18, the JAX package's notebook preset
 # inverting_gradients_fedavg_imagenet (examples/run_example.py)
 SLICE3 = ["case=4_fedavg_small_scale", "attack=invertinggradients", "case.user.num_data_points=4",
           "case.user.num_local_updates=4", "case.user.num_data_per_local_update_step=2",
           "case.user.provide_labels=True", "case.user.user_idx=1", "seed=7"]
-SLICE3_STEPS, SLICE3_FUSED_STEPS = 100, 50
+SLICE3_STEPS, SLICE3_FUSED_STEPS = 50, 50
 # slice 4: the JAX package's other named optimization presets (examples/run_example.py):
 # path -> (overrides, steps, the launches per step or per objective evaluation it needs)
 CASE1 = ["case=1_single_image_small", "seed=7"]
 SLICE4 = {
-    "slice 4a deep_leakage": (CASE1 + ["attack=deepleakage", "case.user.provide_labels=False"], 20, {}),
+    "slice 4a deep_leakage": (CASE1 + ["attack=deepleakage", "case.user.provide_labels=False"], 10, {}),
     "slice 4a' deep_leakage fused": (CASE1 + ["attack=deepleakage", "case.user.provide_labels=False",
-                                              "attack.objective.type=fused-euclidean"], 20,
+                                              "attack.objective.type=fused-euclidean"], 10,
                                      dict(b1_matching_sums="evaluation", b2_axpby="evaluation")),
-    "slice 4b wei_framework": (CASE1 + ["attack=wei"], 20, dict(b4_box_project="step")),
+    "slice 4b wei_framework": (CASE1 + ["attack=wei"], 10, dict(b4_box_project="step")),
     "slice 4c beyond_inferring": (CASE1 + ["attack=beyondinfering", "case.data.partition=unique-class",
                                            "case.user.user_idx=1",
-                                           "attack.regularization.total_variation.scale=1e-4"], 20,
+                                           "attack.regularization.total_variation.scale=1e-4"], 10,
                                   dict(b3_tv_value_and_grad="evaluation", b4_box_project="step")),
-    "slice 4d modern_hyperparams": (["case=2_single_imagenet", "attack=modern", "seed=7"], 200,
+    "slice 4d modern_hyperparams": (["case=2_single_imagenet", "attack=modern", "seed=7"], 100,
                                     dict(b3_tv_value_and_grad="step", b4_adam_box_step="step")),
-    "slice 4e legacy_hyperparams": (["case=2_single_imagenet", "attack=legacy", "seed=7"], 200,
+    "slice 4e legacy_hyperparams": (["case=2_single_imagenet", "attack=legacy", "seed=7"], 100,
                                     dict(b3_tv_value_and_grad="step", b4_adam_box_step="step")),
 }
 OPPONENTS = (1, 6, 224, 224)  # slice 4d-e's TV input: three channels and their three differences
@@ -233,10 +247,10 @@ SEE_THROUGH = ["case=5_small_batch_imagenet", "attack=seethroughgradients", "cas
                "case.user.provide_buffers=True", "seed=7"]
 MULTISCALE = ["case=2_single_imagenet", "attack=multiscale_ghiasi", "seed=7"]
 SLICE5 = {
-    "slice 5a multiscale": (MULTISCALE, 50, IMAGE_KERNELS),
-    "slice 5b inverting_large_batch_cifar": (LARGE_BATCH + ["attack.impl.grad_accum=10"], 50, IMAGE_KERNELS),
+    "slice 5a multiscale": (MULTISCALE, 25, IMAGE_KERNELS),
+    "slice 5b inverting_large_batch_cifar": (LARGE_BATCH + ["attack.impl.grad_accum=10"], 20, IMAGE_KERNELS),
     "slice 5b' grad_accum=1": (LARGE_BATCH + ["attack.impl.grad_accum=1"], 5, IMAGE_KERNELS),
-    "slice 5c see_through_gradients": (SEE_THROUGH, 200, IMAGE_KERNELS),
+    "slice 5c see_through_gradients": (SEE_THROUGH, 100, IMAGE_KERNELS),
     "slice 5d inverting_gradients_fedavg": (FEDAVG + [
         "case/data=CIFAR10", "case.data.partition=random", "case.model=ResNet18", "case.server.pretrained=False",
         "case.user.user_idx=1", "attack.regularization.total_variation.scale=1e-3"], 50, IMAGE_KERNELS),
@@ -252,7 +266,7 @@ SLICE6 = ["case=2_single_imagenet", "attack=invertinggradients", "case.user.num_
           "case.user.provide_labels=True", "seed=7"]
 CLIP = 1.0
 DP = [f"{LDP}.per_example_clipping={CLIP}", f"{LDP}.gradient_noise=1e-3", f"{LDP}.distribution=laplacian"]
-SLICE6_STEPS, STATE_STEPS, RESUME_STEPS = 200, 50, 100
+SLICE6_STEPS, STATE_STEPS, RESUME_STEPS = 100, 50, 100
 WAINAKH = ["case=1_single_image_small", "attack=invertinggradients", "case.user.num_data_points=4",
            "case.user.provide_labels=False", "attack.label_strategy=wainakh-whitebox", "seed=7"]
 # slice 7: the malicious servers' vision presets (examples/run_example.py), seed 7:
@@ -263,7 +277,7 @@ FISHING = ["case=5_small_batch_imagenet", "attack=clsattack", "case/server=malic
 FISHING_UNIQUE = ["case=2_single_imagenet", "attack=clsattack", "case/server=malicious-fishing",
                   "case.data.partition=unique-class", "case.user.num_data_points=50", "case.user.user_idx=1",
                   "case.user.provide_labels=True", "case.server.target_cls_idx=0", "seed=7"]
-SLICE7_STEPS = 200
+SLICE7_STEPS = 100
 # the feature multiplier of the JAX package's binary-attack test (tests/test_binary_attack.py):
 # an image then leaves the subset where its feature exceeds the cutoff by 1000 / 30000,
 # where the preset's 300 lets it leave only 1000 / 300 above it. The bias multiplier
@@ -347,6 +361,37 @@ ZOO = ("resnetgn18", "VGG11", "densenet121", "nfnet_f0", "vit_small", "vit_base"
 # average-pool shortcut (26x26) and its strided convolution (27x27) disagree, in the JAX
 # package as in the port; 236 is the nearest size above 224 that it takes
 ZOO_SIZE = dict(nfnet_f0=236)
+# slice 12: the honest server's text presets (examples/run_example.py), seed 7, on case 10
+# (transformer3, one sentence of 32 tokens of the GPT-2 vocabulary of 50,257) and case 9
+# (bert-base-uncased, masked LM): path -> (overrides, steps, the launches per step or per
+# objective evaluation it needs, whether the loss must fall). The JAX package's preset
+# sizes; 12d and 12e (768 x 12) cut to 50 steps, which lie inside the TAG optimizer's
+# 50-step warmup, so their loss need not fall yet; nor need L-BFGS's in 12c's 10 outer
+# steps (from the CPU's draws at seed 7 it rose, 11.21 to 44.03; from the card's it fell,
+# 13.15 to 6.10; the JAX package's L-BFGS follows the port's step for step on the linear
+# model, tests/test_torch_text_presets.py); 12e's permutation takes 8 sentences
+# (P = 256) from a user of the 1,000-client partition (the default's 29,337 clients leave a
+# user 6 of the synthetic corpus's 200,000 sentences)
+CASE10 = ["case=10_causal_lang_training", "seed=7"]
+DLG_TEXT = CASE10 + ["attack=deepleakage", "case.user.provide_labels=False", "attack.optim.callback=5"]
+SLICE12 = {
+    "slice 12a tag": (CASE10 + ["attack=tag"], 200, {}, True),
+    "slice 12b permutation": (CASE10 + ["attack=permutation"], 200, dict(b4_adam_box_step="step"), True),
+    "slice 12c dlg_text": (DLG_TEXT, 10, {}, False),
+    "slice 12c' dlg_text fused": (DLG_TEXT + ["attack.objective.type=fused-euclidean"], 10,
+                                  dict(b1_matching_sums="evaluation", b2_axpby="evaluation"), False),
+    "slice 12d bert-base-uncased tag": (["case=9_bert_training", "attack=tag", "seed=7"], 50, {}, False),
+    "slice 12e gpt2 tag": (CASE10 + ["attack=tag", "case.model=gpt2"], 50, {}, False),
+    "slice 12e gpt2 permutation": (CASE10 + ["attack=permutation", "case.model=gpt2", "case.user.num_data_points=8",
+                                             "case.data.default_clients=1000"], 50,
+                                   dict(b4_adam_box_step="step"), False),
+}
+PERMUTATION_SIZES = (32, 256)  # P = sentences x tokens of 12b and 12e
+TEXT_REPORT_KEYS = {"accuracy", "token_acc", "bleu", "google_bleu", "sacrebleu", "rouge1", "rouge2", "rougeL",
+                    "order", "label_acc", "feat_mse", "parameters"}
+# phase 4's TAG gradient on gpt2 (embeddings and token-label logits) on the card against the
+# CPU: float32 on both sides through a double backward of 12 layers, sums in other orders
+TEXT_GRADIENT = 1e-3
 # float32 against float64 on the card: 6a's user gradient lay 3.35e-5 of its largest entry
 # from float64 (PR 12), the CPU's 4.0e-7
 GRADIENT_F64 = 1e-4
@@ -494,6 +539,11 @@ def check_kernels(ops, n_params, image_shape):
         for shape in (LARGE, STAGE):  # slice 5: 5b's 100 images, a stage of 5a's pyramid
             check_adam_box_step(ops, image, report_exact, randn, shape, lo, hi, signed,
                                 signed and f"b4_adam_box_step slice5 {shape}")
+    # slice 12: the permutation attack's (P, P) matrix as one unboxed row, no sign
+    unused = torch.zeros(1, device=dev)
+    for size in PERMUTATION_SIZES:
+        check_adam_box_step(ops, image, report_exact, randn, (1, 1, 1, size * size), unused, unused, None,
+                            f"b4_adam_box_step slice12 P={size}", boxed=False)
     check_box_project(ops, image, report_exact, randn, image_shape, lo, hi)
     check_tv_value_and_grad(ops, image, report, report_exact, randn, image_shape)
     check_fused_euclidean(ops, matching, report, randn, n_params)
@@ -683,7 +733,8 @@ def differing_bits(got, want):
     return int(((got.view(torch.int32) != want.view(torch.int32)) & ~both_nan).sum())
 
 
-def check_adam_box_step(ops, image, report_exact, randn, shape, lo, hi, signed, slice_shape, report=None):
+def check_adam_box_step(ops, image, report_exact, randn, shape, lo, hi, signed, slice_shape, report=None,
+                        boxed=True):
     """b4_adam_box_step against its plain version over three steps, with NaN and signed
     zeros planted in the gradient and a loss that improves, does not, then improves,
     so that the two best-value buffers swap and the best iterate is taken and kept.
@@ -693,7 +744,9 @@ def check_adam_box_step(ops, image, report_exact, randn, shape, lo, hi, signed, 
     single calls on each trial in turn. ``signed="soft"``: the soft sign at steps 3-5 of
     10 (s = 0.7, 0.6, 0.5), whose tanhf need not round as PyTorch's tanh: NaN in the
     same places, and elsewhere within 4 float32 ulps of each tensor's largest entry
-    (``report``); the best values equal."""
+    (``report``); the best values equal. ``boxed=False``: the form a leaf other than the
+    image takes (the permutation attack's matrix as one row, bounds of one channel unused),
+    recorded under ``slice_shape`` whatever ``signed`` is."""
     dev = lo.device
     trials = shape[0] if len(shape) == 5 else 0
     grads = [randn(*shape) for _ in range(3)]
@@ -723,7 +776,7 @@ def check_adam_box_step(ops, image, report_exact, randn, shape, lo, hi, signed, 
             args = (st["x"], grad, st["mu"], st["nu"], st["best"], lo, hi, value + offsets, *vals, step)
             soft = ops.soft_sign_scalars(t, 10) if signed == "soft" else None
             before = ops.adam_box_step.launches
-            fn(*args, signed=signed, soft_scale=soft)
+            fn(*args, signed=signed, soft_scale=soft, **({} if boxed else dict(boxed=False)))
             if run == 0:
                 launched = ops.adam_box_step.launches - before
                 require(launched == 1, f"b4_adam_box_step at {shape}: {launched} launches for one step")
@@ -748,7 +801,8 @@ def check_adam_box_step(ops, image, report_exact, randn, shape, lo, hi, signed, 
                 tol = 4 * torch.finfo(torch.float32).eps * want[key][~nan].abs().max().item()
                 report("b4_adam_box_step", where, got[key][~nan], want[key][~nan], tol, slice_shape)
             else:
-                report_exact("b4_adam_box_step", where, got[key], want[key], signed and slice_shape)
+                report_exact("b4_adam_box_step", where, got[key], want[key],
+                             signed and slice_shape if boxed else slice_shape)
 
 
 def attack_gradient(breaching, device, tree0, overrides):
@@ -2080,6 +2134,137 @@ def run_records(breaching, ops):
                 os.environ["BREACHING_LPIPS_WEIGHTS"] = previous
 
 
+def text_attack_gradient(breaching, device, tree0, overrides):
+    """A text attack's loss and its gradient with respect to each leaf of the candidate
+    tree tree0 (embeddings and token-label logits) on ``device``, against the prepared
+    target (the embedding leaf zeroed, as the attack matches it)."""
+    cfg = breaching.get_config(overrides)
+    setup = breaching.utils.system_startup(cfg=cfg, device=device)
+    user, server, model, loss_fn = breaching.cases.construct_case(cfg.case, setup)
+    attacker = breaching.attacks.prepare_attack(server.model, server.loss, cfg.attack, setup)
+    shared, payloads, _ = server.run_protocol(user)
+    rec_models, labels, _ = attacker.prepare_attack(payloads, shared)
+    attacker.objective.initialize(loss_fn, rec_models[0].module, None, cfg.attack.impl)
+    targets = [tuple(attacker._shared_data_cache[0]["gradients"][k] for k in rec_models[0].params)]
+    tree = {k: v.to(device).requires_grad_(True) for k, v in tree0.items()}
+    value, _ = attacker._loss(tree, rec_models, targets, labels)
+    grads = torch.autograd.grad(value, tuple(tree.values()))
+    return value.item(), {k: g.cpu() for k, g in zip(tree, grads)}
+
+
+def check_text_reference(breaching):
+    """Phase 4, slice 12: 12e's TAG gradient on gpt2 (768 x 12, the GPT-2 vocabulary) at one
+    sentence of 32 tokens, with respect to the embeddings and the token-label logits, on the
+    card against the CPU, same weights, sentence and candidate."""
+    overrides = SLICE12["slice 12e gpt2 tag"][0]
+    gen = torch.Generator().manual_seed(5)
+    x0 = dict(data=torch.randn(1, 32, 768, generator=gen) * 0.1, labels=torch.randn(1, 32, 50257, generator=gen))
+    start = time.perf_counter()
+    v_gpu, g_gpu = text_attack_gradient(breaching, DEVICE, x0, overrides)
+    card_seconds = time.perf_counter() - start
+    v_cpu, g_cpu = text_attack_gradient(breaching, "cpu", x0, overrides)
+    v_err = abs(v_gpu - v_cpu) / abs(v_cpu)
+    errors = {k: ((g_gpu[k] - g_cpu[k]).abs().max() / g_cpu[k].abs().max()).item() for k in x0}
+    ok = v_err <= 1e-4 and max(errors.values()) <= TEXT_GRADIENT and all(bool(torch.isfinite(g).all())
+                                                                         for g in g_gpu.values())
+    print(f"reference slice 12e gpt2 tag: loss card={v_gpu:.7f} cpu={v_cpu:.7f} rel_err={v_err:.2e} (tol 1e-4); "
+          f"gradient from the largest entry: embeddings {errors['data']:.2e}, token-label logits "
+          f"{errors['labels']:.2e} (tol {TEXT_GRADIENT:g}) {'ok' if ok else 'FAILED'} (card side {card_seconds:.1f} s, "
+          f"CPU side {time.perf_counter() - start - card_seconds:.1f} s)", flush=True)
+    require(ok, "slice 12e's TAG gradient on the card disagrees with the CPU")
+
+
+def run_text_path(breaching, ops, path, overrides, steps, needs, must_fall):
+    """Phase 5, slice 12: a text preset through the entry points, launch counts from the
+    attack alone: each kernel of ``needs`` once per outer "step" or once per "evaluation"
+    of the objective, no other. Prints the text report. Returns the launch counts."""
+    cfg = breaching.get_config(overrides + [f"attack.optim.max_iterations={steps}"])
+    start = time.perf_counter()
+    setup = breaching.utils.system_startup(cfg=cfg, device=DEVICE)
+    user, server, model, loss_fn = breaching.cases.construct_case(cfg.case, setup)
+    shared, payloads, true = server.run_protocol(user)
+    attacker = breaching.attacks.prepare_attack(server.model, server.loss, cfg.attack, setup)
+    torch.cuda.synchronize()
+    setup_seconds = time.perf_counter() - start
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    start = time.perf_counter()
+    result, stats = attacker.reconstruct(payloads, shared, server.secrets)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - start
+    launches = ops.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    start = time.perf_counter()
+    metrics = breaching.analysis.report(result, true, payloads, server.model, cfg_case=cfg.case, setup=setup)
+    report_seconds = time.perf_counter() - start
+    losses, evaluations = stats["Trial_0_Val"], stats["objective_evaluations"]
+    vocab, tokens = int(cfg.case.data.vocab_size), true["data"]
+    shown = {k: round(v, 4) if isinstance(v, float) else v for k, v in metrics.items() if k != "order"}
+    print(f"{path}: {model.name} {sum(p.numel() for p in model.parameters())} parameters (random weights), "
+          f"{tuple(tokens.shape)} tokens of a vocabulary of {vocab}; {cfg.attack.optim.optimizer}, "
+          f"{cfg.attack.objective.type}; set-up {setup_seconds:.2f} s; {steps} steps in {seconds:.2f} s = "
+          f"{steps / seconds:.2f} it/s, {evaluations} objective evaluations = {evaluations / seconds:.1f} "
+          f"evaluations/s; loss first={losses[0]:.6f} best={min(losses):.6f} last={losses[-1]:.6f}; peak memory "
+          f"{peak / 2**30:.3f} GiB; report in {report_seconds:.2f} s: {shown}; launches per step "
+          f"{ {k: v / steps for k, v in launches.items() if v} }", flush=True)
+    data = result["data"]
+    require(data.dtype == torch.int64 and tuple(data.shape) == tuple(tokens.shape)
+            and bool(((data >= 0) & (data < vocab)).all()),
+            f"{path}: the reconstruction is not {tuple(tokens.shape)} token ids of the vocabulary")
+    require(len(losses) == steps and all(math.isfinite(v) for v in losses),
+            f"{path}: {len(losses)} losses for {steps} steps, or a loss that is not finite")
+    if must_fall:
+        require(min(losses) < losses[0], f"{path}: the best value did not fall below the first")
+    require(set(metrics) == TEXT_REPORT_KEYS and all(math.isfinite(v) for k, v in metrics.items() if k != "order"),
+            f"{path}: the text report {sorted(metrics)} is not complete and finite")
+    if "permutation" in path:  # the assignment orders the leaked bag: the same tokens
+        require(torch.equal(torch.sort(data.reshape(-1)).values, torch.sort(attacker._leaked).values),
+                f"{path}: the reconstruction is not an order of the leaked tokens")
+    want = {name: evaluations if per == "evaluation" else steps for name, per in needs.items()}
+    require({k: v for k, v in launches.items() if v} == want,
+            f"{path}: launches {launches}, the path needs {want} ({evaluations} evaluations, {steps} steps)")
+    return launches
+
+
+def run_slice12(breaching, ops):
+    """Phase 5, slice 12: 12a-12e. Returns the launch counts by path."""
+    began = time.perf_counter()
+    paths = {path: run_text_path(breaching, ops, path, *spec) for path, spec in SLICE12.items()}
+    print(f"chip_smoke: slice 12 in {time.perf_counter() - began:.1f} s", flush=True)
+    return paths
+
+
+def time_permutation_step(ops, size, iters=200):
+    """Phase 6, slice 12: ``b4_adam_box_step`` at the permutation attack's (P, P) matrix as
+    the path calls it (one unboxed row, no sign), beside its plain version and
+    ``torch._fused_adam_`` on the (P, P) matrix."""
+    from breaching_tpu_torch.ops import image
+    from breaching_tpu_torch.timing import time_ms
+
+    gen = torch.Generator().manual_seed(98)
+    shape = (1, 1, 1, size * size)
+    x, grad = (torch.rand(*shape, generator=gen).to(DEVICE) for _ in range(2))
+    mu, nu, best = torch.zeros_like(x), torch.zeros_like(x), x.clone()
+    unused = torch.zeros(1, device=DEVICE)
+    value = torch.tensor(0.5, device=DEVICE)
+    vals = (torch.tensor(float("inf"), device=DEVICE), torch.empty((), device=DEVICE))
+    step = ops.AdamStep(lr=0.1, b1=0.9, b2=0.999, eps=1e-8, bias1=1 - 0.9 ** 3, bias2=1 - 0.999 ** 3)
+    args = (x, grad, mu, nu, best, unused, unused, value, *vals, step)
+    m = x.numel()
+    bound_ms, bound_by = bound(32 * m + 36, 15 * m)
+    ms, device_ms, host_ms, device_warm_ms = time_ms(lambda: ops.adam_box_step(*args, signed=None, boxed=False),
+                                                     iters)
+    plain = time_ms(lambda: image.adam_box_step_plain(*args, signed=None, boxed=False), iters)
+    print(f"time b4_adam_box_step P={size} ({size}x{size} as one unboxed row): kernel {ms * 1e3:.2f} us per call, "
+          f"{device_ms * 1e3:.2f} us device cold ({device_warm_ms * 1e3:.2f} warm), {host_ms * 1e3:.2f} us host; "
+          f"plain {plain[0] * 1e3:.2f} / {plain[1] * 1e3:.2f} ({plain[3] * 1e3:.2f}) / {plain[2] * 1e3:.2f} us; bound "
+          f"{bound_ms * 1e3:.3f} us ({bound_by})", flush=True)
+    return dict(shape=(size, size), ms=ms, device_ms=device_ms, host_ms=host_ms, device_warm_ms=device_warm_ms,
+                plain_ms=plain[0], plain_device_ms=plain[1], plain_host_ms=plain[2], plain_device_warm_ms=plain[3],
+                bound_ms=bound_ms, bound_by=bound_by, fused_adam=time_fused_adam((size, size), iters))
+
+
 def bound(bytes_moved, flops):
     t_bytes, t_ops = bytes_moved / PEAK_BYTES_PER_S, flops / PEAK_F32_PER_S
     return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
@@ -2436,6 +2621,7 @@ def main():
     check_reference(breaching, "slice 5c see_through_gradients", SEE_THROUGH, BIG)
     check_imprint_reference(breaching)
     check_fishing_reference(breaching)
+    check_text_reference(breaching)
     print(f"chip_smoke: phase 4 done at {time.perf_counter() - began:.1f} s", flush=True)
 
     paths = {"slice 1": run_slice(breaching, ops), "slice 1 restarts": run_restarts(breaching, ops)}
@@ -2475,6 +2661,7 @@ def main():
     print(f"chip_smoke: slice 7 done at {time.perf_counter() - began:.1f} s", flush=True)
     paths.update(run_slice11(breaching, ops))
     paths.update(run_records(breaching, ops))
+    paths.update(run_slice12(breaching, ops))
 
     print(f"chip_smoke: phase 5 done at {time.perf_counter() - began:.1f} s", flush=True)
     timings = time_kernels(ops, n_params, image_shape)
@@ -2487,6 +2674,7 @@ def main():
     timings5 = {shape: time_kernels(ops, n_params, shape, names=slice3 if shape != STAGE2 else slice3[:1], iters=100)
                 for shape in (LARGE, STAGE, STAGE2)}
     trials = time_trials(ops, n_params)
+    permutation_steps = [time_permutation_step(ops, size) for size in PERMUTATION_SIZES]
     configs = launch_configs(n_params, image_shape)
     hosts = host_breakdown(ops, n_params, image_shape)
 
@@ -2518,6 +2706,9 @@ def main():
                                       **timings5[shape][name]) for shape in timings5 if name in timings5[shape]]
         if not rows[-1]["at_slice5"]:
             del rows[-1]["at_slice5"]
+        if name == "b4_adam_box_step":  # slice 12: the permutation attack's (P, P) matrix
+            rows[-1]["at_slice12"] = [dict(max_abs_err=errors[f"{name} slice12 P={row['shape'][0]}"], **row)
+                                      for row in permutation_steps]
         if name in trials:  # the trials form (the fleet's and the restarts' step)
             rows[-1]["at_trials"] = dict(max_abs_err=errors[f"{name} trials"], **trials[name])
         if name in configs:  # the kernels redesigned for the dispatcher binding

@@ -171,8 +171,15 @@ def test_unported_options_are_refused(override, name):
 
 @pytest.mark.parametrize("modality", ["text", "audio"])
 def test_unported_modality_is_refused(modality):
-    """A data modality the port has no datasets for is refused by name, as the attack
-    options above are."""
+    """What the port has not ported of a data modality is refused by name, as the attack
+    options above are: audio has no datasets; text has, and its fedAVG user is refused."""
+    if modality == "text":
+        cfg = breaching.get_config(["case=10_causal_lang_training", "case/user=local_updates",
+                                    "case.data.vocab_size=128", "case.data.shape=[8]"])
+        setup = breaching.utils.system_startup(cfg=cfg, device="cpu")
+        with pytest.raises(NotImplementedError, match=modality):
+            breaching.cases.construct_case(cfg.case, setup)
+        return
     cfg = breaching.get_config(SLICE)
     cfg.case.data.modality = modality
     with pytest.raises(NotImplementedError, match=modality):

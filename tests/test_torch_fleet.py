@@ -249,7 +249,7 @@ def test_bias_corrected_labels_match_the_jax_package(num_data_points, queries):
 def test_other_label_strategies_are_refused():
     # iDLG, analytic, yin, wainakh-simple and random are ported (tests/test_torch_presets.py),
     # wainakh-whitebox and exhaustive's refusal too (tests/test_torch_labels.py); bias-text
-    # waits for the text stack
+    # recovers a text payload's tokens (tests/test_torch_text_recovery.py) and is refused here
     cfg = breaching.get_attack_config("invertinggradients", ["attack.label_strategy=bias-text"])
     with pytest.raises(NotImplementedError, match="bias-text"):
         _BaseAttacker(None, None, cfg, dict(device=torch.device("cpu")))._recover_label_information(

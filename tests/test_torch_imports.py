@@ -1,7 +1,11 @@
-"""The PyTorch port and chip_smoke.py import nothing of JAX, its libraries, PyYAML, PIL
-or the JAX package: the machine with the card has none of them."""
+"""The PyTorch port and chip_smoke.py import nothing of JAX, its libraries, PyYAML, PIL,
+HuggingFace's ``transformers`` and ``tokenizers`` or the JAX package: the machine with the
+card has none of them. The port's sources hold no import of JAX, its libraries,
+``transformers``, ``tokenizers`` or the JAX package either, not even inside a function
+(PIL decodes an image folder found on disk, lazily)."""
 
 import os
+import re
 import subprocess
 import sys
 import textwrap
@@ -11,7 +15,8 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SCRIPT = textwrap.dedent("""
     import importlib, importlib.abc, os, pkgutil, sys
 
-    BANNED = ("jax", "jaxlib", "flax", "optax", "chex", "yaml", "PIL", "breaching_tpu")
+    BANNED = ("jax", "jaxlib", "flax", "optax", "chex", "yaml", "PIL", "breaching_tpu", "transformers",
+              "tokenizers")
 
     class Refuse(importlib.abc.MetaPathFinder):
         def find_spec(self, name, path=None, target=None):
@@ -45,3 +50,18 @@ def test_port_imports_no_jax_yaml_or_reference_package():
     assert proc.returncode == 0, proc.stderr
     # every module of the package was imported: the package, its subpackages and modules
     assert int(proc.stdout.strip().splitlines()[-1]) >= 25
+
+
+BANNED = ("jax", "jaxlib", "flax", "optax", "chex", "breaching_tpu", "transformers", "tokenizers")
+IMPORT = re.compile(r"^\s*(?:import|from)\s+([A-Za-z_][A-Za-z0-9_]*)", re.MULTILINE)
+
+
+def test_port_sources_hold_no_banned_import():
+    sources = [os.path.join(REPO, "chip_smoke.py")]
+    for root, _, files in os.walk(os.path.join(REPO, "breaching_tpu_torch")):
+        sources += [os.path.join(root, f) for f in files if f.endswith(".py")]
+    found = []
+    for path in sources:
+        with open(path) as fh:
+            found += [(os.path.relpath(path, REPO), name) for name in IMPORT.findall(fh.read()) if name in BANNED]
+    assert len(sources) > 25 and not found, found

@@ -139,8 +139,9 @@ def test_label_strategies_match_jax(four_images, strategy):
 
 
 def test_unported_label_strategies_are_refused(four_images):
-    """``bias-text`` waits for the text stack; ``exhaustive`` raises the JAX package's
-    ``ValueError`` (``wainakh-whitebox`` runs: tests/test_torch_labels.py)."""
+    """``bias-text`` recovers a text payload's tokens and is refused on images;
+    ``exhaustive`` raises the JAX package's ``ValueError`` (``wainakh-whitebox`` runs:
+    tests/test_torch_labels.py)."""
     attacker = four_images["attacker"]
     for strategy, error, message in (("bias-text", NotImplementedError, "bias-text"),
                                      ("exhaustive", ValueError, "Exhaustive label searching is not implemented")):
