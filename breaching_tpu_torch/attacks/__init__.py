@@ -1,6 +1,7 @@
 """Attack factory (reference: breaching/attacks/__init__.py:12-34)."""
 
 from .analytic_attack import AnalyticAttacker, AprilAttacker, ImprintAttacker
+from .decepticon_attack import DecepticonAttacker
 from .multiscale_optimization_attack import MultiScaleOptimizationAttacker
 from .optimization_based_attack import OptimizationBasedAttacker
 from .optimization_permutation_attack import OptimizationPermutationAttacker
@@ -15,6 +16,7 @@ ATTACKS = {
     "analytic": AnalyticAttacker,
     "april-analytic": AprilAttacker,
     "imprint-readout": ImprintAttacker,
+    "decepticon-readout": DecepticonAttacker,
     "recursive": RecursiveAttacker,
 }
 
@@ -26,6 +28,6 @@ def prepare_attack(model, loss, cfg_attack, setup):
     raise NotImplementedError(f"Attack type {attack_type} is not ported yet.")
 
 
-__all__ = ["prepare_attack", "AnalyticAttacker", "AprilAttacker", "ImprintAttacker", "OptimizationBasedAttacker",
-           "OptimizationJointAttacker", "OptimizationPermutationAttacker", "MultiScaleOptimizationAttacker",
-           "RecursiveAttacker"]
+__all__ = ["prepare_attack", "AnalyticAttacker", "AprilAttacker", "DecepticonAttacker", "ImprintAttacker",
+           "OptimizationBasedAttacker", "OptimizationJointAttacker", "OptimizationPermutationAttacker",
+           "MultiScaleOptimizationAttacker", "RecursiveAttacker"]

@@ -1,7 +1,8 @@
 """Analytic attacks (counterpart of ``breaching_tpu/attacks/analytic_attack.py``): the FC
 inversion of a linear model (``AnalyticAttacker``, ``attack_type: analytic``), the
 readout of a malicious imprint block (``ImprintAttacker``, ``imprint-readout``) and
-APRIL's closed-form inversion of a ViT (``AprilAttacker``, ``april-analytic``).
+APRIL's closed-form inversion of a ViT (``AprilAttacker``, ``april-analytic``). On text the
+imprint readout's rows are token embeddings, matched to the payload's vocabulary.
 
 The first two are a few tensor operations on the user's gradient, a product, a
 difference, a division and a selection, run where the gradient lies. The readout's
@@ -104,12 +105,13 @@ class ImprintAttacker(AnalyticAttacker):
 
     def reconstruct(self, server_payload, shared_data, server_secrets=None, dryrun=False):
         rec_models, labels, stats = self.prepare_attack(server_payload, shared_data)
-        data, _ = self.readout(server_payload, self._shared_data_cache, server_secrets)
+        data, _ = self.readout(server_payload, self._shared_data_cache, server_secrets, rec_models)
         return dict(data=data, labels=labels), stats
 
-    def readout(self, server_payload, shared_data, server_secrets):
-        """(the recovered NCHW images, the bins they were read from) of the first query's
-        gradient, after ``prepare_attack``."""
+    def readout(self, server_payload, shared_data, server_secrets, rec_models=None):
+        """(the recovered NCHW images, or on text the (N, T) tokens, and the bins they were
+        read from) of the first query's gradient, after
+        ``prepare_attack``."""
         if not server_secrets or "ImprintBlock" not in server_secrets:
             raise ValueError("No imprint hidden in this model according to the server.")
         secrets = server_secrets["ImprintBlock"]
@@ -124,7 +126,7 @@ class ImprintAttacker(AnalyticAttacker):
             bias_grad = torch.cat([bias_grad[:1], bias_grad[1:] - bias_grad[:-1]])
         layer_inputs, bins = self._reduce_hits(invert_fc_layer(weight_grad, bias_grad), weight_grad, bias_grad,
                                                shared_data)
-        return self._reformat_data(layer_inputs, secrets), bins
+        return self._reformat_data(layer_inputs, secrets, rec_models), bins
 
     def _reduce_hits(self, layer_inputs, weight_grad, bias_grad, shared_data):
         """The rows of the ``num_data_points`` lowest scores (|bias gradient| with
@@ -148,9 +150,15 @@ class ImprintAttacker(AnalyticAttacker):
             chosen = torch.cat([chosen, chosen.new_zeros((len_data - k, *chosen.shape[1:]))])
         return chosen, best
 
-    def _reformat_data(self, layer_inputs, secrets):
+    def _reformat_data(self, layer_inputs, secrets, rec_models):
         """The rows as NCHW images of the data's first three channels, clipped to the
-        normalized box."""
+        normalized box; on text, (seq, D) embeddings re-identified as the payload's nearest
+        tokens."""
+        if self.modality == "text":
+            from .auxiliaries.text_utils import match_embeddings_to_tokens
+
+            inputs = layer_inputs.reshape(layer_inputs.shape[0], *secrets["shape"])
+            return match_embeddings_to_tokens(rec_models[0], inputs)
         h, w, c = secrets["shape"]
         inputs = layer_inputs.reshape(layer_inputs.shape[0], h, w, c)[..., :3].permute(0, 3, 1, 2)
         if tuple(inputs.shape[2:]) != tuple(self.data_shape[1:]):

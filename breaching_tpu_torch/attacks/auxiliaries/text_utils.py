@@ -57,8 +57,8 @@ def max_cosine_similarity(rec: torch.Tensor, table: torch.Tensor) -> torch.Tenso
 
 
 def match_embeddings_to_tokens(model, embeddings: torch.Tensor) -> torch.Tensor:
-    """The nearest token of the model's embedding table for each embedding (..., D)."""
-    table = dict(model.named_parameters())[model.registry["embedding"]].detach()
+    """The nearest token of the payload model's embedding table for each embedding (..., D)."""
+    table = model.params[model.module.registry["embedding"]].detach()
     flat = embeddings.reshape(-1, embeddings.shape[-1])
     return max_cosine_similarity(flat, table.to(flat)).reshape(embeddings.shape[:-1])
 

@@ -13,7 +13,8 @@ those names (``flat_param_suffixes``).
 The blocks take NCHW tensors and flatten them in height-width-channel order, the JAX
 package's NHWC order, so that the measurement row, CAH's permutation and the readout's
 reshape index the same pixels in both packages; the output is reshaped back the same way.
-``data_shape`` is (H, W, C), as in the JAX package.
+``data_shape`` is (H, W, C), as in the JAX package. On text a block sits after the
+embedding, on (B, T, D) sequences of ``data_shape`` (T, D), flattened as they lie.
 """
 
 from __future__ import annotations
@@ -67,8 +68,8 @@ class _Block(nn.Module):
         self.data_size = int(np.prod(self.data_shape))
 
     def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
-        h, w, c = self.data_shape
-        flat = x.permute(0, 2, 3, 1).reshape(x.shape[0], -1)
+        images = len(self.data_shape) == 3
+        flat = (x.permute(0, 2, 3, 1) if images else x).reshape(x.shape[0], -1)
         acts = self._nonlin(self.linear0(flat))
         if self.connection == "linear":
             out = self.linear2(acts)
@@ -78,7 +79,8 @@ class _Block(nn.Module):
             out = (flat[:, None, :] * torch.softmax(acts, dim=1)[:, :, None]).sum(dim=1)
         else:  # addition
             out = flat + acts.mean(dim=1, keepdim=True)
-        return out.reshape(x.shape[0], h, w, c).permute(0, 3, 1, 2)
+        out = out.reshape(x.shape[0], *self.data_shape)
+        return out.permute(0, 3, 1, 2) if images else out
 
     def _nonlin(self, x):
         return F.relu(x)

@@ -1,18 +1,20 @@
 """Malicious servers (counterparts of ``breaching_tpu/cases/malicious/servers.py``):
-``MaliciousModelServer`` ("Robbing the Fed", "Curious Abandon Honesty") and
-``MaliciousClassParameterServer`` ("Fishing for User Data").
+``MaliciousModelServer`` ("Robbing the Fed", "Curious Abandon Honesty"),
+``MaliciousTransformerServer`` ("Decepticons") and ``MaliciousClassParameterServer``
+("Fishing for User Data").
 
 ``MaliciousModelServer`` puts an imprint block in front of the model (``ImprintedModel``,
-the victim's parameters then named ``victim.*``) or, with ``position``, inside a ResNet
-before that stage, and records the block's parameter names in its secrets for the
-readout. ``MaliciousClassParameterServer`` edits the classification head between
-queries, in place on the server's model, and restores the original parameters after
-the protocol. Both act on the model the user also holds, as the JAX package's server
-and user share one model.
+the victim's parameters then named ``victim.*``), with ``position`` inside a ResNet
+before that stage, or on text after a transformer's embedding (``imprint_block.*``), and
+records the block's parameter names in its secrets for the readout.
+``MaliciousTransformerServer`` rewires a transformer's parameters
+(``transformer_rewiring.py``). ``MaliciousClassParameterServer`` edits the classification
+head between queries, in place on the server's model, and restores the original
+parameters after the protocol. Each acts on the model the user also holds, as the JAX
+package's server and user share one model.
 
 Not ported, and refused by name: ``handle_preceding_layers: VAE`` (the feature decoders
-of ``aux_training.py``), the text placement (``_vet_text_model``) and the transformer
-server (``construct_server``).
+of ``aux_training.py``).
 """
 
 from __future__ import annotations
@@ -64,17 +66,17 @@ class MaliciousModelServer(HonestServer):
         """Place the malicious block and record its secrets."""
         cfg_mod = self.cfg_server.model_modification
         block_cls = self.CANDIDATE_BLOCKS[cfg_mod.type]
-        if self.cfg_data.modality != "vision":
-            raise NotImplementedError("The text placement of an imprint block (_vet_text_model) is not ported yet.")
-        if cfg_mod.get("handle_preceding_layers") == "VAE":
-            raise NotImplementedError("model_modification.handle_preceding_layers=VAE (the VAE and feature "
-                                      "decoders of aux_training.py) is not ported yet.")
-        c, h, w = self.cfg_data.shape
         kwargs = dict(num_bins=int(cfg_mod.num_bins), connection=cfg_mod.get("connection", "linear"))
         for field in block_cls.FIELDS:
             if cfg_mod.get(field) is not None:
                 kwargs[field] = cfg_mod[field]
         reference = next(model.parameters())
+        if self.cfg_data.modality == "text":
+            return self._vet_text_model(model, block_cls, kwargs, reference)
+        if cfg_mod.get("handle_preceding_layers") == "VAE":
+            raise NotImplementedError("model_modification.handle_preceding_layers=VAE (the VAE and feature "
+                                      "decoders of aux_training.py) is not ported yet.")
+        c, h, w = self.cfg_data.shape
         if cfg_mod.get("position") is not None:
             return self._vet_resnet_deep(model, block_cls, kwargs, cfg_mod, reference)
 
@@ -116,6 +118,23 @@ class MaliciousModelServer(HonestServer):
         model.place_imprint(block, position, linear_prefix=handle == "identity")
         if handle == "identity":
             _linearize_prefix(model, position)
+        self.secrets["ImprintBlock"] = dict(weight_name="imprint_block.linear0.weight",
+                                            bias_name="imprint_block.linear0.bias", shape=data_shape,
+                                            structure=block.structure)
+        self.model = model
+        return model
+
+    def _vet_text_model(self, model, block_cls, block_kwargs, reference):
+        """The block after a transformer's embedding, on its (seq, D) sequences (the JAX
+        package's ``_vet_text_model``); the victim keeps its parameters."""
+        from ..models.language_models import TransformerModel
+
+        if not isinstance(model, TransformerModel):
+            raise ValueError(f"Text imprint placement is implemented for the flax TransformerModel family "
+                             f"(got {getattr(model, 'name', type(model).__name__)}).")
+        data_shape = (int(self.cfg_data.shape[0]), int(model.ninp))
+        block = block_cls(data_shape, **block_kwargs).to(device=reference.device, dtype=reference.dtype)
+        model.imprint_block = block
         self.secrets["ImprintBlock"] = dict(weight_name="imprint_block.linear0.weight",
                                             bias_name="imprint_block.linear0.bias", shape=data_shape,
                                             structure=block.structure)
@@ -215,6 +234,22 @@ def _linearize_prefix(model, position: int) -> None:
             for norm in ("bn1", "bn2", "bn3", "downsample_norm"):
                 if getattr(block, norm, None) is not None:
                     identity_norm(getattr(block, norm))
+
+
+class MaliciousTransformerServer(HonestServer):
+    """Decepticon's server: rewires a transformer's parameters for the analytic token
+    readout (reference: servers.py:384-523; ``transformer_rewiring.py``)."""
+
+    THREAT = "Malicious (parameters)"
+
+    def vet_model(self, model):
+        from .transformer_rewiring import reconfigure_transformer
+
+        model, secrets = reconfigure_transformer(model, self.loss, self.cfg_server, self.cfg_data, self.setup,
+                                                 external_dataloader=self.external_dataloader)
+        self.secrets.update(secrets)
+        self.model = model
+        return model
 
 
 class MaliciousClassParameterServer(HonestServer):

@@ -25,8 +25,18 @@ kernels, zero biases), the norms flax's LayerNorm (eps 1e-6). Each model names i
 parameters in the JAX package's flat layout (``flax_entries``), so that
 ``model_preparation.load_flat_state`` takes the JAX package's parameters and
 ``jax_leaf_ranks`` its sorted leaf order (``layer10`` before ``layer2``), and it carries a
-``registry`` of the parameter names the text attacks read (``embedding``,
-``decoder_bias``) and its head's ``head_param_keys``.
+``registry`` of the names the text attacks read and its head's ``head_param_keys``.
+
+A transformer's ``registry`` is the JAX package's ``_registry``: parameter names for
+``embedding``, ``pos_embedding`` (None for fixed positions) and ``decoder_bias``, module
+names for ``decoder`` (None when tied) and each layer's ``attention_qkv``,
+``attention_out``, ``ff_first``, ``ff_second`` and ``norms``, ``nlayers``, and a
+``kernel_layout`` of ``out_in`` (an ``nn.Linear`` weight is (out, in), flax's kernel (in,
+out)); Decepticon's server and readout work from it. A forward given a ``capture`` dict
+also records each layer's feed-forward input under ``layer<i>/ff_input``, where the JAX
+``EncoderLayer`` sows it: ``norm1(x + attn(x))`` post-LN, ``norm2(x)`` pre-LN. A malicious
+server may set ``imprint_block``, which then runs on the embedded sequence before the
+positional term; its weights are ``imprint_block/linear0_kernel``, ... in the flat layout.
 """
 
 from __future__ import annotations
@@ -89,15 +99,17 @@ class EncoderLayer(nn.Module):
         scores = torch.softmax(q @ k.transpose(-1, -2) / math.sqrt(head_dim), dim=-1)
         return self.attn_out((scores @ v).transpose(1, 2).reshape(batch, tokens, dim))
 
-    def feedforward(self, h: torch.Tensor) -> torch.Tensor:
+    def feedforward(self, h: torch.Tensor, capture: dict | None, name: str) -> torch.Tensor:
+        if capture is not None:  # Decepticon's calibration probe
+            capture[f"{name}/ff_input"] = h
         return self.linear2(F.relu(self.linear1(h)))
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, capture: dict | None = None, name: str = "") -> torch.Tensor:
         if self.norm_first:
             x = x + self.attention(self.norm1(x))
-            return x + self.feedforward(self.norm2(x))
+            return x + self.feedforward(self.norm2(x), capture, name)
         x = self.norm1(x + self.attention(x))
-        return self.norm2(x + self.feedforward(x))
+        return self.norm2(x + self.feedforward(x, capture, name))
 
 
 class TransformerModel(nn.Module):
@@ -130,8 +142,21 @@ class TransformerModel(nn.Module):
         else:
             self.decoder = _dense(ninp, ntokens, generator, kernel_bound=0.1)
             self.head_param_keys = ("decoder.weight", "decoder.bias")
-        self.registry = dict(embedding="embedding",
-                             decoder_bias="decoder_bias" if self.tie_weights else "decoder.bias")
+        self.imprint_block = None
+        layers = [f"layer{i}" for i in range(nlayers)]
+        self.registry = dict(
+            embedding="embedding",
+            pos_embedding="pos_embedding" if positional_embedding != "fixed" else None,
+            decoder="decoder" if hasattr(self, "decoder") else None,
+            decoder_bias="decoder_bias" if self.tie_weights else "decoder.bias",
+            attention_qkv=[f"{layer}.attn_qkv" for layer in layers],
+            attention_out=[f"{layer}.attn_out" for layer in layers],
+            ff_first=[f"{layer}.linear1" for layer in layers],
+            ff_second=[f"{layer}.linear2" for layer in layers],
+            norms=[f"{layer}.{norm}" for layer in layers for norm in ("norm1", "norm2")],
+            nlayers=nlayers,
+            kernel_layout="out_in",
+        )
 
     def flax_entries(self, prefix: str):
         yield "params/embedding", self.embedding, None
@@ -143,6 +168,8 @@ class TransformerModel(nn.Module):
     def forward(self, x: torch.Tensor, train: bool = False, features: bool = False,
                 capture: dict | None = None) -> torch.Tensor:
         h = _embed(x, self.embedding)
+        if self.imprint_block is not None:
+            h = self.imprint_block(h, train=train)
         tokens = h.shape[1]
         if self.positional_embedding == "fixed":
             key = (h.device, h.dtype)
@@ -152,7 +179,7 @@ class TransformerModel(nn.Module):
         else:
             h = h + self.pos_embedding[:tokens]
         for i in range(self.nlayers):
-            h = getattr(self, f"layer{i}")(h)
+            h = getattr(self, f"layer{i}")(h, capture, f"layer{i}")
         if capture is not None:
             capture["features"] = h
         if features:

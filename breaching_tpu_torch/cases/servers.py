@@ -32,8 +32,8 @@ from .models.model_preparation import construct_model
 
 def construct_server(model, loss_fn, cfg_case, setup, external_dataloader=None):
     """Server factory (reference: breaching/cases/servers.py:40-61): the honest server and
-    the malicious model and class-parameter servers (``cases/malicious/servers.py``); the
-    transformer server is not ported."""
+    the malicious model, transformer and class-parameter servers
+    (``cases/malicious/servers.py``)."""
     if cfg_case.server.has_external_data and external_dataloader is None:
         from .data import construct_dataloader
 
@@ -51,7 +51,9 @@ def construct_server(model, loss_fn, cfg_case, setup, external_dataloader=None):
 
         return MaliciousClassParameterServer(model, loss_fn, cfg_case, setup, external_dataloader)
     if name in ("malicious_transformer", "malicious_transformer_parameters"):
-        raise NotImplementedError(f"Server type {name} (Decepticon's malicious_transformer) is not ported yet.")
+        from .malicious.servers import MaliciousTransformerServer
+
+        return MaliciousTransformerServer(model, loss_fn, cfg_case, setup, external_dataloader)
     raise ValueError(f"Invalid server type {name}.")
 
 

@@ -7,7 +7,7 @@
 //   torch.ops.breaching.cosine_backward(sums, g, rec, data, wrt_data) -> out
 //       (csrc/matching.cu b2_cosine_backward) flat rec and data with sums (3,) and a
 //       one-element g, or T rows (T, n) with sums (T, 3) and g (T,): one launch either way
-//   torch.ops.breaching.tv_forward(x, p, q, eps) -> value          (csrc/image.cu b3_tv_forward)
+//   torch.ops.breaching.tv_forward(x, p, q, eps, workspace) -> value  (csrc/image.cu b3_tv_forward)
 //   torch.ops.breaching.tv_value_and_grad(x, scale, p, q, eps, segments, workspace)
 //       -> (values, grad)                                         (csrc/image.cu b3_tv_value_and_grad)
 //       values has shape (segments,), one per segment of x's images; segments = 0 takes
@@ -51,8 +51,8 @@ int b2_axpby_config(int64_t n, int* config);
 int b2_cosine_backward(const float* sums, const float* g, const float* rec, const float* data, float* out,
                        int64_t rows, int64_t n, int wrt_data, void* stream);
 int b2_cosine_backward_config(int64_t rows, int64_t n, int* config);
-int b3_tv_forward(const float* x, int64_t n, int H, int W, float p, float q, float eps, float* partials,
-                  int num_blocks, float* out, void* stream);
+int b3_tv_forward(const float* x, int64_t n, int H, int W, float p, float q, float eps, void* workspace, float* out,
+                  void* stream);
 int b3_tv_value_and_grad(const float* x, const float* scale, int64_t n, int H, int W, int segments, float p,
                          float q, float eps, void* workspace, float* values, float* grad, void* stream);
 int64_t b3_tv_workspace_bytes();
@@ -188,17 +188,25 @@ void check_images(const char* op, const at::Tensor& x) {
                     ": images of ", x.sizes(), " are too large");
 }
 
-at::Tensor tv_forward_cuda(const at::Tensor& x, double p, double q, double eps) {
+// The fused TV kernel's workspace: contiguous int32 words on the tensors' device.
+void check_tv_workspace(const char* op, const at::Tensor& workspace, const at::Device& device) {
+  TORCH_CHECK(workspace.device() == device, "breaching::", op, ": the workspace lies on ", workspace.device(),
+              ", the other tensors on ", device);
+  TORCH_CHECK_VALUE(workspace.scalar_type() == at::kInt && workspace.is_contiguous() &&
+                        workspace.numel() * 4 == b3_tv_workspace_bytes(),
+                    "breaching::", op, " takes a contiguous int32 workspace of ", b3_tv_workspace_bytes() / 4,
+                    " words");
+}
+
+at::Tensor tv_forward_cuda(const at::Tensor& x, double p, double q, double eps, const at::Tensor& workspace) {
   const at::Device device = cuda_device("tv_forward", "x", x);
   check_tensor("tv_forward", "x", x, device);
   check_images("tv_forward", x);
+  check_tv_workspace("tv_forward", workspace, device);
   const c10::cuda::CUDAGuard guard(device);
-  const int blocks = reduce_blocks(x.numel());
-  at::Tensor partials = at::detail::empty_cuda({(int64_t)blocks}, x.options());
   at::Tensor out = at::detail::empty_cuda({}, x.options());
   check_launch(b3_tv_forward(x.data_ptr<float>(), x.numel(), (int)x.size(2), (int)x.size(3), (float)p, (float)q,
-                             (float)eps, partials.data_ptr<float>(), blocks, out.data_ptr<float>(),
-                             current_stream(device)),
+                             (float)eps, workspace.data_ptr(), out.data_ptr<float>(), current_stream(device)),
                "b3_tv_forward");
   return out;
 }
@@ -209,12 +217,7 @@ std::tuple<at::Tensor, at::Tensor> tv_value_and_grad_cuda(const at::Tensor& x, c
   const at::Device device = cuda_device("tv_value_and_grad", "x", x);
   check_tensor("tv_value_and_grad", "x", x, device);
   check_tensor("tv_value_and_grad", "scale", scale, device);
-  TORCH_CHECK(workspace.device() == device, "breaching::tv_value_and_grad: the workspace lies on ",
-              workspace.device(), ", the other tensors on ", device);
-  TORCH_CHECK_VALUE(workspace.scalar_type() == at::kInt && workspace.is_contiguous() &&
-                        workspace.numel() * 4 == b3_tv_workspace_bytes(),
-                    "breaching::tv_value_and_grad takes a contiguous int32 workspace of ",
-                    b3_tv_workspace_bytes() / 4, " words");
+  check_tv_workspace("tv_value_and_grad", workspace, device);
   TORCH_CHECK_VALUE(x.dim() == 4 && x.numel() > 0 && scale.numel() == 1,
                     "breaching::tv_value_and_grad takes a non-empty NCHW batch and a one-element scale, got ",
                     x.sizes(), " and ", scale.sizes());
@@ -348,7 +351,7 @@ TORCH_LIBRARY(breaching, m) {
   m.def("matching_sums_into(Tensor rec, Tensor data, Tensor(a!) out) -> ()");
   m.def("axpby(Tensor a, Tensor x, Tensor b, Tensor y) -> Tensor");
   m.def("cosine_backward(Tensor sums, Tensor g, Tensor rec, Tensor data, bool wrt_data) -> Tensor");
-  m.def("tv_forward(Tensor x, float p, float q, float eps) -> Tensor");
+  m.def("tv_forward(Tensor x, float p, float q, float eps, Tensor(a!) workspace) -> Tensor");
   m.def("tv_value_and_grad(Tensor x, Tensor scale, float p, float q, float eps, int segments, "
         "Tensor(a!) workspace) -> (Tensor, Tensor)");
   m.def("box_project(Tensor x, Tensor lo, Tensor hi) -> Tensor");

@@ -2,10 +2,12 @@
 //
 // B3 `b3_tv_forward` replaces breaching_tpu/ops/image.py `fused_total_variation`
 // (Pallas `_tv_kernel`): sum over pixels of ((|dx|+eps)^p + (|dy|+eps)^p)^q divided
-// by the element count, with forward differences along W (dx) and H (dy) and the
-// last column's dx and last row's dy set to 0. Bound: 4 bytes read per element,
-// 4 n / 3.35 TB/s (3.7 ns for one 3x32x32 image), far below a launch: the kernel
-// is one block-reduction pass like B1, and its cost is the two launches.
+// by the element count, with forward differences along W (dx) and H (dy), the last
+// column's dx and last row's dy x - x (0, or NaN for a pixel that is not finite). Bound:
+// 4 bytes read per element, 4 n / 3.35 TB/s (3.7 ns for one 3x32x32 image), far below a
+// launch. It is the value-only form of the fused kernel below (kGrad = false): the same
+// tiles, the same one wave and the same sum across blocks through flagged slots, in one
+// launch, with no gradient pass and no store but the value.
 //
 // `b3_tv_value_and_grad` is B3 rebuilt for the attack step, which needs the TV's
 // value and its gradient together: one launch gives both, the value times a scale
@@ -142,37 +144,11 @@ struct TVParams {
   float p, q, eps;
 };
 
-// Masked forward differences at (h, w) of one H x W plane, the last column's dx and
-// the last row's dy 0 (Pallas `_tv_kernel` concatenates zeros there).
-__device__ __forceinline__ void diffs(const float* __restrict__ plane, int h, int w, const TVParams& t,
-                                      float& dx, float& dy) {
-  const float c = plane[h * t.W + w];
-  dx = (w < t.W - 1) ? plane[h * t.W + w + 1] - c : 0.0f;
-  dy = (h < t.H - 1) ? plane[(h + 1) * t.W + w] - c : 0.0f;
-}
-
 // The TV integrand at one pixel from its two differences: ((|dx|+eps)^p + (|dy|+eps)^p)^q.
 __device__ __forceinline__ float tv_term(float dx, float dy, const TVParams& t) {
   const float px = cheap_pow(__fadd_rn(fabsf(dx), t.eps), t.p);
   const float py = cheap_pow(__fadd_rn(fabsf(dy), t.eps), t.p);
   return cheap_pow(__fadd_rn(px, py), t.q);
-}
-
-__global__ void __launch_bounds__(kThreads)
-tv_forward_partials(const float* __restrict__ x, int64_t n, TVParams t, float* __restrict__ partials) {
-  float v[1] = {0.0f};
-  const int64_t hw = (int64_t)t.H * t.W;
-  const int64_t stride = (int64_t)gridDim.x * kThreads;
-  for (int64_t i = (int64_t)blockIdx.x * kThreads + threadIdx.x; i < n; i += stride) {
-    const int64_t r = i % hw;
-    const int h = (int)(r / t.W);
-    const int w = (int)(r % t.W);
-    float dx, dy;
-    diffs(x + (i - r), h, w, t, dx, dy);
-    v[0] += tv_term(dx, dy, t);
-  }
-  block_sum<1>(v);
-  if (threadIdx.x == 0) partials[blockIdx.x] = v[0];
 }
 
 // The fused TV kernel's geometry: a block of kTvWarps warps takes a tile of kTvCols
@@ -251,7 +227,8 @@ __device__ __forceinline__ void load_tile(TVTile& tile, const float* plane, int 
   __pipeline_commit();
 }
 
-template <bool kP1Q1>
+// kGrad = false is b3_tv_forward: the value alone, unscaled (scale_ptr and grad unused).
+template <bool kP1Q1, bool kGrad>
 __global__ void __launch_bounds__(kTvThreads)
 tv_value_and_grad_kernel(const float* __restrict__ x, const float* __restrict__ scale_ptr, TVParams t, TVGrid g,
                          int64_t n_segment, TVWorkspace* __restrict__ ws, float* __restrict__ values,
@@ -261,7 +238,7 @@ tv_value_and_grad_kernel(const float* __restrict__ x, const float* __restrict__ 
   const int warp = threadIdx.x >> 5;
   const int segment = blockIdx.x / g.blocks;
   const int first = blockIdx.x - segment * g.blocks;
-  const float scale = *scale_ptr;
+  const float scale = kGrad ? *scale_ptr : 1.0f;
   const float s = __fdiv_rn(scale, (float)n_segment);
   const int64_t hw = (int64_t)t.H * t.W;
   // tile k of the segment: its plane, top row and left column
@@ -334,7 +311,7 @@ tv_value_and_grad_kernel(const float* __restrict__ x, const float* __restrict__ 
           slot.store(1ull << 32 | __float_as_uint(v[0]), cuda::memory_order_relaxed);
         }
       }
-      if (!owns) continue;
+      if (!kGrad || !owns) continue;
       // the gradient: the masks follow the wrapped index, 0 at the last column and row
       // and at the column left of 0 and the row above 0, which wrap to them
       const float col = w < t.W - 1 ? 1.0f : 0.0f;
@@ -602,29 +579,14 @@ adam_box_step_kernel(AdamOperands o, Index per, Index hw, int channels, int bloc
 
 using namespace breaching;
 
-// out[0] = TV of the NCHW batch x (n = N*C*H*W elements). `partials` holds num_blocks floats.
-extern "C" int b3_tv_forward(const float* x, int64_t n, int H, int W, float p, float q, float eps,
-                             float* partials, int num_blocks, float* out, void* stream) {
-  if (n < 1 || H < 1 || W < 1 || n % ((int64_t)H * W) != 0 || num_blocks < 1 ||
-      num_blocks > kMaxReduceBlocks)
-    return (int)cudaErrorInvalidValue;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const TVParams t{H, W, p, q, eps};
-  tv_forward_partials<<<num_blocks, kThreads, 0, s>>>(x, n, t, partials);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  sum_partials<1><<<1, kThreads, 0, s>>>(partials, num_blocks, 1.0f / (float)n, out);
-  return (int)cudaGetLastError();
-}
-
 // The fused TV kernel's occupancy on the current device (the p = q = 1 form or the
 // general one), and in `g` how its grid covers n elements of H x W planes in
 // `segments` segments: the blocks of one wave, the lesser of the two forms', shared
 // among the segments, at most one block per chunk. False for shapes it does not take.
 static bool tv_launch(int64_t n, int H, int W, int segments, bool p1q1, TVGrid& g, Occupancy& o) {
   static Occupancy cache[2][kMaxDevices];
-  const Occupancy general = occupancy((const void*)tv_value_and_grad_kernel<false>, kTvThreads, cache[0]);
-  const Occupancy p1 = occupancy((const void*)tv_value_and_grad_kernel<true>, kTvThreads, cache[1]);
+  const Occupancy general = occupancy((const void*)tv_value_and_grad_kernel<false, true>, kTvThreads, cache[0]);
+  const Occupancy p1 = occupancy((const void*)tv_value_and_grad_kernel<true, true>, kTvThreads, cache[1]);
   o = p1q1 ? p1 : general;
   const int64_t hw = (int64_t)H * W;
   if (n < 1 || H < 1 || W < 1 || n % hw != 0 || segments < 1 || segments > kTvMaxPartials ||
@@ -664,11 +626,30 @@ extern "C" int b3_tv_value_and_grad(const float* x, const float* scale, int64_t 
   TVWorkspace* ws = static_cast<TVWorkspace*>(workspace);
   const int64_t n_segment = n / segments;
   if (p1q1) {
-    tv_value_and_grad_kernel<true><<<segments * g.blocks, kTvThreads, 0, s>>>(x, scale, t, g, n_segment, ws,
-                                                                              values, grad);
+    tv_value_and_grad_kernel<true, true><<<segments * g.blocks, kTvThreads, 0, s>>>(x, scale, t, g, n_segment, ws,
+                                                                                    values, grad);
   } else {
-    tv_value_and_grad_kernel<false><<<segments * g.blocks, kTvThreads, 0, s>>>(x, scale, t, g, n_segment, ws,
-                                                                               values, grad);
+    tv_value_and_grad_kernel<false, true><<<segments * g.blocks, kTvThreads, 0, s>>>(x, scale, t, g, n_segment,
+                                                                                     ws, values, grad);
+  }
+  return (int)cudaGetLastError();
+}
+
+// out[0] = TV of the NCHW batch x (n = N*C*H*W elements): the fused kernel's value-only
+// form, one segment, on the grid of its gradient form. `workspace` as b3_tv_value_and_grad's.
+extern "C" int b3_tv_forward(const float* x, int64_t n, int H, int W, float p, float q, float eps,
+                             void* workspace, float* out, void* stream) {
+  const bool p1q1 = p == 1.0f && q == 1.0f;
+  TVGrid g;
+  Occupancy o;
+  if (!tv_launch(n, H, W, 1, p1q1, g, o)) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const TVParams t{H, W, p, q, eps};
+  TVWorkspace* ws = static_cast<TVWorkspace*>(workspace);
+  if (p1q1) {
+    tv_value_and_grad_kernel<true, false><<<g.blocks, kTvThreads, 0, s>>>(x, nullptr, t, g, n, ws, out, nullptr);
+  } else {
+    tv_value_and_grad_kernel<false, false><<<g.blocks, kTvThreads, 0, s>>>(x, nullptr, t, g, n, ws, out, nullptr);
   }
   return (int)cudaGetLastError();
 }

@@ -1,12 +1,12 @@
-// Block-level sums shared by the reduction kernels: B1 matching sums and B3 TV
-// forward reduce in two launches, the fused TV value and gradient (csrc/image.cu)
-// in one.
+// Block-level sums shared by the reduction kernels: B1 matching sums reduce in two
+// launches, the fused TV kernel (csrc/image.cu: the value and gradient, and B3 TV
+// forward, its value-only form) in one.
 //
 // No float atomics, and the result is the same from run to run: every block writes
 // its K partial sums to scratch (partials[block * K + k]), then one block adds them
 // up in a fixed order (`sum_partials`, a second launch; in the fused kernel, the
-// block that finishes last). The number of blocks is a function of the input shape
-// only, so the order of additions is too.
+// segment's first block, through flagged slots). The number of blocks is a function of
+// the input shape only, so the order of additions is too.
 #pragma once
 
 #include <cuda_runtime.h>

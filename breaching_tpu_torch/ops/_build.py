@@ -9,7 +9,9 @@ the torch that runs, with its C++ ABI flag, and without ``ninja`` or PyTorch's
 extension builder. The library lands in
 ``breaching_tpu_torch/_build/`` under a name keyed by a hash of the sources, the
 flags and the torch version, and is built at first use. Paths are resolved from this
-file, so the build works from any working directory.
+file, so the build works from any working directory. ``keyed_library`` and
+``compile_once`` name and build a library so; the host's assignment solver
+(``native.py``) builds through them too.
 """
 
 from __future__ import annotations
@@ -59,39 +61,66 @@ def find_nvcc() -> str:
     raise RuntimeError(f"nvcc not found; tried {tried}.")
 
 
-def library_path() -> str:
-    digest = hashlib.sha256(" ".join([*flags(), torch.__version__]).encode())
-    for path in sources():
+def keyed_library(build_dir: str, stem: str, key: list[str], inputs: list[str]) -> str:
+    """``<build_dir>/lib<stem>_<hash>.so``, the hash over ``key`` and the names and contents of
+    the ``inputs`` files."""
+    digest = hashlib.sha256(" ".join(key).encode())
+    for path in inputs:
         digest.update(os.path.basename(path).encode())
         with open(path, "rb") as fh:
             digest.update(fh.read())
-    return os.path.join(BUILD_DIR, f"libbreaching_kernels_{digest.hexdigest()[:16]}.so")
+    return os.path.join(build_dir, f"lib{stem}_{digest.hexdigest()[:16]}.so")
+
+
+def compile_once(target: str, command, timeout=None):
+    """Builds ``target`` unless it exists: ``command(path)`` is the compiler's argument list
+    writing to ``path``, a temporary file in the target's directory that is renamed once
+    the build succeeded, so that concurrent builders never load half a library. Returns the
+    build's seconds, None where the library existed. Raises RuntimeError where the compiler
+    fails or cannot run."""
+    if os.path.exists(target):
+        return None
+    os.makedirs(os.path.dirname(target), exist_ok=True)
+    fd, partial = tempfile.mkstemp(suffix=".so", dir=os.path.dirname(target))
+    os.close(fd)
+    cmd = command(partial)
+    name = os.path.basename(cmd[0])
+    start = time.perf_counter()
+    try:
+        proc = subprocess.run(cmd, capture_output=True, text=True, timeout=timeout)
+    except (OSError, subprocess.TimeoutExpired) as err:
+        os.unlink(partial)
+        raise RuntimeError(f"{name} could not run ({' '.join(cmd)}): {err}") from err
+    if proc.returncode != 0:
+        os.unlink(partial)
+        raise RuntimeError(f"{name} failed ({proc.returncode}): {' '.join(cmd)}\n{proc.stderr}")
+    seconds = time.perf_counter() - start
+    os.replace(partial, target)
+    return seconds
+
+
+def library_path() -> str:
+    return keyed_library(BUILD_DIR, "breaching_kernels", [*flags(), torch.__version__], sources())
 
 
 def build() -> str:
     """Compile the kernels unless a library for the current sources exists."""
     global build_seconds
     target = library_path()
-    if os.path.exists(target):
-        return target
-    os.makedirs(BUILD_DIR, exist_ok=True)
-    fd, partial = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    from torch.utils.cpp_extension import include_paths, library_paths
 
-    lib_dirs = library_paths()
-    cmd = [find_nvcc(), *flags(), *[f"-I{p}" for p in include_paths()], "-o", partial,
-           *[p for p in sources() if p.endswith((".cu", ".cpp"))],
-           *[f"-L{p}" for p in lib_dirs],
-           *[arg for p in lib_dirs for arg in ("-Xlinker", "-rpath", "-Xlinker", p)],
-           *[f"-l{name}" for name in TORCH_LIBRARIES]]
-    start = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        os.unlink(partial)
-        raise RuntimeError(f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{proc.stderr}")
-    build_seconds = time.perf_counter() - start
-    os.replace(partial, target)
+    def command(partial):
+        from torch.utils.cpp_extension import include_paths, library_paths
+
+        lib_dirs = library_paths()
+        return [find_nvcc(), *flags(), *[f"-I{p}" for p in include_paths()], "-o", partial,
+                *[p for p in sources() if p.endswith((".cu", ".cpp"))],
+                *[f"-L{p}" for p in lib_dirs],
+                *[arg for p in lib_dirs for arg in ("-Xlinker", "-rpath", "-Xlinker", p)],
+                *[f"-l{name}" for name in TORCH_LIBRARIES]]
+
+    seconds = compile_once(target, command)
+    if seconds is not None:
+        build_seconds = seconds
     return target
 
 

@@ -6,7 +6,7 @@ is NHWC, so the TV stencil runs along dims 3 and 2 here). Kernels
 
 - B3 ``tv_forward`` replaces ``fused_total_variation`` / Pallas ``_tv_kernel``;
   bound 4 bytes per element over 3.35 TB/s. Off the attack step since
-  ``tv_value_and_grad``.
+  ``tv_value_and_grad``, whose kernel it runs in its value-only form (one launch).
 - ``tv_value_and_grad`` is B3 rebuilt for the attack step: the TV's value times a
   scale and its gradient, the sign-divergence formula of ``regularizers._tv_p1q1_bwd``
   and ``_make_tv_general`` that the TPU kernel lacks, in one launch; bound 8 bytes
@@ -79,7 +79,7 @@ def tv_forward_plain(images, inner_exp=1.0, outer_exp=1.0, eps=1e-8):
 def tv_forward(images, inner_exp=1.0, outer_exp=1.0, eps=1e-8):
     """Mean of ((|dx|+eps)^p + (|dy|+eps)^p)^q over an NCHW batch, as a 0-dim tensor."""
     if images.is_cuda:
-        out = _build.op("tv_forward")(images, inner_exp, outer_exp, eps)
+        out = _build.op("tv_forward")(images, inner_exp, outer_exp, eps, _tv_workspace(images.get_device()))
         tv_forward.launches += 1
         return out
     _check_images("tv_forward", images)
@@ -150,7 +150,7 @@ def _tv_workspace(device_index):
         spares = _tv_spares.setdefault(device_index, [])
         if not spares:
             if torch.cuda.is_current_stream_capturing():
-                raise RuntimeError("tv_value_and_grad: run it once on this device before capturing a "
+                raise RuntimeError("tv_value_and_grad / tv_forward: run one on this device before capturing a "
                                    "CUDA graph, so that its workspace is zeroed outside the capture.")
             device = torch.device("cuda", device_index)
             spares.extend(torch.zeros(8, _TV_WORKSPACE_WORDS, dtype=torch.int32, device=device).unbind())

@@ -1,6 +1,7 @@
 """Where the time of a slice's attack step goes, on the card.
 
-    python3 -m breaching_tpu_torch.profile_slice [--slice 1|2|3|4|5|6|7|12] [--path 5a|...|7d|12a|...|12e']
+    python3 -m breaching_tpu_torch.profile_slice [--slice 1|2|3|4|5|6|7|12|13]
+                                                 [--path 5a|...|7d|12a|...|12e'|13a|...|13e]
                                                  [--fleet F] [--fused] [--lbfgs] [--iterations N]
 
 Slice 1 (the default) runs Inverting Gradients with the fused cosine objective on
@@ -30,9 +31,17 @@ image the server isolates; slice 12 one of the honest server's text presets, cho
 ``--path``: 12a ``tag`` (case 10's transformer3, one sentence of 32 tokens of the GPT-2
 vocabulary), 12b ``permutation``, 12c ``dlg_text`` (L-BFGS; a step is an outer step, 10 by
 default), 12d case 9's ``bert-base-uncased`` with ``tag``, 12e ``tag`` on ``gpt2`` and 12e'
-``permutation`` on ``gpt2`` with 8 sentences. Each goes through the entry points: one warm-up attack, an
+``permutation`` on ``gpt2`` with 8 sentences; slice 13 one of the malicious text servers and its
+analytic readout, chosen by ``--path``: 13a ``decepticons_transformer`` (transformer3, 8 sentences of
+32 tokens, k-means on the assignment solver), 13b ``decepticons_bert`` (``bert-base-uncased``, 1 x
+512), 13c ``decepticons_gpt2``'s overrides on the port's ``gpt2`` (8 x 512), 13d
+``robbing_the_fed_text`` and 13e ``curious_abandon_honesty_text`` (128 x 32 on transformer3). Each
+goes through the entry points: one warm-up attack, an
 attack of N steps (default 200) timed with the profiler off, and the same attack
-under ``torch.profiler``. Prints one JSON line: milliseconds per step with the
+under ``torch.profiler``. Slice 13 has no steps: one warm-up run of the whole path, one timed
+with the profiler off (seconds of the server's model, rewiring or block and calibration; of the
+user's gradient; of the readout, by stage, and of the assignment solver in it), and one under
+the profiler (device busy and idle share of the whole path, launches, peak memory). Prints one JSON line: milliseconds per step with the
 profiler off and on (wall clock around the synchronised attack; the difference
 is the profiler's cost), device-busy milliseconds per step (the sum of the
 kernels' device times; one stream, so they do not overlap), the idle share of
@@ -93,6 +102,27 @@ SLICE12 = {
     "12e'": ["case=10_causal_lang_training", "attack=permutation", "case.model=gpt2", "case.user.num_data_points=8",
              "case.data.default_clients=1000"],
 }
+# slice 13's paths (examples/run_example.py's presets; 13c on the port's own gpt2)
+DECEPTICON = ["case=10_causal_lang_training", "attack=decepticon", "case/server=malicious-transformer",
+              "case.user.user_idx=1"]
+TEXT_IMPRINT = ["case=10_causal_lang_training", "attack=imprint", "case.user.num_data_points=128",
+                "case.user.user_idx=1", "case.data.default_clients=1000", "case.server.model_modification.num_bins=512"]
+SLICE13 = {
+    "13a": DECEPTICON + ["case.user.num_data_points=8", "case.data.batch_size=8", "case.data.default_clients=1000"],
+    "13b": ["case=9_bert_training", "attack=decepticon", "case/server=malicious-transformer",
+            "case.model=bert-base-uncased", "case.user.num_data_points=1", "case.user.user_idx=1",
+            "case.data.shape=[512]"],
+    "13c": DECEPTICON + ["case.model=gpt2", "case.user.num_data_points=8", "case.data.shape=[512]",
+                         "case.data.batch_size=8", "case.data.default_clients=1000",
+                         "case.server.param_modification.v_length=32", "case.server.param_modification.eps=1e-8",
+                         "case.server.param_modification.measurement_scale=1e6",
+                         "case.server.param_modification.softmax_skew=1e8", "attack.token_strategy=embedding-norm",
+                         "attack.embedding_token_weight=0.25"],
+    "13d": TEXT_IMPRINT + ["case/server=malicious-model-rtf", "case.server.model_modification.linfunc=randn"],
+    "13e": TEXT_IMPRINT + ["case/server=malicious-model-cah", "case.server.model_modification.sigma=0.5",
+                           "case.server.model_modification.mu=0",
+                           "case.server.model_modification.scale_factor=0.999"],
+}
 FUSED = ["attack.objective.type=fused-cosine-similarity"]
 # slice 4 --lbfgs: the deep_leakage preset with the fused euclidean objective (path 4a')
 LBFGS = ["case=1_single_image_small", "attack=deepleakage", "case.user.provide_labels=False",
@@ -126,11 +156,60 @@ def _timed(run):
     return (time.perf_counter() - start) * 1e3, result
 
 
+def _readout_path(overrides):
+    """One run of a slice-13 path through the entry points: its seconds by part, the
+    readout's stages and the report's token accuracy."""
+    from . import native
+
+    seconds = {}
+
+    def part(name, run):
+        torch.cuda.synchronize()
+        start = time.perf_counter()
+        result = run()
+        torch.cuda.synchronize()
+        seconds[name] = time.perf_counter() - start
+        return result
+
+    cfg = breaching.get_config(overrides)
+    setup = breaching.utils.system_startup(cfg=cfg)
+    user, server, _, _ = part("server", lambda: breaching.cases.construct_case(cfg.case, setup))
+    shared, payloads, true = part("user_gradient", lambda: server.run_protocol(user))
+    attacker = breaching.attacks.prepare_attack(server.model, server.loss, cfg.attack, setup)
+    native.capacitated_assignment.seconds = 0.0
+    rec, stats = part("readout", lambda: attacker.reconstruct(payloads, shared, server.secrets))
+    metrics = breaching.analysis.report(rec, true, payloads, server.model, cfg_case=cfg.case, setup=setup)
+    return dict(seconds=seconds, readout_stages=dict(stats.get("decepticon_seconds", {})),
+                solver_seconds=native.capacitated_assignment.seconds, token_acc=metrics["token_acc"],
+                accuracy=metrics["accuracy"], model=cfg.case.model,
+                tokens=list(true["data"].shape))
+
+
+def profile_readout(path):
+    """Slice 13: a warm-up run, a timed run, a profiled run; one JSON line."""
+    overrides = SLICE13[path] + ["seed=7"]
+    _readout_path(overrides)
+    torch.cuda.reset_peak_memory_stats()
+    wall_ms, timed = _timed(lambda: _readout_path(overrides))
+    peak = torch.cuda.max_memory_allocated()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        profiled_ms, _ = _timed(lambda: _readout_path(overrides))
+    kernels = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
+    top = sorted(kernels, key=lambda e: e.self_device_time_total, reverse=True)[:12]
+    print(json.dumps(dict(
+        device=torch.cuda.get_device_name(0), slice=13, path=path, **timed, peak_memory_gib=peak / 2**30,
+        wall_ms=wall_ms, profiled_ms=profiled_ms, device_busy_ms=busy_ms, idle_share=1.0 - busy_ms / wall_ms,
+        launches=sum(e.count for e in kernels),
+        top_kernels_us={e.key[:90]: e.self_device_time_total for e in top})))
+
+
 def main():
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    parser.add_argument("--slice", type=int, choices=sorted([*SLICES, 5, 7, 12]), default=1)
-    parser.add_argument("--path", choices=sorted([*SLICE5, *SLICE7, *SLICE12]), default=None,
-                        help="slice 5's path (default 5a), slice 7's (default 7c) or slice 12's (default 12a)")
+    parser.add_argument("--slice", type=int, choices=sorted([*SLICES, 5, 7, 12, 13]), default=1)
+    parser.add_argument("--path", choices=sorted([*SLICE5, *SLICE7, *SLICE12, *SLICE13]), default=None,
+                        help="slice 5's path (default 5a), slice 7's (default 7c), slice 12's (default 12a) or "
+                             "slice 13's (default 13a)")
     parser.add_argument("--fleet", type=int, default=1, help="experiments through reconstruct_fleet")
     parser.add_argument("--fused", action="store_true", help="slice 2 or 3 with the fused cosine objective")
     parser.add_argument("--lbfgs", action="store_true", help="slice 4: deep_leakage with fused euclidean, L-BFGS")
@@ -140,11 +219,14 @@ def main():
         raise SystemExit("profile_slice needs a CUDA device.")
     if args.lbfgs and args.slice != 4:
         parser.error("--lbfgs is a path of slice 4.")
-    paths = {5: SLICE5, 7: SLICE7, 12: SLICE12}.get(args.slice)
+    paths = {5: SLICE5, 7: SLICE7, 12: SLICE12, 13: SLICE13}.get(args.slice)
     if paths is not None:
         args.path = args.path or min(paths)
         if args.path not in paths:
             parser.error(f"--path {args.path} is not a path of slice {args.slice}.")
+    if args.slice == 13:
+        return profile_readout(args.path)
+    if paths is not None:
         overrides = paths[args.path] + ["attack.optim.callback=0", "seed=7"]
     else:
         overrides = LBFGS if args.lbfgs else SLICES[args.slice] + (FUSED if args.fused else [])

@@ -29,12 +29,15 @@ SHAPES = [(1, 3, 32, 32, 1, 1.0, 1.0), (1, 3, 96, 96, 1, 1.0, 1.0), (1, 3, 192, 
 MODES = {0: "full", 1: "no tail", 2: "no gradient pass", 3: "neither"}
 # (text of csrc/image.cu, its replacement): the kernel takes a mode
 CUTS = [
-    ("template <bool kP1Q1>\n__global__ void __launch_bounds__(kTvThreads)\ntv_value_and_grad_kernel(",
-     "template <bool kP1Q1, int kMode>\n__global__ void __launch_bounds__(kTvThreads)\ntv_value_and_grad_kernel("),
-    ("      if (!owns) continue;", "      if (!owns || (kMode & 2)) continue;"),
+    ("template <bool kP1Q1, bool kGrad>\n__global__ void __launch_bounds__(kTvThreads)\ntv_value_and_grad_kernel(",
+     "template <bool kP1Q1, bool kGrad, int kMode>\n__global__ void __launch_bounds__(kTvThreads)\n"
+     "tv_value_and_grad_kernel("),
+    ("      if (!kGrad || !owns) continue;", "      if (!kGrad || !owns || (kMode & 2)) continue;"),
     ("  if (first != 0) return;", "  if (first != 0 || (kMode & 1)) return;"),
-    ("tv_value_and_grad_kernel<false>", "tv_value_and_grad_kernel<false, 0>"),
-    ("tv_value_and_grad_kernel<true>", "tv_value_and_grad_kernel<true, 0>"),
+    ("tv_value_and_grad_kernel<false, true>", "tv_value_and_grad_kernel<false, true, 0>"),
+    ("tv_value_and_grad_kernel<true, true>", "tv_value_and_grad_kernel<true, true, 0>"),
+    ("tv_value_and_grad_kernel<false, false>", "tv_value_and_grad_kernel<false, false, 0>"),
+    ("tv_value_and_grad_kernel<true, false>", "tv_value_and_grad_kernel<true, false, 0>"),
 ]
 HARNESS = r"""
 #include <cstdio>
@@ -89,8 +92,8 @@ void mode(const float* x, const float* scale, int64_t n, int H, int W, int segme
   cudaMemset(ws, 0, sizeof(TVWorkspace));  // a mode without the tail leaves its slots full
   const TVParams t{H, W, p, q, 1e-8f};
   auto launch = [&](cudaStream_t s) {
-    tv_value_and_grad_kernel<P, M><<<segments * g.blocks, kTvThreads, 0, s>>>(x, scale, t, g, n / segments,
-                                                                            (TVWorkspace*)ws, values, grad);
+    tv_value_and_grad_kernel<P, true, M><<<segments * g.blocks, kTvThreads, 0, s>>>(
+        x, scale, t, g, n / segments, (TVWorkspace*)ws, values, grad);
   };
   const float flush_only = graph_us([](cudaStream_t) {}, true, 100);
   const float cold = graph_us(launch, true, 100) - flush_only;
@@ -150,14 +153,20 @@ int main(int argc, char** argv) {
 """
 
 
-def main():
-    from .ops._build import NVCC_FLAGS, find_nvcc
-
+def cut_source():
+    """``csrc/image.cu`` with CUTS applied; raises SystemExit where an anchor is gone."""
     source = open(os.path.join(CSRC, "image.cu")).read()
     for old, new in CUTS:
         if old not in source:
             raise SystemExit(f"tv_profile: csrc/image.cu no longer holds {old!r}; update CUTS.")
         source = source.replace(old, new)
+    return source
+
+
+def main():
+    from .ops._build import NVCC_FLAGS, find_nvcc
+
+    source = cut_source()
     with tempfile.TemporaryDirectory() as tmp:
         shutil.copy(os.path.join(CSRC, "reduce.cuh"), tmp)
         with open(os.path.join(tmp, "profile.cu"), "w") as fh:

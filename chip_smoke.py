@@ -30,7 +30,11 @@ Phases, one line each on standard output:
      at 1x3x32x32 and 4x3x224x224, 4 bytes off a 16-byte boundary and at a
      width that is not a multiple of 4, with NaN, infinities and values on the
      bounds; the fused Adam step also as the permutation attack calls it on its (P, P)
-     matrix (one unboxed row, no sign) at P = 32 and 256;
+     matrix (one unboxed row, no sign) at P = 32 and 256; B3 forward, rebuilt as the fused
+     TV kernel's value-only form, at every shape the fused kernel is checked at, one launch a
+     call, to 1e-5 relative and bit for bit the fused kernel's value at scale 1, with NaN and
+     infinite pixels at the boundary (the plain version's non-finite value), repeated and in
+     a replayed CUDA graph;
   4. the attack gradient of each slice on the card against the same computation
      on the CPU, through the plain versions (and whether the card gives the same
      bits twice, which is reported, not required); for slice 3 the gradient
@@ -135,7 +139,17 @@ Phases, one line each on standard output:
      9's ``bert-base-uncased`` with ``attack=tag`` and 12e ``tag`` on ``gpt2`` (768 x 12, 50
      steps each, no port kernel), 12e ``permutation`` on ``gpt2`` with 8 sentences (P = 256,
      50 steps): every path's token ids of the vocabulary, its text report complete and
-     finite, the permutation's tokens an order of the leaked bag; for each: set-up
+     finite, the permutation's tokens an order of the leaked bag; slice 13, Decepticon and the
+     text imprints, no port kernel: 13a ``decepticons_transformer`` (transformer3, 8 sentences
+     of 32 tokens, the server's external data, k-means on the host's assignment solver), 13b
+     ``decepticons_bert`` (``bert-base-uncased`` at 768 x 12, masked LM, 1 x 512), 13c
+     ``decepticons_gpt2``'s server and attack overrides on the port's ``gpt2`` (8 x 512: k-means
+     on 4,096 rows), 13d ``robbing_the_fed_text`` and 13e ``curious_abandon_honesty_text`` (128 x
+     32 on transformer3, 512 bins): seconds of the server (model, rewiring or block,
+     calibration), the user's gradient and the readout by stage and in the solver, peak memory
+     and the text report; then the readout again on the CPU from the card's exchange, whose
+     tokens must equal the card's but where the card's device decision lay within 1e-5 of
+     another (such slots counted and printed); for each optimization path: set-up
      seconds, loss at the start and end of every trial, PSNR and SSIM (of the
      batch put in the true images' order, and the order), it/s (the fleet's aggregate; with L-BFGS also the
      objective's evaluations per second), peak memory and launches per step;
@@ -386,6 +400,39 @@ SLICE12 = {
                                              "case.data.default_clients=1000"], 50,
                                    dict(b4_adam_box_step="step"), False),
 }
+# slice 13: Decepticon and the text imprints (examples/run_example.py's presets), seed 7, random
+# weights, each through construct_case, run_protocol, prepare_attack, reconstruct and report:
+# 13a decepticons_transformer (transformer3, case 10's vocabulary of 50,257, 8 sentences x 32
+# tokens, the server's external data, k-means on the assignment solver), 13b decepticons_bert
+# (bert-base-uncased at 768 x 12, masked LM, 1 x 512), 13c decepticons_gpt2's server and attack
+# overrides on the port's own gpt2 (768 x 12, pre-LN, tied; the HuggingFace gpt2S stays refused),
+# 8 x 512, so that k-means clusters 4,096 rows, 13d robbing_the_fed_text and 13e
+# curious_abandon_honesty_text (128 x 32 on transformer3, 512 bins). No port kernel runs on them.
+DECEPTICON = CASE10 + ["attack=decepticon", "case/server=malicious-transformer", "case.user.user_idx=1"]
+TEXT_IMPRINT = CASE10 + ["attack=imprint", "case.user.num_data_points=128", "case.user.user_idx=1",
+                         "case.data.default_clients=1000", "case.server.model_modification.num_bins=512"]
+SLICE13 = {
+    "slice 13a decepticons_transformer": DECEPTICON + ["case.user.num_data_points=8", "case.data.batch_size=8",
+                                                       "case.data.default_clients=1000"],
+    "slice 13b decepticons_bert": ["case=9_bert_training", "attack=decepticon", "case/server=malicious-transformer",
+                                   "case.model=bert-base-uncased", "case.user.num_data_points=1",
+                                   "case.user.user_idx=1", "case.data.shape=[512]", "seed=7"],
+    "slice 13c decepticons_gpt2 on gpt2": DECEPTICON + [
+        "case.model=gpt2", "case.user.num_data_points=8", "case.data.shape=[512]", "case.data.batch_size=8",
+        "case.data.default_clients=1000", "case.server.param_modification.v_length=32",
+        "case.server.param_modification.eps=1e-8", "case.server.param_modification.measurement_scale=1e6",
+        "case.server.param_modification.softmax_skew=1e8", "attack.token_strategy=embedding-norm",
+        "attack.embedding_token_weight=0.25"],
+    "slice 13d robbing_the_fed_text": TEXT_IMPRINT + ["case/server=malicious-model-rtf",
+                                                      "case.server.model_modification.linfunc=randn"],
+    "slice 13e curious_abandon_honesty_text": TEXT_IMPRINT + [
+        "case/server=malicious-model-cah", "case.server.model_modification.sigma=0.5",
+        "case.server.model_modification.mu=0", "case.server.model_modification.scale_factor=0.999"],
+}
+# the card's readout against the CPU's on the card's exchange: a token may differ only where the
+# card's device decision was this near another one (its two best scores, or the supplement's
+# weighted best score and the slot's cost)
+NEAR_TIE = 1e-5
 PERMUTATION_SIZES = (32, 256)  # P = sentences x tokens of 12b and 12e
 TEXT_REPORT_KEYS = {"accuracy", "token_acc", "bleu", "google_bleu", "sacrebleu", "rouge1", "rouge2", "rougeL",
                     "order", "label_acc", "feat_mse", "parameters"}
@@ -514,13 +561,7 @@ def check_kernels(ops, n_params, image_shape):
     check_cosine_trials(ops, matching, report_exact, randn, n_params)
 
     for shape in (image_shape, (2, 3, 331, 1007)):
-        x = randn(*shape)
         slice_shape = shape == image_shape
-        for p, q in ((1.0, 1.0), (2.0, 0.5)):
-            got, want = ops.tv_forward(x, p, q, 1e-8), image.tv_forward_plain(x, p, q, 1e-8)
-            # a mean of n float32 terms summed in two orders: 1e-5 relative
-            report("b3_tv_forward", f"{shape} p={p} q={q}", got, want, 1e-5 * abs(want.item()),
-                   slice_shape and p == 1.0)
         lo = torch.tensor([-1.9, -2.0, -1.7], device=dev)
         hi = torch.tensor([2.1, 2.1, 2.0], device=dev)
         for signed in (True, False):
@@ -546,6 +587,7 @@ def check_kernels(ops, n_params, image_shape):
                             f"b4_adam_box_step slice12 P={size}", boxed=False)
     check_box_project(ops, image, report_exact, randn, image_shape, lo, hi)
     check_tv_value_and_grad(ops, image, report, report_exact, randn, image_shape)
+    check_tv_forward(ops, image, report, randn, image_shape)
     check_fused_euclidean(ops, matching, report, randn, n_params)
     return worst
 
@@ -725,6 +767,61 @@ def check_tv_value_and_grad(ops, image, report, report_exact, randn, image_shape
         print(f"check {name} {shape} trials p={p} q={q}: one launch, each trial's value and gradient equal to a "
               f"single-trial call's bits: {'ok' if same else 'FAILED'}", flush=True)
         require(same, f"{name} trials at {shape}: a trial differs from its single-trial call")
+
+
+def check_tv_forward(ops, image, report, randn, image_shape):
+    """b3_tv_forward, rebuilt as the fused TV kernel's value-only form, against its plain
+    version at every shape phase 3 gives the fused kernel, p = q = 1 and p = 2, q = 0.5:
+    one launch a call, the value to 1e-5 relative and bit for bit the fused kernel's value
+    at scale 1; NaN and +-inf pixels at the boundary give the plain version's non-finite
+    value; the same bits repeated and in a replayed CUDA graph."""
+    name = "b3_tv_forward"
+    one = torch.tensor([1.0], device=DEVICE)
+    for shape in (image_shape, BIG, BATCH, OPPONENTS, LARGE, STAGE, STAGE2, (2, 3, 331, 1007), (2, 3, 17, 23),
+                  (1, 6, 33, 31), (1, 6, 9, 1), (1, 3, 1, 7)):
+        x = randn(*shape)
+        for p, q in ((1.0, 1.0), (2.0, 0.5)):
+            before = ops.tv_forward.launches
+            value = ops.tv_forward(x, p, q, 1e-8)
+            require(ops.tv_forward.launches == before + 1, f"{name} at {shape}: not one launch a call")
+            want = image.tv_forward_plain(x, p, q, 1e-8)
+            # a mean of n float32 terms summed in two orders: 1e-5 relative
+            report(name, f"{shape} p={p} q={q}", value, want, 1e-5 * abs(want.item()),
+                   shape == image_shape and p == q == 1.0)
+            fused = ops.tv_value_and_grad(x, one, p, q, 1e-8)[0]
+            require(differing_bits(value, fused) == 0,
+                    f"{name} at {shape} p={p} q={q}: {value.item()}, the fused kernel's value {fused.item()}")
+    cases = 0
+    for shape in (image_shape, BIG, (2, 3, 17, 23)):
+        H, W = shape[-2:]
+        for h, w in ((H // 2, W - 1), (H - 1, W // 2), (0, 0), (H - 1, W - 1)):
+            for planted in (float("nan"), float("inf"), float("-inf")):
+                for p, q in ((1.0, 1.0), (2.0, 0.5)):
+                    x = randn(*shape)
+                    x[-1, -1, h, w] = planted
+                    value, want = ops.tv_forward(x, p, q, 1e-8), image.tv_forward_plain(x, p, q, 1e-8)
+                    require(str(value.item()) == str(want.item()),
+                            f"{name} at {shape}, {planted} at ({h}, {w}), p={p} q={q}: {value.item()} against "
+                            f"{want.item()}")
+                    cases += 1
+    print(f"check {name} non-finite pixels at the boundary: {cases} cases, the plain version's non-finite value "
+          f"ok", flush=True)
+    x, other = randn(*BIG), randn(*BIG)
+    first, second, other_want = ops.tv_forward(x), ops.tv_forward(x), ops.tv_forward(other)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        static = ops.tv_forward(x)
+    replays = []
+    for source in (x.clone(), other):
+        x.copy_(source)
+        graph.replay()
+        replays.append(static.clone())
+    same = [differing_bits(got, want) == 0 for got, want in ((second, first), (replays[0], first),
+                                                             (replays[1], other_want))]
+    print(f"check {name} {BIG} repeated launch and two graph replays: {'ok' if all(same) else 'FAILED'}",
+          flush=True)
+    require(all(same), f"{name} gives other bits when repeated or replayed: {same}")
 
 
 def differing_bits(got, want):
@@ -2235,6 +2332,143 @@ def run_slice12(breaching, ops):
     return paths
 
 
+@contextlib.contextmanager
+def recorded_device_decisions(attacker):
+    """Records the inputs of the text readout's device decision, the imprint's nearest-token
+    match or Decepticon's full-vocabulary supplement; the readout runs unchanged. Yields a
+    function that gives, after the readout, each slot's distance from another decision of its
+    last call (None if neither ran): the best score's margin over the second best and, for the
+    supplement, also the gap between the weighted best score and the slot's cost, which decides
+    a replacement."""
+    from breaching_tpu_torch.attacks import decepticon_attack as decepticon
+    from breaching_tpu_torch.attacks.auxiliaries import text_utils
+
+    last = {}
+    match = text_utils.match_embeddings_to_tokens
+
+    def recorded_match(model, embeddings):
+        last.update(kind="match", model=model, embeddings=embeddings)
+        return match(model, embeddings)
+
+    def recorded_supplement(recovered_tokens, costs, breached, model, norm_scale, norm_bias, v, weight):
+        last.update(kind="supplement", model=model, costs=np.array(costs), breached=breached, norm_scale=norm_scale,
+                    norm_bias=norm_bias, v=v, weight=weight)
+        return supplement(recovered_tokens, costs, breached, model, norm_scale, norm_bias, v, weight)
+
+    def top_two(states, refs, use_abs):
+        found = []
+        for chunk in states.split(max(1, 2 ** 28 // refs.shape[0])):
+            score = chunk @ refs.T
+            found.append((score.abs() if use_abs else score).topk(2, dim=1).values)
+        best, second = torch.cat(found).double().cpu().numpy().T
+        return best, second
+
+    def unit(x):
+        x = x - x.mean(dim=-1, keepdim=True)
+        return x / (torch.linalg.vector_norm(x, dim=-1, keepdim=True) + 1e-12)
+
+    def margins():
+        if not last:
+            return None
+        table = last["model"].params[last["model"].module.registry["embedding"]].detach()
+        with torch.no_grad():
+            if last["kind"] == "match":
+                flat = last["embeddings"].reshape(-1, last["embeddings"].shape[-1])
+                best, second = top_two(unit(flat), unit(table.to(flat)), False)
+                return best - second
+            scale, bias = (torch.as_tensor(last[k], device=table.device) for k in ("norm_scale", "norm_bias"))
+            refs = decepticon._unit_rows(decepticon._torch_layer_norm(table, scale, bias)[1:, last["v"]:-1])
+            states = decepticon._unit_rows(torch.as_tensor(last["breached"], dtype=torch.float32, device=table.device))
+            best, second = top_two(states, refs, "abs" in attacker.cfg.get("matcher", "abs-corrcoef"))
+            return np.minimum(best - second, np.abs(best * max(last["weight"], 1e-9) - last["costs"]))
+
+    supplement = getattr(attacker, "_supplement_from_full_vocabulary", None)
+    if supplement is not None:
+        attacker._supplement_from_full_vocabulary = recorded_supplement
+    text_utils.match_embeddings_to_tokens = recorded_match
+    try:
+        yield margins
+    finally:
+        text_utils.match_embeddings_to_tokens = match
+        if supplement is not None:
+            del attacker._supplement_from_full_vocabulary
+
+
+def run_readout_path(breaching, ops, path, overrides):
+    """Phase 5, slice 13: a malicious text server and its analytic readout through the entry
+    points, the launch counts from the readout alone (none: no port kernel runs here); then
+    the readout again on the CPU from the card's exchange, whose tokens must equal the card's
+    but where the card's decision lay within NEAR_TIE of another. Prints the seconds by
+    stage, the solver's seconds, peak memory and the text report. Returns the launch counts."""
+    import copy
+
+    from breaching_tpu_torch import native
+
+    cfg = breaching.get_config(overrides)
+    torch.cuda.reset_peak_memory_stats()
+    start = time.perf_counter()
+    setup = breaching.utils.system_startup(cfg=cfg, device=DEVICE)
+    user, server, model, loss_fn = breaching.cases.construct_case(cfg.case, setup)
+    torch.cuda.synchronize()
+    server_seconds = time.perf_counter() - start
+    start = time.perf_counter()
+    shared, payloads, true = server.run_protocol(user)
+    torch.cuda.synchronize()
+    user_seconds = time.perf_counter() - start
+    attacker = breaching.attacks.prepare_attack(server.model, server.loss, cfg.attack, setup)
+    ops.reset_launch_counts()
+    native.capacitated_assignment.seconds = 0.0
+    with recorded_device_decisions(attacker) as decision_margins:
+        start = time.perf_counter()
+        rec, stats = attacker.reconstruct(payloads, shared, server.secrets)
+        torch.cuda.synchronize()
+        readout_seconds = time.perf_counter() - start
+    launches = ops.launch_counts()
+    solver_seconds = native.capacitated_assignment.seconds
+    peak = torch.cuda.max_memory_allocated()
+    margins = decision_margins()
+    metrics = breaching.analysis.report(rec, true, payloads, server.model, cfg_case=cfg.case, setup=setup)
+
+    cpu_setup = breaching.utils.system_startup(cfg=cfg, device="cpu")
+    cpu_attacker = breaching.attacks.prepare_attack(copy.deepcopy(server.model).cpu(), server.loss, cfg.attack,
+                                                    cpu_setup)
+    start = time.perf_counter()
+    cpu_rec, _ = cpu_attacker.reconstruct(on_cpu(payloads), on_cpu(shared), server.secrets)
+    cpu_seconds = time.perf_counter() - start
+    tokens, cpu_tokens = rec["data"].cpu(), cpu_rec["data"]
+    near = (torch.as_tensor(margins).reshape(tokens.shape) < NEAR_TIE if margins is not None
+            else torch.zeros_like(tokens, dtype=torch.bool))
+    differ = tokens != cpu_tokens
+    stages = {k: round(v, 3) for k, v in stats.get("decepticon_seconds", {}).items()}
+    vocab = int(cfg.case.data.vocab_size)
+    print(f"{path}: {model.name} {sum(p.numel() for p in model.parameters())} parameters (random weights), "
+          f"{tuple(true['data'].shape)} tokens of a vocabulary of {vocab}; server (model, rewiring or block, "
+          f"calibration) {server_seconds:.2f} s, user gradient {user_seconds:.2f} s, readout {readout_seconds:.2f} s "
+          f"{stages or ''}, of it the assignment solver {solver_seconds:.3f} s; peak memory {peak / 2**30:.3f} GiB; "
+          f"token_acc={metrics['token_acc']:.4f} accuracy={metrics['accuracy']:.4f} bleu={metrics['bleu']:.4f}; "
+          f"the CPU's readout on the card's exchange in {cpu_seconds:.2f} s: {int(differ.sum())} of "
+          f"{tokens.numel()} tokens differ, {int(near.sum())} slots with the card's decision within {NEAR_TIE} of "
+          f"another; launches { {k: v for k, v in launches.items() if v} }", flush=True)
+    require(tokens.dtype == torch.int64 and tuple(tokens.shape) == tuple(true["data"].shape)
+            and bool(((tokens >= 0) & (tokens < vocab)).all()),
+            f"{path}: the reconstruction is not {tuple(true['data'].shape)} token ids of the vocabulary")
+    require(set(metrics) == TEXT_REPORT_KEYS and all(math.isfinite(v) for k, v in metrics.items() if k != "order"),
+            f"{path}: the text report {sorted(metrics)} is not complete and finite")
+    require(not bool((differ & ~near).any()),
+            f"{path}: {int((differ & ~near).sum())} tokens differ from the CPU's readout of the card's exchange "
+            f"where the card's decision was not a near tie")
+    require(not any(launches.values()), f"{path}: launches {launches}, the path has no port kernel")
+    return launches
+
+
+def run_slice13(breaching, ops):
+    """Phase 5, slice 13: 13a-13e. Returns the launch counts by path."""
+    began = time.perf_counter()
+    paths = {path: run_readout_path(breaching, ops, path, overrides) for path, overrides in SLICE13.items()}
+    print(f"chip_smoke: slice 13 in {time.perf_counter() - began:.1f} s", flush=True)
+    return paths
+
+
 def time_permutation_step(ops, size, iters=200):
     """Phase 6, slice 12: ``b4_adam_box_step`` at the permutation attack's (P, P) matrix as
     the path calls it (one unboxed row, no sign), beside its plain version and
@@ -2555,7 +2789,7 @@ def host_breakdown(ops, n_params, image_shape, iters=200):
         "b2_axpby": (lambda: ops.axpby(a, r, b, d), lambda: op("axpby")(a, r, b, d)),
         "b2_cosine_backward": (lambda: ops.cosine_backward(sums, upstream, r, d),
                                lambda: op("cosine_backward")(sums, upstream, r, d, False)),
-        "b3_tv_forward": (lambda: ops.tv_forward(x), lambda: op("tv_forward")(x, 1.0, 1.0, 1e-8)),
+        "b3_tv_forward": (lambda: ops.tv_forward(x), lambda: op("tv_forward")(x, 1.0, 1.0, 1e-8, workspace)),
         "b3_tv_value_and_grad": (lambda: ops.tv_value_and_grad(x, g),
                                  lambda: op("tv_value_and_grad")(x, g, 1.0, 1.0, 1e-8, 0, workspace)),
         "b4_box_project": (lambda: ops.box_project(x, lo, hi), lambda: op("box_project")(x, lo, hi)),
@@ -2662,6 +2896,7 @@ def main():
     paths.update(run_slice11(breaching, ops))
     paths.update(run_records(breaching, ops))
     paths.update(run_slice12(breaching, ops))
+    paths.update(run_slice13(breaching, ops))
 
     print(f"chip_smoke: phase 5 done at {time.perf_counter() - began:.1f} s", flush=True)
     timings = time_kernels(ops, n_params, image_shape)

@@ -15,7 +15,10 @@ the same hyperparameters:
   ``_normalize_throughput`` on the JAX package's probe batch, each to 1e-5 of the
   largest entry;
 - ``imprint_guarantee``'s formulas; the repaired ``label_strategy: None`` (labels None,
-  as in the JAX package); the options the port refuses by name.
+  as in the JAX package); the options the port refuses by name (the VAE decoders, the
+  HuggingFace text models under Decepticon), and the JAX package's errors for what it
+  refuses too (the transformer server on a model without a registry, the text placement
+  on an LSTM).
 """
 
 import dataclasses
@@ -363,27 +366,63 @@ def test_parameter_utils_address_parameters_by_name(rtf):
         replace_module(model, "block", original)
 
 
-@pytest.mark.parametrize("override,message", [
-    ("case.server.model_modification.handle_preceding_layers=VAE", "VAE"),
-    ("case.server.model_modification.position=1 case.server.model_modification.handle_preceding_layers=VAE",
-     "VAE"),
-    ("case/server=malicious-transformer", "malicious_transformer"),
-    ("attack=decepticon", "decepticon-readout"),
+TEXT = ["case=10_causal_lang_training", "case/data=random-tokens", "case.data.vocab_size=128", "case.data.shape=[8]",
+        "case.server.has_external_data=False", "case.model=LSTM"]
+REGISTRY_ERROR = "Transformer rewiring needs a populated architecture registry"
+
+
+def _jax_raises_too(overrides, error, message):
+    """The JAX package's case raises the same error on the same configuration."""
+    cfg = jax_breaching.get_config(overrides)
+    with pytest.raises(error, match=message):
+        jax_breaching.cases.construct_case(cfg.case, jax_breaching.utils.system_startup(cfg=cfg))
+
+
+@pytest.mark.parametrize("override,error,message", [
+    pytest.param("case.server.model_modification.handle_preceding_layers=VAE", NotImplementedError, "VAE",
+                 id="case.server.model_modification.handle_preceding_layers=VAE-VAE"),
+    pytest.param("case.server.model_modification.position=1 "
+                 "case.server.model_modification.handle_preceding_layers=VAE", NotImplementedError, "VAE",
+                 id="case.server.model_modification.position=1 "
+                    "case.server.model_modification.handle_preceding_layers=VAE-VAE"),
+    # ported: the transformer server on a model without a registry raises the JAX package's error
+    pytest.param("case/server=malicious-transformer", ValueError, REGISTRY_ERROR,
+                 id="case/server=malicious-transformer-malicious_transformer"),
+    # ported: Decepticon on a text model without attention (LSTM) raises it too
+    pytest.param("attack=decepticon", ValueError, REGISTRY_ERROR, id="attack=decepticon-decepticon-readout"),
 ])
-def test_unported_malicious_options_are_refused(override, message):
-    cfg = breaching.get_config(RTF[:2] + ["case/server=malicious-model-rtf", "case.model=resnet20",
-                                          "case.data.shape=[3, 16, 16]"] + override.split())
+def test_unported_malicious_options_are_refused(override, error, message):
+    if override == "attack=decepticon":
+        overrides = TEXT + ["attack=decepticon", "case/server=malicious-transformer"]
+    else:
+        overrides = RTF[:2] + ["case/server=malicious-model-rtf", "case.model=resnet20",
+                               "case.data.shape=[3, 16, 16]"] + override.split()
+    cfg = breaching.get_config(overrides)
     setup = breaching.utils.system_startup(cfg=cfg, device="cpu")
-    with pytest.raises(NotImplementedError, match=message):
+    with pytest.raises(error, match=message):
         user, server, _, _ = breaching.cases.construct_case(cfg.case, setup)
         breaching.attacks.prepare_attack(server.model, server.loss, cfg.attack, setup)
+    if error is ValueError:
+        _jax_raises_too(overrides, error, message)
 
 
 def test_text_placement_is_refused():
-    cfg = breaching.get_config(RTF)
+    """Ported: the text placement takes the transformer family only, and on an LSTM raises
+    the JAX package's ValueError of ``_vet_text_model``. The JAX package itself stops
+    before it, at its block's shape: the LSTM's aux has no ``ninp`` (a KeyError; ROADMAP
+    Queue C)."""
+    overrides = TEXT + ["attack=imprint", "case/server=malicious-model-rtf"]
+    cfg = breaching.get_config(overrides)
     setup = breaching.utils.system_startup(cfg=cfg, device="cpu")
-    model, loss = breaching.cases.construct_model(cfg.case.model, cfg.case.data)
-    server = breaching.cases.construct_server(model, loss, cfg.case, setup)
-    server.cfg_data.modality = "text"
-    with pytest.raises(NotImplementedError, match="text placement"):
-        server.vet_model(model)
+    with pytest.raises(ValueError, match="Text imprint placement is implemented for the flax TransformerModel family"):
+        breaching.cases.construct_case(cfg.case, setup)
+    _jax_raises_too(overrides, KeyError, "ninp")
+
+
+@pytest.mark.parametrize("model", ["gpt2S", "bert-sanity-check", "hf-gpt2"])
+def test_huggingface_models_under_decepticon_stay_refused(model):
+    cfg = breaching.get_config(TEXT[:-1] + ["attack=decepticon", "case/server=malicious-transformer",
+                                            f"case.model={model}"])
+    setup = breaching.utils.system_startup(cfg=cfg, device="cpu")
+    with pytest.raises(NotImplementedError, match="HuggingFace"):
+        breaching.cases.construct_case(cfg.case, setup)

@@ -450,6 +450,38 @@ def test_b3_tv_value_and_grad_replays_in_a_cuda_graph(cuda):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(1, 3, 32, 32), (1, 3, 224, 224), (2, 3, 331, 1007)])
+@pytest.mark.parametrize("p,q", [(1.0, 1.0), (2.0, 0.5)])
+def test_b3_tv_forward_is_the_fused_kernels_value_in_one_launch(cuda, shape, p, q):
+    # the value-only form of the fused kernel: its value's bits at scale 1, one launch,
+    # and NaN where the plain version has NaN (a pixel that is not finite)
+    x, one = _randn(shape, 23, cuda), torch.tensor([1.0], device=cuda)
+    for pixel in (None, float("nan"), float("inf")):
+        if pixel is not None:
+            x[0, 1, -1, -1] = pixel
+        before = ops.launch_counts()
+        got = ops.tv_forward(x, p, q)
+        assert ops.launch_counts() == dict(before, b3_tv_forward=before["b3_tv_forward"] + 1)
+        _assert_tv_value(got, image.tv_forward_plain(x, p, q))
+        assert _same_bits(got, ops.tv_value_and_grad(x, one, p, q)[0])
+
+
+@pytest.mark.cuda
+def test_b3_tv_forward_replays_in_a_cuda_graph(cuda):
+    x, other = _randn((1, 3, 224, 224), 24, cuda), _randn((1, 3, 224, 224), 25, cuda)
+    wants = [ops.tv_forward(x), ops.tv_forward(other)]
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        value = ops.tv_forward(x)
+    for source, want in zip((x.clone(), other), wants):
+        x.copy_(source)
+        graph.replay()
+        torch.cuda.synchronize()
+        assert _same_bits(value, want)
+
+
+@pytest.mark.cuda
 def test_b3_tv_value_and_grad_launches_on_the_current_stream(cuda):
     # the side stream sleeps, then writes the images: a kernel that ran on another
     # stream would have read them before the write

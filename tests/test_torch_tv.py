@@ -1,7 +1,8 @@
 """Total variation's value and gradient in one call (``ops.tv_value_and_grad``, through
 its plain version on the CPU) and the TV regularizer built on it, against the JAX
 package's ``TotalVariation``, ``_tv_p1q1`` and ``_make_tv_general``. The kernel itself
-is held against the plain version in tests/test_torch_kernels.py.
+is held against the plain version in tests/test_torch_kernels.py. The text cuts by which
+``breaching_tpu_torch.tv_profile`` gives the kernel a mode must still find the kernel.
 
 Inputs come from numpy seeds and reach both sides as the same float32 arrays.
 Tolerances, as tests/test_torch_ops.py states them: the value, a mean of n terms
@@ -9,6 +10,8 @@ summed in two orders, 1e-5 relative; the gradient, where sqrt and pow(., -0.5) c
 from two libraries, 1e-6 of the largest |value|. Non-finite values must be
 non-finite in the same places.
 """
+
+import re
 
 import jax
 import jax.numpy as jnp
@@ -18,7 +21,7 @@ import torch
 
 from breaching_tpu.attacks.auxiliaries.regularizers import TotalVariation as JaxTotalVariation
 from breaching_tpu.attacks.auxiliaries.regularizers import _make_tv_general, _tv_p1q1
-from breaching_tpu_torch import ops
+from breaching_tpu_torch import ops, tv_profile
 from breaching_tpu_torch.attacks.auxiliaries.regularizers import TotalVariation
 from breaching_tpu_torch.ops import image
 
@@ -152,3 +155,12 @@ def test_tv_value_and_grad_refuses_what_it_does_not_take():
         ops.tv_value_and_grad(x, torch.ones(2))
     with pytest.raises(ValueError):  # neither the CPU nor a CUDA device: no plain fallback
         ops.tv_value_and_grad(x.to("meta"), torch.ones(1, device="meta"))
+
+
+def test_tv_profile_cuts_still_find_the_fused_kernel():
+    """Every anchor of ``tv_profile.CUTS`` is still in csrc/image.cu, and after the cuts every
+    instantiation of the fused kernel, the profile's harness's too, takes the mode."""
+    source = tv_profile.cut_source()
+    assert "bool kGrad, int kMode>" in source and "(kMode & 2)" in source and "(kMode & 1)" in source
+    found = re.findall(r"tv_value_and_grad_kernel<([^<>]*)>", source + tv_profile.HARNESS)
+    assert len(found) >= 5 and all(len(args.split(",")) == 3 for args in found), found
