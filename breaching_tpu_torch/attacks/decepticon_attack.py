@@ -16,10 +16,17 @@ DecepticonAttacker:156-824). Pipeline (positions-first, the default):
 6. the leaked tokens assigned to slots (each used once), then the full-vocabulary
    supplement for slots of low confidence: one float32 product of the slots and the
    layer-normed vocabulary on the device (TF32 off), or with ``exact_supplement`` each
-   slot against its exact per-position references, in chunks of slots.
+   slot against its exact per-position references, whose LayerNorm statistics and
+   correlations come from four products of the table on the device (``exact_scores``: the
+   JAX package composes every (slot, token) reference, slots x vocabulary x hidden).
 
-The correlations and assignments are the JAX package's numpy and scipy code, on the
-host. The host LayerNorm's eps is 1e-5, as there (the model's is flax's 1e-6).
+Where the registry names an embedding LayerNorm (the HuggingFace encoders), the embedding
+table and the positional table pass through it before anything is matched (the tokens
+and positions as the first block sees them, each normed on its own), and the exact
+references compose LN_first(embLN(wte + pos + token type 0)); the norm after the
+attention is the registry's ``first_ff_norm``. The correlations and assignments are the
+JAX package's numpy and scipy code, on the host. The host LayerNorm's eps is 1e-5, as
+there (the model's is flax's 1e-6).
 ``stats["decepticon_seconds"]`` gives the readout's seconds by stage: extraction,
 clustering, matching and supplement.
 """
@@ -82,7 +89,7 @@ class DecepticonAttacker(AnalyticAttacker):
         stage = stats["decepticon_seconds"] = _Stages()
 
         norm_scale, norm_bias = self._first_norm_params(model)
-        embedding_table = _numpy(model.params[registry["embedding"]])
+        embedding_table = self._through_embedding_norm(model, _numpy(model.params[registry["embedding"]]))
         leaked = _numpy(tokens).reshape(-1) if tokens is not None else None
 
         with stage("extraction"):
@@ -99,7 +106,8 @@ class DecepticonAttacker(AnalyticAttacker):
                         labels=tokens), stats
 
         # layer-normed positional references, tiled per sentence (reference:183-188)
-        pos_table = np.asarray(positional_table(model.module, model.params, seq_len))
+        pos_table = self._through_embedding_norm(model, np.asarray(positional_table(model.module, model.params,
+                                                                                    seq_len)))
         positional = np.tile(_layer_norm(pos_table, norm_scale, norm_bias), (len_data, 1))
 
         with stage("clustering"):  # on the raw sentence-key components (reference:190-200)
@@ -201,8 +209,10 @@ class DecepticonAttacker(AnalyticAttacker):
                 if supplemented is not None:
                     recovered_tokens = supplemented
                 else:
+                    table = (model.params[registry["embedding"]].detach() if "embedding_norm" not in registry
+                             else torch.as_tensor(embedding_table, device=device))
                     recovered_tokens = self._supplement_from_full_vocabulary(
-                        recovered_tokens, slot_costs, breached_without_positions, model, norm_scale, norm_bias,
+                        recovered_tokens, slot_costs, breached_without_positions, table, norm_scale, norm_bias,
                         v, weight)
 
             if self.cfg.get("collision_recovery", False) and leaked is not None and len(leaked) > 0:
@@ -237,11 +247,21 @@ class DecepticonAttacker(AnalyticAttacker):
 
     # ------------------------------------------------------------------ pieces
 
+    def _through_embedding_norm(self, model, table):
+        """A (rows, D) table through the registry's embedding LayerNorm (host eps 1e-5, as
+        in the JAX package), or as it is without one."""
+        name = model.module.registry.get("embedding_norm")
+        if name is None:
+            return table
+        return _layer_norm(table, _numpy(model.params[f"{name}.weight"]), _numpy(model.params[f"{name}.bias"]))
+
     def _first_norm_params(self, model):
-        """(scale, bias) of the LayerNorm the imprinted FF input passes through: norm1 for
-        post-LN blocks (ff_input = norm1(x + attn)), norm2 for pre-LN blocks (ff_input =
-        norm2(x + attn(norm1(x))))."""
-        name = "layer0.norm2" if getattr(model.module, "norm_first", False) else "layer0.norm1"
+        """(scale, bias) of the LayerNorm the imprinted FF input passes through: the
+        registry's ``first_ff_norm``, else norm1 for post-LN blocks (ff_input = norm1(x +
+        attn)), norm2 for pre-LN blocks (ff_input = norm2(x + attn(norm1(x))))."""
+        name = model.module.registry.get("first_ff_norm")
+        if name is None:
+            name = "layer0.norm2" if getattr(model.module, "norm_first", False) else "layer0.norm1"
         if f"{name}.weight" in model.params:
             return _numpy(model.params[f"{name}.weight"]), _numpy(model.params[f"{name}.bias"])
         dim = getattr(model.module, "ninp", 96)
@@ -525,21 +545,33 @@ class DecepticonAttacker(AnalyticAttacker):
 
     def _exact_tables(self, model, seq_len):
         """Raw tables for the exact composition of references, or None without a learned
-        embedding table or enough positions: (wte, pos_tab, first_norm (scale, bias)), in
-        float64."""
-        emb_name = model.module.registry.get("embedding")
+        embedding table or enough positions: (wte, pos_tab, the token-type row 0 (zeros
+        without a token-type table), the embedding norm's (scale, bias) or None,
+        first_norm (scale, bias)), in float64."""
+        registry = model.module.registry
+        emb_name = registry.get("embedding")
         if emb_name is None or emb_name not in model.params:
             return None
         wte = _numpy(model.params[emb_name], np.float64)
         pos_tab = np.asarray(positional_table(model.module, model.params, seq_len), np.float64)
         if len(pos_tab) < seq_len:
             return None
+        offset = np.zeros(wte.shape[1])
+        if registry.get("type_embedding") in model.params:
+            offset = _numpy(model.params[registry["type_embedding"]], np.float64)[0]
+        emb_norm = None
+        if registry.get("embedding_norm") is not None:
+            name = registry["embedding_norm"]
+            emb_norm = (_numpy(model.params[f"{name}.weight"], np.float64),
+                        _numpy(model.params[f"{name}.bias"], np.float64))
         norm_scale, norm_bias = self._first_norm_params(model)
-        return wte, pos_tab, (np.asarray(norm_scale, np.float64), np.asarray(norm_bias, np.float64))
+        return wte, pos_tab, offset, emb_norm, (np.asarray(norm_scale, np.float64),
+                                                np.asarray(norm_bias, np.float64))
 
     def _exact_reference_builder(self, model, seq_len):
-        """f(slot_idx, token_idx) -> the exact first-norm states LN_first(wte[t] + pos[p]),
-        or None without learned tables.
+        """f(slot_idx, token_idx) -> the exact first-norm states LN_first(embLN(wte[t] +
+        pos[p] + tte_0)) (without an embedding norm LN_first(wte[t] + pos[p])), or None
+        without learned tables.
 
         The rest of the pipeline matches states against additively combined LN(emb) +
         LN(pos) references (the reference's approximation, analytic_attack.py:183-211):
@@ -550,11 +582,14 @@ class DecepticonAttacker(AnalyticAttacker):
         tables = self._exact_tables(model, seq_len)
         if tables is None:
             return None
-        wte, pos_tab, (norm_scale, norm_bias) = tables
+        wte, pos_tab, offset, emb_norm, (norm_scale, norm_bias) = tables
 
         def build(slot_idx, token_idx):
             p = np.asarray(slot_idx) % seq_len
-            return _layer_norm(wte[np.asarray(token_idx)] + pos_tab[p], norm_scale, norm_bias)
+            x = wte[np.asarray(token_idx)] + pos_tab[p] + offset
+            if emb_norm is not None:
+                x = _layer_norm(x, emb_norm[0], emb_norm[1])
+            return _layer_norm(x, norm_scale, norm_bias)
 
         return build
 
@@ -686,14 +721,14 @@ class DecepticonAttacker(AnalyticAttacker):
 
     def _supplement_exact(self, recovered_tokens, costs, ordered, model, shape, v, weight):
         """The full-vocabulary supplement against exact per-position references
-        LN_first(wte + pos_slot), the function the forward pass applies,
-        on the device in chunks of slots (``_device_exact_vocab_match``). Returns None
+        LN_first(embLN(wte + pos_slot + tte_0)), the function the forward pass applies,
+        on the device (``_device_exact_vocab_match``, ``exact_scores``). Returns None
         without raw tables (the caller falls back to the additive supplement)."""
         len_data, seq_len = shape
         tables = self._exact_tables(model, seq_len)
         if tables is None:
             return None
-        wte, pos_tab, (norm_scale, norm_bias) = tables
+        wte, pos_tab, offset, emb_norm, (norm_scale, norm_bias) = tables
         slots = np.arange(len_data * seq_len) % seq_len
         device = self.setup["device"]
 
@@ -701,8 +736,9 @@ class DecepticonAttacker(AnalyticAttacker):
             return torch.as_tensor(np.asarray(array, np.float32), device=device)
 
         best, best_val = _device_exact_vocab_match(
-            on_device(wte), on_device(pos_tab[slots]), on_device(norm_scale), on_device(norm_bias), on_device(ordered),
-            int(v), "abs" in self.cfg.get("matcher", "abs-corrcoef"))
+            on_device(wte), on_device(pos_tab[slots] + offset),
+            None if emb_norm is None else tuple(map(on_device, emb_norm)), on_device(norm_scale),
+            on_device(norm_bias), on_device(ordered), int(v), "abs" in self.cfg.get("matcher", "abs-corrcoef"))
         replace = best_val * max(weight, 1e-9) > costs
         num_replaced = int(replace.sum())
         if num_replaced:
@@ -711,13 +747,14 @@ class DecepticonAttacker(AnalyticAttacker):
         costs[replace] = best_val[replace]
         return np.where(replace, best + 1, recovered_tokens)
 
-    def _supplement_from_full_vocabulary(self, recovered_tokens, costs, breached, model, norm_scale, norm_bias, v,
+    def _supplement_from_full_vocabulary(self, recovered_tokens, costs, breached, table, norm_scale, norm_bias, v,
                                          weight):
         """Slots of low confidence replaced by the best correlation over the whole
-        vocabulary (reference:591-622): the (slots x vocabulary x hidden) correlation as a
-        float32 product on the device, only each slot's winner back to the host."""
+        vocabulary (reference:591-622) of ``table`` (the embedding table on the device,
+        through the embedding norm where there is one): the (slots x vocabulary x hidden)
+        correlation as a float32 product on the device, only each slot's winner back to
+        the host."""
         device = self.setup["device"]
-        table = model.params[model.module.registry["embedding"]].detach()
         best, best_val = _device_vocab_match(
             torch.as_tensor(breached, dtype=torch.float32, device=device), table,
             torch.as_tensor(norm_scale, device=device), torch.as_tensor(norm_bias, device=device), int(v),
@@ -768,23 +805,95 @@ def _device_vocab_match(breached, table, scale, bias, v, use_abs):
         return tuple(_numpy(torch.cat(parts)) for parts in zip(*found))
 
 
-def _device_exact_vocab_match(wte, pos_rows, n_scale, n_bias, states, v, use_abs):
+def _device_exact_vocab_match(wte, pos_rows, emb_norm, n_scale, n_bias, states, v, use_abs):
     """The exact-reference vocabulary matcher: for each slot, the full vocabulary's
-    references at that slot's position, LN_first(wte + pos_slot), correlated with
-    the slot's state on the content slice; a chunk of slots at a time, so that the
-    (slots x vocabulary x hidden) tensor never forms whole. Row 0 is skipped, as in
-    ``_device_vocab_match``."""
+    references at that slot's position, LN_first(embLN(wte + pos_slot)) (``emb_norm``
+    the embedding norm's (scale, bias), or None), correlated with the slot's state on the
+    content slice (``exact_scores``). Row 0 is skipped, as in ``_device_vocab_match``."""
+    found = []
+    for score in exact_scores(wte, pos_rows, emb_norm, n_scale, n_bias, states, v):
+        value, index = (score.abs() if use_abs else score).max(dim=1)
+        found.append((index, value))
+    return tuple(_numpy(torch.cat(parts)) for parts in zip(*found))
+
+
+def exact_scores(wte, pos_rows, emb_norm, n_scale, n_bias, states, v, eps=1e-5):
+    """Yields, a chunk of slots at a time, the centred correlation (slots, V - 1) of each
+    slot's state (on the content slice [v:-1]) with every token's exact reference
+    LN_first(embLN(wte[t] + pos_slot))[v:-1], tokens from row 1, without forming the (slots
+    x vocabulary x hidden) references: each LayerNorm is affine in its row, so a reference
+    on the slice is z = A (x * u) + B u + C k + E s_f + b_f with x = wte[t] + pos_slot, u =
+    s_e s_f, k = b_e s_f and scalars A, B, C, E of (token, slot) from the row's mean and
+    variance (without an embedding norm u = s_f, k = 0), and the correlation, its norm and
+    those statistics are sums that four (V, D) x (D, slots) products and per-token or
+    per-slot constants give. The same numbers as composing the references (float32,
+    sums in other orders)."""
     with torch.no_grad():
-        a = _unit_rows(states)
-        found = []
-        step = max(1, _CHUNK_ELEMENTS // wte.numel())
+        table = wte[1:]
+        dim = table.shape[1]
+        sl = slice(v, dim - 1)
+        s_f, b_f = n_scale, n_bias
+        if emb_norm is not None:
+            s_e, b_e = emb_norm
+            u, k = s_e * s_f, b_e * s_f
+        else:
+            u, k = s_f, torch.zeros_like(s_f)
+        U, K, F, G = u[sl], k[sl], s_f[sl], b_f[sl]
+        length = U.shape[0]
+        t_sl = table[:, sl]
+        # per token
+        w_sum, w_sq = table.sum(1, keepdim=True), (table * table).sum(1, keepdim=True)
+        t_u, t_uu = t_sl @ U, t_sl @ (U * U)
+        t_uk, t_uf, t_ug = t_sl @ (U * K), t_sl @ (U * F), t_sl @ (U * G)
+        t_xx = (t_sl * t_sl) @ (U * U)
+        # constants of the slice
+        sums = {name: float(a @ b) for name, (a, b) in dict(
+            uu=(U, U), kk=(K, K), ff=(F, F), gg=(G, G), uk=(U, K), uf=(U, F), ug=(U, G), kf=(K, F), kg=(K, G),
+            fg=(F, G)).items()}
+        sum_u, sum_k, sum_f, sum_g = (float(x.sum()) for x in (U, K, F, G))
+        if emb_norm is not None:
+            see = s_e * s_e
+            t_se, t_xsee, t_see, t_seb = ((table @ s_e)[:, None], ((table * table) @ see)[:, None],
+                                          (table @ see)[:, None], (table @ (s_e * b_e))[:, None])
+            se_sum, see_sum, seb_sum = float(s_e.sum()), float((s_e * s_e).sum()), float((s_e * b_e).sum())
+            be_mean, bee_sum = float(b_e.mean()), float((b_e * b_e).sum())
+        step = max(1, _CHUNK_ELEMENTS // 8 // table.shape[0])
         for start in range(0, len(pos_rows), step):
-            x = wte[None] + pos_rows[start:start + step, None]
-            refs = _unit_rows(_torch_layer_norm(x, n_scale, n_bias)[:, 1:, v:-1])
-            score = torch.einsum("svd,sd->sv", refs, a[start:start + step])
-            value, index = (score.abs() if use_abs else score).max(dim=1)
-            found.append((index, value))
-        return tuple(_numpy(torch.cat(parts)) for parts in zip(*found))
+            rows = pos_rows[start:start + step]
+            c = _unit_rows(states[start:start + step])
+            r_sl = rows[:, sl]
+            # the row's mean and variance over all dims, x = wte[t] + pos_slot
+            mu_x = (w_sum + rows.sum(1)) / dim
+            var_x = (w_sq + 2 * table @ rows.T + (rows * rows).sum(1)) / dim - mu_x * mu_x
+            if emb_norm is not None:
+                r_x = torch.rsqrt(var_x + eps)
+                xs = t_se + rows @ s_e
+                mu_y = r_x * (xs - mu_x * se_sum) / dim + be_mean
+                x2 = t_xsee + 2 * table @ (rows * see).T + (rows * rows) @ see
+                dev2 = x2 - 2 * mu_x * (t_see + rows @ see) + mu_x * mu_x * see_sum
+                cross = t_seb + rows @ (s_e * b_e) - mu_x * seb_sum
+                var_y = (r_x * r_x * dev2 + 2 * r_x * cross + bee_sum) / dim - mu_y * mu_y
+                r_y = torch.rsqrt(var_y + eps)
+                A, B, C, E = r_y * r_x, -r_y * r_x * mu_x, r_y, -r_y * mu_y
+            else:
+                r_y = torch.rsqrt(var_x + eps)
+                A, B, C, E = r_y, 0.0, 0.0, -r_y * mu_x
+            # the slice: sum of x U c, of x U, of x^2 U^2 and of x U times each constant vector
+            xuc = t_sl @ (U * c).T + ((r_sl * U) * c).sum(1)
+            xu = t_u[:, None] + r_sl @ U
+            xuu = t_uu[:, None] + r_sl @ (U * U)
+            xuk = t_uk[:, None] + r_sl @ (U * K)
+            xuf = t_uf[:, None] + r_sl @ (U * F)
+            xug = t_ug[:, None] + r_sl @ (U * G)
+            xx = t_xx[:, None] + 2 * t_sl @ (r_sl * U * U).T + (r_sl * r_sl) @ (U * U)
+            num = A * xuc + B * (c @ U) + C * (c @ K) + E * (c @ F) + c @ G
+            total = A * xu + B * sum_u + C * sum_k + E * sum_f + sum_g
+            squares = (A * A * xx + 2 * A * (B * xuu + C * xuk + E * xuf + xug)
+                       + B * B * sums["uu"] + C * C * sums["kk"] + E * E * sums["ff"] + sums["gg"]
+                       + 2 * (B * C * sums["uk"] + B * E * sums["uf"] + B * sums["ug"] + C * E * sums["kf"]
+                              + C * sums["kg"] + E * sums["fg"]))
+            norm = torch.sqrt(torch.clamp(squares - total * total / length, min=0.0))
+            yield (num / torch.clamp(norm, min=1e-10)).T
 
 
 def _safe_corrcoef(rows):

@@ -55,17 +55,34 @@ class CharTokenizer:
         return self.vocab_size
 
 
+class CanineTokenizer:
+    """``transformers``' ``CanineTokenizer`` as the JAX package calls it
+    (``add_special_tokens=False``): a token is a Unicode code point, ``decode`` their
+    characters; the vocabulary is every code point (0x110000)."""
+
+    vocab_size = 0x110000
+
+    def encode(self, text: str):
+        return SimpleNamespace(ids=[ord(c) for c in text])
+
+    def decode(self, ids) -> str:
+        return "".join(chr(int(i)) for i in ids)
+
+    def get_vocab_size(self) -> int:
+        return self.vocab_size
+
+
 def tokenizer_for(cfg_data, lines=None):
-    """``cfg.data.tokenizer`` as an object with ``.encode(text).ids``: ``character``, or
-    ``word-level`` (``<path>/cache/word-tokenizer_<vocab>.json`` where present, else
-    trained on ``lines`` and saved there). ``canine`` needs ``transformers`` and is not
-    ported; any other name (``GPT-2``, ``bert-*``) needs a download, as in the JAX
-    package."""
+    """``cfg.data.tokenizer`` as an object with ``.encode(text).ids``: ``character``,
+    ``canine`` (Unicode code points, ``CanineTokenizer``), or ``word-level``
+    (``<path>/cache/word-tokenizer_<vocab>.json`` where present, else trained on ``lines``
+    and saved there); any other name (``GPT-2``, ``bert-*``) needs a download, as in the
+    JAX package."""
     name = str(cfg_data.tokenizer)
     if name == "character":
         return CharTokenizer(cfg_data.vocab_size)
     if name == "canine":
-        raise NotImplementedError("The canine tokenizer (transformers' CanineTokenizer) is not ported.")
+        return CanineTokenizer()
     if name == "word-level":
         from .wordlevel_tokenizer import WordLevelTokenizer, generate_word_level_tokenizer
 

@@ -9,7 +9,12 @@ JAX package's (a kernel transposed: the registry's ``kernel_layout`` is ``out_in
   rows divided by the norm of their [v:2v] components;
 - the first attention becomes a positional copy machine: the query bias carries the
   imprint position's key scaled by ``softmax_skew``, K = I, V moves the components
-  [v:2v] into [0:v], so every token of a sentence receives the same sentence key;
+  [v:2v] into [0:v], so every token of a sentence receives the same sentence key. Q, K
+  and V are one fused module (rows [q; k; v]) or, in the HuggingFace encoders, three
+  (the registry's ``query``/``key``/``value`` dict); the positions are taken as the
+  first block sees them, through the embedding LayerNorm where the registry names one
+  (eps 1e-12 for every family, as in the JAX package), from the table's row
+  ``pos_offset`` on (RoBERTa's 2);
 - the middle attentions' outputs are zeroed and every second FF layer lets a tiny
   ``eps`` flow through;
 - every first FF layer becomes a cumulative imprint layer: each hidden unit measures
@@ -67,10 +72,13 @@ def _numpy(value):
 
 def positional_table(model, params, seq_len):
     """The pure positional encodings (seq_len, D) of a registered architecture, from
-    ``params`` (parameter name -> tensor or array)."""
-    pos_name = getattr(model, "registry", {}).get("pos_embedding")
+    ``params`` (parameter name -> tensor or array): a learned table's rows from the
+    registry's ``pos_offset`` (RoBERTa's positions start at pad_token_id + 1)."""
+    registry = getattr(model, "registry", {})
+    pos_name = registry.get("pos_embedding")
     if pos_name is not None:
-        return _numpy(params[pos_name])[:seq_len]
+        offset = int(registry.get("pos_offset", 0))
+        return _numpy(params[pos_name])[offset:offset + seq_len]
     from ..models.language_models import fixed_positional_encoding
 
     return fixed_positional_encoding(model.max_len, model.ninp)[:seq_len]
@@ -78,10 +86,9 @@ def positional_table(model, params, seq_len):
 
 def reconfigure_transformer(model, loss_fn, cfg_server, cfg_data, setup, external_dataloader=None):
     """Apply the whole rewiring in place; returns (model, secrets). Registry-driven: any
-    model whose ``registry`` names each layer's fused ``attention_qkv`` (rows [q; k; v]),
-    ``attention_out``, ``ff_first`` and ``ff_second`` and the embedding's parameters. (The
-    JAX package's registries of the HuggingFace models also name separate q/k/v modules and
-    an embedding LayerNorm; the port has no such model yet.)"""
+    model whose ``registry`` names each layer's ``attention_qkv`` (a fused module, rows
+    [q; k; v], or a dict of ``query``, ``key`` and ``value`` modules), ``attention_out``,
+    ``ff_first`` and ``ff_second`` and the embedding's parameters."""
     registry = getattr(model, "registry", {})
     if not registry.get("attention_qkv"):
         raise ValueError(
@@ -122,16 +129,31 @@ def reconfigure_transformer(model, loss_fn, cfg_server, cfg_data, setup, externa
         norms = np.linalg.norm(pos[:, v_length:2 * v_length], axis=1, keepdims=True)
         params[registry["pos_embedding"]] = pos / np.maximum(norms, 1e-8)
 
-    # the positions as the first block sees them (its attention biases carry them)
-    attn_positions = positional_table(model, params, seq_len)
+    # the positions as the first block sees them (its attention biases carry them): through
+    # the embedding LayerNorm where one exists (reference: set_MHA's norm_layer0(pos_encoder(zeros)))
+    positions = positional_table(model, params, seq_len)
+    norm0 = registry.get("embedding_norm")
+    if norm0 is not None:
+        mu = positions.mean(axis=-1, keepdims=True)
+        var = positions.var(axis=-1, keepdims=True)
+        attn_positions = ((positions - mu) / np.sqrt(var + 1e-12) * params[f"{norm0}.weight"]
+                          + params[f"{norm0}.bias"])
+    else:
+        attn_positions = positions
 
     imprint_pos = int(pmod.imprint_sentence_position)
     softmax_skew = float(pmod.softmax_skew)
 
-    def write_qkv(module, q_kernel, q_bias, k_kernel, k_bias, v_kernel, v_bias):
-        """Q, K and V through one fused module, rows [q; k; v]."""
-        _set_kernel(params, module, np.concatenate([q_kernel, k_kernel, v_kernel], axis=1), layout)
-        params[f"{module}.bias"] = np.concatenate([q_bias, k_bias, v_bias])
+    def write_qkv(entry, q_kernel, q_bias, k_kernel, k_bias, v_kernel, v_bias):
+        """Q, K and V through one fused module, rows [q; k; v], or a dict of three."""
+        if isinstance(entry, dict):
+            for name, kernel, bias in (("query", q_kernel, q_bias), ("key", k_kernel, k_bias),
+                                       ("value", v_kernel, v_bias)):
+                _set_kernel(params, entry[name], kernel, layout)
+                params[f"{entry[name]}.bias"] = bias
+            return
+        _set_kernel(params, entry, np.concatenate([q_kernel, k_kernel, v_kernel], axis=1), layout)
+        params[f"{entry}.bias"] = np.concatenate([q_bias, k_bias, v_bias])
 
     eye = np.eye(D, dtype=np.float32)
     zeros_dd, zeros_d = np.zeros((D, D), np.float32), np.zeros(D, np.float32)

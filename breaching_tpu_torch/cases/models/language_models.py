@@ -1,5 +1,7 @@
 """Language models: the transformer encoder LM, the LSTM LM and the linear baseline
-(counterpart of ``breaching_tpu/cases/models/language_models.py``).
+(counterpart of ``breaching_tpu/cases/models/language_models.py``), and the dispatch to the
+HuggingFace architectures of ``hf_models.py`` (``gpt2S``, ``bert-sanity-check``, ``hf-*``)
+with their registries in the port's parameter names.
 
 A model takes int token ids (B, T) or float embeddings (B, T, D), told apart by dtype:
 the attacks' ``run-embedding`` strategy feeds the candidate's embeddings directly.
@@ -37,6 +39,13 @@ also records each layer's feed-forward input under ``layer<i>/ff_input``, where 
 ``EncoderLayer`` sows it: ``norm1(x + attn(x))`` post-LN, ``norm2(x)`` pre-LN. A malicious
 server may set ``imprint_block``, which then runs on the embedded sequence before the
 positional term; its weights are ``imprint_block/linear0_kernel``, ... in the flat layout.
+
+The HuggingFace registries (``_gpt2_registry``, ``_bert_registry``, ``_roberta_registry``,
+``_distilbert_registry``) are the JAX package's in the port's dotted names: separate
+``query``/``key``/``value`` modules for the encoders, ``embedding_norm``, ``type_embedding``,
+``first_ff_norm``, RoBERTa's ``pos_offset`` of 2, and a ``kernel_layout`` of ``out_in`` for
+every family (GPT-2's Conv1D weights are (out, in) in both packages, the encoders' Dense
+kernels (in, out) in Flax).
 """
 
 from __future__ import annotations
@@ -296,28 +305,119 @@ class LinearLM(nn.Module):
         return h if features else self.decoder(h)
 
 
-HF_ONLY = ("gpt2S", "bert-sanity-check")
+HF_NAMES = ("gpt2S", "bert-sanity-check")
+
+
+def _gpt2_registry(nlayers):
+    """The JAX package's ``_gpt2_registry`` in the port's names: GPT-2's Conv1D weights
+    are (out, in) as every weight of the port is, and the fused ``c_attn`` holds rows
+    [q; k; v]."""
+    h = lambda i, rest: f"transformer.h.{i}.{rest}"
+    return dict(
+        embedding="transformer.wte.weight",
+        pos_embedding="transformer.wpe.weight",
+        decoder_bias=None,  # GPT-2's LM head is tied and has no bias
+        attention_qkv=[h(i, "attn.c_attn") for i in range(nlayers)],
+        attention_out=[h(i, "attn.c_proj") for i in range(nlayers)],
+        ff_first=[h(i, "mlp.c_fc") for i in range(nlayers)],
+        ff_second=[h(i, "mlp.c_proj") for i in range(nlayers)],
+        norms=[h(i, n) for i in range(nlayers) for n in ("ln_1", "ln_2")],
+        first_ff_norm="transformer.h.0.ln_2",  # pre-LN: the FF input
+        kernel_layout="out_in",
+        nlayers=nlayers,
+    )
+
+
+def _encoder_registry(trunk, nlayers, decoder_bias):
+    """The JAX package's ``_bert_registry`` and ``_roberta_registry``: separate query, key
+    and value modules, post-LN, the embedding LayerNorm in front of the first block."""
+    l = lambda i, rest: f"{trunk}.encoder.layer.{i}.{rest}"
+    return dict(
+        embedding=f"{trunk}.embeddings.word_embeddings.weight",
+        pos_embedding=f"{trunk}.embeddings.position_embeddings.weight",
+        type_embedding=f"{trunk}.embeddings.token_type_embeddings.weight",
+        decoder_bias=decoder_bias,
+        attention_qkv=[{n: l(i, f"attention.self.{n}") for n in ("query", "key", "value")} for i in range(nlayers)],
+        attention_out=[l(i, "attention.output.dense") for i in range(nlayers)],
+        ff_first=[l(i, "intermediate.dense") for i in range(nlayers)],
+        ff_second=[l(i, "output.dense") for i in range(nlayers)],
+        first_ff_norm=l(0, "attention.output.LayerNorm"),
+        embedding_norm=f"{trunk}.embeddings.LayerNorm",
+        kernel_layout="out_in",
+        nlayers=nlayers,
+    )
+
+
+def _bert_registry(nlayers):
+    return _encoder_registry("bert", nlayers, "cls.predictions.bias")
+
+
+def _roberta_registry(nlayers):
+    return dict(_encoder_registry("roberta", nlayers, "lm_head.bias"), pos_offset=2)  # positions from pad + 1
+
+
+def _distilbert_registry(nlayers):
+    """The JAX package's ``_distilbert_registry``: q_lin, k_lin, v_lin, out_lin and
+    ffn.lin1, ffn.lin2, post-LN, a tied ``vocab_projector``."""
+    l = lambda i, rest: f"distilbert.transformer.layer.{i}.{rest}"
+    return dict(
+        embedding="distilbert.embeddings.word_embeddings.weight",
+        pos_embedding="distilbert.embeddings.position_embeddings.weight",
+        decoder_bias="vocab_projector.bias",
+        attention_qkv=[dict(query=l(i, "attention.q_lin"), key=l(i, "attention.k_lin"), value=l(i, "attention.v_lin"))
+                       for i in range(nlayers)],
+        attention_out=[l(i, "attention.out_lin") for i in range(nlayers)],
+        ff_first=[l(i, "ffn.lin1") for i in range(nlayers)],
+        ff_second=[l(i, "ffn.lin2") for i in range(nlayers)],
+        first_ff_norm=l(0, "sa_layer_norm"),
+        embedding_norm="distilbert.embeddings.LayerNorm",
+        kernel_layout="out_in",
+        nlayers=nlayers,
+    )
+
+
+REGISTRIES = dict(gpt2=_gpt2_registry, bert=_bert_registry, roberta=_roberta_registry,
+                  distilbert=_distilbert_registry)
+
+
+def construct_hf_model(name: str, cfg_data, generator=None):
+    """A HuggingFace architecture (``hf_models.HFModel``) for ``gpt2S``,
+    ``bert-sanity-check`` or an ``hf-`` name, with its registry; named as the JAX package
+    names it (``hf-gpt2S``, ``hf-bert-tiny``), which is also the name of its pretrained
+    npz."""
+    from .hf_models import HFModel, hf_config
+
+    hf_name = name if name in HF_NAMES else name[len("hf-"):]
+    task = cfg_data.get("task", None)
+    classes = int(cfg_data.classes) if task == "classification" else None
+    config = hf_config(hf_name, int(cfg_data.vocab_size), int(cfg_data.shape[0]), num_labels=classes)
+    model = HFModel(config, generator=generator)
+    model.registry = REGISTRIES[config.family](config.layers)
+    model.name = f"hf-{hf_name}"
+    return model
 
 
 def construct_text_model(cfg_model, cfg_data, generator=None):
-    """(model, loss class) for every non-HF name of the JAX package's text factory
+    """(model, loss class) for every name of the JAX package's text factory
     (``construct_text_model``): ``transformer3f``, ``transformer3``, ``transformer3t``,
     ``transformer1``, ``transformerS``, ``LSTM``, ``linear``, ``gpt2-tiny``, ``bert-tiny``,
-    and any other name holding ``gpt2`` (768 wide, 12 layers and heads, 3,072 FF,
-    pre-LN, tied) or ``bert`` (the same widths, post-LN, untied). ``task=classification``
-    puts the classifier head on a transformer. The HuggingFace architectures (``gpt2S``,
-    ``bert-sanity-check``, ``hf-*``) are not ported."""
+    the HuggingFace architectures (``gpt2S``, ``bert-sanity-check``, ``hf-gpt2``,
+    ``hf-bert``, ``hf-roberta*``, ``hf-distilbert``, each with ``-tiny``;
+    ``construct_hf_model``), and any other name holding ``gpt2`` (768 wide, 12 layers and
+    heads, 3,072 FF, pre-LN, tied) or ``bert`` (the same widths, post-LN, untied).
+    ``task=classification`` puts the classifier head on a transformer or on an encoder's
+    HuggingFace architecture."""
     from .losses import LOSSES, CausalLoss
 
     name = str(cfg_model)
     vocab = int(cfg_data.vocab_size)
-    if name in HF_ONLY or name.startswith("hf-"):
-        raise NotImplementedError(f"The HuggingFace text model {name} is not ported yet.")
     task = cfg_data.get("task", None)
     classes = int(cfg_data.classes) if task == "classification" else None
     kwargs = dict(num_classes=classes, generator=generator)
     small = (vocab, 96, 8, 1536, 3)
-    if name == "transformer3f":
+    if name in HF_NAMES or name.startswith("hf-"):
+        model = construct_hf_model(name, cfg_data, generator=generator)
+    elif name == "transformer3f":
         model = TransformerModel(*small, positional_embedding="fixed", **kwargs)
     elif name in ("transformer3", "bert-tiny"):
         model = TransformerModel(*small, positional_embedding="learnable", **kwargs)

@@ -38,7 +38,8 @@ def construct_model(cfg_model, cfg_data, pretrained: bool = False, generator=Non
         from .language_models import construct_text_model
 
         model, loss_cls = construct_text_model(cfg_model, cfg_data, generator=generator)
-        model.name = str(cfg_model)
+        if not hasattr(model, "name"):  # the HuggingFace architectures carry the JAX package's name
+            model.name = str(cfg_model)
         if pretrained:
             _maybe_load_pretrained(model, cfg_data)
         return model, loss_cls()
@@ -109,9 +110,11 @@ def head_name(model) -> str:
     return getattr(model, "head_name", "head")
 
 
-def head_keys(model) -> tuple[str, str]:
+def head_keys(model) -> tuple[str, str | None]:
     """The parameter names (weight, bias) of ``model``'s classification head; a text
-    model names its own (``head_param_keys``: a tied decoder's weight is the embedding)."""
+    model names its own (``head_param_keys``: a tied decoder's weight is the embedding,
+    and the HuggingFace LM heads name no bias, as the JAX package's ``head_grads`` finds
+    none)."""
     if hasattr(model, "head_param_keys"):
         return model.head_param_keys
     head = head_name(model)
@@ -120,8 +123,10 @@ def head_keys(model) -> tuple[str, str]:
 
 def head_grads(gradients: dict, model):
     """(weight gradient (out, in), bias gradient (out,)) of ``model``'s classification
-    head, from ``gradients`` by parameter name."""
+    head, from ``gradients`` by parameter name; zeros for a head without a bias."""
     weight, bias = head_keys(model)
+    if bias is None:
+        return gradients[weight], gradients[weight].new_zeros(gradients[weight].shape[0])
     return gradients[weight], gradients[bias]
 
 

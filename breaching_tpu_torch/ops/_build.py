@@ -1,7 +1,7 @@
 """Build and load the port's CUDA kernels.
 
-All ``csrc/*.cu`` files and ``csrc/bindings.cpp`` go through ONE ``nvcc`` call into one
-shared library. ``bindings.cpp`` registers every kernel with PyTorch's dispatcher as
+Each of ``csrc/*.cu`` and ``csrc/bindings.cpp`` is compiled by its own ``nvcc``, all started
+together, and one more ``nvcc`` links them into one shared library. ``bindings.cpp`` registers every kernel with PyTorch's dispatcher as
 an op of ``torch.ops.breaching`` (loaded with ``torch.ops.load_library``,
 ``load_ops``; ``op`` gives one op's callable). ``bindings.cpp`` is the only source that
 includes PyTorch's headers: it is compiled against the include and library paths of
@@ -27,13 +27,12 @@ import torch
 PACKAGE_ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(PACKAGE_ROOT, "csrc")
 BUILD_DIR = os.path.join(PACKAGE_ROOT, "_build")
-NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++20", "-O3",
-              "-shared", "-Xcompiler", "-fPIC"]
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++20", "-O3", "-Xcompiler", "-fPIC"]
 TORCH_LIBRARIES = ["c10", "c10_cuda", "torch_cpu", "torch_cuda"]
 
 _ops = None
 _op_callables = {}  # name -> the op's callable, bound at its first call
-build_seconds = None  # wall time of the nvcc call that built the loaded library, None if cached
+build_seconds = None  # wall time of the nvcc calls that built the loaded library, None if cached
 
 
 def sources() -> list[str]:
@@ -104,23 +103,37 @@ def library_path() -> str:
 
 
 def build() -> str:
-    """Compile the kernels unless a library for the current sources exists."""
+    """Compile the kernels unless a library for the current sources exists: one ``nvcc -c``
+    for each source, run at once (``bindings.cpp``, which includes PyTorch's headers, takes
+    most of the time), then the link."""
     global build_seconds
     target = library_path()
+    if os.path.exists(target):
+        return target
+    from torch.utils.cpp_extension import include_paths, library_paths
 
-    def command(partial):
-        from torch.utils.cpp_extension import include_paths, library_paths
+    nvcc, lib_dirs = find_nvcc(), library_paths()
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    start = time.perf_counter()
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        jobs = []
+        for src in (p for p in sources() if p.endswith((".cu", ".cpp"))):
+            obj = os.path.join(tmp, os.path.basename(src) + ".o")
+            cmd = [nvcc, *flags(), *[f"-I{p}" for p in include_paths()], "-c", src, "-o", obj]
+            jobs.append((cmd, obj, subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)))
+        errors = [proc.communicate()[1] for _, _, proc in jobs]  # waits for every nvcc
+        for (cmd, _, proc), err in zip(jobs, errors):
+            if proc.returncode != 0:
+                raise RuntimeError(f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{err}")
 
-        lib_dirs = library_paths()
-        return [find_nvcc(), *flags(), *[f"-I{p}" for p in include_paths()], "-o", partial,
-                *[p for p in sources() if p.endswith((".cu", ".cpp"))],
-                *[f"-L{p}" for p in lib_dirs],
-                *[arg for p in lib_dirs for arg in ("-Xlinker", "-rpath", "-Xlinker", p)],
-                *[f"-l{name}" for name in TORCH_LIBRARIES]]
+        def link(partial):
+            return [nvcc, *flags(), "-shared", "-o", partial, *[obj for _, obj, _ in jobs],
+                    *[f"-L{p}" for p in lib_dirs],
+                    *[arg for p in lib_dirs for arg in ("-Xlinker", "-rpath", "-Xlinker", p)],
+                    *[f"-l{name}" for name in TORCH_LIBRARIES]]
 
-    seconds = compile_once(target, command)
-    if seconds is not None:
-        build_seconds = seconds
+        if compile_once(target, link) is not None:
+            build_seconds = time.perf_counter() - start
     return target
 
 

@@ -1,7 +1,7 @@
 """Where the time of a slice's attack step goes, on the card.
 
-    python3 -m breaching_tpu_torch.profile_slice [--slice 1|2|3|4|5|6|7|12|13]
-                                                 [--path 5a|...|7d|12a|...|12e'|13a|...|13e]
+    python3 -m breaching_tpu_torch.profile_slice [--slice 1|2|3|4|5|6|7|12|13|14]
+                                                 [--path 5a|...|7d|12a|...|12e'|13a|...|13e|14a|...|14f]
                                                  [--fleet F] [--fused] [--lbfgs] [--iterations N]
 
 Slice 1 (the default) runs Inverting Gradients with the fused cosine objective on
@@ -35,11 +35,16 @@ default), 12d case 9's ``bert-base-uncased`` with ``tag``, 12e ``tag`` on ``gpt2
 analytic readout, chosen by ``--path``: 13a ``decepticons_transformer`` (transformer3, 8 sentences of
 32 tokens, k-means on the assignment solver), 13b ``decepticons_bert`` (``bert-base-uncased``, 1 x
 512), 13c ``decepticons_gpt2``'s overrides on the port's ``gpt2`` (8 x 512), 13d
-``robbing_the_fed_text`` and 13e ``curious_abandon_honesty_text`` (128 x 32 on transformer3). Each
+``robbing_the_fed_text`` and 13e ``curious_abandon_honesty_text`` (128 x 32 on transformer3); slice 14
+one of the HuggingFace architectures' paths: the readouts 14a ``decepticons_gpt2`` (``gpt2S``, 8 x 512),
+14b ``decepticons_hf_gpt2`` (``hf-gpt2``) and 14c ``decepticons_hf_bert`` (``hf-bert``, 1 x 512, the
+exact-reference stack), profiled as slice 13's, and the attacks 14d ``tag`` on ``hf-roberta-base`` (case
+10 as a masked LM) and 14d' on ``hf-distilbert`` (case 9), 14e ``tag`` on ``hf-bert``'s classification
+head (cola, 2 sentences) and 14f ``permutation`` on ``hf-gpt2`` (8 sentences). Each
 goes through the entry points: one warm-up attack, an
 attack of N steps (default 200) timed with the profiler off, and the same attack
-under ``torch.profiler``. Slice 13 has no steps: one warm-up run of the whole path, one timed
-with the profiler off (seconds of the server's model, rewiring or block and calibration; of the
+under ``torch.profiler``. Slice 13 and the readouts of slice 14 have no steps: one warm-up run of
+the whole path, one timed with the profiler off (seconds of the server's model, rewiring or block and calibration; of the
 user's gradient; of the readout, by stage, and of the assignment solver in it), and one under
 the profiler (device busy and idle share of the whole path, launches, peak memory). Prints one JSON line: milliseconds per step with the
 profiler off and on (wall clock around the synchronised attack; the difference
@@ -107,22 +112,40 @@ DECEPTICON = ["case=10_causal_lang_training", "attack=decepticon", "case/server=
               "case.user.user_idx=1"]
 TEXT_IMPRINT = ["case=10_causal_lang_training", "attack=imprint", "case.user.num_data_points=128",
                 "case.user.user_idx=1", "case.data.default_clients=1000", "case.server.model_modification.num_bins=512"]
+PMOD = "case.server.param_modification"
+# decepticons_gpt2's (and decepticons_hf_gpt2's) overrides but the model: 8 x 512
+GPT2_DECEPTICON = DECEPTICON + ["case.user.num_data_points=8", "case.data.shape=[512]", "case.data.batch_size=8",
+                                "case.data.default_clients=1000", f"{PMOD}.v_length=32", f"{PMOD}.eps=1e-8",
+                                f"{PMOD}.measurement_scale=1e6", f"{PMOD}.softmax_skew=1e8",
+                                "attack.token_strategy=embedding-norm", "attack.embedding_token_weight=0.25"]
 SLICE13 = {
     "13a": DECEPTICON + ["case.user.num_data_points=8", "case.data.batch_size=8", "case.data.default_clients=1000"],
     "13b": ["case=9_bert_training", "attack=decepticon", "case/server=malicious-transformer",
             "case.model=bert-base-uncased", "case.user.num_data_points=1", "case.user.user_idx=1",
             "case.data.shape=[512]"],
-    "13c": DECEPTICON + ["case.model=gpt2", "case.user.num_data_points=8", "case.data.shape=[512]",
-                         "case.data.batch_size=8", "case.data.default_clients=1000",
-                         "case.server.param_modification.v_length=32", "case.server.param_modification.eps=1e-8",
-                         "case.server.param_modification.measurement_scale=1e6",
-                         "case.server.param_modification.softmax_skew=1e8", "attack.token_strategy=embedding-norm",
-                         "attack.embedding_token_weight=0.25"],
+    "13c": GPT2_DECEPTICON + ["case.model=gpt2"],
     "13d": TEXT_IMPRINT + ["case/server=malicious-model-rtf", "case.server.model_modification.linfunc=randn"],
     "13e": TEXT_IMPRINT + ["case/server=malicious-model-cah", "case.server.model_modification.sigma=0.5",
                            "case.server.model_modification.mu=0",
                            "case.server.model_modification.scale_factor=0.999"],
 }
+# slice 14's paths (examples/run_example.py's presets on the HuggingFace architectures)
+COLA = ["case=9_bert_training", "case/data=cola", "case.data.task=classification", "case.data.default_clients=1000"]
+SLICE14 = {
+    "14a": GPT2_DECEPTICON + ["case.model=gpt2S"],
+    "14b": GPT2_DECEPTICON + ["case.model=hf-gpt2"],
+    "14c": ["case=9_bert_training", "attack=decepticon", "case/server=malicious-transformer", "case.model=hf-bert",
+            "case.user.num_data_points=1", "case.data.shape=[512]", "case.user.user_idx=1",
+            f"{PMOD}.reset_embedding=True", f"{PMOD}.v_length=32", f"{PMOD}.eps=1e-8", f"{PMOD}.measurement_scale=1e8",
+            f"{PMOD}.softmax_skew=1e8", "attack.token_strategy=embedding-norm", "attack.exact_supplement=True",
+            "attack.collision_recovery=True", "attack.exact_refinement=2", "attack.embedding_token_weight=0.8"],
+    "14d": ["case=10_causal_lang_training", "attack=tag", "case.model=hf-roberta-base", "case.data.task=masked-lm"],
+    "14d'": ["case=9_bert_training", "attack=tag", "case.model=hf-distilbert"],
+    "14e": COLA + ["attack=tag", "case.model=hf-bert", "case.user.num_data_points=2"],
+    "14f": ["case=10_causal_lang_training", "attack=permutation", "case.model=hf-gpt2", "case.user.num_data_points=8",
+            "case.data.default_clients=1000", "attack.token_strategy=embedding-norm"],
+}
+READOUTS = {**SLICE13, **{p: SLICE14[p] for p in ("14a", "14b", "14c")}}  # the paths without steps
 FUSED = ["attack.objective.type=fused-cosine-similarity"]
 # slice 4 --lbfgs: the deep_leakage preset with the fused euclidean objective (path 4a')
 LBFGS = ["case=1_single_image_small", "attack=deepleakage", "case.user.provide_labels=False",
@@ -186,8 +209,8 @@ def _readout_path(overrides):
 
 
 def profile_readout(path):
-    """Slice 13: a warm-up run, a timed run, a profiled run; one JSON line."""
-    overrides = SLICE13[path] + ["seed=7"]
+    """Slice 13 or 14's readouts: a warm-up run, a timed run, a profiled run; one JSON line."""
+    overrides = READOUTS[path] + ["seed=7"]
     _readout_path(overrides)
     torch.cuda.reset_peak_memory_stats()
     wall_ms, timed = _timed(lambda: _readout_path(overrides))
@@ -198,7 +221,7 @@ def profile_readout(path):
     busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
     top = sorted(kernels, key=lambda e: e.self_device_time_total, reverse=True)[:12]
     print(json.dumps(dict(
-        device=torch.cuda.get_device_name(0), slice=13, path=path, **timed, peak_memory_gib=peak / 2**30,
+        device=torch.cuda.get_device_name(0), slice=int(path[:2]), path=path, **timed, peak_memory_gib=peak / 2**30,
         wall_ms=wall_ms, profiled_ms=profiled_ms, device_busy_ms=busy_ms, idle_share=1.0 - busy_ms / wall_ms,
         launches=sum(e.count for e in kernels),
         top_kernels_us={e.key[:90]: e.self_device_time_total for e in top})))
@@ -206,10 +229,10 @@ def profile_readout(path):
 
 def main():
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    parser.add_argument("--slice", type=int, choices=sorted([*SLICES, 5, 7, 12, 13]), default=1)
-    parser.add_argument("--path", choices=sorted([*SLICE5, *SLICE7, *SLICE12, *SLICE13]), default=None,
-                        help="slice 5's path (default 5a), slice 7's (default 7c), slice 12's (default 12a) or "
-                             "slice 13's (default 13a)")
+    parser.add_argument("--slice", type=int, choices=sorted([*SLICES, 5, 7, 12, 13, 14]), default=1)
+    parser.add_argument("--path", choices=sorted([*SLICE5, *SLICE7, *SLICE12, *SLICE13, *SLICE14]), default=None,
+                        help="slice 5's path (default 5a), slice 7's (default 7c), slice 12's (default 12a), "
+                             "slice 13's (default 13a) or slice 14's (default 14a)")
     parser.add_argument("--fleet", type=int, default=1, help="experiments through reconstruct_fleet")
     parser.add_argument("--fused", action="store_true", help="slice 2 or 3 with the fused cosine objective")
     parser.add_argument("--lbfgs", action="store_true", help="slice 4: deep_leakage with fused euclidean, L-BFGS")
@@ -219,12 +242,12 @@ def main():
         raise SystemExit("profile_slice needs a CUDA device.")
     if args.lbfgs and args.slice != 4:
         parser.error("--lbfgs is a path of slice 4.")
-    paths = {5: SLICE5, 7: SLICE7, 12: SLICE12, 13: SLICE13}.get(args.slice)
+    paths = {5: SLICE5, 7: SLICE7, 12: SLICE12, 13: SLICE13, 14: SLICE14}.get(args.slice)
     if paths is not None:
         args.path = args.path or min(paths)
         if args.path not in paths:
             parser.error(f"--path {args.path} is not a path of slice {args.slice}.")
-    if args.slice == 13:
+    if args.path in READOUTS:
         return profile_readout(args.path)
     if paths is not None:
         overrides = paths[args.path] + ["attack.optim.callback=0", "seed=7"]

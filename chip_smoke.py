@@ -51,7 +51,11 @@ Phases, one line each on standard output:
      ResNet-50's class-poisoned head (1e-4) with the class's feature (1e-3); for slice 12
      the TAG gradient on ``gpt2`` (768 x 12, the GPT-2 vocabulary) at one sentence of 32
      tokens, with respect to the embeddings and the token-label logits (1e-3 of each
-     leaf's largest entry, the measured figure printed);
+     leaf's largest entry, the measured figure printed), and for slice 14 the same on
+     ``hf-roberta-base`` and ``hf-distilbert``; each HuggingFace family at full width (``gpt2S``,
+     ``hf-gpt2``, ``hf-bert``, ``hf-roberta-base``, ``hf-distilbert``, ``hf-bert``'s classifier):
+     its parameter count, its float32 task-loss gradient against float64 on the card (1e-4 of
+     the largest entry), and for GPT-2 the logits before each changed token bit for bit;
   5. the main paths end to end through the entry points, each with the kernels'
      launch counts set to 0 just before it and read just after: slice 1,
      Inverting Gradients with the fused cosine objective on ConvNet-64 /
@@ -69,18 +73,18 @@ Phases, one line each on standard output:
      and with the fused one; slice 4, the JAX package's other named optimization
      presets (examples/run_example.py): ``deep_leakage`` (the joint attack of data
      and label logits with L-BFGS), the same with the fused euclidean objective,
-     ``wei_framework`` and ``beyond_inferring`` on ConvNet-64 (10 outer L-BFGS
+     ``wei_framework`` and ``beyond_inferring`` on ConvNet-64 (5 outer L-BFGS
      steps each), ``modern_hyperparams`` and ``legacy_hyperparams`` on ResNet-18
-     (100 steps each); slice 5, the remaining vision presets: 5a ``multiscale``
-     (ResNet-18 on its checkpoint at 224, seven stages 32, 64, ..., 224 of 25
+     (50 steps each); slice 5, the remaining vision presets: 5a ``multiscale``
+     (ResNet-18 on its checkpoint at 224, seven stages 32, 64, ..., 224 of 15
      steps), 5b ``inverting_large_batch_cifar`` (ResNet32-10 on 100 images of
-     CIFAR-100's shape with grad_accum=10, 20 steps) and 5b' (the same with
+     CIFAR-100's shape with grad_accum=10, 10 steps) and 5b' (the same with
      grad_accum=1, 5 steps, for the peak memory, which grad_accum=10 must
      lower), 5c ``see_through_gradients`` (ResNet-50 on the checkout's
-     ResNet50.npz, which it must hold, at 224, 100 steps), 5d
+     ResNet50.npz, which it must hold, at 224, 50 steps), 5d
      ``inverting_gradients_fedavg``, ``inverting_gradients_fedavg_cifar`` and
-     ``inverting_gradients_resnet18`` (50 steps each); slices 1 and 2 solo take
-     500 and 100 steps, slice 3's preset 50; slice 6, the honest server's remaining configuration
+     ``inverting_gradients_resnet18`` (25 steps each); slices 1 and 2 solo take
+     250 and 50 steps, slice 3's preset 25; slice 6, the honest server's remaining configuration
      surface: 6a the fedSGD user with per-example clipping (C = 1) and Laplace
      gradient noise on ResNet-18 at 224 (the checkpoint, 4 images, 100 steps),
      where every clipped per-example norm is at most C (1 + 1e-5) and, with
@@ -102,7 +106,7 @@ Phases, one line each on standard output:
      ``curious_abandon_honesty`` (ConvNet-64, CIFAR-10), 7c ``fishing`` (ResNet-50 on its
      checkpoint, 8 images) and 7d ``fishing_optimization_unique`` (ResNet-18, 50 images
      of one class, so that the binary attack runs: more than 2 user queries; each cutoff
-     query and the images behind the final gradient printed), 100 attack steps each with
+     query and the images behind the final gradient printed), 50 attack steps each with
      the fused TV and Adam step once a step, 7d'' 7d's one-shot search alone at the JAX
      package's test's feat_multiplier of 30000, which must take at least two cutoff queries
      and leave fewer than the 50 images behind the final gradient, 7e ``sanity_check`` (the
@@ -126,19 +130,19 @@ Phases, one line each on standard output:
      11a ``rgap`` (cnn6 at 1x3x32x32) and 11b ``april`` (ViT-B/16 APRIL at 224, random
      weights), each attacked again on the CPU on the card's gradient (the largest
      difference printed), 11c ``fishing_optimization_cross_silo`` (ResNet-18, a silo of one
-     user with 256 images, 100 steps), 11d ``fishing_analytic_cross_silo`` and
+     user with 256 images, 50 steps), 11d ``fishing_analytic_cross_silo`` and
      ``fishing_feature_cross_device`` on ViT-S/16 APRIL at 224 (the image's PSNR and whether
      the fishing isolated it), 11e case 8's silo of 16 users x 8 images at 224 (its aggregate
-     to 2e-6 of the users' gradients averaged in float64, then 50 steps), 11f one float32
+     to 2e-6 of the users' gradients averaged in float64, then 25 steps), 11f one float32
      gradient of each new model at ImageNet width against float64 on the card (1e-4); 11a,
      11b and 11d launch no port kernel; slice 12, the honest server's text presets: 12a
      ``tag`` (case 10's transformer3, one sentence of 32 tokens of the GPT-2 vocabulary,
-     200 steps, no port kernel), 12b ``permutation`` (200 steps, the fused Adam step once a
-     step and no other kernel), 12c ``dlg_text`` (10 outer L-BFGS steps) and 12c' the same
+     100 steps, no port kernel), 12b ``permutation`` (100 steps, the fused Adam step once a
+     step and no other kernel), 12c ``dlg_text`` (5 outer L-BFGS steps) and 12c' the same
      with the fused euclidean objective (B1 and ``b2_axpby`` once per evaluation), 12d case
-     9's ``bert-base-uncased`` with ``attack=tag`` and 12e ``tag`` on ``gpt2`` (768 x 12, 50
+     9's ``bert-base-uncased`` with ``attack=tag`` and 12e ``tag`` on ``gpt2`` (768 x 12, 25
      steps each, no port kernel), 12e ``permutation`` on ``gpt2`` with 8 sentences (P = 256,
-     50 steps): every path's token ids of the vocabulary, its text report complete and
+     25 steps): every path's token ids of the vocabulary, its text report complete and
      finite, the permutation's tokens an order of the leaked bag; slice 13, Decepticon and the
      text imprints, no port kernel: 13a ``decepticons_transformer`` (transformer3, 8 sentences
      of 32 tokens, the server's external data, k-means on the host's assignment solver), 13b
@@ -149,7 +153,16 @@ Phases, one line each on standard output:
      calibration), the user's gradient and the readout by stage and in the solver, peak memory
      and the text report; then the readout again on the CPU from the card's exchange, whose
      tokens must equal the card's but where the card's device decision lay within 1e-5 of
-     another (such slots counted and printed); for each optimization path: set-up
+     another (such slots counted and printed; the least margin over every call of a
+     supplement); slice 14, the HuggingFace architectures at full width, seed 7, random
+     weights, after the card's name and power limit: 14a ``decepticons_gpt2`` on ``gpt2S``
+     (GPT-2 with ReLU and its causal mask, 8 x 512), 14b ``decepticons_hf_gpt2`` (``hf-gpt2``)
+     and 14c ``decepticons_hf_bert`` (``hf-bert``, 1 x 512, the exact-reference stack), each as
+     slice 13's paths with the CPU's readout of the card's exchange; 14d ``tag`` on
+     ``hf-roberta-base`` (case 10 as a masked LM) and ``hf-distilbert`` (case 9), 1 x 32, and 14e
+     on ``hf-bert``'s classification head (cola, 2 sentences), 50 steps each, no port kernel; 14f
+     ``permutation`` on ``hf-gpt2`` (8 x 32, P = 256, 50 steps: the fused Adam step once a
+     step, the loss falling); for each optimization path: set-up
      seconds, loss at the start and end of every trial, PSNR and SSIM (of the
      batch put in the true images' order, and the order), it/s (the fleet's aggregate; with L-BFGS also the
      objective's evaluations per second), peak memory and launches per step;
@@ -215,37 +228,37 @@ import numpy as np
 import torch
 
 REPO = os.path.dirname(os.path.abspath(__file__))
-ITERATIONS = 500
+ITERATIONS = 250
 DEVICE = "cuda"
 SLICE = ["case=1_single_image_small", "attack=invertinggradients",
          "attack.objective.type=fused-cosine-similarity"]
 # slice 2: the JAX package's bench.py preset (ResNet-18, ImageNetAnimals shapes)
 SLICE2 = ["case=2_single_imagenet", "attack=invertinggradients", "attack.restarts.num_trials=1",
           "case.user.provide_labels=True", "seed=7"]
-SLICE2_STEPS, SLICE2_FUSED_STEPS, FLEET, FLEET_STEPS = 100, 100, 8, 100
-RESTARTS, RESTART_STEPS = 4, 100  # slice 1's restarts: the batched trial step on ConvNet-64
+SLICE2_STEPS, SLICE2_FUSED_STEPS, FLEET, FLEET_STEPS = 50, 50, 8, 50
+RESTARTS, RESTART_STEPS = 4, 50  # slice 1's restarts: the batched trial step on ConvNet-64
 # slice 3: the fedAVG user of case 4 on ResNet-18, the JAX package's notebook preset
 # inverting_gradients_fedavg_imagenet (examples/run_example.py)
 SLICE3 = ["case=4_fedavg_small_scale", "attack=invertinggradients", "case.user.num_data_points=4",
           "case.user.num_local_updates=4", "case.user.num_data_per_local_update_step=2",
           "case.user.provide_labels=True", "case.user.user_idx=1", "seed=7"]
-SLICE3_STEPS, SLICE3_FUSED_STEPS = 50, 50
+SLICE3_STEPS, SLICE3_FUSED_STEPS = 25, 25
 # slice 4: the JAX package's other named optimization presets (examples/run_example.py):
 # path -> (overrides, steps, the launches per step or per objective evaluation it needs)
 CASE1 = ["case=1_single_image_small", "seed=7"]
 SLICE4 = {
-    "slice 4a deep_leakage": (CASE1 + ["attack=deepleakage", "case.user.provide_labels=False"], 10, {}),
+    "slice 4a deep_leakage": (CASE1 + ["attack=deepleakage", "case.user.provide_labels=False"], 5, {}),
     "slice 4a' deep_leakage fused": (CASE1 + ["attack=deepleakage", "case.user.provide_labels=False",
-                                              "attack.objective.type=fused-euclidean"], 10,
+                                              "attack.objective.type=fused-euclidean"], 5,
                                      dict(b1_matching_sums="evaluation", b2_axpby="evaluation")),
-    "slice 4b wei_framework": (CASE1 + ["attack=wei"], 10, dict(b4_box_project="step")),
+    "slice 4b wei_framework": (CASE1 + ["attack=wei"], 5, dict(b4_box_project="step")),
     "slice 4c beyond_inferring": (CASE1 + ["attack=beyondinfering", "case.data.partition=unique-class",
                                            "case.user.user_idx=1",
-                                           "attack.regularization.total_variation.scale=1e-4"], 10,
+                                           "attack.regularization.total_variation.scale=1e-4"], 5,
                                   dict(b3_tv_value_and_grad="evaluation", b4_box_project="step")),
-    "slice 4d modern_hyperparams": (["case=2_single_imagenet", "attack=modern", "seed=7"], 100,
+    "slice 4d modern_hyperparams": (["case=2_single_imagenet", "attack=modern", "seed=7"], 50,
                                     dict(b3_tv_value_and_grad="step", b4_adam_box_step="step")),
-    "slice 4e legacy_hyperparams": (["case=2_single_imagenet", "attack=legacy", "seed=7"], 100,
+    "slice 4e legacy_hyperparams": (["case=2_single_imagenet", "attack=legacy", "seed=7"], 50,
                                     dict(b3_tv_value_and_grad="step", b4_adam_box_step="step")),
 }
 OPPONENTS = (1, 6, 224, 224)  # slice 4d-e's TV input: three channels and their three differences
@@ -261,16 +274,16 @@ SEE_THROUGH = ["case=5_small_batch_imagenet", "attack=seethroughgradients", "cas
                "case.user.provide_buffers=True", "seed=7"]
 MULTISCALE = ["case=2_single_imagenet", "attack=multiscale_ghiasi", "seed=7"]
 SLICE5 = {
-    "slice 5a multiscale": (MULTISCALE, 25, IMAGE_KERNELS),
-    "slice 5b inverting_large_batch_cifar": (LARGE_BATCH + ["attack.impl.grad_accum=10"], 20, IMAGE_KERNELS),
+    "slice 5a multiscale": (MULTISCALE, 15, IMAGE_KERNELS),
+    "slice 5b inverting_large_batch_cifar": (LARGE_BATCH + ["attack.impl.grad_accum=10"], 10, IMAGE_KERNELS),
     "slice 5b' grad_accum=1": (LARGE_BATCH + ["attack.impl.grad_accum=1"], 5, IMAGE_KERNELS),
-    "slice 5c see_through_gradients": (SEE_THROUGH, 100, IMAGE_KERNELS),
+    "slice 5c see_through_gradients": (SEE_THROUGH, 50, IMAGE_KERNELS),
     "slice 5d inverting_gradients_fedavg": (FEDAVG + [
         "case/data=CIFAR10", "case.data.partition=random", "case.model=ResNet18", "case.server.pretrained=False",
-        "case.user.user_idx=1", "attack.regularization.total_variation.scale=1e-3"], 50, IMAGE_KERNELS),
-    "slice 5d inverting_gradients_fedavg_cifar": (FEDAVG + ["case/data=CIFAR10", "case.model=ConvNet"], 50,
+        "case.user.user_idx=1", "attack.regularization.total_variation.scale=1e-3"], 25, IMAGE_KERNELS),
+    "slice 5d inverting_gradients_fedavg_cifar": (FEDAVG + ["case/data=CIFAR10", "case.model=ConvNet"], 25,
                                                   IMAGE_KERNELS),
-    "slice 5d inverting_gradients_resnet18": (["case=2_single_imagenet", "attack=invertinggradients", "seed=7"], 50,
+    "slice 5d inverting_gradients_resnet18": (["case=2_single_imagenet", "attack=invertinggradients", "seed=7"], 25,
                                               IMAGE_KERNELS),
 }
 # slice 6: the honest server's remaining configuration surface, ResNet-18 at 224 on its
@@ -291,7 +304,7 @@ FISHING = ["case=5_small_batch_imagenet", "attack=clsattack", "case/server=malic
 FISHING_UNIQUE = ["case=2_single_imagenet", "attack=clsattack", "case/server=malicious-fishing",
                   "case.data.partition=unique-class", "case.user.num_data_points=50", "case.user.user_idx=1",
                   "case.user.provide_labels=True", "case.server.target_cls_idx=0", "seed=7"]
-SLICE7_STEPS = 100
+SLICE7_STEPS = 50
 # the feature multiplier of the JAX package's binary-attack test (tests/test_binary_attack.py):
 # an image then leaves the subset where its feature exceeds the cutoff by 1000 / 30000,
 # where the preset's 300 lets it leave only 1000 / 300 above it. The bias multiplier
@@ -366,7 +379,7 @@ FEATURE_DEVICE = ["case=2_single_imagenet", "attack=april_analytic", "case/serve
                   "case.data.default_clients=56", "case.server.target_cls_idx=2", "case.data.target_label=2",
                   "case.user.num_data_points=16", "case.data.num_data_points=16", "case.user.provide_labels=True",
                   "case.server.feature_estimation_users=6", "seed=7"]
-CASE8_USERS, CASE8_IMAGES, CASE8_STEPS = 16, 8, 50
+CASE8_USERS, CASE8_IMAGES, CASE8_STEPS = 16, 8, 25
 CASE8 = ["case=8_industry_scale_fl", "attack=invertinggradients", f"case.user.user_range=[0,{CASE8_USERS}]",
          f"case.user.num_data_points={CASE8_IMAGES}", f"attack.optim.max_iterations={CASE8_STEPS}",
          "attack.optim.callback=25", "seed=7"]
@@ -379,25 +392,25 @@ ZOO_SIZE = dict(nfnet_f0=236)
 # (transformer3, one sentence of 32 tokens of the GPT-2 vocabulary of 50,257) and case 9
 # (bert-base-uncased, masked LM): path -> (overrides, steps, the launches per step or per
 # objective evaluation it needs, whether the loss must fall). The JAX package's preset
-# sizes; 12d and 12e (768 x 12) cut to 50 steps, which lie inside the TAG optimizer's
-# 50-step warmup, so their loss need not fall yet; nor need L-BFGS's in 12c's 10 outer
-# steps (from the CPU's draws at seed 7 it rose, 11.21 to 44.03; from the card's it fell,
-# 13.15 to 6.10; the JAX package's L-BFGS follows the port's step for step on the linear
+# sizes; 12a-12b cut to 100 steps, 12d and 12e (768 x 12) to 25, which lie inside the TAG
+# optimizer's 50-step warmup, so their loss need not fall yet; nor need L-BFGS's in 12c's 5
+# outer steps (over 10, from the CPU's draws at seed 7 it rose, 11.21 to 44.03; from the card's it
+# fell, 13.15 to 6.10; the JAX package's L-BFGS follows the port's step for step on the linear
 # model, tests/test_torch_text_presets.py); 12e's permutation takes 8 sentences
 # (P = 256) from a user of the 1,000-client partition (the default's 29,337 clients leave a
 # user 6 of the synthetic corpus's 200,000 sentences)
 CASE10 = ["case=10_causal_lang_training", "seed=7"]
 DLG_TEXT = CASE10 + ["attack=deepleakage", "case.user.provide_labels=False", "attack.optim.callback=5"]
 SLICE12 = {
-    "slice 12a tag": (CASE10 + ["attack=tag"], 200, {}, True),
-    "slice 12b permutation": (CASE10 + ["attack=permutation"], 200, dict(b4_adam_box_step="step"), True),
-    "slice 12c dlg_text": (DLG_TEXT, 10, {}, False),
-    "slice 12c' dlg_text fused": (DLG_TEXT + ["attack.objective.type=fused-euclidean"], 10,
+    "slice 12a tag": (CASE10 + ["attack=tag"], 100, {}, True),
+    "slice 12b permutation": (CASE10 + ["attack=permutation"], 100, dict(b4_adam_box_step="step"), True),
+    "slice 12c dlg_text": (DLG_TEXT, 5, {}, False),
+    "slice 12c' dlg_text fused": (DLG_TEXT + ["attack.objective.type=fused-euclidean"], 5,
                                   dict(b1_matching_sums="evaluation", b2_axpby="evaluation"), False),
-    "slice 12d bert-base-uncased tag": (["case=9_bert_training", "attack=tag", "seed=7"], 50, {}, False),
-    "slice 12e gpt2 tag": (CASE10 + ["attack=tag", "case.model=gpt2"], 50, {}, False),
+    "slice 12d bert-base-uncased tag": (["case=9_bert_training", "attack=tag", "seed=7"], 25, {}, False),
+    "slice 12e gpt2 tag": (CASE10 + ["attack=tag", "case.model=gpt2"], 25, {}, False),
     "slice 12e gpt2 permutation": (CASE10 + ["attack=permutation", "case.model=gpt2", "case.user.num_data_points=8",
-                                             "case.data.default_clients=1000"], 50,
+                                             "case.data.default_clients=1000"], 25,
                                    dict(b4_adam_box_step="step"), False),
 }
 # slice 13: Decepticon and the text imprints (examples/run_example.py's presets), seed 7, random
@@ -411,23 +424,66 @@ SLICE12 = {
 DECEPTICON = CASE10 + ["attack=decepticon", "case/server=malicious-transformer", "case.user.user_idx=1"]
 TEXT_IMPRINT = CASE10 + ["attack=imprint", "case.user.num_data_points=128", "case.user.user_idx=1",
                          "case.data.default_clients=1000", "case.server.model_modification.num_bins=512"]
+PMOD = "case.server.param_modification"
+# decepticons_gpt2's (and decepticons_hf_gpt2's) overrides but the model: 8 x 512
+GPT2_DECEPTICON = DECEPTICON + [
+    "case.user.num_data_points=8", "case.data.shape=[512]", "case.data.batch_size=8",
+    "case.data.default_clients=1000", f"{PMOD}.v_length=32", f"{PMOD}.eps=1e-8", f"{PMOD}.measurement_scale=1e6",
+    f"{PMOD}.softmax_skew=1e8", "attack.token_strategy=embedding-norm", "attack.embedding_token_weight=0.25"]
 SLICE13 = {
     "slice 13a decepticons_transformer": DECEPTICON + ["case.user.num_data_points=8", "case.data.batch_size=8",
                                                        "case.data.default_clients=1000"],
     "slice 13b decepticons_bert": ["case=9_bert_training", "attack=decepticon", "case/server=malicious-transformer",
                                    "case.model=bert-base-uncased", "case.user.num_data_points=1",
                                    "case.user.user_idx=1", "case.data.shape=[512]", "seed=7"],
-    "slice 13c decepticons_gpt2 on gpt2": DECEPTICON + [
-        "case.model=gpt2", "case.user.num_data_points=8", "case.data.shape=[512]", "case.data.batch_size=8",
-        "case.data.default_clients=1000", "case.server.param_modification.v_length=32",
-        "case.server.param_modification.eps=1e-8", "case.server.param_modification.measurement_scale=1e6",
-        "case.server.param_modification.softmax_skew=1e8", "attack.token_strategy=embedding-norm",
-        "attack.embedding_token_weight=0.25"],
+    "slice 13c decepticons_gpt2 on gpt2": GPT2_DECEPTICON + ["case.model=gpt2"],
     "slice 13d robbing_the_fed_text": TEXT_IMPRINT + ["case/server=malicious-model-rtf",
                                                       "case.server.model_modification.linfunc=randn"],
     "slice 13e curious_abandon_honesty_text": TEXT_IMPRINT + [
         "case/server=malicious-model-cah", "case.server.model_modification.sigma=0.5",
         "case.server.model_modification.mu=0", "case.server.model_modification.scale_factor=0.999"],
+}
+# slice 14: the HuggingFace architectures written without transformers (hf_models.py), seed 7, random
+# weights, at full width and the presets' sizes: 14a-14c the readouts of decepticons_gpt2 (gpt2S: GPT-2
+# with ReLU and its causal mask), decepticons_hf_gpt2 (hf-gpt2, GELU-new) and decepticons_hf_bert (hf-bert,
+# 1 x 512, the exact-reference stack), each read again on the CPU from the card's exchange; 14d tag on
+# hf-roberta-base (case 10 as a masked LM, 514 positions) and hf-distilbert (case 9), 1 x 32 tokens, and
+# 14e on hf-bert's sequence-classification head (cola, 2 sentences), 50 steps each, inside the TAG
+# optimizer's warmup, so that their loss need not fall yet; 14f permutation on hf-gpt2 (8 x 32, P = 256,
+# the bag from the embedding's gradient norms: GPT-2's head has no decoder bias), 50 steps, the fused Adam
+# step once a step, the loss falling
+SLICE14_READOUT = {
+    "slice 14a decepticons_gpt2": GPT2_DECEPTICON + ["case.model=gpt2S"],
+    "slice 14b decepticons_hf_gpt2": GPT2_DECEPTICON + ["case.model=hf-gpt2"],
+    "slice 14c decepticons_hf_bert": [
+        "case=9_bert_training", "attack=decepticon", "case/server=malicious-transformer", "case.model=hf-bert",
+        "case.user.num_data_points=1", "case.data.shape=[512]", "case.user.user_idx=1",
+        f"{PMOD}.reset_embedding=True", f"{PMOD}.v_length=32", f"{PMOD}.eps=1e-8", f"{PMOD}.measurement_scale=1e8",
+        f"{PMOD}.softmax_skew=1e8", "attack.token_strategy=embedding-norm", "attack.exact_supplement=True",
+        "attack.collision_recovery=True", "attack.exact_refinement=2", "attack.embedding_token_weight=0.8", "seed=7"],
+}
+CASE9 = ["case=9_bert_training", "seed=7"]
+COLA = CASE9 + ["case/data=cola", "case.data.task=classification", "case.data.default_clients=1000"]
+SLICE14_ATTACK = {
+    "slice 14d hf-roberta-base tag": (CASE10 + ["attack=tag", "case.model=hf-roberta-base",
+                                                "case.data.task=masked-lm"], 50, {}, False),
+    "slice 14d hf-distilbert tag": (CASE9 + ["attack=tag", "case.model=hf-distilbert"], 50, {}, False),
+    "slice 14e hf-bert classification tag": (COLA + ["attack=tag", "case.model=hf-bert",
+                                                     "case.user.num_data_points=2"], 50, {}, False),
+    "slice 14f hf-gpt2 permutation": (CASE10 + ["attack=permutation", "case.model=hf-gpt2",
+                                                "case.user.num_data_points=8", "case.data.default_clients=1000",
+                                                "attack.token_strategy=embedding-norm"], 50,
+                                      dict(b4_adam_box_step="step"), True),
+}
+# each family at full width: its float32 parameter gradient against float64 on the card (GRADIENT_F64 of
+# the largest entry) and, for the causal ones, the logits before a changed token bit for bit
+HF_FAMILIES = {
+    "gpt2S": CASE10 + ["case.model=gpt2S"],
+    "hf-gpt2": CASE10 + ["case.model=hf-gpt2"],
+    "hf-bert": CASE9 + ["case.model=hf-bert"],
+    "hf-roberta-base": CASE10 + ["case.model=hf-roberta-base", "case.data.task=masked-lm"],
+    "hf-distilbert": CASE9 + ["case.model=hf-distilbert"],
+    "hf-bert classification": COLA + ["case.model=hf-bert"],
 }
 # the card's readout against the CPU's on the card's exchange: a token may differ only where the
 # card's device decision was this near another one (its two best scores, or the supplement's
@@ -2334,26 +2390,34 @@ def run_slice12(breaching, ops):
 
 @contextlib.contextmanager
 def recorded_device_decisions(attacker):
-    """Records the inputs of the text readout's device decision, the imprint's nearest-token
-    match or Decepticon's full-vocabulary supplement; the readout runs unchanged. Yields a
-    function that gives, after the readout, each slot's distance from another decision of its
-    last call (None if neither ran): the best score's margin over the second best and, for the
-    supplement, also the gap between the weighted best score and the slot's cost, which decides
-    a replacement."""
+    """Records the inputs of the text readout's device decisions, the imprint's nearest-token
+    match or each call of Decepticon's full-vocabulary supplement (the additive one or, with
+    ``exact_supplement``, the one against exact references); the readout runs unchanged.
+    Yields a function that gives, after the readout, each slot's least distance from another
+    decision over the calls (None if none ran): the best score's margin over the second best
+    and, for a supplement, also the gap between the weighted best score and the slot's cost,
+    which decides a replacement."""
     from breaching_tpu_torch.attacks import decepticon_attack as decepticon
     from breaching_tpu_torch.attacks.auxiliaries import text_utils
 
-    last = {}
+    calls = []
     match = text_utils.match_embeddings_to_tokens
 
     def recorded_match(model, embeddings):
-        last.update(kind="match", model=model, embeddings=embeddings)
+        calls.append(dict(kind="match", model=model, embeddings=embeddings))
         return match(model, embeddings)
 
-    def recorded_supplement(recovered_tokens, costs, breached, model, norm_scale, norm_bias, v, weight):
-        last.update(kind="supplement", model=model, costs=np.array(costs), breached=breached, norm_scale=norm_scale,
-                    norm_bias=norm_bias, v=v, weight=weight)
-        return supplement(recovered_tokens, costs, breached, model, norm_scale, norm_bias, v, weight)
+    def recorded_supplement(recovered_tokens, costs, breached, table, norm_scale, norm_bias, v, weight):
+        calls.append(dict(kind="supplement", table=table, costs=np.array(costs), breached=breached,
+                          norm_scale=norm_scale, norm_bias=norm_bias, v=v, weight=weight))
+        return supplement(recovered_tokens, costs, breached, table, norm_scale, norm_bias, v, weight)
+
+    def recorded_exact(recovered_tokens, costs, ordered, model, shape, v, weight):
+        calls.append(dict(kind="exact", costs=np.array(costs), ordered=np.array(ordered), model=model,
+                          seq_len=shape[1], v=v, weight=weight))
+        return exact(recovered_tokens, costs, ordered, model, shape, v, weight)
+
+    use_abs = "abs" in attacker.cfg.get("matcher", "abs-corrcoef")
 
     def top_two(states, refs, use_abs):
         found = []
@@ -2363,35 +2427,63 @@ def recorded_device_decisions(attacker):
         best, second = torch.cat(found).double().cpu().numpy().T
         return best, second
 
+    def exact_top_two(call):
+        """The exact supplement's scores (``decepticon_attack.exact_scores``), each slot's
+        best two."""
+        model, v = call["model"], call["v"]
+        device = model.params[model.module.registry["embedding"]].device
+        wte, pos_tab, offset, emb_norm, norm = attacker._exact_tables(model, call["seq_len"])
+        slots = np.arange(len(call["ordered"])) % call["seq_len"]
+
+        def on_device(array):
+            return torch.as_tensor(np.asarray(array, np.float32), device=device)
+
+        emb_norm = None if emb_norm is None else tuple(map(on_device, emb_norm))
+        found = [(score.abs() if use_abs else score).topk(2, dim=1).values for score in decepticon.exact_scores(
+            on_device(wte), on_device(pos_tab[slots] + offset), emb_norm, *map(on_device, norm),
+            on_device(call["ordered"]), v)]
+        best, second = torch.cat(found).double().cpu().numpy().T
+        return best, second
+
     def unit(x):
         x = x - x.mean(dim=-1, keepdim=True)
         return x / (torch.linalg.vector_norm(x, dim=-1, keepdim=True) + 1e-12)
 
-    def margins():
-        if not last:
-            return None
-        table = last["model"].params[last["model"].module.registry["embedding"]].detach()
+    def call_margins(call):
         with torch.no_grad():
-            if last["kind"] == "match":
-                flat = last["embeddings"].reshape(-1, last["embeddings"].shape[-1])
+            if call["kind"] == "match":
+                table = call["model"].params[call["model"].module.registry["embedding"]].detach()
+                flat = call["embeddings"].reshape(-1, call["embeddings"].shape[-1])
                 best, second = top_two(unit(flat), unit(table.to(flat)), False)
                 return best - second
-            scale, bias = (torch.as_tensor(last[k], device=table.device) for k in ("norm_scale", "norm_bias"))
-            refs = decepticon._unit_rows(decepticon._torch_layer_norm(table, scale, bias)[1:, last["v"]:-1])
-            states = decepticon._unit_rows(torch.as_tensor(last["breached"], dtype=torch.float32, device=table.device))
-            best, second = top_two(states, refs, "abs" in attacker.cfg.get("matcher", "abs-corrcoef"))
-            return np.minimum(best - second, np.abs(best * max(last["weight"], 1e-9) - last["costs"]))
+            if call["kind"] == "exact":
+                best, second = exact_top_two(call)
+            else:
+                table = call["table"]
+                scale, bias = (torch.as_tensor(call[k], device=table.device) for k in ("norm_scale", "norm_bias"))
+                refs = decepticon._unit_rows(decepticon._torch_layer_norm(table, scale, bias)[1:, call["v"]:-1])
+                states = decepticon._unit_rows(torch.as_tensor(call["breached"], dtype=torch.float32,
+                                                               device=table.device))
+                best, second = top_two(states, refs, use_abs)
+            return np.minimum(best - second, np.abs(best * max(call["weight"], 1e-9) - call["costs"]))
+
+    def margins():
+        if not calls:
+            return None
+        return np.min(np.stack([call_margins(call) for call in calls]), axis=0)
 
     supplement = getattr(attacker, "_supplement_from_full_vocabulary", None)
+    exact = getattr(attacker, "_supplement_exact", None)
     if supplement is not None:
         attacker._supplement_from_full_vocabulary = recorded_supplement
+        attacker._supplement_exact = recorded_exact
     text_utils.match_embeddings_to_tokens = recorded_match
     try:
         yield margins
     finally:
         text_utils.match_embeddings_to_tokens = match
         if supplement is not None:
-            del attacker._supplement_from_full_vocabulary
+            del attacker._supplement_from_full_vocabulary, attacker._supplement_exact
 
 
 def run_readout_path(breaching, ops, path, overrides):
@@ -2466,6 +2558,98 @@ def run_slice13(breaching, ops):
     began = time.perf_counter()
     paths = {path: run_readout_path(breaching, ops, path, overrides) for path, overrides in SLICE13.items()}
     print(f"chip_smoke: slice 13 in {time.perf_counter() - began:.1f} s", flush=True)
+    return paths
+
+
+def check_hf_tag_gradients(breaching):
+    """Phase 4, slice 14: 14d's TAG gradient on hf-roberta-base and hf-distilbert at one
+    sentence of 32 tokens, with respect to the embeddings and the token-label logits, on
+    the card against the CPU, same weights, sentence and candidate."""
+    for path in ("slice 14d hf-roberta-base tag", "slice 14d hf-distilbert tag"):
+        from breaching_tpu_torch.cases.models.hf_models import hf_config
+
+        overrides = SLICE14_ATTACK[path][0]
+        data = breaching.get_config(overrides).case
+        vocab = int(data.data.vocab_size)
+        width = hf_config(str(data.model)[3:], vocab, 32).hidden
+        gen = torch.Generator().manual_seed(5)
+        x0 = dict(data=torch.randn(1, 32, width, generator=gen) * 0.1,
+                  labels=torch.randn(1, 32, vocab, generator=gen))
+        start = time.perf_counter()
+        v_gpu, g_gpu = text_attack_gradient(breaching, DEVICE, x0, overrides)
+        card_seconds = time.perf_counter() - start
+        v_cpu, g_cpu = text_attack_gradient(breaching, "cpu", x0, overrides)
+        v_err = abs(v_gpu - v_cpu) / abs(v_cpu)
+        errors = {k: ((g_gpu[k] - g_cpu[k]).abs().max() / g_cpu[k].abs().max()).item() for k in x0}
+        ok = v_err <= 1e-4 and max(errors.values()) <= TEXT_GRADIENT and all(bool(torch.isfinite(g).all())
+                                                                             for g in g_gpu.values())
+        print(f"reference {path}: loss card={v_gpu:.7f} cpu={v_cpu:.7f} rel_err={v_err:.2e} (tol 1e-4); gradient "
+              f"from the largest entry: embeddings {errors['data']:.2e}, token-label logits {errors['labels']:.2e} "
+              f"(tol {TEXT_GRADIENT:g}) {'ok' if ok else 'FAILED'} (card side {card_seconds:.1f} s, CPU side "
+              f"{time.perf_counter() - start - card_seconds:.1f} s)", flush=True)
+        require(ok, f"{path}: the TAG gradient on the card disagrees with the CPU")
+
+
+def check_hf_family(breaching, name, overrides):
+    """Phase 4, slice 14: one HuggingFace architecture at full width on the card, random
+    weights from seed 7: the float32 gradient of its task loss with respect to every
+    parameter (2 sentences of 32 tokens) against the same in float64 on the card, within
+    GRADIENT_F64 of the largest entry (TF32 off, as system_startup sets it); for GPT-2,
+    the logits before each changed token bit for bit (the causal mask), those at it moved."""
+    import copy
+
+    cfg = breaching.get_config(overrides)
+    setup = breaching.utils.system_startup(cfg=cfg, device=DEVICE)
+    start = time.perf_counter()
+    model, loss_fn = breaching.cases.construct_model(cfg.case.model, cfg.case.data, generator=setup["generator"])
+    model.to(DEVICE)
+    vocab, task = int(cfg.case.data.vocab_size), cfg.case.data.task
+    gen = torch.Generator().manual_seed(7)
+    ids = torch.randint(vocab, (2, 32), generator=gen).to(DEVICE)
+    if task == "classification":
+        labels = torch.randint(int(cfg.case.data.classes), (2,), generator=gen).to(DEVICE)
+    elif task == "masked-lm":
+        labels = torch.where(torch.rand(2, 32, generator=gen).to(DEVICE) < 0.15, ids, -100)
+    else:
+        labels = ids
+
+    def gradient(net):
+        params = tuple(net.parameters())
+        return torch.cat([g.reshape(-1) for g in torch.autograd.grad(loss_fn(net(ids), labels), params)])
+
+    g32 = gradient(model)
+    g64 = gradient(copy.deepcopy(model).double())
+    err = ((g32.double() - g64).abs().max() / g64.abs().max()).item()
+    leaves, count = len(list(model.parameters())), sum(p.numel() for p in model.parameters())
+    causal = ""
+    if getattr(model, "config", None) is not None and model.config.family == "gpt2":
+        with torch.no_grad():
+            base = model(ids)
+            for t in range(ids.shape[1]):
+                changed = ids.clone()
+                changed[:, t] = (changed[:, t] + 1) % vocab
+                logits = model(changed)
+                require(torch.equal(logits[:, :t], base[:, :t]) and not torch.equal(logits[:, t], base[:, t]),
+                        f"slice 14 {name}: changing token {t} moved a logit before it, or none at it")
+        causal = f"; changing token t leaves every logit before t bit for bit, for each t of {ids.shape[1]}"
+    torch.cuda.synchronize()
+    print(f"reference slice 14 {name}: {model.name} {count} parameters in {leaves} leaves (random weights, "
+          f"{task}); float32 parameter gradient from float64 on the card {err:.2e} of its largest entry "
+          f"(tol {GRADIENT_F64:g}; TF32 {'on' if torch.backends.cuda.matmul.allow_tf32 else 'off'}){causal} "
+          f"({time.perf_counter() - start:.1f} s)", flush=True)
+    require(bool(torch.isfinite(g32).all()) and err <= GRADIENT_F64,
+            f"slice 14 {name}: the float32 gradient lies {err:.2e} from float64")
+    del model
+
+
+def run_slice14(breaching, ops):
+    """Phase 5, slice 14: 14a-14c (the readouts, each read again on the CPU) and 14d-14f (the
+    attacks). Returns the launch counts by path."""
+    began = time.perf_counter()
+    print(f"slice 14 on {card_line()}", flush=True)
+    paths = {path: run_readout_path(breaching, ops, path, overrides) for path, overrides in SLICE14_READOUT.items()}
+    paths.update({path: run_text_path(breaching, ops, path, *spec) for path, spec in SLICE14_ATTACK.items()})
+    print(f"chip_smoke: slice 14 in {time.perf_counter() - began:.1f} s", flush=True)
     return paths
 
 
@@ -2856,6 +3040,9 @@ def main():
     check_imprint_reference(breaching)
     check_fishing_reference(breaching)
     check_text_reference(breaching)
+    check_hf_tag_gradients(breaching)
+    for name, overrides in HF_FAMILIES.items():
+        check_hf_family(breaching, name, overrides)
     print(f"chip_smoke: phase 4 done at {time.perf_counter() - began:.1f} s", flush=True)
 
     paths = {"slice 1": run_slice(breaching, ops), "slice 1 restarts": run_restarts(breaching, ops)}
@@ -2897,6 +3084,7 @@ def main():
     paths.update(run_records(breaching, ops))
     paths.update(run_slice12(breaching, ops))
     paths.update(run_slice13(breaching, ops))
+    paths.update(run_slice14(breaching, ops))
 
     print(f"chip_smoke: phase 5 done at {time.perf_counter() - began:.1f} s", flush=True)
     timings = time_kernels(ops, n_params, image_shape)

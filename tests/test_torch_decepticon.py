@@ -288,8 +288,8 @@ def test_full_vocabulary_supplement_matches_jax(bert):
     states = (states + 0.8 * rng.standard_normal(states.shape)).astype(np.float32)
     costs = rng.uniform(0.0, 0.5, 24)
     recovered = rng.integers(0, 512, 24)
-    got = attacker._supplement_from_full_vocabulary(recovered.copy(), costs.copy(), states, model, scale, bias, V,
-                                                    0.8)
+    got = attacker._supplement_from_full_vocabulary(recovered.copy(), costs.copy(), states,
+                                                    model.params["embedding"].detach(), scale, bias, V, 0.8)
     want = j_attacker._supplement_from_full_vocabulary(recovered.copy(), costs.copy(), states, table, scale, bias,
                                                        V, 0.8)
     np.testing.assert_array_equal(got, want)

@@ -421,8 +421,14 @@ def test_text_placement_is_refused():
 
 @pytest.mark.parametrize("model", ["gpt2S", "bert-sanity-check", "hf-gpt2"])
 def test_huggingface_models_under_decepticon_stay_refused(model):
+    """No longer refused: the HuggingFace architectures are ported (tests/test_torch_hf_*.py),
+    and the transformer server rewires each at full width through its registry, an imprint
+    layer in every one of its 12 blocks (calibrated on batches of one sentence)."""
     cfg = breaching.get_config(TEXT[:-1] + ["attack=decepticon", "case/server=malicious-transformer",
-                                            f"case.model={model}"])
+                                            f"case.model={model}", "case.data.batch_size=1"])
     setup = breaching.utils.system_startup(cfg=cfg, device="cpu")
-    with pytest.raises(NotImplementedError, match="HuggingFace"):
-        breaching.cases.construct_case(cfg.case, setup)
+    _, server, built, _ = breaching.cases.construct_case(cfg.case, setup)
+    secrets = server.secrets["ImprintBlock"]
+    assert built.name == (model if model.startswith("hf-") else f"hf-{model}")
+    assert secrets["weight_paths"] == built.registry["ff_first"] and len(secrets["weight_paths"]) == 12
+    assert len(secrets["bins"]) == 12 * 3072

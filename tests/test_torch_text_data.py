@@ -165,10 +165,11 @@ def test_prepare_text_npz_writes_the_jax_packages_blocks(tmp_path):
 
 
 def test_tokenizers_the_port_refuses(tmp_path):
+    """The tokenizers that need a download are refused; ``canine`` no longer is (its
+    cases below), ``character`` and ``word-level`` are built."""
     cfg, _ = _data_cfg(CASE10 + [f"case.data.path={tmp_path}"])
     cfg.tokenizer = "canine"
-    with pytest.raises(NotImplementedError, match="canine"):
-        datasets_text.tokenizer_for(cfg)
+    assert datasets_text.tokenizer_for(cfg).encode("Hi!").ids == [72, 105, 33]
     for name in ("GPT-2", "bert-base-uncased"):
         cfg.tokenizer = name
         with pytest.raises(ValueError, match="requires a network fetch"):
@@ -179,6 +180,25 @@ def test_tokenizers_the_port_refuses(tmp_path):
     tokenizer = datasets_text.tokenizer_for(cfg, LINES)
     assert os.path.isfile(tmp_path / "cache" / "word-tokenizer_30.json")
     assert datasets_text.tokenizer_for(cfg).get_vocab() == tokenizer.get_vocab()
+
+
+CANINE_TEXTS = {"ascii": "Hello , world! it 's 42.", "accented": "Crème brûlée à l'œuvre, ñandú",
+                "cjk": "東京で日本語を話す 한국어 中文", "emoji": "ok 🙂👍🏽 🇩🇪 x\u200dy"}
+
+
+@pytest.mark.parametrize("text", sorted(CANINE_TEXTS))
+def test_canine_tokenizer_matches_the_jax_packages(text, tmp_path):
+    """The port's plain-Python canine tokenizer against the JAX package's, which is
+    ``transformers``' ``CanineTokenizer`` with ``add_special_tokens=False``: ids, decode
+    and the vocabulary size."""
+    pytest.importorskip("transformers")
+    cfg, j_cfg = _data_cfg(CASE10 + [f"case.data.path={tmp_path}"])
+    cfg.tokenizer = j_cfg.tokenizer = "canine"
+    ours, theirs = datasets_text.tokenizer_for(cfg), jax_text.tokenizer_for(j_cfg)
+    ids = ours.encode(CANINE_TEXTS[text]).ids
+    assert ids == list(theirs.encode(CANINE_TEXTS[text]).ids)
+    assert ours.decode(ids) == theirs.decode(ids) == CANINE_TEXTS[text]
+    assert ours.vocab_size == theirs.vocab_size == 1_114_112
 
 
 def _flat(params):

@@ -206,8 +206,14 @@ def test_full_width_names_build_the_jax_architectures(name, monkeypatch):
 
 @pytest.mark.parametrize("name", ["gpt2S", "bert-sanity-check", "hf-gpt2", "hf-bert-tiny"])
 def test_huggingface_architectures_are_refused_by_name(name):
-    with pytest.raises(NotImplementedError, match=name):
-        construct_text_model(name, _data_cfg())
+    """The HuggingFace names are no longer refused: each builds the port's architecture
+    (``hf_models.HFModel``, held against the JAX package's Flax models in
+    tests/test_torch_hf_models.py) under the JAX package's name."""
+    from breaching_tpu_torch.cases.models.hf_models import HFModel
+
+    with torch.device("meta"):
+        model, _ = construct_text_model(name, _data_cfg())
+    assert isinstance(model, HFModel) and model.name == (name if name.startswith("hf-") else f"hf-{name}")
 
 
 def test_classification_needs_a_transformer():

@@ -180,3 +180,53 @@ def test_cpu_wrappers_never_load_the_library(name, monkeypatch):
         monkeypatch.setattr(_build, loader, refuse)
     monkeypatch.setattr(torch.ops, "load_library", lambda path: refuse())
     _cpu_calls()[name]()
+
+
+FAKE_NVCC = """#!/usr/bin/env python3
+import os, sys, time
+args = sys.argv[1:]
+out = args[args.index("-o") + 1]
+log = os.environ["FAKE_NVCC_LOG"]
+with open(log, "a") as fh:
+    fh.write(f"start {'link' if '-shared' in args else os.path.basename(args[args.index('-c') + 1])} {time.time()}\\n")
+if "-c" in args and os.path.basename(args[args.index("-c") + 1]) == os.environ.get("FAKE_NVCC_FAIL"):
+    sys.exit("error: refused")
+time.sleep(0.5)
+if "-shared" in args:
+    missing = [a for a in args if a.endswith(".o") and not os.path.exists(a)]
+    assert not missing, missing
+with open(out, "w") as fh:
+    fh.write("built")
+with open(log, "a") as fh:
+    fh.write(f"end {time.time()}\\n")
+"""
+
+
+@pytest.mark.parametrize("fail", [None, "bindings.cpp"], ids=["builds", "a-source-fails"])
+def test_build_starts_one_nvcc_per_source_at_once_then_links(csrc_copy, tmp_path, monkeypatch, fail):
+    """``build`` compiles each ``.cu`` file and ``bindings.cpp`` with its own ``nvcc -c``, all
+    started before any ends, links the objects into the keyed library, and raises (leaving no
+    library) when a source does not compile, after every ``nvcc`` has ended."""
+    fake = tmp_path / "nvcc"
+    fake.write_text(FAKE_NVCC)
+    fake.chmod(0o755)
+    log = tmp_path / "nvcc.log"
+    monkeypatch.setenv("FAKE_NVCC_LOG", str(log))
+    if fail:
+        monkeypatch.setenv("FAKE_NVCC_FAIL", fail)
+    monkeypatch.setattr(_build, "find_nvcc", lambda: str(fake))
+    monkeypatch.setattr(_build, "BUILD_DIR", str(tmp_path / "_build"))
+    compiled = sorted(os.path.basename(p) for p in _build.sources() if p.endswith((".cu", ".cpp")))
+    if fail:
+        with pytest.raises(RuntimeError, match="nvcc failed"):
+            _build.build()
+        assert not os.path.exists(_build.library_path())
+        return
+    target = _build.build()
+    assert target == _build.library_path() and open(target).read() == "built"
+    lines = [line.split() for line in log.read_text().splitlines()]
+    starts = [line[1] for line in lines if line[0] == "start"]
+    assert sorted(starts[:-1]) == compiled and starts[-1] == "link"
+    first_end = min(float(line[1]) for line in lines if line[0] == "end")
+    assert all(float(line[2]) < first_end for line in lines if line[0] == "start" and line[1] != "link")
+    assert _build.build() == target  # built once: the library is reused
