@@ -10,9 +10,10 @@ weight-over-bias division cancels the common factor of a bin's rows only if both
 computed in full float32: ``system_startup`` turns TF32 off on the card. The recovered
 rows are in the JAX package's (H, W, C) order and are reshaped to NCHW here; a deep
 placement's rows, read at a feature map smaller than the input, are resized to it with
-``jax.image.resize``'s cubic interpolation (``cubic_resize``). APRIL's two least-squares
-solves run in float64 on the host with ``numpy.linalg.lstsq``, as the JAX package runs
-them.
+``jax.image.resize``'s cubic interpolation (``cubic_resize``). Under
+``handle_preceding_layers: VAE`` the server's decoder turns the rows into images first.
+APRIL's two least-squares solves run in float64 on the host with ``numpy.linalg.lstsq``, as
+the JAX package runs them.
 """
 
 from __future__ import annotations
@@ -153,13 +154,18 @@ class ImprintAttacker(AnalyticAttacker):
     def _reformat_data(self, layer_inputs, secrets, rec_models):
         """The rows as NCHW images of the data's first three channels, clipped to the
         normalized box; on text, (seq, D) embeddings re-identified as the payload's nearest
-        tokens."""
+        tokens. Where the secrets hold a ``decoder``, the rows, reshaped to NHWC maps of
+        ``secrets["shape"]``, are decoded to images first (the JAX package hands the top
+        placement's flat rows to its ``decode``, which then fails: ROADMAP Queue C)."""
         if self.modality == "text":
             from .auxiliaries.text_utils import match_embeddings_to_tokens
 
             inputs = layer_inputs.reshape(layer_inputs.shape[0], *secrets["shape"])
             return match_embeddings_to_tokens(rec_models[0], inputs)
         h, w, c = secrets["shape"]
+        if "decoder" in secrets:  # images decoded from the rows, NHWC, whose shape then holds
+            layer_inputs = secrets["decoder"](layer_inputs.reshape(layer_inputs.shape[0], h, w, c))
+            h, w, c = layer_inputs.shape[1:]
         inputs = layer_inputs.reshape(layer_inputs.shape[0], h, w, c)[..., :3].permute(0, 3, 1, 2)
         if tuple(inputs.shape[2:]) != tuple(self.data_shape[1:]):
             inputs = cubic_resize(inputs, self.data_shape[1:])

@@ -319,10 +319,12 @@ class OptimizationBasedAttacker(_BaseAttacker):
 
     def _value_and_grad(self, tree, rec_models, targets, labels, stats, draws=None):
         """The loss at the candidate tree and its gradient with respect to every leaf:
-        (value, task loss, gradient tree), detached. Counts the evaluation."""
+        (value, task loss, gradient tree), detached; zero for a leaf the loss does not
+        read, as under ``jax.grad`` (the label logits of a fedAVG user's attack, whose local
+        steps take the shared labels). Counts the evaluation."""
         leaves = {k: v.detach().requires_grad_(True) for k, v in tree.items()}
         value, task_loss = self._loss(leaves, rec_models, targets, labels, draws)
-        grads = torch.autograd.grad(value, tuple(leaves.values()))
+        grads = torch.autograd.grad(value, tuple(leaves.values()), allow_unused=True, materialize_grads=True)
         stats["objective_evaluations"] = stats.get("objective_evaluations", 0) + 1
         return value.detach(), task_loss, {k: g.contiguous() for k, g in zip(leaves, grads)}
 
@@ -387,6 +389,11 @@ class OptimizationBasedAttacker(_BaseAttacker):
         local_hyperparams = metadata.get("local_hyperparams")
         if local_hyperparams is None:
             return None
+        if len(local_hyperparams["labels"]) != int(local_hyperparams["steps"]):
+            # a multi-step silo shares every user's label rows; the JAX package's scan refuses them too
+            raise ValueError(f"The shared local hyperparameters hold {len(local_hyperparams['labels'])} per-step "
+                             f"label rows for {local_hyperparams['steps']} local steps; the attack unrolls one "
+                             f"user's steps.")
         labels = torch.stack([torch.as_tensor(step_labels, dtype=torch.int64, device=self.setup["device"])
                               for step_labels in local_hyperparams["labels"]])
         return dict(local_hyperparams, labels=labels)

@@ -6,15 +6,17 @@
 ``MaliciousModelServer`` puts an imprint block in front of the model (``ImprintedModel``,
 the victim's parameters then named ``victim.*``), with ``position`` inside a ResNet
 before that stage, or on text after a transformer's embedding (``imprint_block.*``), and
-records the block's parameter names in its secrets for the readout.
+records the block's parameter names in its secrets for the readout. With
+``handle_preceding_layers: VAE`` it also trains a decoder back to the images
+(``aux_training.py``) and puts its ``decode`` into the secrets: on the top placement an
+encoder and decoder of the images (``aux_arch``, the VAE by default, 200 steps), inside a
+ResNet a ``FeatureDecoder`` of the unmodified prefix's feature map (800 steps), each on the
+server's external data where it has them.
 ``MaliciousTransformerServer`` rewires a transformer's parameters
 (``transformer_rewiring.py``). ``MaliciousClassParameterServer`` edits the classification
 head between queries, in place on the server's model, and restores the original
 parameters after the protocol. Each acts on the model the user also holds, as the JAX
 package's server and user share one model.
-
-Not ported, and refused by name: ``handle_preceding_layers: VAE`` (the feature decoders
-of ``aux_training.py``).
 """
 
 from __future__ import annotations
@@ -73,9 +75,6 @@ class MaliciousModelServer(HonestServer):
         reference = next(model.parameters())
         if self.cfg_data.modality == "text":
             return self._vet_text_model(model, block_cls, kwargs, reference)
-        if cfg_mod.get("handle_preceding_layers") == "VAE":
-            raise NotImplementedError("model_modification.handle_preceding_layers=VAE (the VAE and feature "
-                                      "decoders of aux_training.py) is not ported yet.")
         c, h, w = self.cfg_data.shape
         if cfg_mod.get("position") is not None:
             return self._vet_resnet_deep(model, block_cls, kwargs, cfg_mod, reference)
@@ -89,6 +88,12 @@ class MaliciousModelServer(HonestServer):
                     param.mul_(gain)
         self.secrets["ImprintBlock"] = dict(weight_name="block.linear0.weight", bias_name="block.linear0.bias",
                                             shape=(h, w, c), structure=block.structure)
+        if cfg_mod.get("handle_preceding_layers") == "VAE":
+            from .aux_training import train_encoder_decoder
+
+            decode, _ = train_encoder_decoder((h, w, c), dataloader=self.external_dataloader, steps=200,
+                                              arch=str(cfg_mod.get("aux_arch") or "VAE"), device=reference.device)
+            self.secrets["ImprintBlock"]["decoder"] = decode
         self.model = new_model
         for _ in range(int(self.cfg_server.get("normalize_rounds", 0) or 0)):
             self._normalize_throughput(new_model, gain=gain)
@@ -98,7 +103,8 @@ class MaliciousModelServer(HonestServer):
         """The block before stage ``position`` of a ResNet (reference
         _place_malicious_block, servers.py:240-278); ``handle_preceding_layers=identity``
         makes the prefix an identity map (``_linearize_prefix``), so that the readout
-        recovers the input's first channels directly."""
+        recovers the input's first channels directly, and ``VAE`` keeps it and trains a
+        decoder of its feature map."""
         from ..models.resnets import ResNet
 
         if not isinstance(model, ResNet):
@@ -121,6 +127,15 @@ class MaliciousModelServer(HonestServer):
         self.secrets["ImprintBlock"] = dict(weight_name="imprint_block.linear0.weight",
                                             bias_name="imprint_block.linear0.bias", shape=data_shape,
                                             structure=block.structure)
+        if handle == "VAE":
+            # a decoder of the actual prefix: the imprint block's input on the unmodified
+            # victim, D(prefix(x)) ~ x, each image's features in the readout's (H, W, C) order
+            from .aux_training import train_feature_decoder
+
+            decode, _ = train_feature_decoder(lambda x: model.features_before(x, position).permute(0, 2, 3, 1),
+                                              (h, w, c), data_shape, dataloader=self.external_dataloader,
+                                              device=reference.device)
+            self.secrets["ImprintBlock"]["decoder"] = decode
         self.model = model
         return model
 

@@ -171,6 +171,19 @@ class ResNet(nn.Module):
             capture["features"] = x
         return x if features else self.head(x)
 
+    def features_before(self, x: torch.Tensor, position: int) -> torch.Tensor:
+        """The NCHW feature map entering stage ``position``, in eval mode: what an imprint
+        block placed there reads."""
+        x = self.stem_norm(self.stem_conv(x))
+        x = x if self._linear_before(0) else F.relu(x)
+        if self.stem == "ImageNet":
+            x = max_pool(x, 3, 2, padding=1)
+        for stage, _, name in self.blocks:
+            if stage >= position:
+                break
+            x = getattr(self, name)(x)
+        return x
+
     def _linear_before(self, stage: int) -> bool:
         return self.imprint_block is not None and self.linear_prefix and stage < self.imprint_position
 

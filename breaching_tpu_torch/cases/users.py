@@ -10,8 +10,12 @@ the model runs in eval mode on them; without, it runs in train mode and the
 user's running statistics (cumulative, so exactly its batch statistics after one
 step, and carried from one local step to the next) are shared.
 
-On text (token ids, ``input_ids``) the fedSGD user takes the same gradient of the task
-loss on the ids, which stay int64; the fedAVG user and the silo are not ported for text.
+On text (token ids, ``input_ids``) every user takes the same gradients of the task loss
+on the ids, which stay int64, and shares ``data_key="input_ids"``. A fedAVG user's per-step
+labels, each (data per step, seq), are shared sorted along their last axis, each sequence's
+tokens in order, as the JAX package shares them; a single-step silo shares the sorted
+labels of all its users' tokens flattened into one row, a multi-step silo each sequence's
+sorted, as the JAX package's two forms do.
 ``print``, ``print_with_confidence`` and ``print_and_mark_correct`` print a user's
 token ids, decoded where a tokenizer is given.
 
@@ -77,9 +81,6 @@ def construct_user(model, loss_fn, cfg_case, setup):
     """User factory (reference: breaching/cases/users.py:13-28); a silo of
     ``multiuser_aggregate`` holds the users of ``range(*user_range)``."""
     cfg_user = cfg_case.user
-    if cfg_case.data.modality == "text" and cfg_user.user_type != "local_gradient":
-        raise NotImplementedError(f"The {cfg_user.user_type} user on text is not ported yet; the fedSGD "
-                                  f"user (local_gradient) is.")
     if cfg_user.user_type == "multiuser_aggregate":
         indices = list(range(*cfg_user.user_range))
         dataloaders = [construct_dataloader(cfg_case.data, cfg_case.impl, user_idx=idx) for idx in indices]
@@ -89,6 +90,12 @@ def construct_user(model, loss_fn, cfg_case, setup):
         raise NotImplementedError(f"User type {cfg_user.user_type} is not ported yet.")
     dataloader = construct_dataloader(cfg_case.data, cfg_case.impl, user_idx=cfg_user.user_idx)
     return user_types[cfg_user.user_type](model, loss_fn, dataloader, setup, cfg_user.user_idx, cfg_user)
+
+
+def _data_key(inputs: torch.Tensor) -> str:
+    """The key the shared metadata names the data by: ``inputs`` for images, ``input_ids``
+    for token ids."""
+    return "inputs" if torch.is_floating_point(inputs) else "input_ids"
 
 
 class UserSingleStep:
@@ -195,14 +202,13 @@ class UserSingleStep:
         inputs, labels = self._user_tensors(custom_data)
         bn_train, local_buffers = self._local_buffers(server_payload["buffers"])
         grads = self.gradient(server_payload["parameters"], local_buffers, inputs, labels, bn_train)
-        data_key = "inputs" if torch.is_floating_point(inputs) else "input_ids"
 
         shared_buffers = local_buffers if bn_train else None
         metadata = dict(
             num_data_points=self.num_data_points if self.provide_num_data_points else None,
             labels=torch.sort(labels).values if self.provide_labels else None,
             local_hyperparams=None,
-            data_key=data_key,
+            data_key=_data_key(inputs),
         )
         shared_data = dict(
             gradients=grads,
@@ -294,7 +300,8 @@ class UserMultiStep(UserSingleStep):
 
     Step k trains on the user's examples (k·m + j) mod N, j < m, with m examples per
     step and N in all. The shared labels are the user's in data order; the local
-    hyperparameters carry each step's labels sorted, as the JAX package shares them.
+    hyperparameters carry each step's labels sorted along their last axis (on text each
+    sequence's tokens), as the JAX package shares them.
     """
 
     def __init__(self, model, loss_fn, dataloader, setup, idx, cfg_user):
@@ -348,7 +355,7 @@ class UserMultiStep(UserSingleStep):
                 data_per_step=per_step,
                 labels=[torch.sort(labels[step_idx]).values for step_idx in idx],
             ) if self.provide_local_hyperparams else None,
-            data_key="inputs",
+            data_key=_data_key(inputs),
         )
         shared_data = dict(
             gradients=delta,
@@ -394,7 +401,7 @@ class MultiUserAggregate(UserMultiStep):
                 data_per_step=self.num_data_per_local_update_step,
                 labels=label_lists,
             ) if self.provide_local_hyperparams else None,
-            data_key="inputs",
+            data_key=_data_key(data),
         )
         shared_data = dict(gradients=gradients, buffers=buffers, metadata=metadata)
         return shared_data, dict(data=data, labels=labels, buffers=true_buffers)
@@ -420,7 +427,8 @@ class MultiUserAggregate(UserMultiStep):
         aggregate = {k: g / self.num_users for k, g in grad_sum.items()}
         buffers = {k: b / self.num_users for k, b in buffer_sum.items()} if bn_train else None
         shared_buffers = buffers if self.provide_buffers else None
-        return aggregate, shared_buffers, buffers, torch.cat(all_data), torch.cat(all_labels), []
+        # all the users' labels in one row, as the JAX package's single-step silo flattens them
+        return aggregate, shared_buffers, buffers, torch.cat(all_data), torch.cat(all_labels).reshape(-1), []
 
     def _aggregate_multi_step(self, server_payload):
         """The running mean of the fedAVG users' deltas (and of their buffers, where they

@@ -1,7 +1,7 @@
 """Where the time of a slice's attack step goes, on the card.
 
-    python3 -m breaching_tpu_torch.profile_slice [--slice 1|2|3|4|5|6|7|12|13|14]
-                                                 [--path 5a|...|7d|12a|...|12e'|13a|...|13e|14a|...|14f]
+    python3 -m breaching_tpu_torch.profile_slice [--slice 1|2|3|4|5|6|7|12|13|14|15]
+                                                 [--path 5a|...|7d|12a|...|12e'|13a|...|13e|14a|...|14f|15a|...|15e]
                                                  [--fleet F] [--fused] [--lbfgs] [--iterations N]
 
 Slice 1 (the default) runs Inverting Gradients with the fused cosine objective on
@@ -40,10 +40,16 @@ one of the HuggingFace architectures' paths: the readouts 14a ``decepticons_gpt2
 14b ``decepticons_hf_gpt2`` (``hf-gpt2``) and 14c ``decepticons_hf_bert`` (``hf-bert``, 1 x 512, the
 exact-reference stack), profiled as slice 13's, and the attacks 14d ``tag`` on ``hf-roberta-base`` (case
 10 as a masked LM) and 14d' on ``hf-distilbert`` (case 9), 14e ``tag`` on ``hf-bert``'s classification
-head (cola, 2 sentences) and 14f ``permutation`` on ``hf-gpt2`` (8 sentences). Each
+head (cola, 2 sentences) and 14f ``permutation`` on ``hf-gpt2`` (8 sentences); slice 15 one of
+``handle_preceding_layers=VAE`` on ``robbing_the_fed`` (ResNet-18 on its checkpoint, 1 image at
+224, the server's external data), profiled as slice 13's paths with the decoder's training in
+the server's seconds: 15a the top placement (a VAE, 200 steps) and 15b the block before stage 2
+(a ``FeatureDecoder``, 800 steps), or ``tag`` on case 10 under 15c the fedAVG user (4 sentences,
+4 local steps), 15d the silo of 8 users x 4 sentences (single-step) and 15d' with 2 local steps,
+and 15e on ``gpt2`` under the fedAVG user (1 sentence, 2 local steps). Each
 goes through the entry points: one warm-up attack, an
 attack of N steps (default 200) timed with the profiler off, and the same attack
-under ``torch.profiler``. Slice 13 and the readouts of slice 14 have no steps: one warm-up run of
+under ``torch.profiler``. Slice 13, the readouts of slice 14 and 15a-b have no steps: one warm-up run of
 the whole path, one timed with the profiler off (seconds of the server's model, rewiring or block and calibration; of the
 user's gradient; of the readout, by stage, and of the assignment solver in it), and one under
 the profiler (device busy and idle share of the whole path, launches, peak memory). Prints one JSON line: milliseconds per step with the
@@ -145,7 +151,23 @@ SLICE14 = {
     "14f": ["case=10_causal_lang_training", "attack=permutation", "case.model=hf-gpt2", "case.user.num_data_points=8",
             "case.data.default_clients=1000", "attack.token_strategy=embedding-norm"],
 }
-READOUTS = {**SLICE13, **{p: SLICE14[p] for p in ("14a", "14b", "14c")}}  # the paths without steps
+# slice 15's paths: robbing_the_fed under handle_preceding_layers=VAE (the server trains its
+# decoder), tag on case 10 under the fedAVG user and the silo (8 users x 4 sentences), and on gpt2
+RTF = ["case=2_single_imagenet", "attack=imprint", "case/server=malicious-model-rtf",
+       "case.server.model_modification.handle_preceding_layers=VAE", "case.server.has_external_data=True"]
+TEXT_FEDAVG = ["case=10_causal_lang_training", "attack=tag", "case/user=local_updates"]
+TEXT_SILO = ["case=10_causal_lang_training", "attack=tag", "case/user=multiuser_aggregate", "case.user.user_range=[0,8]",
+             "case.user.num_data_points=4"]
+SLICE15 = {
+    "15a": RTF,
+    "15b": RTF + ["case.server.model_modification.position=2", "case.server.model_modification.num_bins=64"],
+    "15c": TEXT_FEDAVG,
+    "15d": TEXT_SILO,
+    "15d'": TEXT_SILO + ["case.user.num_local_updates=2", "case.user.num_data_per_local_update_step=2"],
+    "15e": TEXT_FEDAVG + ["case.model=gpt2", "case.user.num_data_points=1", "case.user.num_local_updates=2"],
+}
+# the paths without steps
+READOUTS = {**SLICE13, **{p: SLICE14[p] for p in ("14a", "14b", "14c")}, **{p: SLICE15[p] for p in ("15a", "15b")}}
 FUSED = ["attack.objective.type=fused-cosine-similarity"]
 # slice 4 --lbfgs: the deep_leakage preset with the fused euclidean objective (path 4a')
 LBFGS = ["case=1_single_image_small", "attack=deepleakage", "case.user.provide_labels=False",
@@ -180,8 +202,9 @@ def _timed(run):
 
 
 def _readout_path(overrides):
-    """One run of a slice-13 path through the entry points: its seconds by part, the
-    readout's stages and the report's token accuracy."""
+    """One run of a path without attack steps (slices 13, 14a-c, 15a-b) through the entry
+    points: its seconds by part (the server's includes training a decoder on 15a-b), the
+    readout's stages and the report's token accuracy, or PSNR and SSIM."""
     from . import native
 
     seconds = {}
@@ -202,14 +225,14 @@ def _readout_path(overrides):
     native.capacitated_assignment.seconds = 0.0
     rec, stats = part("readout", lambda: attacker.reconstruct(payloads, shared, server.secrets))
     metrics = breaching.analysis.report(rec, true, payloads, server.model, cfg_case=cfg.case, setup=setup)
+    quality = {k: metrics[k] for k in ("token_acc", "accuracy", "psnr", "ssim") if k in metrics}
     return dict(seconds=seconds, readout_stages=dict(stats.get("decepticon_seconds", {})),
-                solver_seconds=native.capacitated_assignment.seconds, token_acc=metrics["token_acc"],
-                accuracy=metrics["accuracy"], model=cfg.case.model,
-                tokens=list(true["data"].shape))
+                solver_seconds=native.capacitated_assignment.seconds, **quality, model=cfg.case.model,
+                data=list(true["data"].shape))
 
 
 def profile_readout(path):
-    """Slice 13 or 14's readouts: a warm-up run, a timed run, a profiled run; one JSON line."""
+    """A path without steps: a warm-up run, a timed run, a profiled run; one JSON line."""
     overrides = READOUTS[path] + ["seed=7"]
     _readout_path(overrides)
     torch.cuda.reset_peak_memory_stats()
@@ -229,10 +252,11 @@ def profile_readout(path):
 
 def main():
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    parser.add_argument("--slice", type=int, choices=sorted([*SLICES, 5, 7, 12, 13, 14]), default=1)
-    parser.add_argument("--path", choices=sorted([*SLICE5, *SLICE7, *SLICE12, *SLICE13, *SLICE14]), default=None,
-                        help="slice 5's path (default 5a), slice 7's (default 7c), slice 12's (default 12a), "
-                             "slice 13's (default 13a) or slice 14's (default 14a)")
+    parser.add_argument("--slice", type=int, choices=sorted([*SLICES, 5, 7, 12, 13, 14, 15]), default=1)
+    parser.add_argument("--path", choices=sorted([*SLICE5, *SLICE7, *SLICE12, *SLICE13, *SLICE14, *SLICE15]),
+                        default=None, help="slice 5's path (default 5a), slice 7's (default 7c), slice 12's (default "
+                                           "12a), slice 13's (default 13a), slice 14's (default 14a) or slice 15's "
+                                           "(default 15a)")
     parser.add_argument("--fleet", type=int, default=1, help="experiments through reconstruct_fleet")
     parser.add_argument("--fused", action="store_true", help="slice 2 or 3 with the fused cosine objective")
     parser.add_argument("--lbfgs", action="store_true", help="slice 4: deep_leakage with fused euclidean, L-BFGS")
@@ -242,7 +266,7 @@ def main():
         raise SystemExit("profile_slice needs a CUDA device.")
     if args.lbfgs and args.slice != 4:
         parser.error("--lbfgs is a path of slice 4.")
-    paths = {5: SLICE5, 7: SLICE7, 12: SLICE12, 13: SLICE13, 14: SLICE14}.get(args.slice)
+    paths = {5: SLICE5, 7: SLICE7, 12: SLICE12, 13: SLICE13, 14: SLICE14, 15: SLICE15}.get(args.slice)
     if paths is not None:
         args.path = args.path or min(paths)
         if args.path not in paths:

@@ -172,13 +172,19 @@ def test_unported_options_are_refused(override, name):
 @pytest.mark.parametrize("modality", ["text", "audio"])
 def test_unported_modality_is_refused(modality):
     """What the port has not ported of a data modality is refused by name, as the attack
-    options above are: audio has no datasets; text has, and its fedAVG user is refused."""
+    options above are: audio has no datasets; text has, and its fedAVG user too, whose
+    attack with restarts stays refused (ROADMAP Queue A, item 3)."""
     if modality == "text":
-        cfg = breaching.get_config(["case=10_causal_lang_training", "case/user=local_updates",
-                                    "case.data.vocab_size=128", "case.data.shape=[8]"])
+        cfg = breaching.get_config(["case=10_causal_lang_training", "case/user=local_updates", "attack=tag",
+                                    "attack.restarts.num_trials=2", "case.data.vocab_size=128",
+                                    "case.data.shape=[8]"])
         setup = breaching.utils.system_startup(cfg=cfg, device="cpu")
-        with pytest.raises(NotImplementedError, match=modality):
-            breaching.cases.construct_case(cfg.case, setup)
+        user, server, _, _ = breaching.cases.construct_case(cfg.case, setup)
+        shared, payloads, _ = server.run_protocol(user)
+        assert shared[0]["metadata"]["data_key"] == "input_ids"
+        attacker = breaching.attacks.prepare_attack(server.model, server.loss, cfg.attack, setup)
+        with pytest.raises(NotImplementedError, match="Restarts of a fedAVG user's attack"):
+            attacker.reconstruct(payloads, shared, server.secrets, dryrun=True)
         return
     cfg = breaching.get_config(SLICE)
     cfg.case.data.modality = modality

@@ -15,9 +15,8 @@ the same hyperparameters:
   ``_normalize_throughput`` on the JAX package's probe batch, each to 1e-5 of the
   largest entry;
 - ``imprint_guarantee``'s formulas; the repaired ``label_strategy: None`` (labels None,
-  as in the JAX package); the options the port refuses by name (the VAE decoders, the
-  HuggingFace text models under Decepticon), and the JAX package's errors for what it
-  refuses too (the transformer server on a model without a registry, the text placement
+  as in the JAX package); the options the port refuses by name (the HuggingFace text
+  models under Decepticon), and the JAX package's errors for what it refuses too (the transformer server on a model without a registry, the text placement
   on an LSTM).
 """
 
@@ -379,12 +378,6 @@ def _jax_raises_too(overrides, error, message):
 
 
 @pytest.mark.parametrize("override,error,message", [
-    pytest.param("case.server.model_modification.handle_preceding_layers=VAE", NotImplementedError, "VAE",
-                 id="case.server.model_modification.handle_preceding_layers=VAE-VAE"),
-    pytest.param("case.server.model_modification.position=1 "
-                 "case.server.model_modification.handle_preceding_layers=VAE", NotImplementedError, "VAE",
-                 id="case.server.model_modification.position=1 "
-                    "case.server.model_modification.handle_preceding_layers=VAE-VAE"),
     # ported: the transformer server on a model without a registry raises the JAX package's error
     pytest.param("case/server=malicious-transformer", ValueError, REGISTRY_ERROR,
                  id="case/server=malicious-transformer-malicious_transformer"),

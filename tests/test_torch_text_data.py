@@ -252,11 +252,3 @@ def test_users_print_token_ids_as_the_jax_package_does(capsys):
         who.print(dict(data=d), tokenizer=tokenizer)
         outputs.append(capsys.readouterr().out)
     assert outputs[0] == outputs[1] and "5✓ 6✗ 7✓" in outputs[0] and "5[0.50]" in outputs[0]
-
-
-@pytest.mark.parametrize("group,user_type", [("local_updates", "local_update"), ("multiuser_aggregate", "multiuser_aggregate")])
-def test_fedavg_and_silo_users_on_text_are_refused(group, user_type):
-    cfg = breaching.get_config(CASE10 + [f"case/user={group}"])
-    setup = breaching.utils.system_startup(cfg=cfg, device="cpu")
-    with pytest.raises(NotImplementedError, match=f"{user_type} user on text"):
-        breaching.cases.construct_case(cfg.case, setup)
