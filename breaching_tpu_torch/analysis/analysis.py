@@ -173,9 +173,11 @@ def _feature_space_mse(rec_data, true_data, server_payload, model):
     buffers = payload["buffers"] if payload["buffers"] is not None else dict(model.named_buffers())
     state = {**payload["parameters"], **buffers}
 
+    dtype = next(iter(payload["parameters"].values())).dtype  # the model's: float64 under case.impl.dtype=float64
+
     def as_input(data, device=None):
         data = torch.as_tensor(data, device=device)
-        return data if not torch.is_floating_point(data) else data.to(torch.float32)
+        return data if not torch.is_floating_point(data) else data.to(dtype)
 
     rec = as_input(rec_data["data"])
     ref = as_input(true_data["data"], rec.device)

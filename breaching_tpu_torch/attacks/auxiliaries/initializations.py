@@ -28,12 +28,15 @@ def tile_pattern(seed: torch.Tensor, height: int, width: int) -> torch.Tensor:
 
 def init_candidate(generator, init_type: str, data_shape, dtype=torch.float32, device="cpu",
                    mean=None, std=None, text=False):
-    """A candidate of ``data_shape`` (..., C, H, W), or with ``text`` (..., T, D); ``mean`` and
-    ``std`` (C,) are the data's normalization, read by the ``-true`` colours."""
+    """A candidate of ``data_shape`` (..., C, H, W), or with ``text`` (..., T, D), drawn in
+    float32 and cast to ``dtype``; ``mean`` and ``std`` (C,) are the data's normalization,
+    read by the ``-true`` colours."""
     if text and init_type not in ("randn", "randn-trunc", "rand", "zeros"):
         raise ValueError(f"Initialization {init_type} undefined for shape {tuple(data_shape)}.")
     if len(data_shape) < 4 and not text:
         raise ValueError(f"Image candidates are (..., C, H, W), not {tuple(data_shape)}.")
+    # a candidate of another floating type is drawn in float32 and cast: the float32 run's start
+    target, dtype = dtype, torch.float32
     if init_type == "randn":
         x = torch.randn(data_shape, generator=generator, dtype=dtype)
     elif init_type == "randn-trunc":
@@ -59,4 +62,4 @@ def init_candidate(generator, init_type: str, data_shape, dtype=torch.float32, d
         x = tile_pattern(seed, *data_shape[-2:])
     else:
         raise NotImplementedError(f"Initialization {init_type} is not ported yet.")
-    return x.to(device)
+    return x.to(device=device, dtype=target)

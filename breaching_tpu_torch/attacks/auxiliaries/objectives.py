@@ -41,8 +41,25 @@ fedAVG user.
 ``reconstruct_fleet``): the user gradient of every trial is
 ``torch.func.vmap(torch.func.grad(task loss))`` over the candidates' leading trial
 axis with the parameters shared, and the distance is reduced per trial, so that one
-``torch.autograd.grad`` of the trials' sum gives each trial's attack gradient. It
-is not ported for fedAVG users.
+``torch.autograd.grad`` of the trials' sum gives each trial's attack gradient, as the
+JAX package vmaps its objective over the trials. Everything the single evaluation takes
+runs there too: BatchNorm in train mode (each trial's own batch statistics, the running
+statistics left unwritten: ``train=layers.TRIALS``), a ``capture`` of the
+intermediates (returned out of the vmapped function, each leaf with a leading trial
+axis), ``grad_accum`` (the same micro-batches, each one ``_MicroBatchGradient`` over all
+trials) and a fedAVG user's unrolled local steps (``torch.func.grad`` a step, inside the
+vmap).
+
+With ``attack.impl.dtype`` bfloat16 or float16 the simulated user pass runs in that type
+(``compute_dtype``, the JAX package's ``_cast_tree``, objectives.py:56-86): the
+parameters, buffers and candidate are cast to it, single-step, micro-batched and
+unrolled alike, and the user's update comes out in it; the logits go to float32 before
+the loss, and every distance accumulates in float32 (``_acc``), so the fused objectives
+see half-precision gradients beside float32 targets. The candidate itself stays in its
+own type: its cotangent comes back through the cast. float64 and any other value cast
+nothing. Without a compute dtype the pass runs in the promotion of the candidate's and
+the parameters' types, as JAX's type promotion gives it: a bfloat16 candidate
+(``case.impl.dtype=bfloat16``) through float32 parameters computes in float32.
 """
 
 from __future__ import annotations
@@ -52,6 +69,7 @@ import logging
 import torch
 from torch.func import functional_call, grad as func_grad, vmap
 
+from ...cases.models.layers import TRIALS
 from ...cases.models.model_preparation import jax_leaf_ranks
 from ...ops import fused_cosine_similarity, fused_cosine_similarity_trials, fused_euclidean
 
@@ -59,33 +77,37 @@ log = logging.getLogger(__name__)
 
 
 class _MicroBatchGradient(torch.autograd.Function):
-    """(task loss, *parameter gradient) of one micro-batch (x, y), differentiable with
-    respect to x (and y, where y is soft labels). The forward keeps no graph; the
-    backward rebuilds the micro-batch's graph with ``create_graph=True`` and runs the
-    incoming cotangents back through it to x and y."""
+    """(task loss, *parameter gradient) of one micro-batch (x, y) from ``grads_of(x, y,
+    create_graph)``, differentiable with respect to x (and y, where y is soft labels).
+    The forward keeps no graph; the backward rebuilds the micro-batch's graph with
+    ``create_graph=True`` and runs the incoming cotangents back through it to x and y.
+    ``grads_of`` is the single evaluation's ``torch.autograd.grad`` or the trials'
+    ``vmap(grad(...))``: the same recomputation serves both."""
 
     @staticmethod
-    def forward(ctx, task_loss, params, x, y):
-        ctx.task_loss, ctx.params = task_loss, params
+    def forward(ctx, grads_of, x, y):
+        ctx.grads_of = grads_of
         ctx.save_for_backward(x, y)
         with torch.enable_grad():
-            leaves = tuple(p.detach().requires_grad_(True) for p in params)
-            loss = task_loss(leaves, x.detach(), y.detach())
-            grads = torch.autograd.grad(loss, leaves, allow_unused=True, materialize_grads=True)
-        return (loss.detach(), *grads)
+            return tuple(t.detach() for t in grads_of(x.detach(), y.detach(), False))
 
     @staticmethod
-    def backward(ctx, loss_bar, *grads_bar):
-        needs = ctx.needs_input_grad[2:]
+    def backward(ctx, *bars):
+        needs = ctx.needs_input_grad[1:]
         inputs = [t.detach().requires_grad_(need) for t, need in zip(ctx.saved_tensors, needs)]
         with torch.enable_grad():
-            leaves = tuple(p.detach().requires_grad_(True) for p in ctx.params)
-            loss = ctx.task_loss(leaves, *inputs)
-            grads = torch.autograd.grad(loss, leaves, create_graph=True, allow_unused=True, materialize_grads=True)
+            outputs = ctx.grads_of(*inputs, True)
             wanted = [t for t, need in zip(inputs, needs) if need]
-            outputs = [(o, bar) for o, bar in zip((loss, *grads), (loss_bar, *grads_bar)) if o.requires_grad]
-            bars = iter(torch.autograd.grad([o for o, _ in outputs], wanted, [b for _, b in outputs]))
-        return (None, None, *(next(bars) if need else None for need in needs))
+            pairs = [(o, bar) for o, bar in zip(outputs, bars) if o.requires_grad]
+            got = iter(torch.autograd.grad([o for o, _ in pairs], wanted, [b for _, b in pairs]))
+        return (None, *(next(got) if need else None for need in needs))
+
+
+def _acc(x: torch.Tensor) -> torch.Tensor:
+    """x widened to float32 where it is half precision: the distances accumulate in
+    float32 (the JAX package's ``_f32``), and the logits go to float32 before the loss
+    (``outputs.astype(jnp.float32)``); other types stay as they are."""
+    return x.float() if x.dtype in (torch.bfloat16, torch.float16) else x
 
 
 class GradientLoss:
@@ -104,12 +126,29 @@ class GradientLoss:
         self.model = model
         self.local_hyperparams = local_hyperparams
         self.grad_accum = int((cfg_impl or {}).get("grad_accum", 1) or 1)
+        name = str((cfg_impl or {}).get("dtype", "float"))
+        self.compute_dtype = torch.bfloat16 if name in ("bfloat16", "bf16") else (
+            torch.float16 if name in ("float16", "fp16") else None)
         self._warned = set()
 
     def _warn_once(self, message):
         if message not in self._warned:
             self._warned.add(message)
             log.warning(message)
+
+    def _work_dtype(self, params, candidate):
+        """The type of the simulated user pass: the compute dtype, else the promotion of
+        the candidate's type and the parameters'."""
+        if self.compute_dtype is not None:
+            return self.compute_dtype
+        first = next(iter(params.values()), None)
+        return candidate.dtype if first is None else torch.promote_types(candidate.dtype, first.dtype)
+
+    @staticmethod
+    def _cast(tree, dtype):
+        """Every floating tensor of the dict ``tree`` in ``dtype`` (``_cast_tree``);
+        integers and tensors already of that type stay."""
+        return {k: v.to(dtype) if v.is_floating_point() and v.dtype != dtype else v for k, v in tree.items()}
 
     def _micro_batches(self, n, capture, bn_train):
         """The number of micro-batches of a fedSGD user's gradient over n candidates."""
@@ -132,6 +171,9 @@ class GradientLoss:
         fedAVG user, from one extra forward of the whole batch, as the JAX package does)."""
         if bn_train:  # train-mode BatchNorm updates the buffers it is given in place
             buffers = {k: v.clone() for k, v in buffers.items()}
+        work = self._work_dtype(params, candidate)
+        params, buffers = self._cast(params, work), self._cast(buffers, work)
+        candidate = candidate.to(work)
         if self.local_hyperparams is not None:
             if self.grad_accum > 1:
                 self._warn_once("grad_accum ignored: the multi-step (fedavg) simulated update unrolls full "
@@ -145,7 +187,7 @@ class GradientLoss:
             return self._micro_batched(params, buffers, candidate, labels, accum)
         outputs = functional_call(self.model, {**params, **buffers}, (candidate,),
                                   dict(train=bn_train, capture=capture))
-        task_loss = self.loss_fn(outputs, labels)
+        task_loss = self.loss_fn(_acc(outputs), labels)
         grads = torch.autograd.grad(task_loss, tuple(params.values()), create_graph=True, allow_unused=True,
                                     materialize_grads=True)
         return grads, task_loss
@@ -154,16 +196,25 @@ class GradientLoss:
         """The user's gradient and task loss as means over ``accum`` equal micro-batches,
         BatchNorm in eval mode (``_MicroBatchGradient``)."""
         names = tuple(params)
-
-        def task_loss(leaves, x, y):
-            outputs = functional_call(self.model, {**dict(zip(names, leaves)), **buffers}, (x,))
-            return self.loss_fn(outputs, y)
-
         values = tuple(v.detach() for v in params.values())
-        size = candidate.shape[0] // accum
+
+        def grads_of(x, y, create_graph):
+            leaves = tuple(p.detach().requires_grad_(True) for p in values)
+            outputs = functional_call(self.model, {**dict(zip(names, leaves)), **buffers}, (x,))
+            loss = self.loss_fn(_acc(outputs), y)
+            return (loss, *torch.autograd.grad(loss, leaves, create_graph=create_graph, allow_unused=True,
+                                               materialize_grads=True))
+
+        return self._accumulate(grads_of, candidate, labels, accum, 0)
+
+    @staticmethod
+    def _accumulate(grads_of, candidate, labels, accum, dim):
+        """Means over ``accum`` equal micro-batches of ``grads_of``'s (loss, *grads),
+        each one ``_MicroBatchGradient``; the batch is ``dim`` of candidate and labels."""
+        size = candidate.shape[dim] // accum
         loss_sum = grad_sum = None
-        for x, y in zip(candidate.split(size), labels.split(size)):
-            loss, *grads = _MicroBatchGradient.apply(task_loss, values, x, y)
+        for x, y in zip(candidate.split(size, dim), labels.split(size, dim)):
+            loss, *grads = _MicroBatchGradient.apply(grads_of, x, y)
             if grad_sum is None:
                 loss_sum, grad_sum = loss, grads
             else:
@@ -181,18 +232,23 @@ class GradientLoss:
         initial = tuple(params.values())
         current = initial
         for k in range(steps):
-            start = k * per_step % num_points
-            if start + per_step <= num_points:  # a view: no gather, and no scatter in the backward
-                batch = candidate[start:start + per_step]
-            else:
-                batch = candidate[[(start + j) % num_points for j in range(per_step)]]
+            batch = self._step_batch(candidate, k, per_step, num_points)
             outputs = functional_call(self.model, {**dict(zip(params, current)), **buffers}, (batch,),
                                       dict(train=bn_train))
-            task_loss = self.loss_fn(outputs, hp["labels"][k])
+            task_loss = self.loss_fn(_acc(outputs), hp["labels"][k])
             grads = torch.autograd.grad(task_loss, current, create_graph=True, allow_unused=True,
                                         materialize_grads=True)
             current = tuple(p - lr * g for p, g in zip(current, grads))
         return tuple(p - p0 for p, p0 in zip(current, initial)), task_loss
+
+    @staticmethod
+    def _step_batch(candidate, k, per_step, num_points):
+        """Local step k's rows (k·m + j) mod N of the candidate: a view where they are
+        contiguous (no gather, and no scatter in the backward)."""
+        start = k * per_step % num_points
+        if start + per_step <= num_points:
+            return candidate[start:start + per_step]
+        return candidate[[(start + j) % num_points for j in range(per_step)]]
 
     def __call__(self, params, buffers, target_grads, candidate, labels, bn_train=False, capture=None):
         grads, task_loss = self.grad_fn(params, buffers, candidate, labels, bn_train=bn_train,
@@ -202,27 +258,85 @@ class GradientLoss:
             objective = objective + self.task_regularization * task_loss
         return objective, task_loss.detach()
 
-    def trials(self, params, buffers, target_grads, candidates, labels):
+    def trials(self, params, buffers, target_grads, candidates, labels, bn_train=False, capture=None):
         """The objective of T trials at once, for candidates (T, N, C, H, W), labels
         (T, N) and ``target_grads`` with a leading trial axis (T, ...) in the order of
         ``params``: (T,) values, differentiable with respect to the candidates, and
-        (T,) task losses. BatchNorm runs in eval mode."""
+        (T,) task losses. ``params`` and ``buffers`` are shared by the trials; with
+        ``bn_train`` each trial's BatchNorm takes its own batch statistics, and a
+        ``capture`` dict receives each trial's intermediates, stacked on a leading axis."""
+        work = self._work_dtype(params, candidates)
+        params = self._cast({k: v.detach() for k, v in params.items()}, work)
+        buffers = self._cast(buffers, work)
+        candidates = candidates.to(work)
+        want_capture = capture is not None
+        bn_train = TRIALS if bn_train else False  # each trial's batch statistics, the buffers unwritten
         if self.local_hyperparams is not None:
-            raise NotImplementedError("Restarts and fleets of fedAVG users are not ported yet; "
-                                      "attack a fedAVG user with one trial.")
-        if self.grad_accum > 1:
-            raise NotImplementedError("attack.impl.grad_accum is not ported under the batched trial step; "
-                                      "run one trial.")
-        def task_loss(p, x, y):
-            loss = self.loss_fn(functional_call(self.model, {**p, **buffers}, (x,)), y)
-            return loss, loss
-
-        grads, task_losses = vmap(func_grad(task_loss, has_aux=True), in_dims=(None, 0, 0))(
-            params, candidates, labels)
-        objective = self.trial_distances(tuple(grads[k] for k in params), target_grads)
+            grads, task_losses, captured = self._local_steps_trials(params, buffers, candidates, bn_train,
+                                                                    want_capture)
+        else:
+            grads, task_losses, captured = self._grads_trials(params, buffers, candidates, labels, bn_train,
+                                                              want_capture)
+        if want_capture:
+            capture.update(captured)
+        objective = self.trial_distances(grads, target_grads)
         if self.task_regularization != 0:
             objective = objective + self.task_regularization * task_losses
         return objective, task_losses.detach()
+
+    def _grads_trials(self, params, buffers, candidates, labels, bn_train, want_capture):
+        """Each trial's parameter gradient and task loss: ``vmap(grad(task loss))``, over
+        ``grad_accum`` micro-batches where it applies."""
+        names = tuple(params)
+
+        def task_loss(p, x, y):
+            captured = {} if want_capture else None
+            outputs = functional_call(self.model, {**p, **buffers}, (x,), dict(train=bn_train, capture=captured))
+            loss = self.loss_fn(_acc(outputs), y)
+            return loss, (loss, captured or {})
+
+        accum = self._micro_batches(candidates.shape[1], {} if want_capture else None, bn_train)
+        if accum > 1:
+            def grads_of(x, y, create_graph):
+                grads, (losses, _) = vmap(func_grad(task_loss, has_aux=True), in_dims=(None, 0, 0))(params, x, y)
+                return (losses, *(grads[k] for k in names))
+
+            grads, losses = self._accumulate(grads_of, candidates, labels, accum, 1)
+            return grads, losses, {}
+        grads, (losses, captured) = vmap(func_grad(task_loss, has_aux=True), in_dims=(None, 0, 0))(
+            params, candidates, labels)
+        return tuple(grads[k] for k in names), losses, captured
+
+    def _local_steps_trials(self, params, buffers, candidates, bn_train, want_capture):
+        """Each trial's fedAVG delta through the unrolled local steps (``_local_steps``
+        with ``torch.func.grad`` a step, inside the vmap over the trials) and its last
+        step's task loss; with ``want_capture`` the intermediates of one extra forward of
+        each trial's whole batch."""
+        if self.grad_accum > 1:
+            self._warn_once("grad_accum ignored: the multi-step (fedavg) simulated update unrolls full "
+                            "local batches per step.")
+        hp = self.local_hyperparams
+        lr, steps, per_step = float(hp["lr"]), int(hp["steps"]), int(hp["data_per_step"])
+        names = tuple(params)
+
+        def delta(x):
+            captured = {} if want_capture else None
+            if want_capture:
+                functional_call(self.model, {**params, **buffers}, (x,), dict(train=bn_train, capture=captured))
+            current = params
+            for k in range(steps):
+                batch = self._step_batch(x, k, per_step, x.shape[0])
+
+                def step_loss(p):
+                    outputs = functional_call(self.model, {**p, **buffers}, (batch,), dict(train=bn_train))
+                    loss = self.loss_fn(_acc(outputs), hp["labels"][k])
+                    return loss, loss
+
+                grads, loss = func_grad(step_loss, has_aux=True)(current)
+                current = {n: current[n] - lr * grads[n] for n in names}
+            return tuple(current[n] - params[n] for n in names), loss, captured or {}
+
+        return vmap(delta)(candidates)
 
     def gradient_based_loss(self, grads, target_grads):
         raise NotImplementedError
@@ -240,11 +354,11 @@ def _per_trial_sum(x: torch.Tensor) -> torch.Tensor:
 
 
 def _dot(a, b):
-    return sum((x * y).sum() for x, y in zip(a, b))
+    return sum((_acc(x) * _acc(y)).sum() for x, y in zip(a, b))
 
 
 def _sqnorm(a):
-    return sum((x * x).sum() for x in a)
+    return sum((_acc(x) * _acc(x)).sum() for x in a)
 
 
 class Euclidean(GradientLoss):
@@ -257,7 +371,7 @@ class Euclidean(GradientLoss):
 
 class L1Loss(GradientLoss):
     def gradient_based_loss(self, grads, target_grads):
-        return 0.5 * sum((g - t).abs().sum() for g, t in zip(grads, target_grads)) * self.scale
+        return 0.5 * sum(_acc(g - t).abs().sum() for g, t in zip(grads, target_grads)) * self.scale
 
     def __repr__(self):
         return f"L1 loss with scale={self.scale} and task reg={self.task_regularization}"
@@ -265,12 +379,13 @@ class L1Loss(GradientLoss):
 
 class CosineSimilarity(GradientLoss):
     def gradient_based_loss(self, grads, target_grads):
-        product = sum((g * t).sum() for g, t in zip(grads, target_grads))
-        rec_norm = sum((g * g).sum() for g in grads)
-        data_norm = sum((t * t).sum() for t in target_grads)
+        product = _dot(grads, target_grads)
+        rec_norm = _sqnorm(grads)
+        data_norm = _sqnorm(target_grads)
         return (1.0 - product / (torch.sqrt(rec_norm) * torch.sqrt(data_norm) + 1e-12)) * self.scale
 
     def trial_distances(self, grads, target_grads):
+        grads, target_grads = [_acc(g) for g in grads], [_acc(t) for t in target_grads]
         product = sum(_per_trial_sum(g * t) for g, t in zip(grads, target_grads))
         rec_norm = sum(_per_trial_sum(g * g) for g in grads)
         data_norm = sum(_per_trial_sum(t * t) for t in target_grads)
@@ -303,6 +418,7 @@ class MaskedCosineSimilarity(GradientLoss):
     def gradient_based_loss(self, grads, target_grads):
         product = rec_norm = data_norm = 0.0
         for rec, data in zip(grads, target_grads):
+            rec, data = _acc(rec), _acc(data)
             mask = (data.abs() > self.mask_value).to(rec.dtype)
             product = product + (rec * mask * data).sum()
             rec_norm = rec_norm + ((rec * mask) * (rec * mask)).sum()
@@ -353,7 +469,7 @@ class EuclideanTag(GradientLoss):
         weights = self._weights(len(grads)).tolist()
         total = 0.0
         for rank, g, t in sorted(zip(self.leaf_ranks, grads, target_grads), key=lambda e: e[0]):
-            diff = g - t
+            diff = _acc(g - t)
             total = total + (diff * diff).sum() + self.tag_scale * weights[rank] * diff.abs().sum()
         return 0.5 * total * self.scale
 

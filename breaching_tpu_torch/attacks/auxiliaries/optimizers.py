@@ -90,14 +90,16 @@ class Adam:
     def init(self, x: torch.Tensor) -> dict:
         return dict(count=0, mu=torch.zeros_like(x), nu=torch.zeros_like(x))
 
-    def advance(self, state: dict) -> AdamStep:
-        """Count one step in ``state`` and return its host scalars."""
+    def advance(self, state: dict, dtype: torch.dtype = torch.float32) -> AdamStep:
+        """Count one step in ``state`` and return its host scalars: the bias corrections
+        in float64 for a float64 candidate (optax under x64), else in float32."""
         lr = self.schedule(state["count"])
         state["count"] += 1
-        t = _F32(state["count"])
+        real = np.float64 if dtype == torch.float64 else _F32
+        t = real(state["count"])
         return AdamStep(lr=lr, b1=self.b1, b2=self.b2, eps=self.eps,
-                        bias1=float(_F32(1) - _F32(self.b1) ** t),
-                        bias2=float(_F32(1) - _F32(self.b2) ** t))
+                        bias1=float(real(1) - real(self.b1) ** t),
+                        bias2=float(real(1) - real(self.b2) ** t))
 
 
 class FirstOrder:
@@ -156,6 +158,36 @@ class LBFGS:
         zero = torch.zeros((), dtype=flat.dtype, device=flat.device)
         return dict(pairs=[], h_diag=zero + 1, prev_grad=torch.zeros_like(flat), d=torch.zeros_like(flat),
                     t=zero, n_iter=0, outer=0, t_scale=zero + 1)
+
+    def state_arrays(self, state: dict) -> dict:
+        """The state as named arrays of fixed shapes, as the JAX package's carry holds it:
+        the history of (s, y, rho) in ``history`` rows, oldest first, of which
+        ``pairs`` are valid (the rest zero), ``h_diag``, the last step's gradient,
+        direction and length, the counters and the step scale."""
+        flat = state["prev_grad"]
+        s = torch.zeros(self.history, flat.numel(), dtype=flat.dtype, device=flat.device)
+        y, rho = torch.zeros_like(s), torch.zeros(self.history, dtype=flat.dtype, device=flat.device)
+        for i, (s_i, y_i, rho_i) in enumerate(state["pairs"]):
+            s[i], y[i], rho[i] = s_i, y_i, rho_i
+        return {"history/s": s, "history/y": y, "history/rho": rho, "history/pairs": len(state["pairs"]),
+                "h_diag": state["h_diag"], "prev_grad": flat, "d": state["d"], "t": state["t"],
+                "n_iter": state["n_iter"], "outer": state["outer"], "t_scale": state["t_scale"]}
+
+    @staticmethod
+    def load_state_arrays(state: dict, arrays: dict) -> None:
+        """Restore ``state`` in place from ``state_arrays``' arrays (tensors or numpy)."""
+        device = state["prev_grad"].device
+
+        def tensor(name):
+            return torch.as_tensor(arrays[name], device=device)
+
+        count = int(arrays["history/pairs"])
+        s, y, rho = tensor("history/s"), tensor("history/y"), tensor("history/rho")
+        state["pairs"] = [(s[i].clone(), y[i].clone(), rho[i].clone()) for i in range(count)]
+        for name in ("h_diag", "prev_grad", "d", "t", "t_scale"):
+            state[name] = tensor(name).to(state[name].dtype).clone()
+        for name in ("n_iter", "outer"):
+            state[name] = int(arrays[name])
 
     @staticmethod
     def _two_loop(g, pairs, h_diag):

@@ -27,6 +27,7 @@ import torch
 from torch.func import functional_call
 
 from ..cases.models.model_preparation import head_grads, head_keys
+from ..utils import model_dtype
 from .auxiliaries.initializations import init_candidate
 
 log = logging.getLogger(__name__)
@@ -67,14 +68,17 @@ class _BaseAttacker:
         self.modality = metadata.modality
         if self.modality not in ("vision", "text"):
             raise NotImplementedError(f"{self.modality} attacks are not ported yet.")
+        # the normalization in the model's type: float64 where the JAX package's x64 makes
+        # its mean and std float64
+        stats = dict(dtype=model_dtype(self.setup), device=device)
         if self.modality == "text":
-            self.dm, self.ds = torch.zeros(1, device=device), torch.ones(1, device=device)
+            self.dm, self.ds = torch.zeros(1, **stats), torch.ones(1, **stats)
         elif metadata.get("mean") is not None:
-            self.dm = torch.as_tensor(metadata.mean, dtype=torch.float32, device=device)
-            self.ds = torch.as_tensor(metadata.std, dtype=torch.float32, device=device)
+            self.dm = torch.as_tensor(metadata.mean, **stats)
+            self.ds = torch.as_tensor(metadata.std, **stats)
         else:
-            self.dm = torch.zeros(self.data_shape[0], device=device)
-            self.ds = torch.ones(self.data_shape[0], device=device)
+            self.dm = torch.zeros(self.data_shape[0], **stats)
+            self.ds = torch.ones(self.data_shape[0], **stats)
 
         rec_models = self._construct_models_from_payload_and_buffers(server_payload, shared_data)
         shared_data = self._cast_shared_data(shared_data)
@@ -100,7 +104,7 @@ class _BaseAttacker:
         """Bind payload parameters and the best available buffers: user-shared
         buffers, else server-provided buffers, else the template's, with BatchNorm
         then in train mode (reference base_attack.py:178-203)."""
-        device, dtype = self.setup["device"], self.setup["dtype"]
+        device, dtype = self.setup["device"], model_dtype(self.setup)
         has_batchnorm = any(True for _ in self.model_template.buffers())
         models = []
         for idx, payload in enumerate(server_payload):
@@ -119,6 +123,10 @@ class _BaseAttacker:
         return models
 
     def _cast_shared_data(self, shared_data):
+        """The target gradients in the setup's dtype (reference base_attack.py:105-110):
+        under ``case.impl.dtype=bfloat16`` bfloat16 targets beside the float32 model, whose
+        candidate gradients stay float32 (JAX's promotion of a bfloat16 candidate through
+        float32 parameters); under float64 everything is float64."""
         device, dtype = self.setup["device"], self.setup["dtype"]
         for data in shared_data:
             data["gradients"] = {k: g.to(device=device, dtype=dtype)

@@ -12,7 +12,11 @@ any of them. A dry run stops after stage 0; the result is resized to the full sh
 Resizing is ``augmentations.resize``, the JAX package's ``jax.image.resize``.
 
 An interrupt (``stats["interrupted_at"]``) ends the pyramid at the stage it reached.
-``attack.impl.checkpoint_path`` is refused.
+``attack.impl.checkpoint_path``: every stage runs the base attack with the same file, as
+the JAX package's stages do (breaching_tpu/attacks/multiscale_optimization_attack.py:40-70):
+a stage resumes from a state saved at its own shapes, and a state saved by a stage of
+another size does not fit and is ignored with a warning, so that the stage starts
+afresh (and writes its own state over it).
 """
 
 from __future__ import annotations
@@ -57,9 +61,6 @@ class MultiScaleOptimizationAttacker(OptimizationBasedAttacker):
 
     def _run_all_trials(self, rec_models, shared_data, trial_targets, trial_labels, stats,
                         initial_data, dryrun):
-        if self.cfg.impl.get("checkpoint_path"):
-            raise NotImplementedError("attack.impl.checkpoint_path with the multiscale attack is not ported "
-                                      "yet: each stage's state has its own shape.")
         full_shape = self.data_shape
         if full_shape[1] != full_shape[2]:
             raise ValueError(f"The multiscale attack takes square images, not {full_shape[1:]}.")

@@ -38,45 +38,60 @@ alone (``restarts.num_trials > 1``, and ``reconstruct_fleet``, which stacks
 independent experiments on the trials axis) on images run a batched step: the objective of
 every trial at once (``objectives.trials``), one double backward for all, one TV
 launch and one ``adam_box_step_trials`` launch for all the trials, each trial keeping
-its own best value and iterate. The trials of other optimizers and of
-the joint attack run one after the other through the single step. The trials are
-then scored (``restarts.scoring``: ``cosine-similarity``, ``euclidean`` or TV) and
-the best is returned.
+its own best value and iterate. It takes what the single step takes: BatchNorm in
+train mode (each trial's own batch statistics), the regularizers that read the
+objective's intermediates (returned per trial out of the vmapped objective),
+augmentations (each trial's own draws from its own generators, made outside the vmap
+and applied trial by trial), a fedAVG user's unrolled local steps, and ``grad_accum``.
+The trials of other optimizers and of the joint attack run one after the other
+through the single step. The trials are then scored (``restarts.scoring``:
+``cosine-similarity``, ``euclidean`` or TV) and the best is returned.
 
 Against the fishing server (``server_secrets["ClassAttack"]``) the attack rebuilds the one
 image the server isolated and returns it in the user's batch (``expand_class_attack``).
 
 A fedAVG user's update (a payload whose metadata carries ``local_hyperparams``) is
-matched by the objective's unrolled local steps, and scored the same way; it runs
-one trial, solo: restarts and fleets of such users are refused.
+matched by the objective's unrolled local steps, and scored the same way. Its restarts
+and fleets run the batched step (under L-BFGS one after the other); a fleet's trials
+unroll the local steps under the per-step labels of the payload the attack prepared
+last, as the JAX package's vmapped trials do.
 
 ``augmentations`` (``auxiliaries/augmentations.py``) apply to the candidate inside the
 loss, before the objective and the regularizers that read its intermediates, with
 fresh draws at every step from the trial's own generators (L-BFGS's evaluations
 within a step share them); without ``differentiable_augmentations`` the gradient
-passes straight through. The batched trial step refuses them. Ctrl-C ends the run with
-each trial's best iterate so far and ``stats["interrupted_at"]``.
+passes straight through. Ctrl-C ends the run with each trial's best iterate so far and
+``stats["interrupted_at"]``.
+
+The candidate takes the setup's dtype (``case.impl.dtype``: float32, bfloat16 or
+float64), its best value the type of its loss (float64 for float64, else float32),
+and Adam's moments the candidate's type.
 
 Of ``attack.impl`` the port acts on:
-- ``grad_accum`` (in the objective);
+- ``grad_accum`` and ``dtype`` (in the objective: bfloat16 or float16 run the simulated
+  user pass in that type; float64 and others cast nothing);
+- ``mixed_precision``: the step runs under ``precision.bfloat16_operands``, which
+  rounds every convolution's and matrix product's operands to bfloat16 and accumulates
+  in float32, as the JAX package's ``default_matmul_precision("bfloat16")``; the mode
+  ends with the step;
 - ``checkpoint_path`` and ``checkpoint_every``: every ``checkpoint_every`` read-back
-  chunks the run's state (``_RunState``: the candidate tree, the optimizer's moments
-  and step count, the best iterates and value, and the generators of the Langevin
-  noise and the augmentations) goes to the ``.npz`` file at ``checkpoint_path``
-  (``utils_checkpoint.py``); a run that finds a file that fits its state resumes from
-  it (``stats["resumed_at"]``), a file that does not fit is ignored with a warning.
-  Adam and the first-order optimizers, on one trial or on the batched trial step (the
-  fleet too); L-BFGS, whose history is not saved, trials run one after the other and
-  the multiscale attack refuse ``checkpoint_path``;
+  chunks the run's state (``_RunState``: the candidate tree, the optimizer's state
+  (Adam's moments and step count; L-BFGS's history, ``h_diag``, last direction and
+  counters, ``LBFGS.state_arrays``), the best iterates and value, and the generators of
+  the Langevin noise and the augmentations) goes to the ``.npz`` file at
+  ``checkpoint_path`` (``utils_checkpoint.py``); a run that finds a file that fits its
+  state resumes from it (``stats["resumed_at"]``), a file that does not fit is ignored
+  with a warning. Trials run one after the other keep one section of the file each
+  (``trial<t>/``), so that the file holds every trial, as the JAX package's carry does;
 - ``trace_dir``: the second read-back chunk of the run (the first after warm-up) runs
   under ``torch.profiler`` and is written as a Chrome trace into ``trace_dir``
   (``stats["trace_file"]``).
-It refuses, by name, the knobs the JAX package acts on and the port does not:
-``mixed_precision``, ``sharding`` and a ``dtype`` of bfloat16, float16 or float64.
+It refuses ``sharding`` by name: the port runs on one device.
 """
 
 from __future__ import annotations
 
+import contextlib
 import logging
 import os
 import time
@@ -87,9 +102,11 @@ import torch
 from .. import utils_checkpoint
 from ..ops import adam_box_step, adam_box_step_trials, box_project, sign, soft_sign_scalars
 from ..ops.image import soft_sign_plain
+from ..ops.matching import acc_dtype
 from .auxiliaries.augmentations import augmentation_lookup
 from .auxiliaries.objectives import CosineSimilarity, Euclidean, objective_lookup
 from .auxiliaries.optimizers import Adam, LBFGS, make_schedule, optimizer_lookup
+from .auxiliaries.precision import bfloat16_operands
 from .auxiliaries.regularizers import CAPTURING, TotalVariation, regularizer_lookup
 from .base_attack import _BaseAttacker
 
@@ -133,14 +150,8 @@ class OptimizationBasedAttacker(_BaseAttacker):
         if signed not in (None, False, True, "hard", "soft"):
             raise NotImplementedError(f"Gradient transform signed={signed} is not ported yet.")
         impl = self.cfg.get("impl") or {}
-        for knob, value in (("mixed_precision", impl.get("mixed_precision")), ("sharding", impl.get("sharding")),
-                            ("dtype", str(impl.get("dtype", "float")) in ("bfloat16", "bf16", "float16", "fp16",
-                                                                          "float64", "double"))):
-            if value:  # the JAX package acts on each of these; the port would run without it
-                raise NotImplementedError(f"attack.impl.{knob}={impl.get(knob)} is not ported yet.")
-        if impl.get("checkpoint_path") and isinstance(self._optimizer(1), LBFGS):
-            raise NotImplementedError("attack.impl.checkpoint_path with L-BFGS is not ported yet: its history "
-                                      "is not saved.")
+        if impl.get("sharding"):  # the JAX package shards the attack over a mesh; the port runs on one device
+            raise NotImplementedError(f"attack.impl.sharding={impl.get('sharding')} is not ported yet.")
         self._noise_generators = {}
 
     def __repr__(self):
@@ -184,9 +195,6 @@ class OptimizationBasedAttacker(_BaseAttacker):
         each experiment's selected value in ``stats["fleet_opt_values"]``."""
         if not self.supports_fleet:
             raise NotImplementedError(f"Fleets are not ported for {self.__class__.__name__}.")
-        if any(data["metadata"].get("local_hyperparams") is not None
-               for shared in shared_lists for data in shared):
-            raise NotImplementedError("Fleets of fedAVG users are not ported yet; attack each solo.")
         ref_params = payload_lists[0][0]["parameters"]
         for payloads in payload_lists[1:]:
             params = payloads[0]["parameters"]
@@ -305,15 +313,28 @@ class OptimizationBasedAttacker(_BaseAttacker):
         return [augmentation.sample(shape, generators[1] if augmentation.host_draws else generators[0])
                 for augmentation in self.augmentations]
 
-    def _trial_losses(self, candidates, params, rec_models, targets, labels):
+    def _trial_losses(self, candidates, params, rec_models, targets, labels, draws=None):
         """``_loss`` of T trials at once, each against its own targets and labels: (T,)
         values and task losses for candidates (T, N, C, H, W), ``targets`` one tuple of
-        (T, ...) target gradients per query and ``labels`` (T, N)."""
-        total, task_total = 0.0, 0.0
+        (T, ...) target gradients per query and ``labels`` (T, N). With augmentations,
+        ``draws`` holds each trial's draws, applied trial by trial; the regularizers that
+        read the objective's intermediates take each trial's, which the objective returns
+        stacked on the trials axis."""
+        matched = candidates
+        if self.augmentations:
+            matched = torch.stack([self._augment(c, d) for c, d in zip(candidates.unbind(), draws)])
+        inner, outer = self._split_regularizers()
+        total, task_total, intermediates = 0.0, 0.0, []
         for p, model, target in zip(params, rec_models, targets):
-            obj, task = self.objective.trials(p, model.buffers, target, candidates, labels)
+            captured = {} if inner else None
+            obj, task = self.objective.trials(p, model.buffers, target, matched, labels, bn_train=model.bn_train,
+                                              capture=captured)
             total, task_total = total + obj, task_total + task
-        for reg in self.regularizers:
+            intermediates.append(captured)
+        for reg in inner:
+            total = total + torch.stack([reg(m, [_trial_slice(c, t) for c in intermediates])
+                                         for t, m in enumerate(matched.unbind())])
+        for reg in outer:
             total = total + reg.trials(candidates)
         return total, task_total
 
@@ -342,9 +363,6 @@ class OptimizationBasedAttacker(_BaseAttacker):
             else len(trial_labels[0])
 
         local_hyperparams = self._local_hyperparams(metadata)
-        if local_hyperparams is not None and num_trials > 1:
-            raise NotImplementedError("Restarts of a fedAVG user's attack are not ported yet; "
-                                      "set attack.restarts.num_trials=1.")
         self.objective.initialize(self.loss_fn, rec_models[0].module, local_hyperparams, self.cfg.impl)
         for reg in self.regularizers:
             reg.initialize(rec_models, shared_data, trial_labels[0])
@@ -353,31 +371,22 @@ class OptimizationBasedAttacker(_BaseAttacker):
         if initial_data is not None:
             tree["data"] = torch.as_tensor(initial_data, dtype=tree["data"].dtype,
                                            device=tree["data"].device).expand_as(tree["data"])
-        box = (-self.dm / self.ds).contiguous(), ((1 - self.dm) / self.ds).contiguous()
+        dtype = tree["data"].dtype
+        box = ((-self.dm / self.ds).to(dtype).contiguous(), ((1 - self.dm) / self.ds).to(dtype).contiguous())
         adam = isinstance(self._optimizer(max_iterations), Adam)
         if num_trials > 1 and self.batched_trials and adam and list(tree) == ["data"] and self.modality == "vision":
-            if any(model.bn_train for model in rec_models):
-                raise NotImplementedError("BatchNorm in train mode is not ported under the batched "
-                                          "trial step; the server must share its buffers.")
-            if self._split_regularizers()[0]:
-                raise NotImplementedError("Regularizers that read the model's intermediates are not "
-                                          "ported under the batched trial step; run one trial.")
-            if self.augmentations:
-                raise NotImplementedError("Augmentations are not ported under the batched trial step "
-                                          "(each trial would need its own draws); run one trial.")
             targets = [tuple(torch.stack(ts) for ts in zip(*query)) for query in zip(*trial_targets)]
             best, values = self._run_trials_batched(tree["data"].clone(memory_format=torch.contiguous_format),
                                                     rec_models, targets, torch.stack(trial_labels), stats,
                                                     max_iterations, box)
             return dict(data=best), values
         if num_trials > 1:
-            if self.cfg.impl.get("checkpoint_path"):
-                raise NotImplementedError(f"attack.impl.checkpoint_path with {num_trials} trials run one after "
-                                          f"the other is not ported yet; the batched trial step takes it.")
             log.info(f"The {num_trials} trials run one after the other through the single step "
                      f"({self.cfg.optim.optimizer}{'' if adam else ' has no batched step'}).")
+        # trials one after the other keep a section each of one checkpoint file
         runs = [self._run_trial({k: v[t].clone() for k, v in tree.items()}, t, rec_models, trial_targets[t],
-                                trial_labels[t], stats, max_iterations, box)
+                                trial_labels[t], stats, max_iterations, box,
+                                section=f"trial{t}" if num_trials > 1 else None)
                 for t in range(num_trials)]
         return ({k: torch.stack([best[k] for best, _ in runs]) for k in tree},
                 np.asarray([value for _, value in runs]))
@@ -424,13 +433,17 @@ class OptimizationBasedAttacker(_BaseAttacker):
                            dtype=like.dtype)
 
     def _run_state(self, tree, states, best, best_vals, device, generators=None):
-        """The ``_RunState`` of a run: the candidate tree, each leaf's optimizer state,
-        the best iterates, the current best value(s), and the generators that draw in
-        the loop (the Langevin noise's, made here if the run draws it, and the
-        augmentations' ``generators``)."""
+        """The ``_RunState`` of a run: the candidate tree, the optimizer's state (each
+        leaf's, or with ``states`` an ``_LBFGSState`` the flat L-BFGS state's named
+        arrays), the best iterates, the current best value(s), and the generators that
+        draw in the loop (the Langevin noise's, made here if the run draws it, and the
+        augmentations' ``generators``, a flat list of them)."""
         state = _RunState()
         state.add_tree("tree", tree)
-        state.add_tree("optimizer", states)
+        if isinstance(states, _LBFGSState):
+            state.add_accessor("optimizer/lbfgs", states)
+        else:
+            state.add_tree("optimizer", states)
         state.add_tree("best", best)
         state.add("best_value", best_vals, 0)
         if float(self.cfg.optim.langevin_noise or 0.0) > 0:
@@ -463,13 +476,17 @@ class OptimizationBasedAttacker(_BaseAttacker):
             grad = sign(grad)
         return grad
 
-    def _run_trial(self, tree, trial, rec_models, targets, labels, stats, max_iterations, box):
-        """One trial through the single step. Returns its best iterate and best value."""
+    def _run_trial(self, tree, trial, rec_models, targets, labels, stats, max_iterations, box, section=None):
+        """One trial through the single step; ``section`` names its part of a checkpoint
+        file shared with other trials. Returns its best iterate and best value."""
         optimizer = self._optimizer(max_iterations)
         best = {k: v.clone() for k, v in tree.items()}
         # the step reads one and writes the other; they swap after every step
-        device = tree["data"].device
-        best_vals = [torch.tensor(float("inf"), device=device), torch.empty((), device=device)]
+        # the loss and best value in the candidate's accumulation type (a half-precision
+        # candidate's loss is float32)
+        device, vtype = tree["data"].device, acc_dtype(tree["data"])
+        best_vals = [torch.tensor(float("inf"), dtype=vtype, device=device),
+                     torch.empty((), dtype=vtype, device=device)]
         boxed = bool(self.cfg.optim.boxed)
         generators = self._augmentation_generators(device) if self.augmentations else None
         # the augmentations' draws of the current step; L-BFGS's evaluations within a
@@ -483,7 +500,7 @@ class OptimizationBasedAttacker(_BaseAttacker):
         states = None
         if isinstance(optimizer, Adam):
             states = {k: optimizer.init(v) for k, v in tree.items()}
-            no_box = torch.zeros(1, device=device)
+            no_box = {k: torch.zeros(1, dtype=v.dtype, device=device) for k, v in tree.items()}
 
             def step(iteration):
                 value, task_loss, grads = self._value_and_grad(tree, rec_models, targets, labels, stats, draw())
@@ -494,9 +511,9 @@ class OptimizationBasedAttacker(_BaseAttacker):
                     image = leaf.dim() == 4  # the data; other leaves as one row, unboxed
                     view = (lambda t: t) if image else (lambda t: t.view(1, 1, 1, -1))
                     adam_box_step(view(leaf), view(grad.contiguous()), view(states[k]["mu"]),
-                                  view(states[k]["nu"]), view(best[k]), *(box if image else (no_box, no_box)),
-                                  value, *best_vals, optimizer.advance(states[k]), signed=mode,
-                                  boxed=boxed and image and k == "data", soft_scale=soft)
+                                  view(states[k]["nu"]), view(best[k]), *(box if image else (no_box[k], no_box[k])),
+                                  value.to(vtype), *best_vals, optimizer.advance(states[k], leaf.dtype),
+                                  signed=mode, boxed=boxed and image and k == "data", soft_scale=soft)
                 if boxed:
                     self._project_accepted(tree, value)
                 best_vals.reverse()
@@ -517,6 +534,7 @@ class OptimizationBasedAttacker(_BaseAttacker):
                 return value, flatten(grads)
 
             state = optimizer.init(flatten(tree))
+            states = _LBFGSState(optimizer, state)
 
             def step(iteration):
                 # L-BFGS takes the untransformed gradient: its curvature pairs compare it
@@ -538,8 +556,8 @@ class OptimizationBasedAttacker(_BaseAttacker):
                 return value, task_loss
 
         history = stats.setdefault(f"Trial_{trial}_Val", [])
-        run_state = None if states is None else self._run_state(tree, states, best, best_vals, device, generators)
-        self._optimize(step, [history], max_iterations, stats, run_state)
+        run_state = self._run_state(tree, states, best, best_vals, device, generators)
+        self._optimize(step, [history], max_iterations, stats, run_state, section)
         if history and not np.isfinite(history[-1]):
             # a step whose loss is not finite keeps its candidate: this is where the loss
             # turned non-finite, kept so that the cause can be looked at
@@ -554,6 +572,7 @@ class OptimizationBasedAttacker(_BaseAttacker):
         the step if the loss is finite and below the best value."""
         if boxed:
             new = self._project_tree(new, box)
+        value = value.to(best_vals[0].dtype)
         finite = torch.isfinite(value)
         improved = finite & (value < best_vals[0])
         for k, leaf in tree.items():
@@ -572,41 +591,49 @@ class OptimizationBasedAttacker(_BaseAttacker):
         optimizer = self._optimizer(max_iterations)
         state = optimizer.init(candidate)
         best = candidate.clone()
-        best_vals = [torch.full((num_trials,), float("inf"), device=candidate.device),
-                     torch.empty(num_trials, device=candidate.device)]
+        vtype = acc_dtype(candidate)
+        best_vals = [torch.full((num_trials,), float("inf"), dtype=vtype, device=candidate.device),
+                     torch.empty(num_trials, dtype=vtype, device=candidate.device)]
         # the user gradient is taken inside the objective: the outer graph needs no parameter
         params = [{k: v.detach() for k, v in model.params.items()} for model in rec_models]
+        # each trial's augmentation generators, in trial order: a trial's draws are the ones
+        # it would make through the single step
+        generators = [self._augmentation_generators(candidate.device) for _ in range(num_trials)] \
+            if self.augmentations else []
 
         def step(iteration):
             x = candidate.detach().requires_grad_(True)
-            value, task_loss = self._trial_losses(x, params, rec_models, targets, labels)
+            draws = [self._draw_augmentations(x.shape[1:], pair) for pair in generators] or None
+            value, task_loss = self._trial_losses(x, params, rec_models, targets, labels, draws)
             grad, = torch.autograd.grad(value.sum(), x)
             stats["objective_evaluations"] = stats.get("objective_evaluations", 0) + num_trials
             grad = self.transform_grads(grad, iteration, max_iterations, with_sign=False, per_trial=True)
-            value = value.detach()
+            value = value.detach().to(vtype)
             mode = self._sign_mode()
             adam_box_step_trials(candidate, grad.contiguous(), state["mu"], state["nu"], best,
-                                 *box, value, *best_vals, optimizer.advance(state), signed=mode,
+                                 *box, value, *best_vals, optimizer.advance(state, candidate.dtype), signed=mode,
                                  boxed=bool(cfg_optim.boxed),
                                  soft_scale=soft_sign_scalars(iteration, max_iterations) if mode == "soft" else None)
             best_vals.reverse()
             return value, task_loss
 
         run_state = self._run_state(dict(data=candidate), dict(data=state), dict(data=best), best_vals,
-                                    candidate.device)
+                                    candidate.device, [g for pair in generators for g in pair])
         self._optimize(step, [stats.setdefault(f"Trial_{t}_Val", []) for t in range(num_trials)],
                        max_iterations, stats, run_state)
         return best, best_vals[0].cpu().numpy()
 
-    def _optimize(self, step, histories, max_iterations, stats, run_state=None):
+    def _optimize(self, step, histories, max_iterations, stats, run_state=None, section=None):
         """Run ``step`` (which takes the iteration and returns the loss and task loss, a
         value per trial) until ``max_iterations`` or until no trial's loss is finite,
         reading the losses back into each trial's history every ``optim.callback`` steps.
 
         With ``attack.impl.checkpoint_path``, ``run_state`` (a ``_RunState``) is first
-        restored from the file where it fits, and the run goes on from the iteration
-        saved; it is saved there after every ``checkpoint_every`` chunks. With
-        ``trace_dir``, the second chunk runs under the profiler.
+        restored from the file (from its ``section``, where trials share the file) where
+        it fits, and the run goes on from the iteration saved; it is saved there after
+        every ``checkpoint_every`` chunks. With ``trace_dir``, the second chunk runs under
+        the profiler. With ``mixed_precision`` every step runs under
+        ``bfloat16_operands``.
 
         A ``KeyboardInterrupt`` ends the run: the losses of the steps done are read back,
         ``stats["interrupted_at"]`` holds the number of steps done, and the trials keep
@@ -617,8 +644,9 @@ class OptimizationBasedAttacker(_BaseAttacker):
         path, every, trace_dir = impl.get("checkpoint_path"), int(impl.get("checkpoint_every", 0) or 0), \
             impl.get("trace_dir")
         iteration, chunks, wallclock = 0, 0, time.time()
+        in_section = {} if section is None else dict(section=section)
         if path:
-            restored = utils_checkpoint.load_attack_state(path, run_state.arrays())
+            restored = utils_checkpoint.load_attack_state(path, run_state.arrays(), **in_section)
             if restored is not None:
                 arrays, iteration = restored
                 run_state.restore(arrays)
@@ -632,11 +660,14 @@ class OptimizationBasedAttacker(_BaseAttacker):
             values.clear()
             return done
 
+        precision = bfloat16_operands if impl.get("mixed_precision") else contextlib.nullcontext
+
         def chunk():
             nonlocal iteration
             task_losses = []
             for _ in range(min(callback, max_iterations - iteration)):
-                value, task_loss = step(iteration)
+                with precision():
+                    value, task_loss = step(iteration)
                 values.append(value)
                 task_losses.append(task_loss)
                 iteration += 1
@@ -655,7 +686,7 @@ class OptimizationBasedAttacker(_BaseAttacker):
                          f"{done.size / max(now - wallclock, 1e-9):,.1f} it/s")
                 wallclock = now
                 if path and every and chunks % every == 0:
-                    utils_checkpoint.save_attack_state(path, run_state.arrays(), iteration)
+                    utils_checkpoint.save_attack_state(path, run_state.arrays(), iteration, **in_section)
                 if not np.isfinite(done[-1]).any():
                     log.info(f"Recovery loss is non-finite in iteration {iteration}. "
                              f"Cancelling reconstruction!")
@@ -727,15 +758,47 @@ class OptimizationBasedAttacker(_BaseAttacker):
         return {k: torch.zeros_like(v[0]) for k, v in best_trials.items()}
 
 
+def _trial_slice(tree, t):
+    """Trial t's entries of a tree (dicts, tuples, lists) of tensors stacked on the
+    trials axis; None stays None."""
+    if tree is None:
+        return None
+    if isinstance(tree, torch.Tensor):
+        return tree[t]
+    if isinstance(tree, dict):
+        return {k: _trial_slice(v, t) for k, v in tree.items()}
+    return type(tree)(_trial_slice(v, t) for v in tree)
+
+
+class _LBFGSState:
+    """An L-BFGS run's state as a ``_RunState`` accessor: its named arrays
+    (``LBFGS.state_arrays``) and their restore."""
+
+    def __init__(self, optimizer, state):
+        self.optimizer, self.state = optimizer, state
+
+    def get(self):
+        return self.optimizer.state_arrays(self.state)
+
+    def set(self, arrays):
+        self.optimizer.load_state_arrays(self.state, arrays)
+
+
 class _RunState:
     """What a checkpoint holds of a run: named slots (container, key), each holding a
-    tensor (restored in place), an int (an optimizer's step count) or a generator."""
+    tensor (restored in place), an int (an optimizer's step count) or a generator, and
+    accessors whose ``get`` gives named arrays under a prefix and whose ``set`` takes
+    them back."""
 
     def __init__(self):
         self.slots = {}
+        self.accessors = {}
 
     def add(self, name, container, key):
         self.slots[name] = (container, key)
+
+    def add_accessor(self, prefix, accessor):
+        self.accessors[prefix] = accessor
 
     def add_tree(self, prefix, tree):
         for key, value in tree.items():
@@ -755,9 +818,16 @@ class _RunState:
                 out[name] = value.get_state().numpy()
             else:
                 out[name] = np.asarray(value)
+        for prefix, accessor in self.accessors.items():
+            for name, value in accessor.get().items():
+                out[f"{prefix}/{name}"] = value.detach().cpu().numpy() if isinstance(value, torch.Tensor) \
+                    else np.asarray(value)
         return out
 
     def restore(self, arrays: dict) -> None:
+        for prefix, accessor in self.accessors.items():
+            accessor.set({name[len(prefix) + 1:]: value for name, value in arrays.items()
+                          if name.startswith(prefix + "/")})
         for name, (container, key) in self.slots.items():
             value, saved = container[key], arrays[name]
             if isinstance(value, torch.Tensor):

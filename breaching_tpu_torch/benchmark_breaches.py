@@ -42,7 +42,7 @@ def main_process(cfg, device="cuda", outputs=None):
     model, loss_fn = breaching.cases.construct_model(cfg.case.model, cfg.case.data,
                                                      pretrained=cfg.case.server.pretrained,
                                                      generator=setup["generator"])
-    model.to(device=setup["device"], dtype=setup["dtype"])
+    model.to(device=setup["device"], dtype=breaching.utils.model_dtype(setup))
     server = breaching.cases.construct_server(model, loss_fn, cfg.case, setup)
     model = server.vet_model(model)
     attacker = breaching.attacks.prepare_attack(model, loss_fn, cfg.attack, setup)

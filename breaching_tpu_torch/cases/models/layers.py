@@ -120,6 +120,13 @@ class LayerNorm(nn.Module):
         yield f"params/{prefix}/bias", self.bias, None
 
 
+# ``train=TRIALS``: BatchNorm normalizes by the batch's statistics and leaves its running
+# statistics unwritten. Under ``torch.func.vmap`` over the attack's trials each trial has its
+# own batch statistics, which no buffer of the shared model could take (the JAX package's
+# vmap returns its updated statistics unused).
+TRIALS = "trials"
+
+
 class BatchNorm(nn.Module):
     """BatchNorm over dim 1 with cumulative running statistics."""
 
@@ -142,17 +149,21 @@ class BatchNorm(nn.Module):
             var = (x * x).mean(dim=axes) - mean * mean
             if capture is not None:
                 capture.setdefault("bn_stats", {})[self.name] = (mean, var)
-            with torch.no_grad():  # in place: the caller owns the buffers it passes
-                n = self.num_batches_tracked
-                count = x.numel() // x.shape[1]
-                unbiased = var * count / max(count - 1, 1)
-                self.running_mean.copy_((self.running_mean * n + mean) / (n + 1))
-                self.running_var.copy_((self.running_var * n + unbiased) / (n + 1))
-                self.num_batches_tracked.add_(1)
+            if train != TRIALS:
+                self._update_running_stats(x, mean, var)
         else:
             mean, var = self.running_mean, self.running_var
         y = (x - mean.reshape(shape)) * torch.rsqrt(var + self.eps).reshape(shape)
         return y * self.weight.reshape(shape) + self.bias.reshape(shape)
+
+    def _update_running_stats(self, x, mean, var):
+        with torch.no_grad():  # in place: the caller owns the buffers it passes
+            n = self.num_batches_tracked
+            count = x.numel() // x.shape[1]
+            unbiased = var * count / max(count - 1, 1)
+            self.running_mean.copy_((self.running_mean * n + mean) / (n + 1))
+            self.running_var.copy_((self.running_var * n + unbiased) / (n + 1))
+            self.num_batches_tracked.add_(1)
 
 
 def max_pool(x: torch.Tensor, window: int, stride: int | None = None, padding: int = 0) -> torch.Tensor:

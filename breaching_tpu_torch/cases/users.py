@@ -51,6 +51,7 @@ import numpy as np
 import torch
 from torch.func import functional_call
 
+from ..utils import model_dtype
 from .data import construct_dataloader
 
 log = logging.getLogger(__name__)
@@ -219,14 +220,14 @@ class UserSingleStep:
         return shared_data, true_user_data
 
     def _user_tensors(self, custom_data):
-        """The user's inputs (images in the setup's dtype, token ids as int64) and labels on
+        """The user's inputs (images in ``utils.model_dtype``, token ids as int64) and labels on
         its device."""
         data = self._load_data() if custom_data is None else custom_data
         device = self.setup["device"]
         if "input_ids" in data:
             inputs = torch.as_tensor(data["input_ids"], dtype=torch.int64, device=device)
         else:
-            inputs = torch.as_tensor(data["inputs"], dtype=self.setup["dtype"], device=device)
+            inputs = torch.as_tensor(data["inputs"], dtype=model_dtype(self.setup), device=device)
         return inputs, torch.as_tensor(data["labels"], dtype=torch.int64, device=device)
 
     def _local_buffers(self, buffers):

@@ -21,10 +21,16 @@ KERNELS = {
 def reset_launch_counts() -> None:
     for wrapper in KERNELS.values():
         wrapper.launches = 0
+        wrapper.launches_by_type = {}
 
 
 def launch_counts() -> dict:
     return {name: wrapper.launches for name, wrapper in KERNELS.items()}
+
+
+def launch_counts_by_type() -> dict:
+    """"<kernel> <types>" -> launches, e.g. "b1_matching_sums bf16-f32": each form's count."""
+    return {f"{name} {types}": n for name, wrapper in KERNELS.items() for types, n in wrapper.launches_by_type.items()}
 
 
 __all__ = [
@@ -39,6 +45,7 @@ __all__ = [
     "fused_cosine_similarity_trials",
     "fused_euclidean",
     "launch_counts",
+    "launch_counts_by_type",
     "matching_sums",
     "reset_launch_counts",
     "sign",

@@ -157,6 +157,18 @@ def op(name: str):
     return fn
 
 
+_TYPE_NAMES = {torch.float32: "f32", torch.float64: "f64", torch.bfloat16: "bf16", torch.float16: "f16"}
+
+
+def count_launch(wrapper, *tensors) -> None:
+    """One launch of ``wrapper``'s kernel: its ``launches`` count, and its count by the
+    element types of ``tensors`` in ``launches_by_type`` (e.g. "bf16-f32"), the form
+    of the kernel that ran."""
+    wrapper.launches += 1
+    key = "-".join(_TYPE_NAMES.get(t.dtype, str(t.dtype)) for t in tensors)
+    wrapper.launches_by_type[key] = wrapper.launches_by_type.get(key, 0) + 1
+
+
 def require_cpu(name: str, *tensors) -> None:
     """The plain version's guard: raises unless every tensor lies on the CPU (every
     wrapper sends CUDA tensors to its dispatcher op before this)."""

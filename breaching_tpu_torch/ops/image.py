@@ -25,11 +25,20 @@ is NHWC, so the TV stencil runs along dims 3 and 2 here). Kernels
   need not round as PyTorch's tanh does; on the H100 it gave the plain version's bits
   at every shape ``chip_smoke.py`` checks.
 
+``tv_value_and_grad`` (and its trials form), ``box_project`` and ``adam_box_step`` (and
+its trials form) also take float64 and bfloat16 candidates (``case.impl.dtype``), in forms
+of csrc/precision.cu: float64 is summed and multiplied in float64; bfloat16 is widened
+to float32, computed and summed there, and rounded back on store (Adam's moments too,
+which stay in the candidate's type as optax keeps them). The plain versions do the same
+(``matching.acc_dtype``). ``adam_box_step``'s loss and best values are then in the candidate's
+accumulation type, float64 or float32. ``tv_forward`` stays float32 only.
+
 Each wrapper sends CUDA tensors to its kernel's op in PyTorch's dispatcher
 (``torch.ops.breaching.*``, csrc/bindings.cpp), which checks shapes, devices, dtypes
 and contiguity in C++ and raises for what the kernel does not take, and counts the
-launch in its ``launches`` attribute; it runs the plain PyTorch version (``*_plain``)
-only for CPU tensors, and raises for anything else.
+launch in its ``launches`` attribute (and by the element types in ``launches_by_type``);
+it runs the plain PyTorch version (``*_plain``) only for CPU tensors, and raises for
+anything else.
 """
 
 from __future__ import annotations
@@ -40,6 +49,7 @@ import numpy as np
 import torch
 
 from . import _build
+from .matching import acc_dtype
 
 
 def sign(x: torch.Tensor) -> torch.Tensor:
@@ -80,7 +90,7 @@ def tv_forward(images, inner_exp=1.0, outer_exp=1.0, eps=1e-8):
     """Mean of ((|dx|+eps)^p + (|dy|+eps)^p)^q over an NCHW batch, as a 0-dim tensor."""
     if images.is_cuda:
         out = _build.op("tv_forward")(images, inner_exp, outer_exp, eps, _tv_workspace(images.get_device()))
-        tv_forward.launches += 1
+        _build.count_launch(tv_forward, images)
         return out
     _check_images("tv_forward", images)
     _build.require_cpu("tv_forward", images)
@@ -88,6 +98,7 @@ def tv_forward(images, inner_exp=1.0, outer_exp=1.0, eps=1e-8):
 
 
 tv_forward.launches = 0
+tv_forward.launches_by_type = {}
 
 
 def tv_backward_plain(images, upstream, inner_exp=1.0, outer_exp=1.0, eps=1e-8):
@@ -120,8 +131,10 @@ def tv_backward(images, upstream, inner_exp=1.0, outer_exp=1.0, eps=1e-8):
 
 
 def tv_value_and_grad_plain(images, scale, inner_exp=1.0, outer_exp=1.0, eps=1e-8):
-    return (tv_forward_plain(images, inner_exp, outer_exp, eps) * scale.reshape(()),
-            tv_backward_plain(images, scale, inner_exp, outer_exp, eps))
+    wide = acc_dtype(images)
+    x, s = images.to(wide), scale.to(wide)
+    return ((tv_forward_plain(x, inner_exp, outer_exp, eps) * s.reshape(())).to(images.dtype),
+            tv_backward_plain(x, s, inner_exp, outer_exp, eps).to(images.dtype))
 
 
 def tv_value_and_grad_trials_plain(images, scale, inner_exp=1.0, outer_exp=1.0, eps=1e-8):
@@ -164,7 +177,7 @@ def _tv_launch(images, scale, inner_exp, outer_exp, eps, segments):
     segments = 0, the whole batch) and the gradient."""
     out = _build.op("tv_value_and_grad")(images, scale, inner_exp, outer_exp, eps, segments,
                                          _tv_workspace(images.get_device()))
-    tv_value_and_grad.launches += 1
+    _build.count_launch(tv_value_and_grad, images)
     return out
 
 
@@ -185,6 +198,7 @@ def tv_value_and_grad(images, scale, inner_exp=1.0, outer_exp=1.0, eps=1e-8):
 
 
 tv_value_and_grad.launches = 0
+tv_value_and_grad.launches_by_type = {}
 
 
 def tv_value_and_grad_trials(images, scale, inner_exp=1.0, outer_exp=1.0, eps=1e-8):
@@ -274,7 +288,7 @@ def box_project(x, lo, hi, out=None):
             out = _build.op("box_project")(x, lo, hi)
         else:
             _build.op("box_project_out")(x, lo, hi, out)
-        box_project.launches += 1
+        _build.count_launch(box_project, x)
         return out
     _check_box("box_project", x, lo, hi)
     if out is not None and out.shape != x.shape:
@@ -284,6 +298,7 @@ def box_project(x, lo, hi, out=None):
 
 
 box_project.launches = 0
+box_project.launches_by_type = {}
 
 
 class AdamStep(NamedTuple):
@@ -326,13 +341,15 @@ def _sign_mode(signed, soft_scale):
 def adam_box_step_plain(x, grad, mu, nu, best, lo, hi, value, best_val, new_best_val, step,
                         signed=True, boxed=True, soft_scale=None):
     mode = _sign_mode(signed, soft_scale)
+    wide = acc_dtype(x)  # a half-precision candidate is computed in float32, stored rounded
+    grad = grad.to(wide)
     sign_grad = sign(grad) if mode == 1 else soft_sign_plain(grad, soft_scale) if mode == 4 else grad
-    mu.copy_((1 - step.b1) * sign_grad + step.b1 * mu)
-    nu.copy_((1 - step.b2) * (sign_grad * sign_grad) + step.b2 * nu)
+    mu.copy_((1 - step.b1) * sign_grad + step.b1 * mu.to(wide))
+    nu.copy_((1 - step.b2) * (sign_grad * sign_grad) + step.b2 * nu.to(wide))
     # divide by tensors: CUDA divides by a host scalar as a product with its reciprocal
-    bias1 = torch.full((), step.bias1, dtype=x.dtype, device=x.device)
-    bias2 = torch.full((), step.bias2, dtype=x.dtype, device=x.device)
-    new = x + (-step.lr) * ((mu / bias1) / (torch.sqrt(nu / bias2) + step.eps))
+    bias1 = torch.full((), step.bias1, dtype=wide, device=x.device)
+    bias2 = torch.full((), step.bias2, dtype=wide, device=x.device)
+    new = (x.to(wide) + (-step.lr) * ((mu.to(wide) / bias1) / (torch.sqrt(nu.to(wide) / bias2) + step.eps))).to(x.dtype)
     if boxed:
         new = box_project_plain(new, lo, hi)
     finite = torch.isfinite(value)
@@ -358,7 +375,7 @@ def _adam_launch(x, grad, mu, nu, best, lo, hi, values, best_vals, new_best_vals
     s, div = soft_scale if mode == 4 else (1.0, 1.0)
     _build.op("adam_box_step")(x, grad, mu, nu, best, lo, hi, values, best_vals, new_best_vals, *step, s, div,
                                mode | int(boxed) << 1)
-    adam_box_step.launches += 1
+    _build.count_launch(adam_box_step, x)
 
 
 def _check_adam(name, x, grad, mu, nu, best, lo, hi, values, best_vals, new_best_vals, stacked):
@@ -403,6 +420,7 @@ def adam_box_step(x, grad, mu, nu, best, lo, hi, value, best_val, new_best_val, 
 
 
 adam_box_step.launches = 0
+adam_box_step.launches_by_type = {}
 
 
 def adam_box_step_trials(x, grad, mu, nu, best, lo, hi, values, best_vals, new_best_vals, step,

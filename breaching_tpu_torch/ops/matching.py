@@ -18,11 +18,20 @@ Counterpart of ``breaching_tpu/ops/matching.py``. Kernels (``csrc/matching.cu``)
 B1 gives 0.5 (|r|^2 - 2 <r, d> + |d|^2) and ``axpby(g, rec, -g, data)`` its gradient
 with respect to rec, one launch of each per evaluation.
 
+Each kernel also has forms in other element types (csrc/precision.cu), for the
+attack's precision knobs: B1, ``axpby`` and the cosine backward take a bfloat16 or
+float16 gradient beside a float32 or bfloat16 target (``attack.impl.dtype``), summed in
+float32, or float64 throughout (``case.impl.dtype=float64``), summed in float64. The
+sums, the cosine's value and the scalars a, b, g are in the accumulation type
+(``acc_dtype``); a gradient comes out in its vector's own type. The plain versions widen
+half-precision operands to float32 the same way.
+
 Each wrapper sends CUDA tensors to its kernel's op in PyTorch's dispatcher
 (``torch.ops.breaching.*``, csrc/bindings.cpp), which checks shapes, devices, dtypes
 and contiguity in C++ and raises for what the kernel does not take, and counts the
-launch in its ``launches`` attribute; it runs the plain PyTorch version (``*_plain``)
-only for CPU tensors, and raises for anything else.
+launch in its ``launches`` attribute (and by the element types in ``launches_by_type``);
+it runs the plain PyTorch version (``*_plain``) only for CPU tensors, and raises for
+anything else.
 """
 
 from __future__ import annotations
@@ -32,19 +41,28 @@ import torch
 from . import _build
 
 
+def acc_dtype(x: torch.Tensor) -> torch.dtype:
+    """The type the kernels sum and scale ``x``'s elements in: float64 for float64, else
+    float32."""
+    return torch.float64 if x.dtype == torch.float64 else torch.float32
+
+
 def matching_sums_plain(rec: torch.Tensor, data: torch.Tensor) -> torch.Tensor:
+    acc = acc_dtype(rec)
+    rec, data = rec.to(acc), data.to(acc)
     return torch.stack([(rec * data).sum(), (rec * rec).sum(), (data * data).sum()])
 
 
 def matching_sums(rec: torch.Tensor, data: torch.Tensor, out: torch.Tensor | None = None) -> torch.Tensor:
-    """(<rec, data>, |rec|^2, |data|^2) of two flat vectors, as a float32 tensor of 3, or
-    written into ``out``, a contiguous tensor of 3 (a row of the trials' (T, 3) sums)."""
+    """(<rec, data>, |rec|^2, |data|^2) of two flat vectors, as a tensor of 3 in
+    ``acc_dtype(rec)``, or written into ``out``, a contiguous tensor of 3 (a row of the
+    trials' (T, 3) sums)."""
     if rec.is_cuda:
         if out is None:
             out = _build.op("matching_sums")(rec, data)
         else:
             _build.op("matching_sums_into")(rec, data, out)
-        matching_sums.launches += 1
+        _build.count_launch(matching_sums, rec, data)
         return out
     if rec.dim() != 1 or rec.shape != data.shape or (out is not None and out.shape != (3,)):
         raise ValueError(f"matching_sums takes two flat vectors of one length and an out of 3, got "
@@ -56,17 +74,20 @@ def matching_sums(rec: torch.Tensor, data: torch.Tensor, out: torch.Tensor | Non
 
 
 matching_sums.launches = 0
+matching_sums.launches_by_type = {}
 
 
 def axpby_plain(a: torch.Tensor, x: torch.Tensor, b: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
-    return a * x + b * y
+    acc = acc_dtype(x)
+    return (a * x.to(acc) + b * y.to(acc)).to(x.dtype)
 
 
 def axpby(a: torch.Tensor, x: torch.Tensor, b: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
-    """a x + b y for one-element tensors a, b and flat vectors x, y of one length."""
+    """a x + b y for one-element tensors a, b (in ``acc_dtype(x)``) and flat vectors x, y of
+    one length, in x's type."""
     if x.is_cuda:
         out = _build.op("axpby")(a, x, b, y)
-        axpby.launches += 1
+        _build.count_launch(axpby, x, y)
         return out
     if x.dim() != 1 or x.shape != y.shape or a.numel() != 1 or b.numel() != 1:
         raise ValueError(f"axpby takes scalars a, b and flat x, y of one length, got "
@@ -76,6 +97,7 @@ def axpby(a: torch.Tensor, x: torch.Tensor, b: torch.Tensor, y: torch.Tensor) ->
 
 
 axpby.launches = 0
+axpby.launches_by_type = {}
 
 
 def cosine_backward_plain(sums, g, rec, data, wrt_data=False):
@@ -87,11 +109,12 @@ def cosine_backward_plain(sums, g, rec, data, wrt_data=False):
     rec_n, data_n = torch.sqrt(rec_sq), torch.sqrt(data_sq)
     shape = (-1, 1) if rec.dim() == 2 else (1,)
     a = (-g / (rec_n * data_n + 1e-12)).reshape(shape)
+    acc = sums.dtype
     if wrt_data:
         b = (g * dot / (data_n ** 3 * rec_n + 1e-12)).reshape(shape)
-        return axpby_plain(a, rec, b, data)
+        return (a * rec.to(acc) + b * data.to(acc)).to(data.dtype)
     b = (g * dot / (rec_n ** 3 * data_n + 1e-12)).reshape(shape)
-    return axpby_plain(a, data, b, rec)
+    return (a * data.to(acc) + b * rec.to(acc)).to(rec.dtype)
 
 
 def cosine_backward(sums, g, rec, data, wrt_data=False):
@@ -101,7 +124,7 @@ def cosine_backward(sums, g, rec, data, wrt_data=False):
     one launch."""
     if rec.is_cuda:
         out = _build.op("cosine_backward")(sums, g, rec, data, wrt_data)
-        cosine_backward.launches += 1
+        _build.count_launch(cosine_backward, rec, data)
         return out
     rows = rec.shape[0] if rec.dim() == 2 else None
     flat = rec.dim() == 1 and sums.shape == (3,) and g.numel() == 1
@@ -115,6 +138,7 @@ def cosine_backward(sums, g, rec, data, wrt_data=False):
 
 
 cosine_backward.launches = 0
+cosine_backward.launches_by_type = {}
 
 
 def _cosine_value(sums):
@@ -142,7 +166,8 @@ class _FusedCosine(torch.autograd.Function):
 
 
 def fused_cosine_similarity(rec: torch.Tensor, data: torch.Tensor) -> torch.Tensor:
-    """Cosine distance of two flat float32 vectors through kernels B1 and B2."""
+    """Cosine distance of two flat vectors through kernels B1 and B2, in
+    ``acc_dtype(rec)``; its gradients come in the vectors' own types."""
     return _FusedCosine.apply(rec, data)
 
 
@@ -157,7 +182,7 @@ class _FusedCosineTrials(_FusedCosine):
         if rec.dim() != 2 or rec.shape != data.shape:
             raise ValueError(f"fused_cosine_similarity_trials takes two (T, n) stacks of one shape, got "
                              f"{tuple(rec.shape)} and {tuple(data.shape)}.")
-        sums = torch.empty(rec.shape[0], 3, dtype=rec.dtype, device=rec.device)
+        sums = torch.empty(rec.shape[0], 3, dtype=acc_dtype(rec), device=rec.device)
         for r, d, row in zip(rec.unbind(), data.unbind(), sums.unbind()):
             matching_sums(r, d, out=row)
         ctx.save_for_backward(rec, data, sums)
@@ -165,7 +190,7 @@ class _FusedCosineTrials(_FusedCosine):
 
 
 def fused_cosine_similarity_trials(rec: torch.Tensor, data: torch.Tensor) -> torch.Tensor:
-    """``fused_cosine_similarity`` of each row of two contiguous (T, n) float32 stacks: a
+    """``fused_cosine_similarity`` of each row of two contiguous (T, n) stacks: a
     (T,) vector, each entry equal to the row's own call, differentiable."""
     return _FusedCosineTrials.apply(rec, data)
 
@@ -193,7 +218,8 @@ class _FusedEuclidean(torch.autograd.Function):
 
 
 def fused_euclidean(rec: torch.Tensor, data: torch.Tensor) -> torch.Tensor:
-    """0.5 |rec - data|^2 of two flat float32 vectors through kernels B1 and B2."""
+    """0.5 |rec - data|^2 of two flat vectors through kernels B1 and B2, in
+    ``acc_dtype(rec)``."""
     return _FusedEuclidean.apply(rec, data)
 
 

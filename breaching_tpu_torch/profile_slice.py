@@ -1,7 +1,8 @@
 """Where the time of a slice's attack step goes, on the card.
 
-    python3 -m breaching_tpu_torch.profile_slice [--slice 1|2|3|4|5|6|7|12|13|14|15]
-                                                 [--path 5a|...|7d|12a|...|12e'|13a|...|13e|14a|...|14f|15a|...|15e]
+    python3 -m breaching_tpu_torch.profile_slice [--slice 1|2|3|4|5|6|7|12|13|14|15|16]
+                                                 [--path 5a|...|7d|12a|...|12e'|13a|...|13e|14a|...|14f|15a|...|15e|
+                                                         16a|16a'|16a''|16b|16c]
                                                  [--fleet F] [--fused] [--lbfgs] [--iterations N]
 
 Slice 1 (the default) runs Inverting Gradients with the fused cosine objective on
@@ -46,7 +47,10 @@ head (cola, 2 sentences) and 14f ``permutation`` on ``hf-gpt2`` (8 sentences); s
 the server's seconds: 15a the top placement (a VAE, 200 steps) and 15b the block before stage 2
 (a ``FeatureDecoder``, 800 steps), or ``tag`` on case 10 under 15c the fedAVG user (4 sentences,
 4 local steps), 15d the silo of 8 users x 4 sentences (single-step) and 15d' with 2 local steps,
-and 15e on ``gpt2`` under the fedAVG user (1 sentence, 2 local steps). Each
+and 15e on ``gpt2`` under the fedAVG user (1 sentence, 2 local steps); slice 16 slice 2 with the
+fused cosine objective under the attack's precision knobs: 16a ``attack.impl.dtype=bfloat16``, 16a''
+``attack.impl.dtype=float16``, 16a' ``case.impl.dtype=bfloat16`` (a bfloat16 candidate), 16b
+``case.impl.dtype=float64`` (20 steps by default) and 16c ``attack.impl.mixed_precision=True``. Each
 goes through the entry points: one warm-up attack, an
 attack of N steps (default 200) timed with the profiler off, and the same attack
 under ``torch.profiler``. Slice 13, the readouts of slice 14 and 15a-b have no steps: one warm-up run of
@@ -166,6 +170,14 @@ SLICE15 = {
     "15d'": TEXT_SILO + ["case.user.num_local_updates=2", "case.user.num_data_per_local_update_step=2"],
     "15e": TEXT_FEDAVG + ["case.model=gpt2", "case.user.num_data_points=1", "case.user.num_local_updates=2"],
 }
+# slice 16: slice 2 fused under the precision knobs
+SLICE16 = {
+    "16a": SLICES[2] + ["attack.objective.type=fused-cosine-similarity", "attack.impl.dtype=bfloat16"],
+    "16a'": SLICES[2] + ["attack.objective.type=fused-cosine-similarity", "case.impl.dtype=bfloat16"],
+    "16a''": SLICES[2] + ["attack.objective.type=fused-cosine-similarity", "attack.impl.dtype=float16"],
+    "16b": SLICES[2] + ["attack.objective.type=fused-cosine-similarity", "case.impl.dtype=float64"],
+    "16c": SLICES[2] + ["attack.objective.type=fused-cosine-similarity", "attack.impl.mixed_precision=True"],
+}
 # the paths without steps
 READOUTS = {**SLICE13, **{p: SLICE14[p] for p in ("14a", "14b", "14c")}, **{p: SLICE15[p] for p in ("15a", "15b")}}
 FUSED = ["attack.objective.type=fused-cosine-similarity"]
@@ -252,11 +264,12 @@ def profile_readout(path):
 
 def main():
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    parser.add_argument("--slice", type=int, choices=sorted([*SLICES, 5, 7, 12, 13, 14, 15]), default=1)
-    parser.add_argument("--path", choices=sorted([*SLICE5, *SLICE7, *SLICE12, *SLICE13, *SLICE14, *SLICE15]),
+    parser.add_argument("--slice", type=int, choices=sorted([*SLICES, 5, 7, 12, 13, 14, 15, 16]), default=1)
+    parser.add_argument("--path", choices=sorted([*SLICE5, *SLICE7, *SLICE12, *SLICE13, *SLICE14, *SLICE15,
+                                                  *SLICE16]),
                         default=None, help="slice 5's path (default 5a), slice 7's (default 7c), slice 12's (default "
-                                           "12a), slice 13's (default 13a), slice 14's (default 14a) or slice 15's "
-                                           "(default 15a)")
+                                           "12a), slice 13's (default 13a), slice 14's (default 14a), slice 15's "
+                                           "(default 15a) or slice 16's (default 16a)")
     parser.add_argument("--fleet", type=int, default=1, help="experiments through reconstruct_fleet")
     parser.add_argument("--fused", action="store_true", help="slice 2 or 3 with the fused cosine objective")
     parser.add_argument("--lbfgs", action="store_true", help="slice 4: deep_leakage with fused euclidean, L-BFGS")
@@ -266,7 +279,7 @@ def main():
         raise SystemExit("profile_slice needs a CUDA device.")
     if args.lbfgs and args.slice != 4:
         parser.error("--lbfgs is a path of slice 4.")
-    paths = {5: SLICE5, 7: SLICE7, 12: SLICE12, 13: SLICE13, 14: SLICE14, 15: SLICE15}.get(args.slice)
+    paths = {5: SLICE5, 7: SLICE7, 12: SLICE12, 13: SLICE13, 14: SLICE14, 15: SLICE15, 16: SLICE16}.get(args.slice)
     if paths is not None:
         args.path = args.path or min(paths)
         if args.path not in paths:
@@ -281,7 +294,7 @@ def main():
     cfg = breaching.get_config(overrides)
     lbfgs = cfg.attack.optim.optimizer.lower() == "l-bfgs"
     _attack(overrides, 5 if lbfgs else 20, args.fleet)()  # warm-up: kernel build, cuDNN heuristics
-    iterations = args.iterations or (10 if args.path == "12c" else 20 if lbfgs else 200)
+    iterations = args.iterations or (10 if args.path == "12c" else 20 if lbfgs or args.path == "16b" else 200)
     run = _attack(overrides, iterations, args.fleet)
     wall_ms, (_, stats) = _timed(run)
     steps = len(stats["Trial_0_Val"])  # on 5a, the iterations of every stage

@@ -35,7 +35,17 @@ from .config.loader import _plain_scalar
 
 log = logging.getLogger(__name__)
 
-_DTYPES = {"float": torch.float32, "float32": torch.float32}
+# case.impl.dtype, as the JAX package maps it (breaching_tpu/utils.py:52-60)
+_DTYPES = {"float": torch.float32, "float32": torch.float32, "bfloat16": torch.bfloat16,
+           "float64": torch.float64, "double": torch.float64}
+
+
+def model_dtype(setup) -> torch.dtype:
+    """The type of the case's model and the user's exchange: float64 under
+    ``case.impl.dtype=float64``, where the JAX package switches every default type to
+    float64 (x64), else float32. Under bfloat16 the JAX package's models and users stay
+    float32 and only the attack's target gradients and candidate take the type."""
+    return torch.float64 if setup["dtype"] == torch.float64 else torch.float32
 
 
 def system_startup(process_idx=0, local_group_size=1, cfg=None, device="cuda"):

@@ -34,7 +34,14 @@ Phases, one line each on standard output:
      TV kernel's value-only form, at every shape the fused kernel is checked at, one launch a
      call, to 1e-5 relative and bit for bit the fused kernel's value at scale 1, with NaN and
      infinite pixels at the boundary (the plain version's non-finite value), repeated and in
-     a replayed CUDA graph;
+     a replayed CUDA graph; slice 16's typed forms (csrc/precision.cu): B1 and the cosine
+     backward on a bfloat16 or float16 gradient beside a float32 target, a float32 gradient
+     beside a bfloat16 target, and float64, ``b2_axpby`` on float32 beside bfloat16 and on
+     float64, at 11,380,173 entries and at 1,000,003 four bytes off a boundary; the fused TV
+     kernel (p = q = 1 and p = 2, q = 0.5, and its trials form on 2x1x3x224x224), the box clamp
+     and the fused Adam step (hard, no and soft sign, single and trials) on float64 and
+     bfloat16 candidates at 1x3x224x224: the sums to 1e-5 (float64 1e-12) of the sum of
+     |terms|, every other output to one rounding of its type (float64 1e-12), the clamp exactly;
   4. the attack gradient of each slice on the card against the same computation
      on the CPU, through the plain versions (and whether the card gives the same
      bits twice, which is reported, not required); for slice 3 the gradient
@@ -57,16 +64,19 @@ Phases, one line each on standard output:
      its parameter count, its float32 task-loss gradient against float64 on the card (1e-4 of
      the largest entry), and for GPT-2 the logits before each changed token bit for bit;
   5. the main paths end to end through the entry points, each with the kernels'
-     launch counts set to 0 just before it and read just after: slice 1,
+     launch counts set to 0 just before it and read just after, and each slice's
+     seconds printed; slices 11-15 run in a child process of this script on the same
+     card beside slices 1-10 and 16 (most paths leave the card idle most of the time),
+     and their output follows slice 16's: slice 1,
      Inverting Gradients with the fused cosine objective on ConvNet-64 /
-     CIFAR-10 shapes, and the same with 4 restarts (the batched trial step: the
+     CIFAR-10 shapes, and the same with 4 restarts (25 steps; the batched trial step: the
      fused TV kernel, the cosine backward and the Adam step once a step for all
      four, B1 once a trial); slice 2, the bench preset on
      ResNet-18 at ImageNet shapes
      (the repo's trained checkpoint where the checkout holds it, else random
      weights, printed either way) solo, the same with the fused cosine
-     objective, and as the 8-experiment fleet through ``reconstruct_fleet`` (the
-     fused TV kernel and the Adam step once a step for the 8);
+     objective, and as the 8-experiment fleet through ``reconstruct_fleet`` (25 steps;
+     the fused TV kernel and the Adam step once a step for the 8);
      slice 3, the fedAVG user of case 4 on the same ResNet-18 (4 images of
      3x224x224, 4 local SGD steps of 2 images, the JAX package's notebook preset
      ``inverting_gradients_fedavg_imagenet``), with the preset's cosine objective
@@ -78,24 +88,24 @@ Phases, one line each on standard output:
      (50 steps each); slice 5, the remaining vision presets: 5a ``multiscale``
      (ResNet-18 on its checkpoint at 224, seven stages 32, 64, ..., 224 of 15
      steps), 5b ``inverting_large_batch_cifar`` (ResNet32-10 on 100 images of
-     CIFAR-100's shape with grad_accum=10, 10 steps) and 5b' (the same with
+     CIFAR-100's shape with grad_accum=10, 5 steps) and 5b' (the same with
      grad_accum=1, 5 steps, for the peak memory, which grad_accum=10 must
      lower), 5c ``see_through_gradients`` (ResNet-50 on the checkout's
-     ResNet50.npz, which it must hold, at 224, 50 steps), 5d
+     ResNet50.npz, which it must hold, at 224, 25 steps), 5d
      ``inverting_gradients_fedavg``, ``inverting_gradients_fedavg_cifar`` and
      ``inverting_gradients_resnet18`` (25 steps each); slices 1 and 2 solo take
-     250 and 50 steps, slice 3's preset 25; slice 6, the honest server's remaining configuration
+     150 and 50 steps, slice 3's preset 25; slice 6, the honest server's remaining configuration
      surface: 6a the fedSGD user with per-example clipping (C = 1) and Laplace
-     gradient noise on ResNet-18 at 224 (the checkpoint, 4 images, 100 steps),
+     gradient noise on ResNet-18 at 224 (the checkpoint, 4 images, 50 steps),
      where every clipped per-example norm is at most C (1 + 1e-5) and, with
      the noise off, the clipped gradient on the card equals the CPU's to
      1e-12 of its largest entry in float64 and to 1e-4 in float32; 6b the server's model states ``linearized``,
      ``orthogonal`` (every kernel orthonormal to 1e-4 on the card) and
-     ``untrained``, 50 steps each; 6c case 4's fedAVG user with its batch
-     gradient clipped and noised at every local step (50 steps); 6d
+     ``untrained``, 25 steps each; 6c case 4's fedAVG user with its batch
+     gradient clipped and noised at every local step (25 steps); 6d
      ``wainakh-whitebox`` labels on ConvNet-64, CIFAR-10, 4 images, equal to
-     the CPU's (50 steps); 6e a checkpointed run of 101 steps and a fresh
-     attacker resumed from its file of step 100: the restored state bit for
+     the CPU's (50 steps); 6e a checkpointed run of 51 steps and a fresh
+     attacker resumed from its file of step 50: the restored state bit for
      bit, its loss to 1e-6 and its one step to 1e-6 but for 1e-4 of the
      entries; 6f the Chrome trace that ``trace_dir`` writes of one chunk of
      slice 1, which must name the path's four kernels; slice 7, the malicious servers'
@@ -106,7 +116,7 @@ Phases, one line each on standard output:
      ``curious_abandon_honesty`` (ConvNet-64, CIFAR-10), 7c ``fishing`` (ResNet-50 on its
      checkpoint, 8 images) and 7d ``fishing_optimization_unique`` (ResNet-18, 50 images
      of one class, so that the binary attack runs: more than 2 user queries; each cutoff
-     query and the images behind the final gradient printed), 50 attack steps each with
+     query and the images behind the final gradient printed), 25 attack steps each with
      the fused TV and Adam step once a step, 7d'' 7d's one-shot search alone at the JAX
      package's test's feat_multiplier of 30000, which must take at least two cutoff queries
      and leave fewer than the 50 images behind the final gradient, 7e ``sanity_check`` (the
@@ -132,17 +142,17 @@ Phases, one line each on standard output:
      11a ``rgap`` (cnn6 at 1x3x32x32) and 11b ``april`` (ViT-B/16 APRIL at 224, random
      weights), each attacked again on the CPU on the card's gradient (the largest
      difference printed), 11c ``fishing_optimization_cross_silo`` (ResNet-18, a silo of one
-     user with 256 images, 50 steps), 11d ``fishing_analytic_cross_silo`` and
+     user with 256 images, 25 steps), 11d ``fishing_analytic_cross_silo`` and
      ``fishing_feature_cross_device`` on ViT-S/16 APRIL at 224 (the image's PSNR and whether
      the fishing isolated it), 11e case 8's silo of 16 users x 8 images at 224 (its aggregate
-     to 2e-6 of the users' gradients averaged in float64, then 25 steps), 11f one float32
+     to 2e-6 of the users' gradients averaged in float64, then 15 steps), 11f one float32
      gradient of each new model at ImageNet width against float64 on the card (1e-4); 11a,
      11b and 11d launch no port kernel; slice 12, the honest server's text presets: 12a
      ``tag`` (case 10's transformer3, one sentence of 32 tokens of the GPT-2 vocabulary,
-     100 steps, no port kernel), 12b ``permutation`` (100 steps, the fused Adam step once a
-     step and no other kernel), 12c ``dlg_text`` (5 outer L-BFGS steps) and 12c' the same
+     50 steps, no port kernel), 12b ``permutation`` (50 steps, the fused Adam step once a
+     step and no other kernel), 12c ``dlg_text`` (3 outer L-BFGS steps) and 12c' the same
      with the fused euclidean objective (B1 and ``b2_axpby`` once per evaluation), 12d case
-     9's ``bert-base-uncased`` with ``attack=tag`` and 12e ``tag`` on ``gpt2`` (768 x 12, 25
+     9's ``bert-base-uncased`` with ``attack=tag`` and 12e ``tag`` on ``gpt2`` (768 x 12, 15
      steps each, no port kernel), 12e ``permutation`` on ``gpt2`` with 8 sentences (P = 256,
      25 steps): every path's token ids of the vocabulary, its text report complete and
      finite, the permutation's tokens an order of the leaked bag; slice 13, Decepticon and the
@@ -162,8 +172,8 @@ Phases, one line each on standard output:
      and 14c ``decepticons_hf_bert`` (``hf-bert``, 1 x 512, the exact-reference stack), each as
      slice 13's paths with the CPU's readout of the card's exchange; 14d ``tag`` on
      ``hf-roberta-base`` (case 10 as a masked LM) and ``hf-distilbert`` (case 9), 1 x 32, and 14e
-     on ``hf-bert``'s classification head (cola, 2 sentences), 25 steps each, no port kernel; 14f
-     ``permutation`` on ``hf-gpt2`` (8 x 32, P = 256, 50 steps: the fused Adam step once a
+     on ``hf-bert``'s classification head (cola, 2 sentences), 15 steps each, no port kernel; 14f
+     ``permutation`` on ``hf-gpt2`` (8 x 32, P = 256, 25 steps: the fused Adam step once a
      step, the loss falling); slice 15, seed 7, no port kernel: 15a ``robbing_the_fed`` with
      ``handle_preceding_layers=VAE`` and the server's external data (a VAE of 3x224x224
      trained 200 steps at batch 32, the readout's rows decoded by it) and 15b the same at
@@ -176,23 +186,43 @@ Phases, one line each on standard output:
      entry in float32 and 1e-9 in float64; its idle share from 5 steps under the profiler), 15d the silo of 8 users x 4 sentences, single-step and
      15d' with 2 local steps of 2 (15 steps each; each aggregate within 2e-6 of its users'
      float32 updates averaged in float64), and 15e ``gpt2`` under the fedAVG user (1 x 32, 2
-     local steps, 10 steps); for each optimization path: set-up
+     local steps, 10 steps); slice 16, the attack's precision and trial knobs, ResNet-18 on
+     its checkpoint at 224 unless stated, each form's launches counted by its types: 16a
+     ``attack.impl.dtype=bfloat16`` with the fused cosine (50 steps; B1 and the cosine
+     backward in their bf16-f32 forms once a step), its it/s, idle share and peak memory beside
+     slice 2 fused in float32 (3 steps each timed and under the profiler), 16a'' the same
+     in float16 (5 steps), 16a' ``case.impl.dtype=bfloat16`` (a bfloat16 candidate and
+     targets: every kernel's bfloat16 form, 10 steps), 16a''' its first-order path on ConvNet-64
+     (gd, fused euclidean: ``b2_axpby`` and the box clamp, 5 steps), 16b
+     ``case.impl.dtype=float64`` (every kernel's float64 form, 10 steps) with its attack
+     gradient at one candidate on the card against the CPU's float64 (1e-12 relative on the
+     loss, 1e-11 of the largest entry), 16b' ``deep_leakage`` fused on ConvNet-64 in float64
+     (L-BFGS, 2 outer steps) and 16b'' 16a''' in float64, 16c ``attack.impl.mixed_precision``
+     (25 steps) and its gradient's distance from float32's at one candidate (printed); 16d the batched trial step, 2 trials
+     of 10 steps, on the multiscale preset's augmentation, BatchNorm in train mode with
+     DeepInversion, case 4's fedAVG user as restarts and as a fleet of 2 users, and
+     ``grad_accum=2`` on 2 images (one evaluation per trial a step, TV and Adam once a step);
+     16e a run resumed from its checkpoint of L-BFGS (4a, after 2 of 4 outer steps), of 2 gd
+     trials one after the other (at the second's step 4 of 8) and of the multiscale attack
+     (2 stages of 2 steps, at stage 0's step 1), on cuDNN's deterministic algorithms, each ending as the
+     uninterrupted run: the same losses after the resume, best value and reconstruction; for
+     each optimization path: set-up
      seconds, loss at the start and end of every trial, PSNR and SSIM (of the
      batch put in the true images' order, and the order), it/s (the fleet's aggregate; with L-BFGS also the
      objective's evaluations per second), peak memory and launches per step;
   6. each kernel's time beside its bound, the plain version's time and one
      PyTorch call of the same function (for a fused kernel, the library call of
-     the kernel it grew from), each as time per call (200 calls between two
-     events), device time (``timing.time_ms``: the calls captured in a CUDA
+     the kernel it grew from), each as time per call (100 calls between two events),
+     device time (``timing.time_ms``: the calls captured in a CUDA
      graph and replayed, each after a read of 100 MB that evicts its operands
      from the 50 MB L2, whose time is subtracted; and warm, back to back), and
-     host time per call (the 200 calls enqueued, no wait); B1, the fused
+     host time per call (the calls enqueued, no wait); B1, the fused
      cosine backward, the fused TV kernel and the fused Adam step also at
-     slice 2's shapes (100 calls), the fused TV kernel and the fused Adam step
-     at slice 3's (100 calls), the fused Adam step's soft sign at 1x3x224x224
+     slice 2's shapes (50 calls), the fused TV kernel and the fused Adam step
+     at slice 3's (50 calls), the fused Adam step's soft sign at 1x3x224x224
      and the fused TV kernel at 1x6x224x224 (slice 4's double opponents), the
      fused TV kernel and the fused Adam step at slice 5's 100x3x32x32 and
-     1x3x96x96, TV at 1x3x192x192 (100 calls); the box clamp also in place (the
+     1x3x96x96, TV at 1x3x192x192 (50 calls); the box clamp also in place (the
      form slices 4b-c call) beside ``torch.clamp(out=)``; each form of the box clamp
      and ``b2_axpby`` (beside ``torch.add(alpha=)``, at 2,904,970 entries), the
      fused Adam step (beside ``torch.clamp``) and the fused cosine backward (beside
@@ -207,8 +237,11 @@ Phases, one line each on standard output:
      the fused Adam step at the paths' shapes (registers, blocks resident per SM,
      grid) and the host time of every kernel's wrapper split into its Python
      wrapper and its dispatcher op; and which device times, if any, come in under
-     their bound.
-Then one JSON line with the kernels, and as the last line
+     their bound; slice 16's typed forms at their paths' shapes (B1 and B2 at 11,380,173
+     entries, B3 and B4 at 1x3x224x224) beside their plain versions and a library call on
+     upcast copies where one computes the same function (50 calls).
+Then one JSON line with the kernels (each typed form a row of its own, with its launches
+on slice 16's paths), and as the last line
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 
 Exits non-zero, without that line, when no CUDA device is present, a kernel does
@@ -242,15 +275,15 @@ import numpy as np
 import torch
 
 REPO = os.path.dirname(os.path.abspath(__file__))
-ITERATIONS = 250
+ITERATIONS = 150
 DEVICE = "cuda"
 SLICE = ["case=1_single_image_small", "attack=invertinggradients",
          "attack.objective.type=fused-cosine-similarity"]
 # slice 2: the JAX package's bench.py preset (ResNet-18, ImageNetAnimals shapes)
 SLICE2 = ["case=2_single_imagenet", "attack=invertinggradients", "attack.restarts.num_trials=1",
           "case.user.provide_labels=True", "seed=7"]
-SLICE2_STEPS, SLICE2_FUSED_STEPS, FLEET, FLEET_STEPS = 50, 50, 8, 50
-RESTARTS, RESTART_STEPS = 4, 50  # slice 1's restarts: the batched trial step on ConvNet-64
+SLICE2_STEPS, SLICE2_FUSED_STEPS, FLEET, FLEET_STEPS = 50, 50, 8, 25
+RESTARTS, RESTART_STEPS = 4, 25  # slice 1's restarts: the batched trial step on ConvNet-64
 # slice 3: the fedAVG user of case 4 on ResNet-18, the JAX package's notebook preset
 # inverting_gradients_fedavg_imagenet (examples/run_example.py)
 SLICE3 = ["case=4_fedavg_small_scale", "attack=invertinggradients", "case.user.num_data_points=4",
@@ -289,9 +322,9 @@ SEE_THROUGH = ["case=5_small_batch_imagenet", "attack=seethroughgradients", "cas
 MULTISCALE = ["case=2_single_imagenet", "attack=multiscale_ghiasi", "seed=7"]
 SLICE5 = {
     "slice 5a multiscale": (MULTISCALE, 15, IMAGE_KERNELS),
-    "slice 5b inverting_large_batch_cifar": (LARGE_BATCH + ["attack.impl.grad_accum=10"], 10, IMAGE_KERNELS),
+    "slice 5b inverting_large_batch_cifar": (LARGE_BATCH + ["attack.impl.grad_accum=10"], 5, IMAGE_KERNELS),
     "slice 5b' grad_accum=1": (LARGE_BATCH + ["attack.impl.grad_accum=1"], 5, IMAGE_KERNELS),
-    "slice 5c see_through_gradients": (SEE_THROUGH, 50, IMAGE_KERNELS),
+    "slice 5c see_through_gradients": (SEE_THROUGH, 25, IMAGE_KERNELS),
     "slice 5d inverting_gradients_fedavg": (FEDAVG + [
         "case/data=CIFAR10", "case.data.partition=random", "case.model=ResNet18", "case.server.pretrained=False",
         "case.user.user_idx=1", "attack.regularization.total_variation.scale=1e-3"], 25, IMAGE_KERNELS),
@@ -307,7 +340,7 @@ SLICE6 = ["case=2_single_imagenet", "attack=invertinggradients", "case.user.num_
           "case.user.provide_labels=True", "seed=7"]
 CLIP = 1.0
 DP = [f"{LDP}.per_example_clipping={CLIP}", f"{LDP}.gradient_noise=1e-3", f"{LDP}.distribution=laplacian"]
-SLICE6_STEPS, STATE_STEPS, RESUME_STEPS = 100, 50, 100
+SLICE6_STEPS, STATE_STEPS, RESUME_STEPS = 50, 25, 50
 WAINAKH = ["case=1_single_image_small", "attack=invertinggradients", "case.user.num_data_points=4",
            "case.user.provide_labels=False", "attack.label_strategy=wainakh-whitebox", "seed=7"]
 # slice 7: the malicious servers' vision presets (examples/run_example.py), seed 7:
@@ -318,7 +351,7 @@ FISHING = ["case=5_small_batch_imagenet", "attack=clsattack", "case/server=malic
 FISHING_UNIQUE = ["case=2_single_imagenet", "attack=clsattack", "case/server=malicious-fishing",
                   "case.data.partition=unique-class", "case.user.num_data_points=50", "case.user.user_idx=1",
                   "case.user.provide_labels=True", "case.server.target_cls_idx=0", "seed=7"]
-SLICE7_STEPS = 50
+SLICE7_STEPS = 25  # 7c, 7d and 11c
 # the feature multiplier of the JAX package's binary-attack test (tests/test_binary_attack.py):
 # an image then leaves the subset where its feature exceeds the cutoff by 1000 / 30000,
 # where the preset's 300 lets it leave only 1000 / 300 above it. The bias multiplier
@@ -395,7 +428,7 @@ FEATURE_DEVICE = ["case=2_single_imagenet", "attack=april_analytic", "case/serve
                   "case.data.default_clients=56", "case.server.target_cls_idx=2", "case.data.target_label=2",
                   "case.user.num_data_points=16", "case.data.num_data_points=16", "case.user.provide_labels=True",
                   "case.server.feature_estimation_users=6", "seed=7"]
-CASE8_USERS, CASE8_IMAGES, CASE8_STEPS = 16, 8, 25
+CASE8_USERS, CASE8_IMAGES, CASE8_STEPS = 16, 8, 15
 CASE8 = ["case=8_industry_scale_fl", "attack=invertinggradients", f"case.user.user_range=[0,{CASE8_USERS}]",
          f"case.user.num_data_points={CASE8_IMAGES}", f"attack.optim.max_iterations={CASE8_STEPS}",
          "attack.optim.callback=25", "seed=7"]
@@ -408,8 +441,8 @@ ZOO_SIZE = dict(nfnet_f0=236)
 # (transformer3, one sentence of 32 tokens of the GPT-2 vocabulary of 50,257) and case 9
 # (bert-base-uncased, masked LM): path -> (overrides, steps, the launches per step or per
 # objective evaluation it needs, whether the loss must fall). The JAX package's preset
-# sizes; 12a-12b cut to 100 steps, 12d and 12e (768 x 12) to 25, which lie inside the TAG
-# optimizer's 50-step warmup, so their loss need not fall yet; nor need L-BFGS's in 12c's 5
+# sizes; 12a-12b cut to 50 steps, 12d and 12e (768 x 12) to 15, which lie inside the TAG
+# optimizer's 50-step warmup, so their loss need not fall yet; nor need L-BFGS's in 12c's 3
 # outer steps (over 10, from the CPU's draws at seed 7 it rose, 11.21 to 44.03; from the card's it
 # fell, 13.15 to 6.10; the JAX package's L-BFGS follows the port's step for step on the linear
 # model, tests/test_torch_text_presets.py); 12e's permutation takes 8 sentences
@@ -418,13 +451,13 @@ ZOO_SIZE = dict(nfnet_f0=236)
 CASE10 = ["case=10_causal_lang_training", "seed=7"]
 DLG_TEXT = CASE10 + ["attack=deepleakage", "case.user.provide_labels=False", "attack.optim.callback=5"]
 SLICE12 = {
-    "slice 12a tag": (CASE10 + ["attack=tag"], 100, {}, True),
-    "slice 12b permutation": (CASE10 + ["attack=permutation"], 100, dict(b4_adam_box_step="step"), True),
-    "slice 12c dlg_text": (DLG_TEXT, 5, {}, False),
-    "slice 12c' dlg_text fused": (DLG_TEXT + ["attack.objective.type=fused-euclidean"], 5,
+    "slice 12a tag": (CASE10 + ["attack=tag"], 50, {}, True),
+    "slice 12b permutation": (CASE10 + ["attack=permutation"], 50, dict(b4_adam_box_step="step"), True),
+    "slice 12c dlg_text": (DLG_TEXT, 3, {}, False),
+    "slice 12c' dlg_text fused": (DLG_TEXT + ["attack.objective.type=fused-euclidean"], 3,
                                   dict(b1_matching_sums="evaluation", b2_axpby="evaluation"), False),
-    "slice 12d bert-base-uncased tag": (["case=9_bert_training", "attack=tag", "seed=7"], 25, {}, False),
-    "slice 12e gpt2 tag": (CASE10 + ["attack=tag", "case.model=gpt2"], 25, {}, False),
+    "slice 12d bert-base-uncased tag": (["case=9_bert_training", "attack=tag", "seed=7"], 15, {}, False),
+    "slice 12e gpt2 tag": (CASE10 + ["attack=tag", "case.model=gpt2"], 15, {}, False),
     "slice 12e gpt2 permutation": (CASE10 + ["attack=permutation", "case.model=gpt2", "case.user.num_data_points=8",
                                              "case.data.default_clients=1000"], 25,
                                    dict(b4_adam_box_step="step"), False),
@@ -464,9 +497,9 @@ SLICE13 = {
 # with ReLU and its causal mask), decepticons_hf_gpt2 (hf-gpt2, GELU-new) and decepticons_hf_bert (hf-bert,
 # 1 x 512, the exact-reference stack), each read again on the CPU from the card's exchange; 14d tag on
 # hf-roberta-base (case 10 as a masked LM, 514 positions) and hf-distilbert (case 9), 1 x 32 tokens, and
-# 14e on hf-bert's sequence-classification head (cola, 2 sentences), 25 steps each (50 before PR 21),
+# 14e on hf-bert's sequence-classification head (cola, 2 sentences), 15 steps each,
 # inside the TAG optimizer's warmup, so that their loss need not fall yet; 14f permutation on hf-gpt2 (8 x 32, P = 256,
-# the bag from the embedding's gradient norms: GPT-2's head has no decoder bias), 50 steps, the fused Adam
+# the bag from the embedding's gradient norms: GPT-2's head has no decoder bias), 25 steps, the fused Adam
 # step once a step, the loss falling
 SLICE14_READOUT = {
     "slice 14a decepticons_gpt2": GPT2_DECEPTICON + ["case.model=gpt2S"],
@@ -482,13 +515,13 @@ CASE9 = ["case=9_bert_training", "seed=7"]
 COLA = CASE9 + ["case/data=cola", "case.data.task=classification", "case.data.default_clients=1000"]
 SLICE14_ATTACK = {
     "slice 14d hf-roberta-base tag": (CASE10 + ["attack=tag", "case.model=hf-roberta-base",
-                                                "case.data.task=masked-lm"], 25, {}, False),
-    "slice 14d hf-distilbert tag": (CASE9 + ["attack=tag", "case.model=hf-distilbert"], 25, {}, False),
+                                                "case.data.task=masked-lm"], 15, {}, False),
+    "slice 14d hf-distilbert tag": (CASE9 + ["attack=tag", "case.model=hf-distilbert"], 15, {}, False),
     "slice 14e hf-bert classification tag": (COLA + ["attack=tag", "case.model=hf-bert",
-                                                     "case.user.num_data_points=2"], 25, {}, False),
+                                                     "case.user.num_data_points=2"], 15, {}, False),
     "slice 14f hf-gpt2 permutation": (CASE10 + ["attack=permutation", "case.model=hf-gpt2",
                                                 "case.user.num_data_points=8", "case.data.default_clients=1000",
-                                                "attack.token_strategy=embedding-norm"], 50,
+                                                "attack.token_strategy=embedding-norm"], 25,
                                       dict(b4_adam_box_step="step"), True),
 }
 # each family at full width: its float32 parameter gradient against float64 on the card (GRADIENT_F64 of
@@ -694,6 +727,7 @@ def check_kernels(ops, n_params, image_shape):
     check_tv_value_and_grad(ops, image, report, report_exact, randn, image_shape)
     check_tv_forward(ops, image, report, randn, image_shape)
     check_fused_euclidean(ops, matching, report, randn, n_params)
+    check_typed_forms(ops, matching, image, randn, record)
     return worst
 
 
@@ -1010,8 +1044,15 @@ def check_adam_box_step(ops, image, report_exact, randn, shape, lo, hi, signed, 
 def attack_gradient(breaching, device, tree0, overrides):
     """A slice's loss and its gradient at the candidate tree tree0 (``data``, and for
     the joint attack ``labels``, the label logits), on `device`: the gradient of every
-    leaf, flattened and joined. An attack with augmentations (5a) takes one draw of
-    them from a seeded generator on the CPU, the same on every device."""
+    leaf, flattened and joined (``objective_at``'s evaluation of a case built for it)."""
+    return objective_at(breaching, device, overrides)(tree0)
+
+
+def objective_at(breaching, device, overrides):
+    """The case of ``overrides`` built once on ``device``, and a function of the candidate
+    tree tree0 that gives the loss and its flattened gradient there, as often as called. An
+    attack with augmentations (5a) takes one draw of them from a seeded generator on the
+    CPU, the same on every device and call."""
     cfg = breaching.get_config(overrides)
     setup = breaching.utils.system_startup(cfg=cfg, device=device)
     user, server, model, loss_fn = breaching.cases.construct_case(cfg.case, setup)
@@ -1023,15 +1064,20 @@ def attack_gradient(breaching, device, tree0, overrides):
     for reg in attacker.regularizers:
         reg.initialize(rec_models, attacker._shared_data_cache, labels)
     targets = [tuple(shared[0]["gradients"][k] for k in rec_models[0].params)]
-    tree = {k: v.to(device).requires_grad_(True) for k, v in tree0.items()}
-    draws = None
-    if attacker.augmentations:  # the same draws on both devices, made on the CPU
-        gen = torch.Generator().manual_seed(11)
-        draws = [d if d is None or augmentation.host_draws else d.to(device) for augmentation, d in
-                 zip(attacker.augmentations, attacker._draw_augmentations(tuple(tree0["data"].shape), (gen, gen)))]
-    value, _ = attacker._loss(tree, rec_models, targets, labels, draws)
-    grads = torch.autograd.grad(value, tuple(tree.values()))
-    return value.item(), torch.cat([g.reshape(-1) for g in grads]).cpu()
+
+    def evaluate(tree0):
+        tree = {k: v.to(device).requires_grad_(True) for k, v in tree0.items()}
+        draws = None
+        if attacker.augmentations:  # the same draws on both devices, made on the CPU
+            gen = torch.Generator().manual_seed(11)
+            draws = [d if d is None or augmentation.host_draws else d.to(device) for augmentation, d in
+                     zip(attacker.augmentations,
+                         attacker._draw_augmentations(tuple(tree0["data"].shape), (gen, gen)))]
+        value, _ = attacker._loss(tree, rec_models, targets, labels, draws)
+        grads = torch.autograd.grad(value, tuple(tree.values()))
+        return value.item(), torch.cat([g.reshape(-1) for g in grads]).cpu()
+
+    return evaluate
 
 
 def check_reference(breaching, name, overrides, shape, classes=None):
@@ -1042,8 +1088,9 @@ def check_reference(breaching, name, overrides, shape, classes=None):
     x0 = dict(data=torch.randn(*shape, generator=gen))
     if classes:
         x0["labels"] = torch.randn(shape[0], classes, generator=gen)
-    v_gpu, g_gpu = attack_gradient(breaching, DEVICE, x0, overrides)
-    v_again, g_again = attack_gradient(breaching, DEVICE, x0, overrides)
+    on_card = objective_at(breaching, DEVICE, overrides)
+    v_gpu, g_gpu = on_card(x0)
+    v_again, g_again = on_card(x0)
     # not a check: cuDNN's backward need not give the same bits twice
     print(f"reference {name}: the card's loss and gradient computed twice: loss bits "
           f"{'equal' if v_again == v_gpu else 'differ'}, gradient bits "
@@ -1549,7 +1596,7 @@ def orthogonality_error(parameters):
 
 
 def run_model_states(breaching, ops):
-    """6b: the same model and images with each server model state, 50 steps each."""
+    """6b: the same model and images with each server model state, 25 steps each."""
     paths = {}
     for state in ("linearized", "orthogonal", "untrained"):
         path = f"slice 6b model_state={state}"
@@ -1586,18 +1633,18 @@ def run_wainakh(breaching, ops):
 
 
 def run_resume(breaching, ops, tmp):
-    """6e: 6a's setup with the noise off. Attacker A takes 101 steps, read back every 50 and
-    checkpointed after every chunk (steps 50, 100, 101); a fresh attacker B resumes from
-    A's file of step 100. B's restored state equals that file bit for bit; B's loss at
-    step 100 equals A's to 1e-6, and B's state after its one step equals A's after step
-    101 to 1e-6 of each tensor's largest entry, in all but 1e-4 of the entries: cuDNN's
+    """6e: 6a's setup with the noise off. Attacker A takes RESUME_STEPS + 1 steps (51), read back
+    every RESUME_STEPS / 2 and checkpointed after every chunk (steps 25, 50, 51); a fresh
+    attacker B resumes from A's file of step 50. B's restored state equals that file bit for
+    bit; B's loss at step 50 equals A's to 1e-6, and B's state after its one step equals A's
+    after step 51 to 1e-6 of each tensor's largest entry, in all but 1e-4 of the entries: cuDNN's
     backward need not repeat its bits (phase 4), and the hard sign turns a last-bit
     difference of a gradient entry near 0 into a step the other way. Returns the launch
     counts of A and of B."""
     from breaching_tpu_torch import utils_checkpoint
     from breaching_tpu_torch.attacks import optimization_based_attack as attack_module
 
-    path, at_100 = os.path.join(tmp, "state.npz"), os.path.join(tmp, "state_at_100.npz")
+    path, at_resume = os.path.join(tmp, "state.npz"), os.path.join(tmp, "state_at_resume.npz")
     saved, restored = {}, []
     save, restore = utils_checkpoint.save_attack_state, attack_module._RunState.restore
 
@@ -1605,7 +1652,7 @@ def run_resume(breaching, ops, tmp):
         save(target, arrays, iteration)
         saved[(target, iteration)] = {k: v.copy() for k, v in arrays.items()}
         if target == path and iteration == RESUME_STEPS:
-            shutil.copy(path, at_100)
+            shutil.copy(path, at_resume)
 
     def restore_and_compare(run_state, arrays):
         restore(run_state, arrays)
@@ -1621,14 +1668,14 @@ def run_resume(breaching, ops, tmp):
         shared, payloads, true = server.run_protocol(user)
         first, _, _, losses = attack_path(breaching, ops, "slice 6e checkpointed run", cfg, setup, server, shared,
                                           payloads, true, RESUME_STEPS + 1)
-        cfg.attack.impl.checkpoint_path = at_100
+        cfg.attack.impl.checkpoint_path = at_resume
         second, _, stats, resumed_losses = attack_path(breaching, ops, "slice 6e resumed run", cfg, setup, server,
                                                        shared, payloads, true, 1, require_fall=False)
     finally:
         utils_checkpoint.save_attack_state, attack_module._RunState.restore = save, restore
     require(stats.get("resumed_at") == RESUME_STEPS and restored == [True],
             f"slice 6e: resumed at {stats.get('resumed_at')}, restored state equal to the file: {restored}")
-    a, b = saved[(path, RESUME_STEPS + 1)], saved[(at_100, RESUME_STEPS + 1)]
+    a, b = saved[(path, RESUME_STEPS + 1)], saved[(at_resume, RESUME_STEPS + 1)]
     loss_err = abs(resumed_losses[0] - losses[RESUME_STEPS]) / abs(losses[RESUME_STEPS])
     errors, off = {}, {}
     for k in a:
@@ -2179,10 +2226,12 @@ def on_cpu(tree):
     return tree
 
 
-def run_analytic_on_cpu_too(breaching, ops, path, overrides):
+def run_analytic_on_cpu_too(breaching, ops, path, overrides, later=None):
     """11a-11b: the exchange and the analytic attack on the card through the entry points, no
-    port kernel launched; then the same attack on the CPU on the card's payload and gradient.
-    Returns the launch counts."""
+    port kernel launched; then the same attack on the CPU on the card's payload and gradient,
+    or with ``later`` (a thread pool) in a thread beside the later paths, whose comparison
+    ``later``'s caller prints when it takes the result. Returns the launch counts and the
+    pending comparison (None without ``later``)."""
     import copy
 
     cfg, setup, user, server, model = build(breaching, overrides)
@@ -2199,21 +2248,35 @@ def run_analytic_on_cpu_too(breaching, ops, path, overrides):
     cpu_setup = breaching.utils.system_startup(cfg=cfg, device="cpu")
     cpu_model = copy.deepcopy(server.model).cpu()
     cpu_attacker = breaching.attacks.prepare_attack(cpu_model, server.loss, cfg.attack, cpu_setup)
-    start = time.perf_counter()
-    cpu_rec, _ = cpu_attacker.reconstruct(on_cpu(payloads), on_cpu(shared), server.secrets)
-    cpu_seconds = time.perf_counter() - start
-    data, want = rec["data"].cpu(), cpu_rec["data"]
-    gap = float((data - want).abs().max() / want.abs().max())
-    print(f"{path}: {model.name} {sum(p.numel() for p in model.parameters())} parameters, {tuple(data.shape)}; "
-          f"exchange and attack {seconds:.2f} s on the card (the CPU's attack {cpu_seconds:.2f} s); labels "
-          f"{None if rec['labels'] is None else rec['labels'].tolist()} (true {true['labels'].tolist()}); "
-          f"PSNR={metrics['psnr']:.3f} "
-          f"SSIM={metrics['ssim']:.4f}; largest difference from the CPU's attack on the same gradient {gap:.3e} of "
-          f"its largest entry; launches { {k: v for k, v in launches.items() if v} }", flush=True)
+    cpu_payloads, cpu_shared = on_cpu(payloads), on_cpu(shared)
+
+    def attack_on_cpu():
+        start = time.perf_counter()
+        cpu_rec, _ = cpu_attacker.reconstruct(cpu_payloads, cpu_shared, server.secrets)
+        return cpu_rec, time.perf_counter() - start
+
+    data = rec["data"].cpu()
     require(tuple(data.shape) == tuple(true["data"].shape) and bool(torch.isfinite(data).all()),
             f"{path}: the reconstruction is not a finite {tuple(true['data'].shape)} tensor")
     require(not any(launches.values()), f"{path}: launches {launches}, the path has no port kernel")
-    return launches
+
+    def compare(result):
+        cpu_rec, cpu_seconds = result
+        want = cpu_rec["data"]
+        gap = float((data - want).abs().max() / want.abs().max())
+        print(f"{path}: {model.name} {sum(p.numel() for p in model.parameters())} parameters, {tuple(data.shape)}; "
+              f"exchange and attack {seconds:.2f} s on the card (the CPU's attack {cpu_seconds:.2f} s"
+              f"{', in a thread beside the later paths' if later else ''}); labels "
+              f"{None if rec['labels'] is None else rec['labels'].tolist()} (true {true['labels'].tolist()}); "
+              f"PSNR={metrics['psnr']:.3f} "
+              f"SSIM={metrics['ssim']:.4f}; largest difference from the CPU's attack on the same gradient {gap:.3e} "
+              f"of its largest entry; launches { {k: v for k, v in launches.items() if v} }", flush=True)
+
+    if later is None:
+        compare(attack_on_cpu())
+        return launches, None
+    future = later.submit(attack_on_cpu)
+    return launches, lambda: compare(future.result())
 
 
 def run_exchange_and_attack(breaching, ops, path, overrides, steps):
@@ -2350,16 +2413,24 @@ def check_zoo(breaching):
 
 def run_slice11(breaching, ops):
     """Phase 5, slice 11: 11a-11f. Returns the launch counts by path."""
+    from concurrent.futures import ThreadPoolExecutor
+
     began = time.perf_counter()
-    paths = {"slice 11a rgap": run_analytic_on_cpu_too(breaching, ops, "slice 11a rgap", RGAP),
-             "slice 11b april": run_analytic_on_cpu_too(breaching, ops, "slice 11b april", APRIL),
-             "slice 11c fishing_optimization_cross_silo": run_exchange_and_attack(
-                 breaching, ops, "slice 11c fishing_optimization_cross_silo", CROSS_SILO, SLICE7_STEPS)}
-    for path, overrides in (("slice 11d fishing_analytic_cross_silo", ANALYTIC_SILO),
-                            ("slice 11d fishing_feature_cross_device", FEATURE_DEVICE)):
-        paths[path] = run_fishing_april(breaching, ops, path, overrides)
-    paths["slice 11e case 8"] = run_case8(breaching, ops)
-    check_zoo(breaching)
+    # 11a's CPU attack (R-GAP's float64 solves on the host, about 45 s) runs in a thread beside
+    # 11b-11f; its comparison is printed at the end of the slice
+    with ThreadPoolExecutor(max_workers=1) as later:
+        paths = {}
+        paths["slice 11a rgap"], rgap_on_cpu = run_analytic_on_cpu_too(breaching, ops, "slice 11a rgap", RGAP,
+                                                                       later)
+        paths["slice 11b april"], _ = run_analytic_on_cpu_too(breaching, ops, "slice 11b april", APRIL)
+        paths["slice 11c fishing_optimization_cross_silo"] = run_exchange_and_attack(
+            breaching, ops, "slice 11c fishing_optimization_cross_silo", CROSS_SILO, SLICE7_STEPS)
+        for path, overrides in (("slice 11d fishing_analytic_cross_silo", ANALYTIC_SILO),
+                                ("slice 11d fishing_feature_cross_device", FEATURE_DEVICE)):
+            paths[path] = run_fishing_april(breaching, ops, path, overrides)
+        paths["slice 11e case 8"] = run_case8(breaching, ops)
+        check_zoo(breaching)
+        rgap_on_cpu()
     print(f"chip_smoke: slice 11 in {time.perf_counter() - began:.1f} s", flush=True)
     return paths
 
@@ -2964,6 +3035,465 @@ def run_slice15(breaching, ops):
     return paths
 
 
+# --------------------------------------------------------------------------- slice 16
+# the forms of B1-B4 in the types the precision knobs give them (csrc/precision.cu), named
+# "<kernel> <types>" as the wrappers count them (ops.launch_counts_by_type)
+TYPED_FORMS = ("b1_matching_sums bf16-f32", "b1_matching_sums f16-f32", "b1_matching_sums f32-bf16",
+               "b1_matching_sums f64-f64", "b2_cosine_backward bf16-f32", "b2_cosine_backward f16-f32",
+               "b2_cosine_backward f32-bf16", "b2_cosine_backward f64-f64", "b2_axpby f32-bf16",
+               "b2_axpby f64-f64", "b3_tv_value_and_grad bf16", "b3_tv_value_and_grad f64",
+               "b4_box_project bf16", "b4_box_project f64", "b4_adam_box_step bf16", "b4_adam_box_step f64")
+PRECISION_SOURCE = "breaching_tpu_torch/csrc/precision.cu"
+DTYPES = {"f32": torch.float32, "f64": torch.float64, "bf16": torch.bfloat16, "f16": torch.float16}
+# the tolerance of a typed form's output against its plain version: one rounding of the
+# output's type (the two compute alike in the accumulation type), or for float64 1e-12
+OUT_TOL = {torch.bfloat16: 2.0 ** -7, torch.float16: 2.0 ** -10, torch.float32: 2.0 ** -22, torch.float64: 1e-12}
+FUSED16 = ["attack.objective.type=fused-cosine-similarity"]
+SLICE16_STEPS, SLICE16_HALF_STEPS, SLICE16_F64_STEPS, SLICE16_MIXED_STEPS, SLICE16_BATCHED_STEPS = 50, 5, 10, 25, 10
+SLICE16_TRIALS = 2
+SHIFT16 = {"continuous_shift": {"shift": 224, "padding": "circular"}}  # the multiscale preset's augmentation
+FORM_LAUNCHES = {}  # slice 16's path -> its launches by form
+
+
+def check_typed_forms(ops, matching, image, randn, record):
+    """Phase 3, slice 16: every typed form against its plain version on the card, at the
+    shapes slice 16's paths give it: B1, the cosine backward and ``axpby`` at ResNet-18's
+    11,380,173 gradient entries (and 1,000,003 entries 4 bytes off a boundary), B3 and B4
+    at 1x3x224x224 and in the trials form on 2x1x3x224x224, B3 also at p = 2, q = 0.5."""
+    dev = torch.device(DEVICE)
+    for n, offset in ((N2, 0), (1_000_003, 1)):
+        base = randn(n + offset), randn(n + offset)
+        for form in ("bf16-f32", "f16-f32", "f32-bf16", "f64-f64"):
+            rt, dt = (DTYPES[t] for t in form.split("-"))
+            r, d = base[0].to(rt)[offset:], base[1].to(dt)[offset:]
+            acc = matching.acc_dtype(r)
+            got = ops.matching_sums(r, d).double()
+            want = matching.matching_sums_plain(r, d).double()
+            rw, dw = r.double(), d.double()
+            scale = torch.stack([(rw * dw).abs().sum(), (rw * rw).sum(), (dw * dw).sum()])
+            tol = (1e-12 if acc == torch.float64 else 1e-5) * scale
+            err = (got - want).abs()
+            report_typed(f"b1_matching_sums {form}", f"n={n}{' unaligned' if offset else ''}", err, tol, record,
+                         not offset)
+            g = torch.tensor(0.37, dtype=acc, device=dev)
+            sums = ops.matching_sums(r, d)
+            got = ops.cosine_backward(sums, g, r, d).double()
+            want = matching.cosine_backward_plain(sums, g, r, d).double()
+            report_typed(f"b2_cosine_backward {form}", f"n={n}{' unaligned' if offset else ''}", (got - want).abs(),
+                         OUT_TOL[rt] * want.abs().max().item(), record, not offset)
+            if form in ("f32-bf16", "f64-f64"):
+                a, b = torch.tensor([-0.7], dtype=acc, device=dev), torch.tensor([1.3], dtype=acc, device=dev)
+                got, want = ops.axpby(a, r, b, d).double(), matching.axpby_plain(a, r, b, d).double()
+                report_typed(f"b2_axpby {form}", f"n={n}{' unaligned' if offset else ''}", (got - want).abs(),
+                             OUT_TOL[rt] * want.abs().max().item(), record, not offset)
+    lo32, hi32 = torch.tensor([-1.9, -2.0, -1.7], device=dev), torch.tensor([2.1, 2.1, 2.0], device=dev)
+    for name, dtype in (("bf16", torch.bfloat16), ("f64", torch.float64)):
+        acc = torch.float64 if dtype == torch.float64 else torch.float32
+        tol = OUT_TOL[dtype]
+        scale = torch.tensor([0.2], dtype=dtype, device=dev)
+        for shape, p, q in ((BIG, 1.0, 1.0), (BIG, 2.0, 0.5), ((SLICE16_TRIALS, *BIG), 1.0, 1.0)):
+            x = randn(*shape).to(dtype)
+            trials = len(shape) == 5
+            values, grad = (ops.tv_value_and_grad_trials if trials else ops.tv_value_and_grad)(x, scale, p, q)
+            want_values, want_grad = (image.tv_value_and_grad_trials_plain if trials
+                                      else image.tv_value_and_grad_plain)(x, scale, p, q)
+            err = torch.cat([((values.double() - want_values.double()).abs() / want_values.double().abs()).reshape(-1),
+                             ((grad.double() - want_grad.double()).abs()
+                              / want_grad.double().abs().max()).reshape(-1)])
+            report_typed(f"b3_tv_value_and_grad {name}", f"{shape} p={p} q={q}", err, tol, record,
+                         shape == BIG and p == 1.0)
+        lo, hi = lo32.to(dtype), hi32.to(dtype)
+        x = randn(*BIG).to(dtype)
+        report_typed(f"b4_box_project {name}", BIG, (ops.box_project(x, lo, hi).double()
+                                                     - image.box_project_plain(x, lo, hi).double()).abs(), 0.0,
+                     record, True)
+        for shape in (BIG, (SLICE16_TRIALS, *BIG)):
+            trials = shape[0] if len(shape) == 5 else None
+            for signed in (True, False, "soft"):
+                x = (0.5 * randn(*shape)).to(dtype)
+                args = [x, randn(*shape).to(dtype), (0.1 * randn(*shape)).to(dtype),
+                        (0.01 * randn(*shape).abs()).to(dtype), x.clone()]
+                per = (trials,) if trials else ()
+                vals = [torch.full(per, 0.5, dtype=acc, device=dev), torch.full(per, 1.0, dtype=acc, device=dev)]
+                step = ops.AdamStep(0.1, 0.9, 0.999, 1e-8, 0.1, 0.001)
+                soft = ops.soft_sign_scalars(3, 10) if signed == "soft" else None
+                got = [t.clone() for t in args] + [torch.empty(per, dtype=acc, device=dev)]
+                want = [t.clone() for t in args] + [torch.empty(per, dtype=acc, device=dev)]
+                kernel = ops.adam_box_step_trials if trials else ops.adam_box_step
+                plain = image.adam_box_step_trials_plain if trials else image.adam_box_step_plain
+                kernel(*got[:5], lo, hi, *vals, got[5], step, signed=signed, soft_scale=soft)
+                plain(*want[:5], lo, hi, *vals, want[5], step, signed=signed, soft_scale=soft)
+                err = torch.cat([((a.double() - b.double()).abs() / b.double().abs().max()).reshape(-1)
+                                 for a, b in zip(got, want)])
+                report_typed(f"b4_adam_box_step {name}", f"{shape} signed={signed}", err, tol, record,
+                             shape == BIG and signed is True)
+
+
+def report_typed(name, shape, err, tol, record, at_path_shape):
+    """A typed form's check: every error within ``tol`` (a number, or a tensor of err's shape)."""
+    ok = bool((err <= tol).all())
+    print(f"check {name} {shape}: max_err={err.max().item():.3e} tol={torch.as_tensor(tol).max().item():.3e} "
+          f"{'ok' if ok else 'FAILED'}", flush=True)
+    require(ok, f"{name} disagrees with its plain version at {shape}")
+    if at_path_shape:
+        record(name, name, err.max().item())
+
+
+def idle_share(breaching, overrides, steps=3):
+    """(it/s unprofiled, idle share, peak bytes) of ``steps`` attack steps on the card: the
+    kernels' device time under ``torch.profiler`` against the wall time of the same attack
+    unprofiled (the paths before it ran the same step, so nothing is built or tuned here)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    cfg = breaching.get_config(overrides + [f"attack.optim.max_iterations={steps}", "attack.optim.callback=0"])
+    setup = breaching.utils.system_startup(cfg=cfg, device=DEVICE)
+    user, server, _, _ = breaching.cases.construct_case(cfg.case, setup)
+    shared, payloads, _ = server.run_protocol(user)
+    attacker = breaching.attacks.prepare_attack(server.model, server.loss, cfg.attack, setup)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    start = time.perf_counter()
+    attacker.reconstruct(payloads, shared, server.secrets)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - start
+    peak = torch.cuda.max_memory_allocated()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        attacker.reconstruct(payloads, shared, server.secrets)
+        torch.cuda.synchronize()
+    busy = sum(e.self_device_time_total for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA) / 1e6
+    require(busy > 0, "the profiler saw no device time")
+    return steps / wall, 1.0 - busy / wall, peak
+
+
+def run_resnet16(breaching, ops, path, overrides, steps, form_needs, experiments=1, case=SLICE2):
+    """A slice-16 path of ResNet-18 through ``run_resnet``; its launches by form kept in
+    ``FORM_LAUNCHES``, each form of ``form_needs`` launched that many times a step."""
+    launches = run_resnet(breaching, ops, path, case, overrides, steps, experiments)
+    forms = ops.launch_counts_by_type()
+    FORM_LAUNCHES[path] = forms
+    want = {form: n * steps for form, n in form_needs.items()}
+    require(all(forms.get(form) == n for form, n in want.items()),
+            f"{path}: launches by form {forms}, the path needs {want}")
+    return launches
+
+
+def run_small16(breaching, ops, path, overrides, steps, form_needs):
+    """A slice-16 path on case 1 (ConvNet-64, CIFAR-10 shapes) through the entry points:
+    a finite reconstruction in the setup's type and each form of ``form_needs`` launched
+    (once per "step" or per objective "evaluation")."""
+    cfg, setup, user, server, model = build(breaching, overrides + [f"attack.optim.max_iterations={steps}",
+                                                                   "attack.optim.callback=100"])
+    shared, payloads, true = server.run_protocol(user)
+    attacker = breaching.attacks.prepare_attack(server.model, server.loss, cfg.attack, setup)
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    start = time.perf_counter()
+    result, stats = attacker.reconstruct(payloads, shared, server.secrets)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - start
+    launches, forms = ops.launch_counts(), ops.launch_counts_by_type()
+    FORM_LAUNCHES[path] = forms
+    losses, evaluations = stats["Trial_0_Val"], stats["objective_evaluations"]
+    print(f"{path}: {cfg.attack.optim.optimizer}, {cfg.attack.objective.type}, candidate "
+          f"{result['data'].dtype}; {steps} steps in {seconds:.2f} s, {evaluations} evaluations; loss first="
+          f"{losses[0]:.6f} best={min(losses):.6f} last={losses[-1]:.6f}; launches by form {forms}", flush=True)
+    require(result["data"].dtype == setup["dtype"] and bool(torch.isfinite(result["data"]).all()),
+            f"{path}: the reconstruction is not a finite {setup['dtype']} tensor")
+    want = {form: evaluations if per == "evaluation" else steps for form, per in form_needs.items()}
+    require(all(forms.get(form) == n for form, n in want.items()), f"{path}: launches by form {forms}, needs {want}")
+    return launches
+
+
+def run_gradient16(breaching, overrides, dtype, second):
+    """The attack gradient of slice 2 fused at one candidate: (value, gradient) on the card,
+    and again with ``second`` "cpu" on the CPU in the same type, or with ``second`` a context
+    on the card under it, on the same case."""
+    gen = torch.Generator().manual_seed(5)
+    x0 = dict(data=torch.randn(*BIG, generator=gen).to(dtype))
+    overrides = SLICE2 + FUSED16 + resnet_weights()[0] + overrides
+    on_card = objective_at(breaching, DEVICE, overrides)
+    card = on_card(x0)
+    if second == "cpu":
+        return card, attack_gradient(breaching, "cpu", x0, overrides)
+    with second():
+        return card, on_card(x0)
+
+
+def run_resume16(breaching, ops, path, overrides, steps, callback, keep):
+    """16e: a checkpointed run (a file after every chunk) and a fresh attacker resumed from
+    the file as ``keep(arrays, iteration, section)`` picked it; both on cuDNN's
+    deterministic algorithms, so that the resumed run must end as the uninterrupted one:
+    every loss after the resume, the best value and the reconstruction equal."""
+    from breaching_tpu_torch import utils_checkpoint
+
+    with tempfile.TemporaryDirectory() as tmp:
+        state, kept = os.path.join(tmp, "state.npz"), os.path.join(tmp, "kept.npz")
+        save = utils_checkpoint.save_attack_state
+
+        def save_and_keep(target, arrays, iteration, **section):
+            save(target, arrays, iteration, **section)
+            if target == state and keep(arrays, iteration, section.get("section")):
+                shutil.copy(state, kept)
+
+        deterministic = torch.backends.cudnn.deterministic
+        utils_checkpoint.save_attack_state, torch.backends.cudnn.deterministic = save_and_keep, True
+        try:
+            runs = []
+            for target in (state, kept):
+                cfg, setup, user, server, model = build(breaching, overrides + [
+                    f"attack.optim.max_iterations={steps}", f"attack.optim.callback={callback}",
+                    "attack.impl.checkpoint_every=1", f"attack.impl.checkpoint_path={target}"])
+                shared, payloads, true = server.run_protocol(user)
+                attacker = breaching.attacks.prepare_attack(server.model, server.loss, cfg.attack, setup)
+                ops.reset_launch_counts()
+                runs.append(attacker.reconstruct(payloads, shared, server.secrets) + (ops.launch_counts(),))
+                FORM_LAUNCHES.setdefault(path, ops.launch_counts_by_type())
+        finally:
+            utils_checkpoint.save_attack_state, torch.backends.cudnn.deterministic = save, deterministic
+    (rec, stats, launches), (resumed, resumed_stats, _) = runs
+    histories = [k for k in stats if k.endswith("_Val")]
+    tails = {k: (stats[k][-len(resumed_stats[k]):] if resumed_stats[k] else []) == resumed_stats[k]
+             for k in histories}
+    same = torch.equal(rec["data"], resumed["data"]) and stats["opt_value"] == resumed_stats["opt_value"]
+    print(f"{path}: resumed at {resumed_stats.get('resumed_at')}; losses after the resume equal {tails}; best value "
+          f"{stats['opt_value']:.9f} and {resumed_stats['opt_value']:.9f}; reconstructions "
+          f"{'equal' if same else 'differ'} (max |difference| "
+          f"{(rec['data'] - resumed['data']).abs().max().item():.3e})", flush=True)
+    require("resumed_at" in resumed_stats and all(tails.values()) and same,
+            f"{path}: the resumed run does not end as the uninterrupted one")
+    return launches
+
+
+def run_slice16(breaching, ops):
+    """Phase 5, slice 16: the attack's precision knobs, the batched trial step on what it
+    took one trial at a time before, and checkpoints of L-BFGS, trials one after the
+    other and the multiscale attack. Returns the launch counts by path."""
+    from breaching_tpu_torch.attacks.auxiliaries.precision import bfloat16_operands
+
+    began = time.perf_counter()
+    paths = {}
+    fused_pair = dict.fromkeys(("b1_matching_sums", "b2_cosine_backward"), 1)
+    # 16a: attack.impl.dtype=bfloat16 (and float16), the fused cosine on half-precision gradients
+    for path, dtype, steps in (("slice 16a attack.impl.dtype=bfloat16", "bfloat16", SLICE16_STEPS),
+                               ("slice 16a'' attack.impl.dtype=float16", "float16", SLICE16_HALF_STEPS)):
+        short_type = "bf16" if dtype == "bfloat16" else "f16"
+        paths[path] = run_resnet16(breaching, ops, path, FUSED16 + [f"attack.impl.dtype={dtype}"], steps,
+                                   {f"{k} {short_type}-f32": n for k, n in fused_pair.items()})
+    rates = {}
+    for name, overrides in (("slice 2 fused, float32", FUSED16), ("16a, bfloat16", FUSED16 + [
+            "attack.impl.dtype=bfloat16"])):
+        rates[name] = idle_share(breaching, SLICE2 + resnet_weights()[0] + overrides)
+    print("slice 16a beside slice 2 fused: " + "; ".join(
+        f"{name}: {rate:.2f} it/s, idle share {idle:.3f}, peak memory {peak / 2**30:.3f} GiB"
+        for name, (rate, idle, peak) in rates.items()), flush=True)
+    # 16a': case.impl.dtype=bfloat16, a bfloat16 candidate; 16a''': its L-BFGS-free first-order
+    # path through box_project and axpby on ConvNet-64
+    paths["slice 16a' case.impl.dtype=bfloat16"] = run_resnet16(
+        breaching, ops, "slice 16a' case.impl.dtype=bfloat16", FUSED16 + ["case.impl.dtype=bfloat16"],
+        SLICE16_HALF_STEPS, {"b1_matching_sums f32-bf16": 1, "b2_cosine_backward f32-bf16": 1,
+                             "b3_tv_value_and_grad bf16": 1, "b4_adam_box_step bf16": 1})
+    paths["slice 16a''' bfloat16 gd"] = run_small16(
+        breaching, ops, "slice 16a''' bfloat16 gd", CASE1 + [
+            "attack=invertinggradients", "attack.objective.type=fused-euclidean", "attack.optim.optimizer=gd",
+            "attack.optim.step_size=0.01", "case.impl.dtype=bfloat16"], 5,
+        {"b1_matching_sums f32-bf16": "step", "b2_axpby f32-bf16": "step", "b4_box_project bf16": "step"})
+    # 16b: case.impl.dtype=float64, and its L-BFGS path (4a' in float64)
+    paths["slice 16b case.impl.dtype=float64"] = run_resnet16(
+        breaching, ops, "slice 16b case.impl.dtype=float64", FUSED16 + ["case.impl.dtype=float64"], SLICE16_F64_STEPS,
+        {"b1_matching_sums f64-f64": 1, "b2_cosine_backward f64-f64": 1, "b3_tv_value_and_grad f64": 1,
+         "b4_adam_box_step f64": 1})
+    start = time.perf_counter()
+    (v_card, g_card), (v_cpu, g_cpu) = run_gradient16(breaching, ["case.impl.dtype=float64"], torch.float64, "cpu")
+    v_err, g_err = abs(v_card - v_cpu) / abs(v_cpu), ((g_card - g_cpu).abs().max() / g_cpu.abs().max()).item()
+    print(f"slice 16b: the float64 attack gradient at one candidate, card against CPU: loss {v_card:.15f} and "
+          f"{v_cpu:.15f} (relative {v_err:.2e}, tol 1e-12); gradient {g_err:.2e} of its largest entry (tol 1e-11) "
+          f"({time.perf_counter() - start:.1f} s)", flush=True)
+    require(v_err <= 1e-12 and g_err <= 1e-11 and g_card.dtype == torch.float64,
+            "slice 16b: the float64 attack gradient on the card disagrees with the CPU's")
+    paths["slice 16b' float64 deep_leakage fused"] = run_small16(
+        breaching, ops, "slice 16b' float64 deep_leakage fused", SLICE4["slice 4a' deep_leakage fused"][0] + [
+            "case.impl.dtype=float64"], 2, {"b1_matching_sums f64-f64": "evaluation", "b2_axpby f64-f64": "evaluation"})
+    paths["slice 16b'' float64 gd"] = run_small16(
+        breaching, ops, "slice 16b'' float64 gd", CASE1 + [
+            "attack=invertinggradients", "attack.objective.type=fused-euclidean", "attack.optim.optimizer=gd",
+            "attack.optim.step_size=0.01", "case.impl.dtype=float64"], 5,
+        {"b1_matching_sums f64-f64": "step", "b2_axpby f64-f64": "step", "b4_box_project f64": "step"})
+    # 16c: mixed precision, and its gradient's distance from float32's
+    paths["slice 16c mixed_precision"] = run_resnet16(
+        breaching, ops, "slice 16c mixed_precision", FUSED16 + ["attack.impl.mixed_precision=True"],
+        SLICE16_MIXED_STEPS, {})
+    mode = []
+
+    def recording():
+        mode.append(bfloat16_operands())
+        return mode[-1]
+
+    (v32, g32), (vmp, gmp) = run_gradient16(breaching, [], torch.float32, recording)
+    print(f"slice 16c: the attack gradient at one candidate with bfloat16 operands against float32: loss "
+          f"{vmp:.7f} and {v32:.7f} (relative {abs(vmp - v32) / abs(v32):.2e}); gradient "
+          f"{((gmp - g32).abs().max() / g32.abs().max()).item():.2e} of its largest entry; {mode[0].rounded} "
+          f"convolutions and products rounded", flush=True)
+    require(mode[0].rounded > 0 and math.isfinite(vmp), "slice 16c: nothing was rounded, or the loss is not finite")
+    # 16d: the batched trial step on what it took one trial at a time before
+    trials = [f"attack.restarts.num_trials={SLICE16_TRIALS}"]
+    for path, case, overrides, experiments, augmentations in (
+            ("slice 16d augmentations", SLICE2, trials, 1, SHIFT16),
+            ("slice 16d BN train + DeepInversion", SLICE2, trials + [
+                "case.server.provide_public_buffers=False", "attack.regularization.deep_inversion.scale=0.1"], 1, None),
+            ("slice 16d fedAVG restarts", SLICE3, trials, 1, None),
+            ("slice 16d fedAVG fleet", SLICE3, [], SLICE16_TRIALS, None),
+            ("slice 16d grad_accum=2", SLICE2, trials + ["case.user.num_data_points=2", "attack.impl.grad_accum=2"],
+             1, None)):
+        paths[path] = run_batched16(breaching, ops, path, case, overrides, experiments, augmentations)
+    # 16e: resumed checkpoints
+    paths["slice 16e L-BFGS"] = run_resume16(
+        breaching, ops, "slice 16e L-BFGS (4a, resumed after 2 of 4 outer steps)", SLICE4["slice 4a deep_leakage"][0],
+        4, 2, lambda arrays, iteration, section: iteration == 2)
+    paths["slice 16e trials one after the other"] = run_resume16(
+        breaching, ops, "slice 16e 2 gd trials one after the other (resumed at the second's step 4 of 8)", CASE1 + [
+            "attack=invertinggradients", "attack.optim.optimizer=gd", "attack.optim.step_size=0.01",
+            "attack.restarts.num_trials=2"], 8, 4, lambda arrays, iteration, section: section == "trial1"
+        and iteration == 4)
+    paths["slice 16e multiscale"] = run_resume16(
+        breaching, ops, "slice 16e multiscale (2 stages of 2 steps at 112 and 224, resumed at stage 0's step 1)",
+        MULTISCALE + resnet_weights()[0] + ["attack.num_stages=2"], 2, 1,
+        lambda arrays, iteration, section: arrays["tree/data"].shape[-1] == 112 and iteration == 1)
+    print(f"chip_smoke: slice 16 took {time.perf_counter() - began:.1f} s", flush=True)
+    return paths
+
+
+def run_batched16(breaching, ops, path, case, overrides, experiments, augmentations):
+    """16d: a path of ResNet-18 at 224 whose trials (restarts, or a fleet of
+    ``experiments``) run the batched step: one evaluation per trial a step, the fused TV
+    and Adam step once a step for every trial."""
+    weight_overrides, weights = resnet_weights()
+    cfg = breaching.get_config(case + weight_overrides + overrides + [
+        f"attack.optim.max_iterations={SLICE16_BATCHED_STEPS}", "attack.optim.callback=100"])
+    setup = breaching.utils.system_startup(cfg=cfg, device=DEVICE)
+    user, server, model, _ = breaching.cases.construct_case(cfg.case, setup)
+    payload_lists, shared_lists = [], []
+    for idx in range(experiments):
+        if experiments > 1:
+            cfg.case.user.user_idx = idx
+            user = breaching.cases.construct_user(model, server.loss, cfg.case, setup)
+        shared, payloads, true = server.run_protocol(user)
+        payload_lists.append(payloads)
+        shared_lists.append(shared)
+    if augmentations:
+        cfg.attack.augmentations = augmentations
+    attacker = breaching.attacks.prepare_attack(server.model, server.loss, cfg.attack, setup)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    start = time.perf_counter()
+    if experiments > 1:
+        results, stats = attacker.reconstruct_fleet(payload_lists, shared_lists, server.secrets)
+    else:
+        result, stats = attacker.reconstruct(payload_lists[0], shared_lists[0], server.secrets)
+        results = [result]
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - start
+    launches = ops.launch_counts()
+    FORM_LAUNCHES[path] = ops.launch_counts_by_type()
+    steps, trials = SLICE16_BATCHED_STEPS, SLICE16_TRIALS
+    histories = [stats[f"Trial_{t}_Val"] for t in range(trials)]
+    print(f"{path}: {trials} trials on {weights}, {steps} steps in {seconds:.2f} s = {trials * steps / seconds:.2f} "
+          f"trial steps/s; peak memory {torch.cuda.max_memory_allocated() / 2**30:.3f} GiB; losses first "
+          f"{[round(h[0], 6) for h in histories]} last {[round(h[-1], 6) for h in histories]}; "
+          f"{stats['objective_evaluations']} evaluations; launches {launches}", flush=True)
+    require(all(len(h) == steps for h in histories) and stats["objective_evaluations"] == trials * steps,
+            f"{path}: the trials did not run the batched step ({stats['objective_evaluations']} evaluations)")
+    require(all(tuple(r["data"].shape) == tuple(true["data"].shape) for r in results),
+            f"{path}: a reconstruction of another shape")
+    require(histories[0] != histories[1], f"{path}: the trials ran alike")
+    want = dict(b3_tv_value_and_grad=steps, b4_adam_box_step=steps)
+    require({k: v for k, v in launches.items() if v} == want, f"{path}: launches {launches}, the path needs {want}")
+    return launches
+
+
+def time_typed_forms(ops, iters=50):
+    """Phase 6, slice 16: each typed form at the shape its path gives it (B1 and B2 at
+    ResNet-18's 11,380,173 gradient entries, B3 and B4 at 1x3x224x224): the call, its device
+    time cold and warm, its host time, the plain version, a library call of the same
+    function where one exists (on upcast copies where the types differ), and the bound."""
+    from breaching_tpu_torch.ops import image, matching
+    from breaching_tpu_torch.timing import time_ms
+
+    gen = torch.Generator().manual_seed(97)
+    dev = torch.device(DEVICE)
+    base = torch.randn(N2, generator=gen).to(dev), torch.randn(N2, generator=gen).to(dev)
+    x32 = torch.randn(*BIG, generator=gen).to(dev)
+    lo32, hi32 = torch.tensor([-1.9, -2.0, -1.7], device=dev), torch.tensor([2.1, 2.1, 2.0], device=dev)
+    cases = {}
+    for form in TYPED_FORMS:
+        kernel, types = form.split(" ")
+        ts = [DTYPES[t] for t in types.split("-")]
+        size = [torch.empty((), dtype=t).element_size() for t in ts]
+        if kernel.startswith(("b1", "b2")):
+            r, d = base[0].to(ts[0]), base[1].to(ts[1])
+            acc = matching.acc_dtype(r)
+            n = N2
+            if kernel == "b1_matching_sums":
+                cases[form] = (lambda r=r, d=d: ops.matching_sums(r, d), lambda r=r, d=d: matching.matching_sums_plain(
+                    r, d), (lambda r=r, d=d, acc=acc: (torch.dot(r.to(acc), d.to(acc)), torch.linalg.vector_norm(
+                        r.to(acc)), torch.linalg.vector_norm(d.to(acc))), "torch.dot + 2 vector_norm on upcast copies"),
+                    (size[0] + size[1]) * n + 24, 6 * n)
+            elif kernel == "b2_cosine_backward":
+                sums, g = ops.matching_sums(r, d), torch.tensor(0.37, dtype=acc, device=dev)
+                cases[form] = (lambda r=r, d=d, s=sums, g=g: ops.cosine_backward(s, g, r, d),
+                               lambda r=r, d=d, s=sums, g=g: matching.cosine_backward_plain(s, g, r, d), None,
+                               (2 * size[0] + size[1]) * n + 32, 3 * n)
+            else:
+                a, b = torch.tensor([-0.7], dtype=acc, device=dev), torch.tensor([1.3], dtype=acc, device=dev)
+                ar = (a * r.to(acc))
+                cases[form] = (lambda r=r, d=d, a=a, b=b: ops.axpby(a, r, b, d),
+                               lambda r=r, d=d, a=a, b=b: matching.axpby_plain(a, r, b, d),
+                               (lambda ar=ar, d=d, acc=acc: torch.add(ar, d.to(acc), alpha=1.3),
+                                "torch.add(alpha=) on upcast copies"), (2 * size[0] + size[1]) * n + 16, 3 * n)
+        else:
+            dtype = ts[0]
+            acc = torch.float64 if dtype == torch.float64 else torch.float32
+            x, m, e = x32.to(dtype), x32.numel(), size[0]
+            lo, hi = lo32.to(dtype), hi32.to(dtype)
+            if kernel == "b3_tv_value_and_grad":
+                g = torch.tensor([0.2], dtype=dtype, device=dev)
+                cases[form] = (lambda x=x, g=g: ops.tv_value_and_grad(x, g),
+                               lambda x=x, g=g: image.tv_value_and_grad_plain(x, g), None, 2 * e * m + 2 * e, 20 * m)
+            elif kernel == "b4_box_project":
+                lo4, hi4 = lo.reshape(1, -1, 1, 1), hi.reshape(1, -1, 1, 1)
+                cases[form] = (lambda x=x, lo=lo, hi=hi: ops.box_project(x, lo, hi),
+                               lambda x=x, lo=lo, hi=hi: image.box_project_plain(x, lo, hi),
+                               (lambda x=x, lo4=lo4, hi4=hi4: torch.clamp(x, lo4, hi4), "torch.clamp"),
+                               2 * e * m + 6 * e, 2 * m)
+            else:
+                args = (x.clone(), torch.randn(*BIG, generator=gen).to(dev).to(dtype), torch.zeros_like(x),
+                        torch.zeros_like(x), x.clone(), lo, hi, torch.tensor(0.5, dtype=acc, device=dev),
+                        torch.tensor(float("inf"), dtype=acc, device=dev), torch.empty((), dtype=acc, device=dev),
+                        ops.AdamStep(lr=0.1, b1=0.9, b2=0.999, eps=1e-8, bias1=1 - 0.9 ** 3, bias2=1 - 0.999 ** 3))
+                cases[form] = (lambda args=args: ops.adam_box_step(*args),
+                               lambda args=args: image.adam_box_step_plain(*args), None, 8 * e * m + 64, 15 * m)
+    out = {}
+    for form, (kernel, plain, library, nbytes, flops) in cases.items():
+        bound_ms, bound_by = bound(nbytes, flops)
+        ms, device_ms, host_ms, device_warm_ms = time_ms(kernel, iters)
+        plain_t = time_ms(plain, iters)
+        lib = time_ms(library[0], iters) if library else None
+        out[form] = dict(ms=ms, device_ms=device_ms, host_ms=host_ms, device_warm_ms=device_warm_ms,
+                         plain_ms=plain_t[0], plain_device_ms=plain_t[1], plain_host_ms=plain_t[2],
+                         plain_device_warm_ms=plain_t[3], library_ms=lib[0] if lib else None, bound_ms=bound_ms,
+                         bound_by=bound_by)
+        if lib:
+            out[form].update(library_call=library[1], library_device_ms=lib[1], library_host_ms=lib[2],
+                             library_device_warm_ms=lib[3])
+        print(f"time {form}: kernel {ms * 1e3:.2f} us per call, {device_ms * 1e3:.2f} us device cold "
+              f"({device_warm_ms * 1e3:.2f} warm), {host_ms * 1e3:.2f} us host; plain {plain_t[0] * 1e3:.2f} / "
+              f"{plain_t[1] * 1e3:.2f} us" + (f"; {library[1]} {lib[0] * 1e3:.2f} / {lib[1] * 1e3:.2f} "
+                                              f"({lib[3] * 1e3:.2f}) us" if lib else "")
+              + f"; bound {bound_ms * 1e3:.3f} us ({bound_by})", flush=True)
+    return out
+
+
 def time_permutation_step(ops, size, iters=200):
     """Phase 6, slice 12: ``b4_adam_box_step`` at the permutation attack's (P, P) matrix as
     the path calls it (one unboxed row, no sign), beside its plain version and
@@ -3313,6 +3843,59 @@ def under_bound(rows):
     return found
 
 
+class LateSlices:
+    """Slices 11-15 in a child process of this script (``--late OUT``) on the same card,
+    started after phase 4 and run beside slices 1-10 and 16: most paths leave the card
+    idle most of the time, so two processes nearly halve phase 5's wall time. The child
+    prints to its own log, which ``paths`` prints once it has ended, and writes its paths'
+    launch counts to OUT; ``close`` stops it."""
+
+    def __init__(self):
+        self.tmp = tempfile.TemporaryDirectory()
+        self.out = os.path.join(self.tmp.name, "late.json")
+        self.log = open(os.path.join(self.tmp.name, "late.log"), "w")
+        self.process = subprocess.Popen([sys.executable, os.path.abspath(__file__), "--late", self.out],
+                                        stdout=self.log, stderr=subprocess.STDOUT)
+
+    def paths(self):
+        """Waits for the child, prints its log; its launch counts by path."""
+        returncode = self.process.wait()
+        self.log.flush()
+        with open(self.log.name) as log:
+            print(log.read(), end="", flush=True)
+        require(returncode == 0, f"slices 11-15 failed in their process ({returncode})")
+        with open(self.out) as out:
+            return json.load(out)
+
+    def close(self):
+        if self.process.poll() is None:
+            self.process.kill()
+            self.process.wait()
+        self.log.close()
+        self.tmp.cleanup()
+
+
+def run_late(out):
+    """The child of ``LateSlices``: slices 11-15, their launch counts by path written to
+    ``out``. Exits 1 where a check fails."""
+    sys.path.insert(0, REPO)
+    import breaching_tpu_torch as breaching
+    from breaching_tpu_torch import ops
+
+    began = time.perf_counter()
+    try:
+        paths = {}
+        for run in (run_slice11, run_slice12, run_slice13, run_slice14, run_slice15):
+            paths.update(run(breaching, ops))
+    except CheckFailed as failed:
+        print(f"chip_smoke: FAILED in slices 11-15: {failed}", flush=True)
+        return 1
+    print(f"chip_smoke: slices 11-15 in their process in {time.perf_counter() - began:.1f} s", flush=True)
+    with open(out, "w") as fh:
+        json.dump(paths, fh)
+    return 0
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available.", file=sys.stderr)
@@ -3355,8 +3938,29 @@ def main():
     for name, overrides in HF_FAMILIES.items():
         check_hf_family(breaching, name, overrides)
     print(f"chip_smoke: phase 4 done at {time.perf_counter() - began:.1f} s", flush=True)
+    late = LateSlices()  # slices 11-15 beside 1-10 and 16
+    try:
+        paths = run_phase5(breaching, ops, late)
+    finally:
+        late.close()
+    print(f"chip_smoke: phase 5 done at {time.perf_counter() - began:.1f} s", flush=True)
+    return finish(ops, n_params, image_shape, errors, paths, began)
+
+
+def run_phase5(breaching, ops, late):
+    """Phase 5 in this process (slices 1-7, 10 and 16) and in ``late``'s (11-15): the
+    launch counts by path, slice 16's under "slice 16"."""
+    fused = ["attack.objective.type=fused-cosine-similarity"]
+    mark = [time.perf_counter()]
+
+    def slice_done(name):
+        """Prints the seconds since the previous slice ended: each slice's own."""
+        now = time.perf_counter()
+        print(f"chip_smoke: slice {name} in {now - mark[0]:.1f} s", flush=True)
+        mark[0] = now
 
     paths = {"slice 1": run_slice(breaching, ops), "slice 1 restarts": run_restarts(breaching, ops)}
+    slice_done(1)
     all_kernels = dict(b1_matching_sums=1, b2_cosine_backward=1, **IMAGE_KERNELS)
     # the image kernels once per attack step, not once per local step of the fedAVG user
     for path, case, overrides, steps, experiments, per_step in (
@@ -3371,8 +3975,11 @@ def main():
         require({k: v for k, v in launches.items() if v} == want,
                 f"{path}: launches {launches}, the path needs {want}")
         paths[path] = launches
+        if path in ("slice 2 fleet", "slice 3 fused"):
+            slice_done(path.split()[1])
     for path, (overrides, steps, needs) in SLICE4.items():
         paths[path] = run_slice4(breaching, ops, path, overrides, steps, needs)
+    slice_done(4)
     peaks = {}
     for path, (overrides, steps, needs) in SLICE5.items():
         paths[path], peaks[path] = run_slice5(breaching, ops, path, overrides, steps, needs)
@@ -3380,45 +3987,51 @@ def main():
     print(f"slice 5b: peak memory {accum10 / 2**30:.3f} GiB with grad_accum=10, {accum1 / 2**30:.3f} GiB with "
           f"grad_accum=1 ({accum1 / accum10:.2f}x)", flush=True)
     require(accum10 < accum1, "slice 5b: grad_accum=10 does not lower the peak memory")
+    slice_done(5)
     paths["slice 6a local DP"] = run_dp(breaching, ops)
     paths.update(run_model_states(breaching, ops))
-    paths["slice 6c fedavg local DP"] = run_resnet(breaching, ops, "slice 6c fedavg local DP", SLICE3, DP[:2], 50)
-    require({k: v for k, v in paths["slice 6c fedavg local DP"].items() if v} == {k: 50 for k in IMAGE_KERNELS},
+    paths["slice 6c fedavg local DP"] = run_resnet(breaching, ops, "slice 6c fedavg local DP", SLICE3, DP[:2], 25)
+    require({k: v for k, v in paths["slice 6c fedavg local DP"].items() if v} == {k: 25 for k in IMAGE_KERNELS},
             f"slice 6c: launches {paths['slice 6c fedavg local DP']}")
     paths["slice 6d wainakh-whitebox"] = run_wainakh(breaching, ops)
     with tempfile.TemporaryDirectory() as tmp:
         paths["slice 6e checkpointed run"], paths["slice 6e resumed run"] = run_resume(breaching, ops, tmp)
         paths["slice 6f trace_dir"] = run_trace(breaching, ops, tmp)
+    slice_done(6)
     paths.update(run_slice7_paths(breaching, ops))
-    print(f"chip_smoke: slice 7 done at {time.perf_counter() - began:.1f} s", flush=True)
-    paths.update(run_slice11(breaching, ops))
+    slice_done(7)
     children = []  # the CPU's registrations of slice 10's users, running beside the later paths
     try:
         records, registered = run_records(breaching, ops, children)
         paths.update(records)
-        paths.update(run_slice12(breaching, ops))
-        paths.update(run_slice13(breaching, ops))
-        paths.update(run_slice14(breaching, ops))
-        paths.update(run_slice15(breaching, ops))
+        slice_done(10)
+        paths16 = run_slice16(breaching, ops)  # its forms' launches in FORM_LAUNCHES
         check_rpsnr_of_every_user(*registered, *children)
     finally:
         for child in children:
             child.close()
+    paths.update(late.paths())
+    paths["slice 16"] = paths16
+    return paths
 
-    print(f"chip_smoke: phase 5 done at {time.perf_counter() - began:.1f} s", flush=True)
-    timings = time_kernels(ops, n_params, image_shape)
+
+def finish(ops, n_params, image_shape, errors, paths, began):
+    """Phase 6 and the two JSON lines, once no other process uses the card."""
+    paths16 = paths.pop("slice 16")
+    timings = time_kernels(ops, n_params, image_shape, iters=100)
     slice2 = ("b1_matching_sums", "b2_cosine_backward", "b4_adam_box_step")
-    timings2 = time_kernels(ops, N2, BIG, names=slice2, iters=100)
+    timings2 = time_kernels(ops, N2, BIG, names=slice2, iters=50)
     slice3 = ("b3_tv_value_and_grad", "b4_adam_box_step")
-    timings3 = time_kernels(ops, N2, BATCH, names=slice3, iters=100)
-    timings4 = {**time_kernels(ops, N2, BIG, names=("b4_adam_box_step soft",), iters=100),
-                **time_kernels(ops, N2, OPPONENTS, names=("b3_tv_value_and_grad q=0.5",), iters=100)}
-    timings5 = {shape: time_kernels(ops, n_params, shape, names=slice3 if shape != STAGE2 else slice3[:1], iters=100)
+    timings3 = time_kernels(ops, N2, BATCH, names=slice3, iters=50)
+    timings4 = {**time_kernels(ops, N2, BIG, names=("b4_adam_box_step soft",), iters=50),
+                **time_kernels(ops, N2, OPPONENTS, names=("b3_tv_value_and_grad q=0.5",), iters=50)}
+    timings5 = {shape: time_kernels(ops, n_params, shape, names=slice3 if shape != STAGE2 else slice3[:1], iters=50)
                 for shape in (LARGE, STAGE, STAGE2)}
-    trials = time_trials(ops, n_params)
-    permutation_steps = [time_permutation_step(ops, size) for size in PERMUTATION_SIZES]
+    trials = time_trials(ops, n_params, iters=50)
+    timings16 = time_typed_forms(ops)
+    permutation_steps = [time_permutation_step(ops, size, iters=100) for size in PERMUTATION_SIZES]
     configs = launch_configs(n_params, image_shape)
-    hosts = host_breakdown(ops, n_params, image_shape)
+    hosts = host_breakdown(ops, n_params, image_shape, iters=100)
 
     rows = []
     for name, (source, replaces) in KERNELS.items():
@@ -3456,6 +4069,13 @@ def main():
         if name in configs:  # the kernels redesigned for the dispatcher binding
             rows[-1]["launch_config"] = configs[name]
         rows[-1]["host_breakdown"] = hosts[name]
+    for form in TYPED_FORMS:  # slice 16: the typed forms, launched on its paths
+        name = form.split(" ")[0]
+        by_path = {path: FORM_LAUNCHES.get(path, {}).get(form, 0) for path in paths16}
+        rows.append(dict(name=form, route="cuda", source=PRECISION_SOURCE, replaces=KERNELS[name][1],
+                         launches=sum(by_path.values()), launches_by_path={p: n for p, n in by_path.items() if n},
+                         max_abs_err=errors[form], **timings16[form]))
+        require(rows[-1]["launches"] > 0, f"{form} was launched on no path of slice 16")
     print(f"device times (cold) under their bound: {under_bound(rows) or 'none'}", flush=True)
     print(f"chip_smoke: phases 2-6 in {time.perf_counter() - began:.1f} s", flush=True)
     print(json.dumps({"kernels": rows}))
@@ -3465,4 +4085,6 @@ def main():
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--late"]:
+        sys.exit(run_late(sys.argv[2]))
     sys.exit(main())

@@ -146,19 +146,13 @@ def test_short_signed_reconstructions_match(dryrun, iterations):
 @pytest.mark.parametrize("override,name", [
     ("attack.attack_type=permutation-optimization", "permutation-optimization"),
     ("attack.label_strategy=bias-text case.user.provide_labels=False", "bias-text"),
-    # the attack.impl knobs the JAX package acts on and the port does not (yet): each is
-    # refused by name rather than ignored. checkpoint_path, checkpoint_every and
-    # trace_dir run (tests/test_torch_checkpoint.py), but not a checkpoint of L-BFGS (its
-    # history is not saved), of trials run one after the other or of the multiscale attack
-    ("attack.impl.mixed_precision=True", "mixed_precision"),
-    ("attack.optim.optimizer=L-BFGS attack.impl.checkpoint_path=attack_state.npz", "checkpoint_path"),
-    ("attack.optim.optimizer=gd attack.restarts.num_trials=2 attack.impl.checkpoint_path=attack_state.npz",
-     "checkpoint_path"),
-    ("attack=multiscale_ghiasi attack.impl.checkpoint_path=attack_state.npz", "checkpoint_path"),
+    # the attack.impl knob the JAX package acts on and the port does not (yet) is refused
+    # by name rather than ignored: sharding, over a mesh of devices. mixed_precision and
+    # dtype run (tests/test_torch_precision.py), and so do checkpoint_path, checkpoint_every
+    # and trace_dir, with L-BFGS, trials one after the other and the multiscale attack
+    # (tests/test_torch_checkpoint.py)
     ("attack.impl.sharding=restarts", "sharding"),
-    ("attack.impl.sharding=batch", "sharding"),
-    ("attack.impl.dtype=float64", "dtype"),
-    ("attack.impl.dtype=bfloat16", "dtype")])
+    ("attack.impl.sharding=batch", "sharding")])
 def test_unported_options_are_refused(override, name):
     cfg = breaching.get_config(SLICE + override.split())
     setup = breaching.utils.system_startup(cfg=cfg, device="cpu")
@@ -172,8 +166,9 @@ def test_unported_options_are_refused(override, name):
 @pytest.mark.parametrize("modality", ["text", "audio"])
 def test_unported_modality_is_refused(modality):
     """What the port has not ported of a data modality is refused by name, as the attack
-    options above are: audio has no datasets; text has, and its fedAVG user too, whose
-    attack with restarts stays refused (ROADMAP Queue A, item 3)."""
+    options above are: audio has no datasets. Text has, and its fedAVG user too, whose
+    attack with restarts runs: its two trials one after the other through the single
+    step (a text candidate has no batched step), each with its own loss."""
     if modality == "text":
         cfg = breaching.get_config(["case=10_causal_lang_training", "case/user=local_updates", "attack=tag",
                                     "attack.restarts.num_trials=2", "case.data.vocab_size=128",
@@ -182,9 +177,12 @@ def test_unported_modality_is_refused(modality):
         user, server, _, _ = breaching.cases.construct_case(cfg.case, setup)
         shared, payloads, _ = server.run_protocol(user)
         assert shared[0]["metadata"]["data_key"] == "input_ids"
+        assert shared[0]["metadata"]["local_hyperparams"] is not None
         attacker = breaching.attacks.prepare_attack(server.model, server.loss, cfg.attack, setup)
-        with pytest.raises(NotImplementedError, match="Restarts of a fedAVG user's attack"):
-            attacker.reconstruct(payloads, shared, server.secrets, dryrun=True)
+        rec, stats = attacker.reconstruct(payloads, shared, server.secrets, dryrun=True)
+        losses = [stats[f"Trial_{t}_Val"] for t in range(2)]
+        assert all(len(v) == 1 and np.isfinite(v).all() for v in losses) and losses[0] != losses[1]
+        assert rec["data"].dtype == torch.int64 and rec["data"].shape[-1] == 8  # token ids of each sequence
         return
     cfg = breaching.get_config(SLICE)
     cfg.case.data.modality = modality

@@ -5,7 +5,18 @@
   attacker resumed from its checkpoint at step 8 end bit for bit alike: the same last
   four losses, best value and reconstruction. For Adam on one trial (with Langevin
   noise, whose generator the checkpoint carries), for the batched trial step of two
-  trials, and for plain gradient descent;
+  trials, for plain gradient descent, and for L-BFGS (its history, ``h_diag``, last
+  direction, step scale and counters as named arrays, as the JAX package's carry holds
+  them);
+- two trials of gradient descent run one after the other keep a section each of one
+  file: a run resumed from the file as it stood at the second trial's step 8 restores
+  the first trial where it ended and the second at step 8, and ends as the
+  uninterrupted run;
+- the multiscale attack (2 stages of 8 steps, ResNet-20 at 16x16) passes the same file
+  to every stage, as the JAX package's does: resumed from stage 0's state at step 4 it
+  resumes stage 0 there; from stage 1's state at step 4, stage 0 finds a state of
+  another size, warns and starts afresh, and so does stage 1 after it; both end as the
+  uninterrupted run;
 - a checkpoint whose shapes do not fit the run is ignored with a warning: the run
   starts fresh and ends as one without a checkpoint;
 - ``trace_dir`` writes a Chrome trace of the second chunk.
@@ -29,8 +40,8 @@ SLICE = ["case=1_single_image_small", "attack=invertinggradients", "attack.objec
          "attack.optim.callback=4", "seed=0"]
 
 
-def _attack(overrides):
-    cfg = breaching.get_config(SLICE + overrides)
+def _attack(overrides, base=SLICE):
+    cfg = breaching.get_config(base + overrides)
     setup = breaching.utils.system_startup(cfg=cfg, device="cpu")
     user, server, _, _ = breaching.cases.construct_case(cfg.case, setup)
     attacker = breaching.attacks.prepare_attack(server.model, server.loss, cfg.attack, setup)
@@ -41,7 +52,8 @@ def _attack(overrides):
 @pytest.mark.parametrize("overrides,trials", [
     (["attack.optim.langevin_noise=0.1"], 1),
     (["attack.restarts.num_trials=2"], 2),
-    (["attack.optim.optimizer=gd", "attack.optim.step_size=0.01"], 1)])
+    (["attack.optim.optimizer=gd", "attack.optim.step_size=0.01"], 1),
+    (["attack.optim.optimizer=L-BFGS", "attack.optim.step_size=0.01"], 1)])
 def test_a_resumed_run_ends_as_the_uninterrupted_one(overrides, trials, tmp_path, monkeypatch):
     path, at_8 = str(tmp_path / "state.npz"), str(tmp_path / "state_at_8.npz")
     save = utils_checkpoint.save_attack_state
@@ -62,6 +74,57 @@ def test_a_resumed_run_ends_as_the_uninterrupted_one(overrides, trials, tmp_path
         assert resumed_stats[f"Trial_{t}_Val"] == stats[f"Trial_{t}_Val"][8:]
     assert resumed_stats["opt_value"] == stats["opt_value"]
     assert torch.equal(resumed["data"], rec["data"])
+
+
+def test_trials_one_after_the_other_resume_from_their_sections(tmp_path, monkeypatch):
+    path, kept = str(tmp_path / "state.npz"), str(tmp_path / "kept.npz")
+    save = utils_checkpoint.save_attack_state
+
+    def save_and_keep(target, arrays, iteration, section=None):
+        save(target, arrays, iteration, section=section)
+        if section == "trial1" and iteration == 8 and target == path:
+            shutil.copy(path, kept)
+    monkeypatch.setattr(utils_checkpoint, "save_attack_state", save_and_keep)
+    knobs = ["attack.optim.optimizer=gd", "attack.optim.step_size=0.01", "attack.restarts.num_trials=2",
+             "attack.impl.checkpoint_every=1"]
+    rec, stats = _attack(knobs + [f"attack.impl.checkpoint_path={path}"])
+    with np.load(kept) as blob:  # the first trial where it ended, the second at step 8
+        assert int(blob["trial0/iteration"]) == 12 and int(blob["trial1/iteration"]) == 8
+        assert "trial0/state/tree/data" in blob.files and "iteration" not in blob.files
+    resumed, resumed_stats = _attack(knobs + [f"attack.impl.checkpoint_path={kept}"])
+    assert len(stats["Trial_0_Val"]) == len(stats["Trial_1_Val"]) == 12
+    assert resumed_stats["Trial_0_Val"] == [] and resumed_stats["Trial_1_Val"] == stats["Trial_1_Val"][8:]
+    assert resumed_stats["resumed_at"] == 8
+    assert resumed_stats["opt_value"] == stats["opt_value"] and torch.equal(resumed["data"], rec["data"])
+
+
+MULTISCALE = ["case=1_single_image_small", "case.model=resnet20", "case.data.shape=[3, 16, 16]",
+              "attack=multiscale_ghiasi", "attack.num_stages=2", "attack.optim.max_iterations=8",
+              "attack.optim.callback=4", "seed=0"]
+
+
+@pytest.mark.parametrize("stage_size,resumed_at", [(8, 4), (16, None)])
+def test_multiscale_stages_share_one_file_as_jax(stage_size, resumed_at, tmp_path, monkeypatch, caplog):
+    path, kept = str(tmp_path / "state.npz"), str(tmp_path / "kept.npz")
+    save = utils_checkpoint.save_attack_state
+
+    def save_and_keep(target, arrays, iteration):
+        save(target, arrays, iteration)
+        if arrays["tree/data"].shape[-1] == stage_size and iteration == 4 and target == path:
+            shutil.copy(path, kept)
+    monkeypatch.setattr(utils_checkpoint, "save_attack_state", save_and_keep)
+    knobs = ["attack.impl.checkpoint_every=1"]
+    rec, stats = _attack(knobs + [f"attack.impl.checkpoint_path={path}"], base=MULTISCALE)
+    with caplog.at_level(logging.WARNING):
+        resumed, resumed_stats = _attack(knobs + [f"attack.impl.checkpoint_path={kept}"], base=MULTISCALE)
+    assert len(stats["Trial_0_Val"]) == 16
+    assert resumed_stats.get("resumed_at") == resumed_at
+    if resumed_at is None:  # stage 0 found stage 1's state and started afresh
+        assert "ignoring checkpoint" in caplog.text
+        assert resumed_stats["Trial_0_Val"] == stats["Trial_0_Val"]
+    else:
+        assert resumed_stats["Trial_0_Val"] == stats["Trial_0_Val"][4:]
+    assert resumed_stats["opt_value"] == stats["opt_value"] and torch.equal(resumed["data"], rec["data"])
 
 
 def test_a_checkpoint_that_does_not_fit_is_ignored(tmp_path, caplog):

@@ -2,8 +2,8 @@
 delta and metadata, the attack's unrolled multi-step objective and its gradient,
 ``bias-corrected`` labels recovered from the delta, a short hard-signed
 reconstruction and its score, the unrolled steps on a candidate where they
-diverge, the candidate an attack stops at when its loss is not finite, the
-refusals, and the CPU dry run of the entry point.
+diverge, the candidate an attack stops at when its loss is not finite, restarts
+and fleets through the batched step, and the CPU dry run of the entry point.
 
 Both packages build the same case; the port's model takes the JAX model's weights
 through ``load_flat_state``. ConvNet-8 runs on CIFAR-10 shapes cut to 16x16 with
@@ -291,20 +291,38 @@ def test_a_trial_whose_loss_turns_non_finite_keeps_the_candidate_it_stopped_at(c
     assert "Trial_0_nonfinite_candidate" not in reconstructions["port"][1]
 
 
-def test_restarts_and_fleets_of_fedavg_users_are_refused(convnet):
+def test_restarts_and_fleets_of_fedavg_users_run_the_batched_step(convnet):
+    """The trials form of the unrolled objective (each trial's local steps inside the
+    vmap over the trials) gives each trial the single evaluation's value to 1e-6 and
+    gradient to 1e-5 of its largest entry; restarts and a fleet of fedAVG users run
+    through the batched step (tests/test_torch_trials_batched.py holds them to the JAX
+    package's vmapped trials)."""
     port, _ = convnet
     attacker = copy.copy(port["attacker"])
     attacker.cfg = copy.deepcopy(attacker.cfg)
     attacker.cfg.restarts.num_trials = 2
-    with pytest.raises(NotImplementedError, match="num_trials=1"):
-        attacker.reconstruct(port["payloads"], port["shared"], dryrun=True)
-    with pytest.raises(NotImplementedError, match="Fleets of fedAVG users"):
-        port["attacker"].reconstruct_fleet([port["payloads"]] * 2, [port["shared"]] * 2, dryrun=True)
+    _, stats = attacker.reconstruct(port["payloads"], port["shared"], dryrun=True)
+    assert [len(stats[f"Trial_{t}_Val"]) for t in range(2)] == [1, 1]
+    results, fleet_stats = port["attacker"].reconstruct_fleet([port["payloads"]] * 2, [port["shared"]] * 2,
+                                                              dryrun=True)
+    assert len(results) == 2 and len(fleet_stats["fleet_opt_values"]) == 2
+    rec_models, labels, _ = port["attacker"].prepare_attack(port["payloads"], port["shared"])
+    model = rec_models[0]
     objective = CosineSimilarity()
-    objective.initialize(port["loss_fn"], port["model"], dict(lr=0.1, steps=1, data_per_step=1,
-                                                              labels=torch.zeros(1, 1, dtype=torch.int64)))
-    with pytest.raises(NotImplementedError, match="fedAVG"):
-        objective.trials({}, {}, (), torch.zeros(2, 1, 3, 16, 16), torch.zeros(2, 1, dtype=torch.int64))
+    objective.initialize(port["loss_fn"], port["model"],
+                         port["attacker"]._local_hyperparams(port["shared"][0]["metadata"]))
+    target = tuple(port["attacker"]._shared_data_cache[0]["gradients"][k] for k in model.params)
+    x = torch.from_numpy(np.random.default_rng(5).normal(size=(2, 4, 3, 16, 16)).astype(np.float32))
+    xt = x.clone().requires_grad_(True)
+    values, _ = objective.trials(model.params, model.buffers, tuple(t.expand(2, *t.shape) for t in target), xt,
+                                 labels.expand(2, -1))
+    grads, = torch.autograd.grad(values.sum(), xt)
+    for t in range(2):
+        xs = x[t].clone().requires_grad_(True)
+        value, _ = objective(model.params, model.buffers, target, xs, labels)
+        grad, = torch.autograd.grad(value, xs)
+        assert abs(values[t].item() - value.item()) <= 1e-6
+        np.testing.assert_allclose(grads[t].numpy(), grad.numpy(), rtol=0, atol=1e-5 * grad.abs().max().item())
 
 
 @pytest.mark.parametrize("overrides", [

@@ -209,12 +209,22 @@ def test_fleet_refuses_diverging_parameters_and_multi_query_payloads():
                                           [run["shared"][0] * 2, run["shared"][1] * 2])
 
 
-def test_batched_step_refuses_batchnorm_in_train_mode():
-    run = _experiments(breaching, ["case.server.provide_public_buffers=False", "case.user.provide_buffers=False",
-                                   "attack.restarts.num_trials=2", "attack.optim.max_iterations=2"],
-                       users=1, device="cpu")
-    with pytest.raises(NotImplementedError, match="BatchNorm in train mode"):
-        run["attacker"].reconstruct(run["payloads"][0], run["shared"][0])
+def test_batched_step_takes_batchnorm_in_train_mode():
+    """Without buffers the attacker's ResNet runs BatchNorm in train mode: the batched
+    step normalizes each trial by its own batch statistics, and its losses equal the
+    per-trial loop's to 1e-5 relative (unsigned Adam, 3 steps); the model's running
+    statistics stay as they were."""
+    overrides = ["case.server.provide_public_buffers=False", "case.user.provide_buffers=False",
+                 "attack.restarts.num_trials=2", "attack.optim.max_iterations=3", "attack.optim.callback=3",
+                 "attack.optim.signed=False"]
+    x0 = _candidates(2, seed=5)
+    got, got_stats = _run_port(overrides, "restarts", True, x0)
+    want, want_stats = _run_port(overrides, "restarts", False, x0)
+    for t in range(2):
+        assert len(got_stats[f"Trial_{t}_Val"]) == 3
+        np.testing.assert_allclose(got_stats[f"Trial_{t}_Val"], want_stats[f"Trial_{t}_Val"], rtol=1e-5)
+    assert got_stats["Trial_0_Val"] != got_stats["Trial_1_Val"]
+    assert (got[0]["data"] - want[0]["data"]).abs().max().item() <= 1e-4
 
 
 @pytest.mark.parametrize("num_data_points,queries", [(1, 1), (4, 2), (8, 2)])

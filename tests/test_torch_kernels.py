@@ -326,8 +326,8 @@ def test_axpby_refuses_a_mixed_device_call_in_cpp(cuda):
         ops.axpby(a.cpu(), r, b, r.clone())
     with pytest.raises(RuntimeError, match="breaching::axpby"):
         ops.axpby(a, r, b, r.cpu())
-    with pytest.raises(ValueError, match="breaching::axpby"):  # float64
-        ops.axpby(a.double(), r.double(), b.double(), r.double())
+    with pytest.raises(ValueError, match="breaching::axpby"):  # float64 x beside float32 y: no form
+        ops.axpby(a.double(), r.double(), b.double(), r)
     assert ops.axpby.launches == before
 
 
@@ -504,8 +504,8 @@ def test_b3_tv_value_and_grad_refuses_what_it_does_not_take(cuda):
     x, scale = _randn((1, 3, 32, 32), 22, cuda), torch.tensor([0.2], device=cuda)
     with pytest.raises(ValueError):  # not contiguous
         ops.tv_value_and_grad(x.transpose(2, 3), scale)
-    with pytest.raises(ValueError):  # float64
-        ops.tv_value_and_grad(x.double(), scale.double())
+    with pytest.raises(ValueError):  # float16: no form
+        ops.tv_value_and_grad(x.half(), scale.half())
     with pytest.raises(RuntimeError, match="breaching::tv_value_and_grad"):  # the scale on the CPU
         ops.tv_value_and_grad(x, scale.cpu())
 
@@ -679,4 +679,128 @@ def test_ops_refuse_in_cpp_what_their_kernels_do_not_take(cuda):
         ops.box_project(x[0], lo[:2], hi[:2])
     with pytest.raises(ValueError, match="breaching::tv_forward"):  # not a batch of images
         ops.tv_forward(r)
+    assert ops.launch_counts() == counts
+
+
+# ---------------------------------------------------------------- the typed forms
+# csrc/precision.cu: the kernels in the types the precision knobs give them. Tolerances:
+# - B1's sums: float32 accumulation of widened half-precision terms, 1e-5 of the sum of
+#   |terms| (two orders of addition); float64, 1e-12 of it;
+# - B2 (the cosine backward, axpby): the same roundings as the plain version in the
+#   accumulation type, then one rounding to the output's type: 2^-7 of the largest
+#   |value| for bfloat16 (one ulp), 2^-10 for float16, 1e-14 for float64;
+# - B3: float64 value 1e-12 relative and gradient 1e-12 of its largest entry; bfloat16
+#   (float32 inside, one rounding on store) value and gradient 2^-7 of the largest;
+# - B4's clamp is exact; its Adam step on float64 1e-12 of the largest entry (the soft
+#   sign's tanh need not round as PyTorch's does), on bfloat16 one bfloat16 ulp.
+TYPED_PAIRS = [(torch.bfloat16, torch.float32), (torch.float16, torch.float32), (torch.float32, torch.bfloat16),
+               (torch.float64, torch.float64)]
+AXPBY_PAIRS = [(torch.float32, torch.bfloat16), (torch.float64, torch.float64)]
+OUT_ROUNDING = {torch.bfloat16: 2.0 ** -7, torch.float16: 2.0 ** -10, torch.float32: ONE_ROUNDING,
+                torch.float64: 1e-14}
+
+
+def _ids(pairs):
+    return [f"{str(r).split('.')[1]}-{str(d).split('.')[1]}" for r, d in pairs]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rec_dtype,data_dtype", TYPED_PAIRS, ids=_ids(TYPED_PAIRS))
+@pytest.mark.parametrize("n,offset", [(11_380_173, 0), (1_000_003, 1)])
+def test_typed_b1_b2_match_plain(cuda, rec_dtype, data_dtype, n, offset):
+    r = _randn(n + offset, 70, cuda).to(rec_dtype)[offset:]
+    d = _randn(n + offset, 71, cuda).to(data_dtype)[offset:]
+    acc = matching.acc_dtype(r)
+    rw, dw = r.to(acc), d.to(acc)
+    terms = torch.stack([(rw * dw).abs().sum(), (rw * rw).sum(), (dw * dw).sum()])
+    before = ops.matching_sums.launches
+    got = ops.matching_sums(r, d)
+    assert ops.matching_sums.launches == before + 1 and got.dtype == acc
+    assert bool(((got - matching.matching_sums_plain(r, d)).abs() <= (1e-12 if acc == torch.float64 else 1e-5)
+                 * terms).all())
+    g = torch.tensor([0.83], dtype=acc, device=cuda)
+    for wrt_data, out_dtype in ((False, rec_dtype),):  # the attack takes d/d rec only
+        out = ops.cosine_backward(got, g, r, d, wrt_data)
+        want = matching.cosine_backward_plain(got, g, r, d, wrt_data)
+        assert out.dtype == want.dtype == out_dtype
+        err = (out.to(acc) - want.to(acc)).abs().max().item()
+        assert err <= OUT_ROUNDING[out_dtype] * want.to(acc).abs().max().item()
+    if (rec_dtype, data_dtype) in AXPBY_PAIRS:
+        a, b = torch.tensor([-0.7], dtype=acc, device=cuda), torch.tensor([1.3], dtype=acc, device=cuda)
+        out, want = ops.axpby(a, r, b, d), matching.axpby_plain(a, r, b, d)
+        assert out.dtype == rec_dtype
+        assert (out.to(acc) - want.to(acc)).abs().max().item() <= \
+            OUT_ROUNDING[rec_dtype] * want.to(acc).abs().max().item()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float64, torch.bfloat16])
+@pytest.mark.parametrize("shape,p,q,trials", [((1, 3, 224, 224), 1.0, 1.0, 0), ((2, 3, 17, 23), 2.0, 0.5, 0),
+                                               ((4, 1, 3, 224, 224), 1.0, 1.0, 4)])
+def test_typed_b3_tv_value_and_grad_matches_plain(cuda, dtype, shape, p, q, trials):
+    x = _randn(shape, 72, cuda).to(dtype)
+    scale = torch.tensor([0.2], dtype=dtype, device=cuda)
+    if trials:
+        values, grad = ops.tv_value_and_grad_trials(x, scale, p, q)
+        want_values, want_grad = image.tv_value_and_grad_trials_plain(x, scale, p, q)
+    else:
+        values, grad = ops.tv_value_and_grad(x, scale, p, q)
+        want_values, want_grad = image.tv_value_and_grad_plain(x, scale, p, q)
+    assert values.dtype == grad.dtype == dtype and values.shape == want_values.shape
+    tol = 1e-12 if dtype == torch.float64 else 2.0 ** -7
+    assert ((values.double() - want_values.double()).abs() <= tol * want_values.double().abs()).all()
+    assert (grad.double() - want_grad.double()).abs().max().item() <= tol * want_grad.double().abs().max().item()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float64, torch.bfloat16])
+@pytest.mark.parametrize("signed", [True, False, "soft"])
+def test_typed_b4_match_plain(cuda, dtype, signed):
+    acc = matching.acc_dtype(torch.empty(0, dtype=dtype))
+    x = (0.5 * _randn((3, 1, 3, 64, 64), 73, cuda)).to(dtype)
+    lo = torch.tensor([-0.3, -0.4, -0.5], dtype=dtype, device=cuda)
+    hi = torch.tensor([0.3, 0.4, 0.5], dtype=dtype, device=cuda)
+    assert torch.equal(ops.box_project(x[0], lo, hi), image.box_project_plain(x[0], lo, hi))
+    grad, mu = _randn(x.shape, 74, cuda).to(dtype), (0.1 * _randn(x.shape, 75, cuda)).to(dtype)
+    nu, best = (0.01 * _randn(x.shape, 76, cuda).abs()).to(dtype), x.clone()
+    values = torch.tensor([0.5, float("nan"), 0.25], dtype=acc, device=cuda)
+    best_vals = torch.tensor([1.0, 1.0, 0.1], dtype=acc, device=cuda)
+    step = ops.AdamStep(0.1, 0.9, 0.999, 1e-8, 0.1, 0.001)
+    soft = ops.soft_sign_scalars(3, 10) if signed == "soft" else None
+    got = [t.clone() for t in (x, grad, mu, nu, best)] + [torch.empty(3, dtype=acc, device=cuda)]
+    want = [t.clone() for t in (x, grad, mu, nu, best)] + [torch.empty(3, dtype=acc, device=cuda)]
+    before = ops.adam_box_step.launches
+    ops.adam_box_step_trials(*got[:5], lo, hi, values, best_vals, got[5], step, signed=signed, soft_scale=soft)
+    assert ops.adam_box_step.launches == before + 1
+    image.adam_box_step_trials_plain(*want[:5], lo, hi, values, best_vals, want[5], step, signed=signed,
+                                     soft_scale=soft)
+    tol = 1e-12 if dtype == torch.float64 else 2.0 ** -7
+    for a, b in zip(got, want):
+        assert a.dtype == b.dtype
+        assert (a.double() - b.double()).abs().max().item() <= tol * b.double().abs().max().item()
+
+
+@pytest.mark.cuda
+def test_typed_forms_refuse_a_type_they_do_not_have(cuda):
+    # a ValueError naming the kernel and the types; nothing launches, nothing falls back
+    r = _randn(1000, 77, cuda)
+    x = _randn((1, 3, 8, 8), 78, cuda)
+    counts = ops.launch_counts()
+    with pytest.raises(ValueError, match="b1_matching_sums has no form for rec Half, data Double"):
+        ops.matching_sums(r.half(), r.double())
+    with pytest.raises(ValueError, match="b2_axpby has no form for x BFloat16, y Float"):
+        one = torch.ones(1, device=cuda)
+        ops.axpby(one, r.bfloat16(), one, r)
+    with pytest.raises(ValueError, match="b3_tv_value_and_grad has no form for x Half"):
+        ops.tv_value_and_grad(x.half(), torch.ones(1, dtype=torch.half, device=cuda))
+    with pytest.raises(ValueError, match="b4_box_project has no form for x Half"):
+        ops.box_project(x.half(), torch.zeros(3, dtype=torch.half, device=cuda), torch.ones(3, dtype=torch.half,
+                                                                                             device=cuda))
+    with pytest.raises(ValueError, match="breaching::adam_box_step: mu must be Double"):
+        xd = x.double()
+        ops.adam_box_step(xd, xd.clone(), x.clone(), xd.clone(), xd.clone(), xd[0, :, 0, 0].clone(),
+                          xd[0, :, 0, 0].clone(), torch.zeros((), dtype=torch.float64, device=cuda),
+                          torch.zeros((), dtype=torch.float64, device=cuda),
+                          torch.zeros((), dtype=torch.float64, device=cuda), ops.AdamStep(0.1, 0.9, 0.999, 1e-8, 0.1,
+                                                                                          0.001))
     assert ops.launch_counts() == counts

@@ -154,10 +154,22 @@ def test_grad_accum_is_ignored_for_a_fedavg_user(models, caplog):
         "grad_accum ignored: the multi-step (fedavg) simulated update unrolls full local batches per step."]
 
 
-def test_grad_accum_is_refused_under_the_batched_trial_step(models):
+def test_grad_accum_under_the_batched_trial_step_matches_each_trial(models):
+    """The trials form takes the same micro-batches (one ``_MicroBatchGradient`` over
+    all trials each): two trials' values equal their single evaluations with
+    grad_accum=4 to 1e-6, and their attack gradients to 1e-5 of the largest entry."""
     obj, params, buffers = _port_objective(models, 4)
-    x = torch.from_numpy(models["x"])[None].repeat(2, 1, 1, 1, 1)
+    rng = np.random.default_rng(9)
+    x = torch.from_numpy(models["x"])[None] + torch.from_numpy(rng.normal(size=(2, *models["x"].shape))
+                                                               .astype(np.float32))
     y = torch.from_numpy(models["y"])[None].repeat(2, 1)
-    targets = tuple(p.detach()[None].repeat(2, *[1] * p.dim()) for p in params.values())
-    with pytest.raises(NotImplementedError, match="grad_accum"):
-        obj.trials(params, buffers, targets, x, y)
+    targets = tuple(p.detach()[None].repeat(2, *[1] * p.dim()) + 0.01 for p in params.values())
+    xt = x.clone().requires_grad_(True)
+    values, _ = obj.trials(params, buffers, targets, xt, y)
+    grads, = torch.autograd.grad(values.sum(), xt)
+    for t in range(2):
+        xs = x[t].clone().requires_grad_(True)
+        value, _ = obj(params, buffers, tuple(d[t] for d in targets), xs, y[t])
+        grad, = torch.autograd.grad(value, xs)
+        assert abs(values[t].item() - value.item()) <= 1e-6
+        np.testing.assert_allclose(grads[t].numpy(), grad.numpy(), rtol=0, atol=1e-5 * grad.abs().max().item())
