@@ -93,6 +93,9 @@ def flax_transposed_kernel(kernel: np.ndarray) -> np.ndarray:
     return np.ascontiguousarray(np.transpose(np.flip(kernel, (0, 1)), (2, 3, 0, 1)))
 
 
+flax_transposed_kernel.inverse = lambda weight: np.flip(np.transpose(weight, (2, 3, 0, 1)), (0, 1))
+
+
 def _flax_init(layer: nn.Module, fan_in: int, generator) -> nn.Module:
     lecun_normal_(layer.weight, fan_in, generator)
     with torch.no_grad():

@@ -10,7 +10,8 @@ drawn from the ``setup`` generator. With ``pretrained=True`` a checkpoint in the
 JAX package's flat layout (``params/conv0/conv/kernel``, ``buffers/bn0/mean``, ...)
 is loaded through ``load_flat_state``: ``<data.path>/checkpoints/<name>.npz`` first,
 then the repo's ``assets/checkpoints/<name>.npz``; without one, or if a shape does
-not fit, a warning is logged and the random init stays.
+not fit, a warning is logged and the random init stays. ``dump_flat_state`` writes a
+model in that layout, which the JAX package's ``load_flat_state`` reads.
 """
 
 from __future__ import annotations
@@ -139,7 +140,8 @@ def _flat_entries(model: nn.Module):
     (``<name>/kernel``). The dense layers of an imprint block (``flat_param_suffixes``)
     are the JAX block's ``<name>_kernel`` and ``<name>_bias``. A module with a layout of
     its own (a norm, the ViT's tokens, NFNet's WSConv) gives its entries through
-    ``flax_entries(prefix)``."""
+    ``flax_entries(prefix)``. A transform other than ``np.transpose``, its own inverse,
+    carries the way back to the flat layout as its ``inverse`` (``dump_flat_state``)."""
     for path, module in model.named_modules():
         prefix = path.replace(".", "/")
         parent = path.rpartition(".")[0]
@@ -165,6 +167,9 @@ def _flat_entries(model: nn.Module):
 def conv_kernel(kernel: np.ndarray) -> np.ndarray:
     """A flax convolution kernel (H, W, I, O) in PyTorch's layout (O, I, H, W)."""
     return np.transpose(kernel, (3, 2, 0, 1))
+
+
+conv_kernel.inverse = lambda weight: np.transpose(weight, (2, 3, 1, 0))
 
 
 def jax_leaf_ranks(model: nn.Module) -> list[int]:
@@ -201,6 +206,19 @@ def load_flat_state(model: nn.Module, flat: dict, strict: bool = False) -> int:
         for tensor, value in updates:
             tensor.copy_(torch.tensor(np.array(value), dtype=tensor.dtype))
     return len(updates)
+
+
+def dump_flat_state(model: nn.Module) -> dict:
+    """The inverse of ``load_flat_state``: every parameter and buffer of the model as a
+    flat ``{"params/a/b/kernel": array}`` mapping in the JAX package's layout (HWIO
+    convolutions, (in, out) dense kernels), as the JAX package's trainer writes it."""
+    flat = {}
+    for key, tensor, transform in _flat_entries(model):
+        value = tensor.detach().cpu().numpy()
+        if transform is not None:
+            value = np.ascontiguousarray(value.T if transform is np.transpose else transform.inverse(value))
+        flat[key] = value
+    return flat
 
 
 def _maybe_load_pretrained(model: nn.Module, cfg_data) -> None:

@@ -1,6 +1,6 @@
 """Where the time of a slice's attack step goes, on the card.
 
-    python3 -m breaching_tpu_torch.profile_slice [--slice 1|2|3|4|5|6|7|12|13|14|15|16]
+    python3 -m breaching_tpu_torch.profile_slice [--slice 1|2|3|4|5|6|7|12|13|14|15|16|17]
                                                  [--path 5a|...|7d|12a|...|12e'|13a|...|13e|14a|...|14f|15a|...|15e|
                                                          16a|16a'|16a''|16b|16c]
                                                  [--fleet F] [--fused] [--lbfgs] [--iterations N]
@@ -50,8 +50,12 @@ the server's seconds: 15a the top placement (a VAE, 200 steps) and 15b the block
 and 15e on ``gpt2`` under the fedAVG user (1 sentence, 2 local steps); slice 16 slice 2 with the
 fused cosine objective under the attack's precision knobs: 16a ``attack.impl.dtype=bfloat16``, 16a''
 ``attack.impl.dtype=float16``, 16a' ``case.impl.dtype=bfloat16`` (a bfloat16 candidate), 16b
-``case.impl.dtype=float64`` (20 steps by default) and 16c ``attack.impl.mixed_precision=True``. Each
-goes through the entry points: one warm-up attack, an
+``case.impl.dtype=float64`` (20 steps by default) and 16c ``attack.impl.mixed_precision=True``; slice 17
+the in-repo trainer's materialized epoch (``train_model.materialized_epoch``) on case 1's ConvNet-64 at
+3x32x32, 4,096 synthetic training images on the card in batches of 128 with the device augmentation,
+SGD on the cosine schedule: one warm-up epoch, one timed with the profiler off and one under the
+profiler (its steps are the epoch's 32; ``--iterations`` does not apply). The attacks each
+go through the entry points: one warm-up attack, an
 attack of N steps (default 200) timed with the profiler off, and the same attack
 under ``torch.profiler``. Slice 13, the readouts of slice 14 and 15a-b have no steps: one warm-up run of
 the whole path, one timed with the profiler off (seconds of the server's model, rewiring or block and calibration; of the
@@ -72,6 +76,7 @@ import argparse
 import json
 import time
 
+import numpy as np
 import torch
 from torch.profiler import ProfilerActivity, profile
 
@@ -180,6 +185,9 @@ SLICE16 = {
 }
 # the paths without steps
 READOUTS = {**SLICE13, **{p: SLICE14[p] for p in ("14a", "14b", "14c")}, **{p: SLICE15[p] for p in ("15a", "15b")}}
+# slice 17: the trainer's materialized epoch at chip_smoke.py's 17a settings
+SLICE17 = ["case=1_single_image_small"]
+TRAIN17 = dict(limit=4096, batch_size=128, device_aug=1, epochs=3)
 FUSED = ["attack.objective.type=fused-cosine-similarity"]
 # slice 4 --lbfgs: the deep_leakage preset with the fused euclidean objective (path 4a')
 LBFGS = ["case=1_single_image_small", "attack=deepleakage", "case.user.provide_labels=False",
@@ -262,9 +270,57 @@ def profile_readout(path):
         top_kernels_us={e.key[:90]: e.self_device_time_total for e in top})))
 
 
+def profile_trainer():
+    """Slice 17: one epoch of the trainer's materialized path on the card after a warm-up
+    epoch, timed with the profiler off and under it; one JSON line per step of the epoch."""
+    from .attacks.auxiliaries.optimizers import make_schedule
+    from .cases.data.data_preparation import construct_dataloader
+    from .train_model import TRAIN_DEFAULTS, DeviceSplit, _materialize_vision, make_optimizer, materialized_epoch
+
+    tr = dict(TRAIN_DEFAULTS, **TRAIN17)
+    cfg = breaching.get_config(SLICE17)
+    cfg.case.data.examples_from_split, cfg.case.data.partition = "training", "none"
+    setup = breaching.utils.system_startup(device="cuda")
+    device = setup["device"]
+    dataset = construct_dataloader(cfg.case.data, cfg.case.impl, 0, return_full_dataset=True).dataset
+    dataset = dataset.subset(np.arange(tr["limit"]))
+    split = DeviceSplit(*_materialize_vision(dataset), dataset.mean, dataset.std, torch.float32, device)
+    model, loss_fn = breaching.cases.construct_model(cfg.case.model, cfg.case.data, generator=setup["generator"])
+    model.to(device)
+    optimizer = make_optimizer(model, tr)
+    steps = len(split) // tr["batch_size"]
+    schedule = make_schedule(tr["lr"], "cosine-decay", 0, tr["epochs"] * steps)
+    rng = np.random.default_rng(0)
+    position = [0]
+
+    def epoch():
+        idxs = torch.as_tensor(rng.permutation(len(split))[: steps * tr["batch_size"]].reshape(steps, -1),
+                               device=device)
+        loss_sum, position[0] = materialized_epoch(model, loss_fn, optimizer, schedule, position[0], split, idxs,
+                                                   True, 0.0, torch.Generator(device=device).manual_seed(position[0]))
+        return float(loss_sum) / steps
+
+    epoch()  # warm-up: cuDNN's heuristics, the optimizer's state
+    torch.cuda.reset_peak_memory_stats()
+    wall_ms, loss = _timed(epoch)
+    peak = torch.cuda.max_memory_allocated()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        profiled_ms, _ = _timed(epoch)
+    kernels = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
+    top = sorted(kernels, key=lambda e: e.self_device_time_total, reverse=True)[:12]
+    print(json.dumps(dict(
+        device=torch.cuda.get_device_name(0), slice=17, model=cfg.case.model, batch=tr["batch_size"],
+        images=len(split), steps=steps, mean_loss=loss, peak_memory_gib=peak / 2**30, ms_per_step=wall_ms / steps,
+        images_per_s=steps * tr["batch_size"] / wall_ms * 1e3, profiled_ms_per_step=profiled_ms / steps,
+        device_busy_ms_per_step=busy_ms / steps, idle_share=1.0 - busy_ms / wall_ms,
+        launches_per_step=sum(e.count for e in kernels) / steps,
+        top_kernels_us_per_step={e.key[:90]: e.self_device_time_total / steps for e in top})))
+
+
 def main():
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    parser.add_argument("--slice", type=int, choices=sorted([*SLICES, 5, 7, 12, 13, 14, 15, 16]), default=1)
+    parser.add_argument("--slice", type=int, choices=sorted([*SLICES, 5, 7, 12, 13, 14, 15, 16, 17]), default=1)
     parser.add_argument("--path", choices=sorted([*SLICE5, *SLICE7, *SLICE12, *SLICE13, *SLICE14, *SLICE15,
                                                   *SLICE16]),
                         default=None, help="slice 5's path (default 5a), slice 7's (default 7c), slice 12's (default "
@@ -279,6 +335,8 @@ def main():
         raise SystemExit("profile_slice needs a CUDA device.")
     if args.lbfgs and args.slice != 4:
         parser.error("--lbfgs is a path of slice 4.")
+    if args.slice == 17:
+        return profile_trainer()
     paths = {5: SLICE5, 7: SLICE7, 12: SLICE12, 13: SLICE13, 14: SLICE14, 15: SLICE15, 16: SLICE16}.get(args.slice)
     if paths is not None:
         args.path = args.path or min(paths)

@@ -63,10 +63,11 @@ Phases, one line each on standard output:
      ``hf-gpt2``, ``hf-bert``, ``hf-roberta-base``, ``hf-distilbert``, ``hf-bert``'s classifier):
      its parameter count, its float32 task-loss gradient against float64 on the card (1e-4 of
      the largest entry), and for GPT-2 the logits before each changed token bit for bit;
+     slice 17's check of this kind (17b) runs in phase 5, after 17a, from 17a's weights;
   5. the main paths end to end through the entry points, each with the kernels'
      launch counts set to 0 just before it and read just after, and each slice's
-     seconds printed; slices 11-15 run in a child process of this script on the same
-     card beside slices 1-10 and 16 (most paths leave the card idle most of the time),
+     seconds printed; slices 11-15 and 17 run in a child process of this script on the
+     same card beside slices 1-10 and 16 (most paths leave the card idle most of the time),
      and their output follows slice 16's: slice 1,
      Inverting Gradients with the fused cosine objective on ConvNet-64 /
      CIFAR-10 shapes, and the same with 4 restarts (25 steps; the batched trial step: the
@@ -205,7 +206,23 @@ Phases, one line each on standard output:
      16e a run resumed from its checkpoint of L-BFGS (4a, after 2 of 4 outer steps), of 2 gd
      trials one after the other (at the second's step 4 of 8) and of the multiscale attack
      (2 stages of 2 steps, at stage 0's step 1), on cuDNN's deterministic algorithms, each ending as the
-     uninterrupted run: the same losses after the resume, best value and reconstruction; for
+     uninterrupted run: the same losses after the resume, best value and reconstruction;
+     slice 17, the in-repo trainer (``train_model.train``) after the card's name and power
+     limit: 17a case 1's ConvNet-64 at 3x32x32 on the synthetic training split, materialized on
+     the card (4,096 images, batches of 128, the device augmentation, 2 epochs, 2 validation
+     batches): each epoch's mean loss (the second's below the first's), seconds, images/s and
+     validation accuracy, the peak memory, no port kernel launched; its checkpoint reloaded
+     through ``construct_model(pretrained=True)``, every tensor equal; 17b two SGD steps from
+     that checkpoint on the first 2 materialized batches of 128, on the card and on the CPU:
+     the float32 parameters within 1e-4 of each leaf's largest entry (the recalibrated
+     statistics' figure and each side's float32 distance from its float64 printed), every leaf
+     in float64 within 1e-12, and from a fresh initialization float32's distance from float64
+     on the card printed (BatchNorm's batch variance on the smooth synthetic images makes the
+     fresh model's float32 steps ill-conditioned on either platform); then slice 1's attack on
+     that checkpoint through ``simulate_breach.main_process`` (25 steps, the server's model the
+     checkpoint's, B1-B4 once a step, the loss falling); 17c case 10's transformer3 through the
+     loader (2 epochs of 10 steps of 8 sentences, the loss falling), its checkpoint reloaded
+     alike; for
      each optimization path: set-up
      seconds, loss at the start and end of every trial, PSNR and SSIM (of the
      batch put in the true images' order, and the order), it/s (the fleet's aggregate; with L-BFGS also the
@@ -239,7 +256,9 @@ Phases, one line each on standard output:
      wrapper and its dispatcher op; and which device times, if any, come in under
      their bound; slice 16's typed forms at their paths' shapes (B1 and B2 at 11,380,173
      entries, B3 and B4 at 1x3x224x224) beside their plain versions and a library call on
-     upcast copies where one computes the same function (50 calls).
+     upcast copies where one computes the same function (for the fused cosine backward
+     ``torch.add(alpha=)``, for the fused Adam step ``torch.clamp`` and ``torch._fused_adam_``
+     on its type; 50 calls).
 Then one JSON line with the kernels (each typed form a row of its own, with its launches
 on slice 16's paths), and as the last line
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -3412,6 +3431,184 @@ def run_batched16(breaching, ops, path, case, overrides, experiments, augmentati
     return launches
 
 
+# --------------------------------------------------------------------------- slice 17
+# the in-repo trainer (breaching_tpu_torch/train_model.py) on the card: 17a case 1's ConvNet
+# (width 64) at CIFAR-10's 3x32x32 on the synthetic training split, the materialized epoch with
+# the device augmentation, 4,096 images in batches of 128 for 2 epochs; its checkpoint reloaded
+# through the pretrained path, then slice 1's attack on it; 17b 2 SGD steps of the same model
+# from 17a's weights on the first 2 materialized batches, card against CPU; 17c
+# case 10's transformer3 (its own width, the GPT-2 vocabulary) through the loader, 2 epochs of
+# 10 steps of 8 sentences
+TRAIN_CASE = ["case=1_single_image_small"]
+TRAIN17 = dict(epochs=2, batch_size=128, limit=4096, eval_batches=2, materialize=1, device_aug=1)
+TRAIN17_STEPS = 25  # slice 1's attack on the trained checkpoint
+TRAIN17_TEXT = dict(epochs=2, batch_size=8, limit=80, eval_batches=2)
+# 17b: of each leaf's largest entry, the parameters after 2 float32 steps card against CPU (from
+# 17a's weights: from a fresh initialization float32 itself lies percents from float64), and
+# every leaf in float64
+TRAIN_F32, TRAIN_F64 = 1e-4, 1e-12
+# 17b's CPU steps run on 2 threads: on all 8 cores they slowed slice 10's registrations, the child
+# of RPSNR_THREADS threads that ends phase 5, by taking their cores
+TRAIN_THREADS = 2
+
+
+def train17(cfg, tr, device=None):
+    """``train_model.train`` with ``tr`` over the trainer's defaults on ``device`` (the
+    card's by default): its result, the seconds of the call and the device's peak memory
+    in it."""
+    from breaching_tpu_torch import train_model
+
+    device = device or DEVICE
+    if device != "cpu":
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+    began = time.perf_counter()
+    result = train_model.train(cfg, dict(train_model.TRAIN_DEFAULTS, **tr), device=device)
+    seconds = time.perf_counter() - began
+    return result, seconds, torch.cuda.max_memory_allocated() if device != "cpu" else 0
+
+
+def leaf_distance(got, want, keys):
+    """The largest distance over ``keys`` of ``got`` from ``want``, as a fraction of each
+    leaf's largest entry."""
+    return max(float(np.abs(got[k].astype(np.float64) - want[k]).max() / max(np.abs(want[k]).max(), 1e-300))
+               for k in keys)
+
+
+def require_round_trip(breaching, path, cfg_model, cfg_data, out):
+    """The checkpoint ``out`` through ``construct_model(pretrained=True)``: every tensor of
+    the loaded model equal to its entry."""
+    from breaching_tpu_torch.cases.models.model_preparation import dump_flat_state
+
+    model, _ = breaching.cases.construct_model(cfg_model, cfg_data, pretrained=True)
+    with np.load(out) as blob:
+        flat = dict(blob)
+    loaded = dump_flat_state(model)
+    equal = sorted(loaded) == sorted(flat) and all(np.array_equal(loaded[k], flat[k]) for k in flat)
+    print(f"{path}: {len(flat)} tensors of {out.rsplit('/', 1)[-1]} reloaded through the pretrained path, "
+          f"{'every one equal' if equal else 'NOT equal'}", flush=True)
+    require(equal, f"{path}: the reloaded checkpoint differs from the saved one")
+    return flat
+
+
+def report_training(path, result, seconds, peak, examples):
+    """Prints each epoch (mean loss, seconds, images/s, validation accuracy) and the peak
+    memory; requires the second epoch's mean loss below the first's."""
+    for i, epoch in enumerate(result["epochs"]):
+        rate = epoch["steps"] * examples / epoch["seconds"]
+        print(f"{path}: epoch {i + 1} mean loss {epoch['loss']:.6f} in {epoch['seconds']:.3f} s "
+              f"({rate:.1f} examples/s, {epoch['steps']} steps), validation accuracy {epoch['val_acc']:.4f}",
+              flush=True)
+    first, second = (epoch["loss"] for epoch in result["epochs"])
+    print(f"{path}: train() in {seconds:.1f} s, peak memory {peak / 2**30:.3f} GiB", flush=True)
+    require(second < first, f"{path}: the second epoch's mean loss {second} is not below the first's {first}")
+
+
+def two_steps(breaching, start, tmp, dtype, device):
+    """The parameters and statistics after 2 SGD steps from the weights ``start`` on the
+    first 2 materialized batches of 128 (``train`` resumed from them, one epoch of 256
+    images), in ``dtype`` on ``device``."""
+    out = os.path.join(tmp, f"steps_{dtype}_{device}.npz")
+    np.savez(out, **start)
+    cfg = breaching.get_config(TRAIN_CASE + [f"case.impl.dtype={dtype}", f"case.data.path={tmp}"])
+    train17(cfg, dict(epochs=1, batch_size=128, limit=256, eval_batches=0, resume=1, out=out), device)
+    with np.load(out) as blob:
+        return dict(blob)
+
+
+def check_train_reference(breaching, trained):
+    """Slice 17b, a phase-4 check run after 17a: 2 SGD steps of case 1's ConvNet-64 from
+    17a's trained weights ``trained`` on the card and on the CPU, in float32 and float64;
+    and, on the card alone, float32 against float64 from a fresh initialization, where
+    BatchNorm's batch variance on the smooth synthetic images makes float32 ill-conditioned
+    on either platform."""
+    from breaching_tpu_torch.cases.models.model_preparation import dump_flat_state
+
+    began = time.perf_counter()
+    threads = torch.get_num_threads()
+    torch.set_num_threads(TRAIN_THREADS)
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            results = {(dtype, device): two_steps(breaching, trained, tmp, dtype, device)
+                       for dtype in ("float", "float64") for device in (DEVICE, "cpu")}
+            cfg = breaching.get_config(TRAIN_CASE)
+            fresh, _ = breaching.cases.construct_model(cfg.case.model, cfg.case.data,
+                                                       generator=torch.Generator().manual_seed(7))
+            fresh = dump_flat_state(fresh)
+            fresh32, fresh64 = (two_steps(breaching, fresh, tmp, dtype, DEVICE) for dtype in ("float", "float64"))
+    finally:
+        torch.set_num_threads(threads)
+    params = [k for k in trained if k.startswith("params/")]
+    buffers = [k for k in trained if k.startswith("buffers/")]
+    moved = max(float(np.abs(results["float", "cpu"][k] - trained[k]).max()) for k in params) / max(
+        float(np.abs(trained[k]).max()) for k in params)
+    f32 = leaf_distance(results["float", DEVICE], results["float", "cpu"], params)
+    f32_buffers = leaf_distance(results["float", DEVICE], results["float", "cpu"], buffers)
+    own = {device: leaf_distance(results["float", device], results["float64", device], params)
+           for device in (DEVICE, "cpu")}
+    f64 = leaf_distance(results["float64", DEVICE], results["float64", "cpu"], params + buffers)
+    print(f"slice 17b: 2 SGD steps of 17a's ConvNet-64 on 2 x 128 images, card against CPU: float32 parameters "
+          f"{f32:.3g} of each leaf's largest entry (tolerance {TRAIN_F32}; the recalibrated statistics "
+          f"{f32_buffers:.3g}; float32 from float64 {own[DEVICE]:.3g} on the card, {own['cpu']:.3g} on the CPU), "
+          f"float64 every leaf {f64:.3g} (tolerance {TRAIN_F64}); the steps moved a parameter by {moved:.3g} of "
+          f"the largest; from a fresh initialization float32 lies {leaf_distance(fresh32, fresh64, params):.3g} "
+          f"from float64 on the card; {time.perf_counter() - began:.1f} s", flush=True)
+    require(moved > 0, "slice 17b: the steps left the parameters where they were")
+    require(f32 <= TRAIN_F32, f"slice 17b: float32 steps card against CPU {f32} > {TRAIN_F32}")
+    require(f64 <= TRAIN_F64, f"slice 17b: float64 steps card against CPU {f64} > {TRAIN_F64}")
+
+
+def run_slice17(breaching, ops):
+    """Phase 5, slice 17: the trainer through ``train_model.train`` on the card (17a, 17c),
+    each checkpoint reloaded; 17b on 17a's checkpoint; slice 1's attack on it through
+    ``simulate_breach.main_process``. Returns the launch counts by path."""
+    from breaching_tpu_torch.cases.models.model_preparation import dump_flat_state
+    from breaching_tpu_torch.simulate_breach import main_process
+
+    began = time.perf_counter()
+    print(f"slice 17 on {card_line()}", flush=True)
+    paths = {}
+    with tempfile.TemporaryDirectory() as data:
+        cfg = breaching.get_config(TRAIN_CASE + [f"case.data.path={data}"])
+        ops.reset_launch_counts()
+        result, seconds, peak = train17(cfg, TRAIN17)
+        paths["slice 17a trainer"] = ops.launch_counts()
+        report_training("slice 17a ConvNet-64 at 3x32x32", result, seconds, peak, TRAIN17["batch_size"])
+        flat = require_round_trip(breaching, "slice 17a", cfg.case.model, cfg.case.data, result["out"])
+        check_train_reference(breaching, flat)
+        cfg = breaching.get_config(SLICE + [f"attack.optim.max_iterations={TRAIN17_STEPS}", "attack.optim.callback=50",
+                                            "seed=0", "name=trained", f"case.data.path={data}", f"base_dir={data}"])
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        outputs = {}
+        start = time.perf_counter()
+        metrics = main_process(cfg, device=DEVICE, outputs=outputs)
+        torch.cuda.synchronize()
+        launches = paths["slice 17a attack on the trained checkpoint"] = ops.launch_counts()
+        losses = outputs["stats"]["Trial_0_Val"]
+        on_server = dump_flat_state(outputs["server"].model)
+        require(all(np.array_equal(on_server[k], flat[k]) for k in flat),
+                "slice 17a: the attacked server's model is not the trained checkpoint")
+        print(f"slice 17a attack on the trained checkpoint: {len(losses)} steps in {time.perf_counter() - start:.2f} s "
+              f"(main_process, report included); loss first={losses[0]:.6f} last={losses[-1]:.6f}; "
+              f"PSNR={metrics['psnr']:.3f} SSIM={metrics['ssim']:.4f}; launches "
+              f"{ {k: v for k, v in launches.items() if v} }", flush=True)
+        require(losses[-1] < losses[0], "slice 17a: the attack's loss on the trained checkpoint did not fall")
+        want = {name: TRAIN17_STEPS for name in SLICE_KERNELS}
+        require({k: v for k, v in launches.items() if v} == want, f"slice 17a: launches {launches}, the path needs {want}")
+    with tempfile.TemporaryDirectory() as data:
+        cfg = breaching.get_config(CASE10 + [f"case.data.path={data}"])
+        ops.reset_launch_counts()
+        result, seconds, peak = train17(cfg, TRAIN17_TEXT)
+        paths["slice 17c trainer on text"] = ops.launch_counts()
+        report_training("slice 17c transformer3", result, seconds, peak, TRAIN17_TEXT["batch_size"])
+        require_round_trip(breaching, "slice 17c", cfg.case.model, cfg.case.data, result["out"])
+    for path in ("slice 17a trainer", "slice 17c trainer on text"):
+        require(not any(paths[path].values()), f"{path} launched a port kernel: {paths[path]}")
+    print(f"chip_smoke: slice 17 in {time.perf_counter() - began:.1f} s", flush=True)
+    return paths
+
+
 def time_typed_forms(ops, iters=50):
     """Phase 6, slice 16: each typed form at the shape its path gives it (B1 and B2 at
     ResNet-18's 11,380,173 gradient entries, B3 and B4 at 1x3x224x224): the call, its device
@@ -3439,11 +3636,13 @@ def time_typed_forms(ops, iters=50):
                     r, d), (lambda r=r, d=d, acc=acc: (torch.dot(r.to(acc), d.to(acc)), torch.linalg.vector_norm(
                         r.to(acc)), torch.linalg.vector_norm(d.to(acc))), "torch.dot + 2 vector_norm on upcast copies"),
                     (size[0] + size[1]) * n + 24, 6 * n)
-            elif kernel == "b2_cosine_backward":
+            elif kernel == "b2_cosine_backward":  # the library call of b2_axpby, the kernel it grew from
                 sums, g = ops.matching_sums(r, d), torch.tensor(0.37, dtype=acc, device=dev)
+                ar = -0.7 * r.to(acc)
                 cases[form] = (lambda r=r, d=d, s=sums, g=g: ops.cosine_backward(s, g, r, d),
-                               lambda r=r, d=d, s=sums, g=g: matching.cosine_backward_plain(s, g, r, d), None,
-                               (2 * size[0] + size[1]) * n + 32, 3 * n)
+                               lambda r=r, d=d, s=sums, g=g: matching.cosine_backward_plain(s, g, r, d),
+                               (lambda ar=ar, d=d, acc=acc: torch.add(ar, d.to(acc), alpha=1.3),
+                                "torch.add(alpha=) on upcast copies"), (2 * size[0] + size[1]) * n + 32, 3 * n)
             else:
                 a, b = torch.tensor([-0.7], dtype=acc, device=dev), torch.tensor([1.3], dtype=acc, device=dev)
                 ar = (a * r.to(acc))
@@ -3471,8 +3670,13 @@ def time_typed_forms(ops, iters=50):
                         torch.zeros_like(x), x.clone(), lo, hi, torch.tensor(0.5, dtype=acc, device=dev),
                         torch.tensor(float("inf"), dtype=acc, device=dev), torch.empty((), dtype=acc, device=dev),
                         ops.AdamStep(lr=0.1, b1=0.9, b2=0.999, eps=1e-8, bias1=1 - 0.9 ** 3, bias2=1 - 0.999 ** 3))
+                lo4, hi4 = lo.reshape(1, -1, 1, 1), hi.reshape(1, -1, 1, 1)
+                # the library call of b4_box_project, the kernel it grew from; torch._fused_adam_
+                # on the same type beside it (fused_adam)
                 cases[form] = (lambda args=args: ops.adam_box_step(*args),
-                               lambda args=args: image.adam_box_step_plain(*args), None, 8 * e * m + 64, 15 * m)
+                               lambda args=args: image.adam_box_step_plain(*args),
+                               (lambda x=x, lo4=lo4, hi4=hi4: torch.clamp(x, lo4, hi4), "torch.clamp"),
+                               8 * e * m + 64, 15 * m)
     out = {}
     for form, (kernel, plain, library, nbytes, flops) in cases.items():
         bound_ms, bound_by = bound(nbytes, flops)
@@ -3486,6 +3690,8 @@ def time_typed_forms(ops, iters=50):
         if lib:
             out[form].update(library_call=library[1], library_device_ms=lib[1], library_host_ms=lib[2],
                              library_device_warm_ms=lib[3])
+        if form.startswith("b4_adam_box_step"):
+            out[form]["fused_adam"] = time_fused_adam(BIG, iters, DTYPES[form.split(" ")[1]])
         print(f"time {form}: kernel {ms * 1e3:.2f} us per call, {device_ms * 1e3:.2f} us device cold "
               f"({device_warm_ms * 1e3:.2f} warm), {host_ms * 1e3:.2f} us host; plain {plain_t[0] * 1e3:.2f} / "
               f"{plain_t[1] * 1e3:.2f} us" + (f"; {library[1]} {lib[0] * 1e3:.2f} / {lib[1] * 1e3:.2f} "
@@ -3668,17 +3874,18 @@ def time_kernels(ops, n, image_shape, names=None, iters=200):
     return timings
 
 
-def time_fused_adam(shape, iters):
+def time_fused_adam(shape, iters, dtype=torch.float32):
     """The fused Adam step's second yardstick: ``torch._fused_adam_`` (PyTorch's own
     fused Adam, without the sign, box, guard and best iterate) on one tensor of the
-    candidate's shape, where the installed torch has it."""
+    candidate's shape and type, where the installed torch has it."""
     from breaching_tpu_torch.timing import time_ms
 
+    name = f"torch._fused_adam_ {shape}" + ("" if dtype == torch.float32 else f" {dtype}")
     if not hasattr(torch, "_fused_adam_"):
-        print(f"time torch._fused_adam_ {shape}: not in torch {torch.__version__}", flush=True)
+        print(f"time {name}: not in torch {torch.__version__}", flush=True)
         return None
     gen = torch.Generator().manual_seed(96)
-    p, g = (torch.randn(*shape, generator=gen).to(DEVICE) for _ in range(2))
+    p, g = (torch.randn(*shape, generator=gen).to(DEVICE, dtype) for _ in range(2))
     m, v, step = torch.zeros_like(p), torch.zeros_like(p), torch.ones((), device=DEVICE)
 
     def call():
@@ -3687,10 +3894,10 @@ def time_fused_adam(shape, iters):
 
     try:
         ms, device_ms, host_ms, device_warm_ms = time_ms(call, iters)
-    except RuntimeError as err:  # not capturable in a CUDA graph on this torch
-        print(f"time torch._fused_adam_ {shape}: {err}", flush=True)
+    except RuntimeError as err:  # not capturable in a CUDA graph, or not of this type, on this torch
+        print(f"time {name}: {err}", flush=True)
         return None
-    print(f"time torch._fused_adam_ {shape}: {ms * 1e3:.2f} us per call, {device_ms * 1e3:.2f} us device cold "
+    print(f"time {name}: {ms * 1e3:.2f} us per call, {device_ms * 1e3:.2f} us device cold "
           f"({device_warm_ms * 1e3:.2f} warm), {host_ms * 1e3:.2f} us host", flush=True)
     return dict(ms=ms, device_ms=device_ms, host_ms=host_ms, device_warm_ms=device_warm_ms)
 
@@ -3844,7 +4051,7 @@ def under_bound(rows):
 
 
 class LateSlices:
-    """Slices 11-15 in a child process of this script (``--late OUT``) on the same card,
+    """Slices 11-15 and 17 in a child process of this script (``--late OUT``) on the same card,
     started after phase 4 and run beside slices 1-10 and 16: most paths leave the card
     idle most of the time, so two processes nearly halve phase 5's wall time. The child
     prints to its own log, which ``paths`` prints once it has ended, and writes its paths'
@@ -3863,7 +4070,7 @@ class LateSlices:
         self.log.flush()
         with open(self.log.name) as log:
             print(log.read(), end="", flush=True)
-        require(returncode == 0, f"slices 11-15 failed in their process ({returncode})")
+        require(returncode == 0, f"slices 11-15 and 17 failed in their process ({returncode})")
         with open(self.out) as out:
             return json.load(out)
 
@@ -3876,7 +4083,7 @@ class LateSlices:
 
 
 def run_late(out):
-    """The child of ``LateSlices``: slices 11-15, their launch counts by path written to
+    """The child of ``LateSlices``: slices 11-15 and 17, their launch counts by path written to
     ``out``. Exits 1 where a check fails."""
     sys.path.insert(0, REPO)
     import breaching_tpu_torch as breaching
@@ -3885,12 +4092,12 @@ def run_late(out):
     began = time.perf_counter()
     try:
         paths = {}
-        for run in (run_slice11, run_slice12, run_slice13, run_slice14, run_slice15):
+        for run in (run_slice11, run_slice12, run_slice13, run_slice14, run_slice15, run_slice17):
             paths.update(run(breaching, ops))
     except CheckFailed as failed:
-        print(f"chip_smoke: FAILED in slices 11-15: {failed}", flush=True)
+        print(f"chip_smoke: FAILED in slices 11-15 and 17: {failed}", flush=True)
         return 1
-    print(f"chip_smoke: slices 11-15 in their process in {time.perf_counter() - began:.1f} s", flush=True)
+    print(f"chip_smoke: slices 11-15 and 17 in their process in {time.perf_counter() - began:.1f} s", flush=True)
     with open(out, "w") as fh:
         json.dump(paths, fh)
     return 0
@@ -3938,7 +4145,7 @@ def main():
     for name, overrides in HF_FAMILIES.items():
         check_hf_family(breaching, name, overrides)
     print(f"chip_smoke: phase 4 done at {time.perf_counter() - began:.1f} s", flush=True)
-    late = LateSlices()  # slices 11-15 beside 1-10 and 16
+    late = LateSlices()  # slices 11-15 and 17 beside 1-10 and 16
     try:
         paths = run_phase5(breaching, ops, late)
     finally:
@@ -3948,7 +4155,7 @@ def main():
 
 
 def run_phase5(breaching, ops, late):
-    """Phase 5 in this process (slices 1-7, 10 and 16) and in ``late``'s (11-15): the
+    """Phase 5 in this process (slices 1-7, 10 and 16) and in ``late``'s (11-15 and 17): the
     launch counts by path, slice 16's under "slice 16"."""
     fused = ["attack.objective.type=fused-cosine-similarity"]
     mark = [time.perf_counter()]
