@@ -8,7 +8,9 @@ the same order, so that a test can hand the JAX package's own draws to ``apply``
 The augmentations without randomness draw ``None``. ``host_draws`` marks the two
 whose draws become Python integers (a roll, a crop offset): they draw from a CPU
 generator, so that the step does not wait on the card; the others draw on the
-candidate's device. All of them are PyTorch operations: no Pallas kernel backs them
+candidate's device. ``batch_axis`` is the axis of a draw that runs over the batch's images
+(None where one draw serves the whole batch): a rank of a batch-sharded attack draws for
+the whole batch and keeps its images' part. All of them are PyTorch operations: no Pallas kernel backs them
 in the JAX package either.
 
 ``resize`` is ``jax.image.resize(..., "bilinear")``: half-pixel bilinear
@@ -35,6 +37,7 @@ def resize(x: torch.Tensor, size) -> torch.Tensor:
 
 class Augmentation:
     host_draws = False
+    batch_axis = None
 
     def sample(self, shape, generator: torch.Generator):
         """The random numbers of one application to images of NCHW ``shape``, or None."""
@@ -135,6 +138,8 @@ class ColorJitter(Augmentation):
     """Per image and channel, x exp(0.1 std n1) + 0.1 std n2 + mean for standard normal
     n1, n2 (JAX ``ColorJitter``); the draws are (2, B, C, 1, 1)."""
 
+    batch_axis = 1
+
     def __init__(self, batch_size=1, shuffle_every=False, mean=0.0, std=1.0, **kwargs):
         self.mean = float(mean or 0.0)
         self.std = float(std or 1.0)
@@ -174,6 +179,8 @@ class RandomTransform(Augmentation):
     uniforms: the shifts along W and H, and the two flips. The sample coordinates wrap
     circularly or reflect; the four neighbours are gathered by index (``grid_sample``
     has no circular padding), clamped into the image as the JAX gather clamps them."""
+
+    batch_axis = 0
 
     def __init__(self, shift=8, fliplr=False, flipud=False, mode="bilinear",
                  padding="reflection", align=False, **kwargs):

@@ -60,6 +60,12 @@ own type: its cotangent comes back through the cast. float64 and any other value
 nothing. Without a compute dtype the pass runs in the promotion of the candidate's and
 the parameters' types, as JAX's type promotion gives it: a bfloat16 candidate
 (``case.impl.dtype=bfloat16``) through float32 parameters computes in float32.
+
+Under ``attack.impl.sharding="batch"`` (``shard_batch``; ``initialize`` undoes it) each
+rank holds an equal micro-batch of the candidate; its user gradient and task loss are
+averaged over the ``model`` group (``_dist.mean_over``, one all-reduce) before the
+distance, which gives the full batch's (the task loss is a batch mean), as the JAX
+package's ``pmean`` over its shard axis (objectives.py:150-152, :161-165).
 """
 
 from __future__ import annotations
@@ -72,6 +78,7 @@ from torch.func import functional_call, grad as func_grad, vmap
 from ...cases.models.layers import TRIALS
 from ...cases.models.model_preparation import jax_leaf_ranks
 from ...ops import fused_cosine_similarity, fused_cosine_similarity_trials, fused_euclidean
+from ...parallel import _dist
 
 log = logging.getLogger(__name__)
 
@@ -117,6 +124,7 @@ class GradientLoss:
         self.scale = float(scale)
         self.task_regularization = float(task_regularization)
         self.local_hyperparams = None
+        self.sharding = None
 
     def initialize(self, loss_fn, model, local_hyperparams=None, cfg_impl=None):
         """``local_hyperparams``: None for a fedSGD user; for a fedAVG user its ``lr``,
@@ -130,6 +138,25 @@ class GradientLoss:
         self.compute_dtype = torch.bfloat16 if name in ("bfloat16", "bf16") else (
             torch.float16 if name in ("float16", "fp16") else None)
         self._warned = set()
+        self.sharding = None
+
+    def shard_batch(self, group, m):
+        """``attack.impl.sharding="batch"``: the candidate is this rank's micro-batch, one of
+        m equal ones over ``group``."""
+        self.sharding = dict(group=group, m=m)
+
+    def _shared(self, grads, task_loss):
+        """The user gradient and task loss averaged over the batch's ranks under
+        ``shard_batch``; else as they are."""
+        sharding = self.sharding
+        if sharding is None or sharding["m"] == 1:
+            return grads, task_loss
+        shapes = [g.shape for g in grads] + [task_loss.shape]
+        flat = torch.cat([g.reshape(-1) for g in grads] + [task_loss.reshape(-1)])
+        flat = _dist.mean_over(flat, sharding["group"], sharding["m"])
+        *grads, task_loss = (part.view(shape) for part, shape in zip(
+            flat.split([shape.numel() for shape in shapes]), shapes))
+        return tuple(grads), task_loss
 
     def _warn_once(self, message):
         if message not in self._warned:
@@ -251,8 +278,8 @@ class GradientLoss:
         return candidate[[(start + j) % num_points for j in range(per_step)]]
 
     def __call__(self, params, buffers, target_grads, candidate, labels, bn_train=False, capture=None):
-        grads, task_loss = self.grad_fn(params, buffers, candidate, labels, bn_train=bn_train,
-                                        capture=capture)
+        grads, task_loss = self._shared(*self.grad_fn(params, buffers, candidate, labels, bn_train=bn_train,
+                                                      capture=capture))
         objective = self.gradient_based_loss(grads, target_grads)
         if self.task_regularization != 0:
             objective = objective + self.task_regularization * task_loss
@@ -279,6 +306,7 @@ class GradientLoss:
                                                               want_capture)
         if want_capture:
             capture.update(captured)
+        grads, task_losses = self._shared(grads, task_losses)
         objective = self.trial_distances(grads, target_grads)
         if self.task_regularization != 0:
             objective = objective + self.task_regularization * task_losses

@@ -85,8 +85,9 @@ Of ``attack.impl`` the port acts on:
   (``trial<t>/``), so that the file holds every trial, as the JAX package's carry does;
 - ``trace_dir``: the second read-back chunk of the run (the first after warm-up) runs
   under ``torch.profiler`` and is written as a Chrome trace into ``trace_dir``
-  (``stats["trace_file"]``).
-It refuses ``sharding`` by name: the port runs on one device.
+  (``stats["trace_file"]``; with several ranks each writes its own, ``_rank<r>``);
+- ``sharding``: the attack over the ranks of a mesh (``sharding.py``); under it each rank
+  keeps its own checkpoint file, ``<path>.rank<r><ext>``.
 """
 
 from __future__ import annotations
@@ -109,6 +110,7 @@ from .auxiliaries.optimizers import Adam, LBFGS, make_schedule, optimizer_lookup
 from .auxiliaries.precision import bfloat16_operands
 from .auxiliaries.regularizers import CAPTURING, TotalVariation, regularizer_lookup
 from .base_attack import _BaseAttacker
+from ..parallel import _dist
 
 log = logging.getLogger(__name__)
 
@@ -149,10 +151,8 @@ class OptimizationBasedAttacker(_BaseAttacker):
         signed = self.cfg.optim.signed
         if signed not in (None, False, True, "hard", "soft"):
             raise NotImplementedError(f"Gradient transform signed={signed} is not ported yet.")
-        impl = self.cfg.get("impl") or {}
-        if impl.get("sharding"):  # the JAX package shards the attack over a mesh; the port runs on one device
-            raise NotImplementedError(f"attack.impl.sharding={impl.get('sharding')} is not ported yet.")
         self._noise_generators = {}
+        self._shards = None  # this rank's part of a sharded attack (sharding.AttackShards)
 
     def __repr__(self):
         n = "\n" + " " * 18
@@ -288,7 +288,7 @@ class OptimizationBasedAttacker(_BaseAttacker):
         for reg in inner:
             total = total + reg(matched, intermediates)
         if outer:
-            total = total + sum(reg(data) for reg in outer)
+            total = total + self._over_batch(sum(reg(data) for reg in outer))
         return total, task_total
 
     def _augment(self, data, draws):
@@ -309,9 +309,17 @@ class OptimizationBasedAttacker(_BaseAttacker):
                 torch.Generator().manual_seed(seeds[1]))
 
     def _draw_augmentations(self, shape, generators):
-        """One step's draws of every augmentation for images of NCHW ``shape``."""
-        return [augmentation.sample(shape, generators[1] if augmentation.host_draws else generators[0])
-                for augmentation in self.augmentations]
+        """One step's draws of every augmentation for images of NCHW ``shape``; under
+        ``sharding="batch"`` the draws for the whole batch, cut to this rank's images."""
+        shards = self._shards
+        if shards:
+            shape = (shards.num_points, *shape[1:])
+        draws = [augmentation.sample(shape, generators[1] if augmentation.host_draws else generators[0])
+                 for augmentation in self.augmentations]
+        if shards:
+            draws = [shards.batch_part(draw, augmentation.batch_axis)
+                     for draw, augmentation in zip(draws, self.augmentations)]
+        return draws
 
     def _trial_losses(self, candidates, params, rec_models, targets, labels, draws=None):
         """``_loss`` of T trials at once, each against its own targets and labels: (T,)
@@ -335,8 +343,13 @@ class OptimizationBasedAttacker(_BaseAttacker):
             total = total + torch.stack([reg(m, [_trial_slice(c, t) for c in intermediates])
                                          for t, m in enumerate(matched.unbind())])
         for reg in outer:
-            total = total + reg.trials(candidates)
+            total = total + self._over_batch(reg.trials(candidates))
         return total, task_total
+
+    def _over_batch(self, value):
+        """A batch mean of the candidate's regularizers averaged over the batch's ranks
+        under ``sharding="batch"``; else the value."""
+        return self._shards.over_batch(value) if self._shards else value
 
     def _value_and_grad(self, tree, rec_models, targets, labels, stats, draws=None):
         """The loss at the candidate tree and its gradient with respect to every leaf:
@@ -373,23 +386,58 @@ class OptimizationBasedAttacker(_BaseAttacker):
                                            device=tree["data"].device).expand_as(tree["data"])
         dtype = tree["data"].dtype
         box = ((-self.dm / self.ds).to(dtype).contiguous(), ((1 - self.dm) / self.ds).to(dtype).contiguous())
-        adam = isinstance(self._optimizer(max_iterations), Adam)
-        if num_trials > 1 and self.batched_trials and adam and list(tree) == ["data"] and self.modality == "vision":
-            targets = [tuple(torch.stack(ts) for ts in zip(*query)) for query in zip(*trial_targets)]
+        optimizer = self._optimizer(max_iterations)
+        adam = isinstance(optimizer, Adam)
+        batched = num_trials > 1 and self.batched_trials and adam and list(tree) == ["data"] \
+            and self.modality == "vision"
+        trials = range(num_trials)
+        self._shards = None
+        sharding = (self.cfg.get("impl") or {}).get("sharding")
+        if sharding:
+            from .sharding import plan
+
+            fleet = any(t is not trial_targets[0] for t in trial_targets)
+            shards = self._shards = plan(self, sharding, num_trials, num_points, rec_models,
+                                         isinstance(optimizer, LBFGS), fleet)
+            if shards.idle:  # no trial of its own: it joins the gathers
+                best = {k: v.clone() for k, v in tree.items()}
+                return shards.gather(best, np.zeros(num_trials), stats)
+            trial_labels = [shards.batch_part(labels) for labels in trial_labels]
+            tree = {k: shards.trials_part(v) for k, v in tree.items()}
+            trials = range(shards.lo, shards.hi)
+        if batched:
+            targets = [tuple(torch.stack(ts) for ts in zip(*query))
+                       for query in zip(*(trial_targets[t] for t in trials))]
             best, values = self._run_trials_batched(tree["data"].clone(memory_format=torch.contiguous_format),
-                                                    rec_models, targets, torch.stack(trial_labels), stats,
-                                                    max_iterations, box)
-            return dict(data=best), values
-        if num_trials > 1:
-            log.info(f"The {num_trials} trials run one after the other through the single step "
-                     f"({self.cfg.optim.optimizer}{'' if adam else ' has no batched step'}).")
-        # trials one after the other keep a section each of one checkpoint file
-        runs = [self._run_trial({k: v[t].clone() for k, v in tree.items()}, t, rec_models, trial_targets[t],
-                                trial_labels[t], stats, max_iterations, box,
-                                section=f"trial{t}" if num_trials > 1 else None)
-                for t in range(num_trials)]
-        return ({k: torch.stack([best[k] for best, _ in runs]) for k in tree},
-                np.asarray([value for _, value in runs]))
+                                                    rec_models, targets,
+                                                    torch.stack([trial_labels[t] for t in trials]), stats,
+                                                    max_iterations, box, first_trial=trials.start)
+            best = dict(data=best)
+        else:
+            if num_trials > 1:
+                log.info(f"The {num_trials} trials run one after the other through the single step "
+                         f"({self.cfg.optim.optimizer}{'' if adam else ' has no batched step'}).")
+                self._skip_trials(trials.start, tree["data"].device)
+            # trials one after the other keep a section each of one checkpoint file
+            runs = [self._run_trial({k: v[t - trials.start].clone() for k, v in tree.items()}, t, rec_models,
+                                    trial_targets[t], trial_labels[t], stats, max_iterations, box,
+                                    section=f"trial{t}" if num_trials > 1 else None)
+                    for t in trials]
+            best = {k: torch.stack([run[k] for run, _ in runs]) for k in tree}
+            values = np.asarray([value for _, value in runs])
+        if self._shards:
+            return self._shards.gather(best, values, stats)
+        return best, values
+
+    def _skip_trials(self, count, device):
+        """The draws from the attack's generator of ``count`` trials run one after the other
+        (their augmentations' generators, and the Langevin noise's generator at the first),
+        for a rank whose first trial is the next: its trials get solo's generators."""
+        for t in range(count):
+            if self.augmentations:
+                self._augmentation_generators(device)
+            if t == 0 and float(self.cfg.optim.langevin_noise or 0.0) > 0:
+                self._noise_generator(device)
 
     def _local_hyperparams(self, metadata):
         """A fedAVG user's local hyperparameters with its per-step label lists stacked
@@ -432,6 +480,14 @@ class OptimizationBasedAttacker(_BaseAttacker):
         return torch.randn(like.shape, generator=self._noise_generator(like.device), device=like.device,
                            dtype=like.dtype)
 
+    def _sharded_noise(self, like, per_trial):
+        """For a rank of a sharded attack: the solo run's draw for the whole (trials and)
+        batch from ``_noise_generator``, cut to the rank's part."""
+        shards = self._shards
+        noise = torch.randn(shards.full_shape(like.shape, per_trial), generator=self._noise_generator(like.device),
+                            device=like.device, dtype=like.dtype)
+        return shards.local(noise, per_trial)
+
     def _run_state(self, tree, states, best, best_vals, device, generators=None):
         """The ``_RunState`` of a run: the candidate tree, the optimizer's state (each
         leaf's, or with ``states`` an ``_LBFGSState`` the flat L-BFGS state's named
@@ -463,10 +519,12 @@ class OptimizationBasedAttacker(_BaseAttacker):
         if langevin > 0:
             lr_now = make_schedule(float(cfg_optim.step_size), cfg_optim.step_size_decay,
                                    int(cfg_optim.warmup or 0), max_iterations)(iteration)
-            grad = grad + float(np.float32(langevin) * np.float32(lr_now)) * self._noise(grad)
+            noise = self._sharded_noise(grad, per_trial) if self._shards else self._noise(grad)
+            grad = grad + float(np.float32(langevin) * np.float32(lr_now)) * noise
         if cfg_optim.grad_clip is not None:
             dims = tuple(range(1, grad.dim())) if per_trial else tuple(range(grad.dim()))
-            norm = torch.sqrt((grad * grad).sum(dim=dims, keepdim=True))
+            squares = (grad * grad).sum(dim=dims, keepdim=True)
+            norm = torch.sqrt(self._shards.sum_over_batch(squares) if self._shards else squares)
             clip = torch.full_like(norm, float(cfg_optim.grad_clip))
             grad = grad * torch.where(norm > clip, torch.div(clip, norm + 1e-6), torch.ones_like(norm))
         mode = self._sign_mode() if with_sign else None
@@ -581,11 +639,13 @@ class OptimizationBasedAttacker(_BaseAttacker):
         best_vals[1].copy_(torch.where(improved, value, best_vals[0]))
         best_vals.reverse()
 
-    def _run_trials_batched(self, candidate, rec_models, targets, labels, stats, max_iterations, box):
+    def _run_trials_batched(self, candidate, rec_models, targets, labels, stats, max_iterations, box,
+                            first_trial=0):
         """All T trials of candidate (T, N, C, H, W) through one step: the per-trial
         objective (``_trial_losses``), one ``torch.autograd.grad`` of the trials' sum, and
         ``adam_box_step_trials``, each trial with its own best value and iterate. Returns
-        the best iterates and their values (T,)."""
+        the best iterates and their values (T,). The trials are the attack's
+        ``first_trial`` to ``first_trial + T`` (a rank's of a sharded attack)."""
         cfg_optim = self.cfg.optim
         num_trials = candidate.shape[0]
         optimizer = self._optimizer(max_iterations)
@@ -598,8 +658,9 @@ class OptimizationBasedAttacker(_BaseAttacker):
         params = [{k: v.detach() for k, v in model.params.items()} for model in rec_models]
         # each trial's augmentation generators, in trial order: a trial's draws are the ones
         # it would make through the single step
-        generators = [self._augmentation_generators(candidate.device) for _ in range(num_trials)] \
-            if self.augmentations else []
+        every = self._shards.num_trials if self._shards else num_trials
+        generators = [self._augmentation_generators(candidate.device) for _ in range(every)][
+            first_trial:first_trial + num_trials] if self.augmentations else []
 
         def step(iteration):
             x = candidate.detach().requires_grad_(True)
@@ -619,14 +680,17 @@ class OptimizationBasedAttacker(_BaseAttacker):
 
         run_state = self._run_state(dict(data=candidate), dict(data=state), dict(data=best), best_vals,
                                     candidate.device, [g for pair in generators for g in pair])
-        self._optimize(step, [stats.setdefault(f"Trial_{t}_Val", []) for t in range(num_trials)],
-                       max_iterations, stats, run_state)
+        # a sharded run stops where no trial of any rank is finite, as solo stops
+        self._optimize(step, [stats.setdefault(f"Trial_{t}_Val", [])
+                              for t in range(first_trial, first_trial + num_trials)],
+                       max_iterations, stats, run_state, any_finite=self._shards.any_finite if self._shards else None)
         return best, best_vals[0].cpu().numpy()
 
-    def _optimize(self, step, histories, max_iterations, stats, run_state=None, section=None):
+    def _optimize(self, step, histories, max_iterations, stats, run_state=None, section=None, any_finite=None):
         """Run ``step`` (which takes the iteration and returns the loss and task loss, a
-        value per trial) until ``max_iterations`` or until no trial's loss is finite,
-        reading the losses back into each trial's history every ``optim.callback`` steps.
+        value per trial) until ``max_iterations`` or until no trial's loss is finite
+        (``any_finite`` of the last losses read back, where given), reading the losses back
+        into each trial's history every ``optim.callback`` steps.
 
         With ``attack.impl.checkpoint_path``, ``run_state`` (a ``_RunState``) is first
         restored from the file (from its ``section``, where trials share the file) where
@@ -643,6 +707,10 @@ class OptimizationBasedAttacker(_BaseAttacker):
         impl = self.cfg.get("impl") or {}
         path, every, trace_dir = impl.get("checkpoint_path"), int(impl.get("checkpoint_every", 0) or 0), \
             impl.get("trace_dir")
+        rank, world_size = _dist.world()
+        if path and world_size > 1:
+            root, ext = os.path.splitext(str(path))
+            path = f"{root}.rank{rank}{ext}"
         iteration, chunks, wallclock = 0, 0, time.time()
         in_section = {} if section is None else dict(section=section)
         if path:
@@ -687,7 +755,7 @@ class OptimizationBasedAttacker(_BaseAttacker):
                 wallclock = now
                 if path and every and chunks % every == 0:
                     utils_checkpoint.save_attack_state(path, run_state.arrays(), iteration, **in_section)
-                if not np.isfinite(done[-1]).any():
+                if not (any_finite(done[-1]) if any_finite else np.isfinite(done[-1]).any()):
                     log.info(f"Recovery loss is non-finite in iteration {iteration}. "
                              f"Cancelling reconstruction!")
                     break
@@ -712,7 +780,8 @@ class OptimizationBasedAttacker(_BaseAttacker):
         with profile(activities=activities) as profiler:
             result = chunk()  # ends in the losses' read-back, which waits for the card
         os.makedirs(trace_dir, exist_ok=True)
-        path = os.path.join(trace_dir, f"attack_chunk_{iteration}.json")
+        rank, world_size = _dist.world()
+        path = os.path.join(trace_dir, f"attack_chunk_{iteration}{f'_rank{rank}' if world_size > 1 else ''}.json")
         profiler.export_chrome_trace(path)
         stats["trace_file"] = path
         log.info(f"Saved a profiler trace of one attack chunk to {path}.")

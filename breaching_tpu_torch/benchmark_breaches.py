@@ -16,7 +16,8 @@ of the users' numbers goes to ``outputs/tables/BENCHMARK_breach_<case>_<attack>.
 and is returned. A user whose report fails is logged and skipped, a wave whose attack
 fails too, and Ctrl-C averages the users done so far, as in the JAX package. From the
 command line it runs on the CUDA device; ``main_process(cfg, device="cpu")`` on the
-CPU.
+CPU. Started by ``torchrun --nproc-per-node=N`` with ``attack.impl.sharding``, every rank
+runs every wave from the same seed and only rank 0 writes the tables and images.
 """
 
 from __future__ import annotations

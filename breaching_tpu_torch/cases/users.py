@@ -25,7 +25,8 @@ by their number once (the JAX package's scan: one gradient tree in memory for an
 size); a multi-step silo keeps the running mean acc + (delta - acc) * (1 / (i + 1)) of
 its fedAVG users' deltas, as the JAX package's loop does. Each user is its own
 ``UserSingleStep`` or ``UserMultiStep`` with its own dataloader and its own noise
-generator.
+generator. Under ``torchrun`` a single-step silo whose users divide over the ranks
+splits them (``_aggregate_single_step``).
 
 Local differential privacy (``user.local_diff_privacy``), as the JAX package's users
 apply it:
@@ -51,6 +52,7 @@ import numpy as np
 import torch
 from torch.func import functional_call
 
+from ..parallel import _dist
 from ..utils import model_dtype
 from .data import construct_dataloader
 
@@ -91,6 +93,13 @@ def construct_user(model, loss_fn, cfg_case, setup):
         raise NotImplementedError(f"User type {cfg_user.user_type} is not ported yet.")
     dataloader = construct_dataloader(cfg_case.data, cfg_case.impl, user_idx=cfg_user.user_idx)
     return user_types[cfg_user.user_type](model, loss_fn, dataloader, setup, cfg_user.user_idx, cfg_user)
+
+
+def _sum_over_ranks(tensors: dict) -> dict:
+    """The dict's tensors summed over the ranks of the process group (one all-reduce)."""
+    flat = _dist.all_reduce_(torch.cat([t.reshape(-1) for t in tensors.values()]))
+    return {k: part.view(t.shape) for (k, t), part in zip(tensors.items(), flat.split([t.numel() for t in
+                                                                                     tensors.values()]))}
 
 
 def _data_key(inputs: torch.Tensor) -> str:
@@ -411,20 +420,38 @@ class MultiUserAggregate(UserMultiStep):
         """The fedSGD gradients summed user by user, then divided by the number of users;
         in train mode the users' running statistics likewise, each user starting from the
         same buffers. Returns (the aggregate, the shared and the true buffers, the data,
-        the labels, the per-step label lists)."""
+        the labels, the per-step label lists).
+
+        With a process group whose size divides the number of users, each rank takes its
+        equal run of the users and one all-reduce sums the ranks' sums (the counterpart of
+        the JAX package's ``shard_map`` with one ``pmean``, users.py:489-540); the users'
+        noise generators are seeded first, in the users' order, as the loop seeds them."""
         parameters = server_payload["parameters"]
         bn_train, local_buffers = self._local_buffers(server_payload["buffers"])
+        rank, world_size = _dist.world()
+        mine = range(self.num_users)
+        if world_size > 1 and self.num_users % world_size == 0:
+            count = self.num_users // world_size
+            mine = range(rank * count, (rank + 1) * count)
+            for user in self.users:
+                if user.input_noise > 0 or user.gradient_noise > 0:
+                    user._noise([])
         grad_sum = buffer_sum = None
         all_data, all_labels = [], []
-        for user in self.users:
+        for position, user in enumerate(self.users):
             inputs, labels = user._user_tensors(None)
+            all_data.append(inputs)
+            all_labels.append(labels)
+            if position not in mine:
+                continue
             buffers = {k: v.clone() for k, v in local_buffers.items()}
             grads = user.gradient(parameters, buffers, inputs, labels, bn_train)
             grad_sum = grads if grad_sum is None else {k: grad_sum[k] + g for k, g in grads.items()}
             if bn_train:
                 buffer_sum = buffers if buffer_sum is None else {k: buffer_sum[k] + b for k, b in buffers.items()}
-            all_data.append(inputs)
-            all_labels.append(labels)
+        if len(mine) < self.num_users:
+            grad_sum = _sum_over_ranks(grad_sum)
+            buffer_sum = _sum_over_ranks(buffer_sum) if bn_train else None
         aggregate = {k: g / self.num_users for k, g in grad_sum.items()}
         buffers = {k: b / self.num_users for k, b in buffer_sum.items()} if bn_train else None
         shared_buffers = buffers if self.provide_buffers else None

@@ -13,16 +13,28 @@ the JAX package. With
 ``case.server.feature_estimation_users`` N > 0 the fishing server first polls the users
 of the next N ``user_idx`` slots to estimate the target class's feature distribution,
 then cuts the target user.
+
+Over several ranks (``attack.impl.sharding``, ``attacks/sharding.py``), every rank runs
+the exchange and the attack from the same seed and only rank 0 writes the records:
+
+    torchrun --nproc-per-node=N -m breaching_tpu_torch.simulate_breach case=2_single_imagenet \
+        attack=invertinggradients attack.restarts.num_trials=4 attack.impl.sharding=restarts
+
+``torchrun`` is ``python3 -m torch.distributed.run``; the ranks take NCCL where every rank of
+a host has a card of its own, else gloo (several ranks sharing one card, or the CPU). The
+command line's run ends by logging the kernels' launches (``Kernel launches: {...}``).
 """
 
 from __future__ import annotations
 
 import datetime
+import json
 import logging
 import sys
 import time
 
 import breaching_tpu_torch as breaching
+from breaching_tpu_torch import ops
 
 log = logging.getLogger(__name__)
 
@@ -75,6 +87,7 @@ def main_launcher(argv=None):
     metrics = main_process(cfg)
     log.info(f"Finished computations with total time: "
              f"{datetime.timedelta(seconds=time.time() - launch_time)}")
+    log.info(f"Kernel launches: {json.dumps(ops.launch_counts())}")
     return metrics
 
 

@@ -32,6 +32,7 @@ import numpy as np
 import torch
 
 from .config.loader import _plain_scalar
+from .parallel import _dist
 
 log = logging.getLogger(__name__)
 
@@ -52,13 +53,17 @@ def system_startup(process_idx=0, local_group_size=1, cfg=None, device="cuda"):
     """Configure torch for one process and return the ``setup`` dict.
 
     Raises if ``device`` is a CUDA device and no card is present: the port never
-    falls back to the CPU on its own.
+    falls back to the CPU on its own. Started by ``torchrun`` (``WORLD_SIZE`` > 1), the
+    rank joins the process group (``parallel._dist.start_from_env``: NCCL where every rank
+    of a host has a card of its own, else gloo) and takes ``cuda:LOCAL_RANK`` (modulo the
+    cards); every rank draws from the same seed.
     """
     _configure_logging()
     device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("No CUDA device is available; pass device='cpu' to run on the CPU.")
+    device = _dist.start_from_env(device)
     if device.type == "cuda":
-        if not torch.cuda.is_available():
-            raise RuntimeError("No CUDA device is available; pass device='cpu' to run on the CPU.")
         if device.index is None:
             device = torch.device("cuda", torch.cuda.current_device())
     # Full float32 everywhere: TF32 keeps about three decimal digits, which the
@@ -74,7 +79,9 @@ def system_startup(process_idx=0, local_group_size=1, cfg=None, device="cuda"):
                              f"choose one of {sorted(_DTYPES)}.")
         dtype = _DTYPES[dtype_name]
     if cfg is not None and cfg.get("seed") is None:
-        cfg.seed = int.from_bytes(os.urandom(4), "little")
+        # every rank takes rank 0's draw
+        seed = int.from_bytes(os.urandom(4), "little") if _dist.is_writer() else 0
+        cfg.seed = int(_dist.all_reduce_(torch.tensor([seed], dtype=torch.int64))[0])
     seed = int(cfg.seed) if cfg is not None else 0
     generator = torch.Generator(device="cpu").manual_seed(seed)
 
@@ -83,6 +90,9 @@ def system_startup(process_idx=0, local_group_size=1, cfg=None, device="cuda"):
              f"{socket.gethostname()}. Python {os.sys.version.split()[0]}, torch {torch.__version__}.")
     if cfg is not None:
         log.info(f"Experiment {cfg.name} with seed {cfg.seed}.")
+    rank, world_size = _dist.world()
+    if world_size > 1:
+        log.info(f"Rank {rank} of {world_size} over {_dist.backend()}.")
     return dict(device=device, dtype=dtype, generator=generator,
                 python_rng=np.random.default_rng(seed))
 
@@ -136,8 +146,8 @@ def flatten(d, parent_key="", sep="_"):
 def save_to_table(out_dir, table_name, dryrun=False, /, **kwargs):
     """Append a row to a tab-separated file, writing the header first; a file that
     exists keeps its columns (new keys are dropped, missing ones left blank).
-    Nothing is written on a dry run."""
-    if dryrun:
+    Nothing is written on a dry run, nor by a rank other than 0 of a process group."""
+    if dryrun or not _dist.is_writer():
         log.debug(f"Skipping table write in dryrun mode for {table_name}.")
         return
     os.makedirs(out_dir, exist_ok=True)
@@ -169,7 +179,10 @@ def avg_n_dicts(dicts):
 
 def dump_metrics(cfg, metrics, out_dir=None):
     """Write the metrics to ``<base_dir>/metrics_<name>.yaml``: arrays as lists, numpy
-    scalars as floats, keys sorted (as ``yaml.safe_dump`` writes them)."""
+    scalars as floats, keys sorted (as ``yaml.safe_dump`` writes them). Only rank 0 of a
+    process group writes."""
+    if not _dist.is_writer():
+        return
     out_dir = out_dir or cfg.get("base_dir", "outputs")
     os.makedirs(out_dir, exist_ok=True)
     fname = os.path.join(out_dir, f"metrics_{cfg.name}.yaml")
@@ -241,7 +254,9 @@ def save_reconstruction(reconstructed_user_data, server_payload, true_user_data,
     ``<base_dir>/reconstructions/<name>_rec_<i>.png``, truncated as
     ``(img * 255).astype(np.uint8)`` truncates. With ``user_idx`` the names read
     ``<name>_user<user_idx>_rec_<i>.png``, so that the users of one benchmark keep
-    their own files."""
+    their own files. Only rank 0 of a process group writes."""
+    if not _dist.is_writer():
+        return
     out_dir = os.path.join(cfg.get("base_dir", "outputs"), "reconstructions")
     os.makedirs(out_dir, exist_ok=True)
     metadata = server_payload[0]["metadata"]

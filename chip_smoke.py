@@ -222,7 +222,27 @@ Phases, one line each on standard output:
      that checkpoint through ``simulate_breach.main_process`` (25 steps, the server's model the
      checkpoint's, B1-B4 once a step, the loss falling); 17c case 10's transformer3 through the
      loader (2 epochs of 10 steps of 8 sentences, the loss falling), its checkpoint reloaded
-     alike; for
+     alike; slice 18, the multi-device layer, with two ranks that share the one card over gloo
+     (the backend rule: NCCL where every rank of a host has a card of its own; two ranks on one
+     card measure the code, not the scaling, and no multi-card run was made), in one spawn of
+     2 ranks (``parallel.dryrun.run_ranks``): 18a slice 2's preset with the fused cosine
+     objective (ResNet-18 on its checkpoint at 1x3x224x224) on 4 trials of unsigned Adam, 25
+     steps, under ``attack.impl.sharding=restarts`` (2 x 1), 18b the same with 2 images and 1
+     trial under ``batch`` (1 x 2), 18c the same under ``experimental-2d`` (each rank the trial
+     whole), each after a one-step warm-up, each trial's losses held to the solo run on the
+     card (the first step's to 1e-5 relative, the first three steps' to 1e-4; the 25 steps'
+     gap printed beside a second solo run's, since two solo runs on the card part after a few
+     steps), each rank's launches of B1-B4 (at least one a step of each on every rank), and
+     18b's attack gradient on each rank at the first candidate against its slice of solo's
+     (1e-4 of the largest entry); 18d slice 2's preset through
+     ``torchrun --standalone --nproc-per-node=1 -m breaching_tpu_torch.simulate_breach ...
+     attack.impl.sharding=restarts``, a world of one rank on NCCL; 18e case 8's silo as 11e cut
+     it (16 users x 8 images) over the 2 ranks, the aggregate held to the solo silo's arithmetic
+     (the same users' float32 gradients summed in their order) and to those gradients averaged in
+     float64 (2e-6 of the largest entry), its gap to their float64 gradients printed; 18f the tools: ``fleet_probe`` at a fleet of 8 (25 steps),
+     ``measure_asymmetry`` on slice 1 against 17a's checkpoint (25 steps) and ``decepticon_lab``
+     simulate then attack on 13a's exchange, whose tokens must equal the readout of the same
+     exchange uncached; for
      each optimization path: set-up
      seconds, loss at the start and end of every trial, PSNR and SSIM (of the
      batch put in the true images' order, and the order), it/s (the fleet's aggregate; with L-BFGS also the
@@ -3431,6 +3451,243 @@ def run_batched16(breaching, ops, path, case, overrides, experiments, augmentati
     return launches
 
 
+# --------------------------------------------------------------------------- slice 18
+# the first step's loss (the objective at one candidate) and the first SLICE18_EARLY steps' are held:
+# two solo runs on the card part after a few steps, and cuDNN's deterministic algorithms do not always
+# keep them together (18a prints both spreads; PERF.md §6); Adam's 25 steps amplify a part to
+# 1e-3-1e-2, where a wrong slice, moment or gather moves the losses by O(1) from the second step on;
+# the 25 steps' gap is printed beside solo's own; the CPU tests hold the same runs to solo at rtol 1e-5
+SLICE18_STEPS, SLICE18_EARLY, SLICE18_FIRST_TOL, SLICE18_TOL, SLICE18_GRAD_TOL = 25, 3, 1e-5, 1e-4, 1e-4
+SLICE18_BASE = SLICE2 + ["attack.objective.type=fused-cosine-similarity", "attack.optim.signed=False",
+                         f"attack.optim.max_iterations={SLICE18_STEPS}", f"attack.optim.callback={SLICE18_STEPS}"]
+SLICE18 = {  # path -> (overrides, sharding mode)
+    "slice 18a restarts": (SLICE18_BASE + ["attack.restarts.num_trials=4"], "restarts"),
+    "slice 18b batch": (SLICE18_BASE + ["case.user.num_data_points=2", "case.data.batch_size=2"], "batch"),
+    "slice 18c experimental-2d": (SLICE18_BASE + ["case.user.num_data_points=2", "case.data.batch_size=2"],
+                                  "experimental-2d"),
+}
+SLICE18_RANKS = 2
+NO_MULTI_CARD = "two ranks share one card: this measures the code, not the scaling (no multi-card run was made)"
+
+
+def user_means(breaching, cfg, setup, user, server, model, payload, true, users, images):
+    """The silo's users' float32 gradients summed in float32 in the users' order and divided by
+    their number (the solo silo's arithmetic), the same gradients averaged in float64, and their
+    float64 gradients averaged (each user's own images, as the silo drew them)."""
+    import copy
+
+    from breaching_tpu_torch.cases.users import UserSingleStep
+
+    model64 = copy.deepcopy(model).double()
+    setup64 = dict(setup, dtype=torch.float64)
+    payload64 = dict(payload, parameters={k: v.double() for k, v in payload["parameters"].items()},
+                     buffers=None if payload["buffers"] is None else
+                     {k: v.double() for k, v in payload["buffers"].items()})
+    mean32, mean64 = ({k: torch.zeros_like(g, dtype=torch.float64) for k, g in payload["parameters"].items()}
+                      for _ in range(2))
+    solo = {k: torch.zeros_like(g) for k, g in payload["parameters"].items()}
+    for pos, (idx, loader) in enumerate(zip(user.user_indices, user.dataloaders)):
+        data = dict(inputs=true["data"][pos * images:(pos + 1) * images].cpu().numpy(),
+                    labels=true["labels"][pos * images:(pos + 1) * images].cpu().numpy())
+        for sub_model, sub_setup, sub_payload, mean in ((model, setup, payload, mean32),
+                                                         (model64, setup64, payload64, mean64)):
+            sub = UserSingleStep(sub_model, server.loss, loader, sub_setup, idx, cfg.case.user)
+            for k, g in sub.compute_local_updates(sub_payload, custom_data=data)[0]["gradients"].items():
+                mean[k] += g.double() / users
+                if mean is mean32:
+                    solo[k] += g
+    return {k: g / users for k, g in solo.items()}, mean32, mean64
+
+
+def launched(counts):
+    return {k: v for k, v in counts.items() if v}
+
+
+def trajectory_gap(got, want, steps=None):
+    """The largest relative gap between two runs' losses, trial by trial, over their first
+    ``steps`` (all where None)."""
+    return max(float(np.max(np.abs(np.asarray(got[k][:steps]) - np.asarray(v[:steps]))
+                            / np.maximum(np.abs(np.asarray(v[:steps])), 1e-30))) for k, v in want.items())
+
+
+def relative_gap(got, want):
+    """The largest entry of |got - want| over the largest of |want|, over dicts of arrays."""
+    scale = max(float(np.abs(np.asarray(w, dtype=np.float64)).max()) for w in want.values())
+    return max(float(np.abs(np.asarray(got[k], dtype=np.float64) - np.asarray(w, dtype=np.float64)).max())
+               for k, w in want.items()) / scale
+
+
+def run_slice18(breaching, ops, keep):
+    """Phase 5, slice 18 (the module docstring): 18a-c and 18e in one spawn of 2 ranks on the
+    card, each held to solo; 18d through ``torchrun``; 18f the tools. Returns the launch
+    counts by path (18a-c and 18e summed over the ranks)."""
+    from breaching_tpu_torch import decepticon_lab, fleet_probe, measure_asymmetry
+
+    began = time.perf_counter()
+    paths = run_ranks18(breaching)
+    paths["slice 18d torchrun nccl"] = run_torchrun18()
+    paths.update(run_tools18(breaching, ops, keep, decepticon_lab, fleet_probe, measure_asymmetry))
+    print(f"chip_smoke: slice 18 in {time.perf_counter() - began:.1f} s", flush=True)
+    return paths
+
+
+def run_ranks18(breaching):
+    """18a-c, 18b's gradient and 18e in one spawn of 2 ranks on the card, each held to solo."""
+    from breaching_tpu_torch.parallel.dryrun import attack_run, run_each, run_ranks
+
+    print(f"slice 18 on {card_line()}: {SLICE18_RANKS} ranks over gloo (NCCL where every rank of a host has a "
+          f"card of its own, else gloo); {NO_MULTI_CARD}", flush=True)
+    calls = [("attack_run", (overrides, mode, True)) for overrides, mode in SLICE18.values()]
+    calls += [("silo_run", (CASE8,)), ("batch_gradient", (SLICE18["slice 18b batch"][0],))]
+    start = time.perf_counter()
+    ranks = run_ranks(SLICE18_RANKS, run_each, calls, device=DEVICE, timeout=600)
+    print(f"slice 18: {SLICE18_RANKS} ranks spawned, ran 18a-c, 18e and 18b's gradient and ended in "
+          f"{time.perf_counter() - start:.1f} s", flush=True)
+    paths, solos = {}, {}
+    for i, (path, (overrides, mode)) in enumerate(SLICE18.items()):
+        key = tuple(overrides)
+        if key not in solos:  # twice: the card's own spread from run to run
+            solos[key] = [attack_run(overrides, None, True, device=DEVICE) for _ in range(2)]
+            if not i:  # and twice with cuDNN's deterministic algorithms
+                deterministic = torch.backends.cudnn.deterministic
+                torch.backends.cudnn.deterministic = True
+                try:
+                    pair = [attack_run(overrides, None, True, device=DEVICE)["trials"] for _ in range(2)]
+                finally:
+                    torch.backends.cudnn.deterministic = deterministic
+                print(f"{path}: two solo runs part by {trajectory_gap(pair[1], pair[0], 2):.3e} at the second step "
+                      f"and {trajectory_gap(pair[1], pair[0]):.3e} over the {SLICE18_STEPS} with cuDNN's deterministic "
+                      f"algorithms (not held)", flush=True)
+        solo, again = solos[key]
+        results = [rank[i] for rank in ranks]
+        first, early, gap = (max(trajectory_gap(r["trials"], solo["trials"], steps) for r in results)
+                             for steps in (1, SLICE18_EARLY, None))
+        trials = len(solo["trials"])
+        rates = [(r["part"]["trials"][1] - r["part"]["trials"][0]) * SLICE18_STEPS / r["seconds"] for r in results]
+        for rank, r in enumerate(results):
+            print(f"{path} rank {rank} of {r['world'][1]} over {r['backend']}: mesh {r['part']['mesh']}, trials "
+                  f"{r['part']['trials']}, images {r['part']['images']}; {r['seconds']:.2f} s, {rates[rank]:.1f} it/s; "
+                  f"launches {launched(r['launches'])}", flush=True)
+            require(r["backend"] == "gloo" and r["world"][1] == SLICE18_RANKS, f"{path}: {r['backend']} {r['world']}")
+            require(r["part"]["mode"] == mode, f"{path}: ran as {r['part']['mode']}")
+            for name in ("b3_tv_value_and_grad", "b4_adam_box_step", "b1_matching_sums", "b2_cosine_backward"):
+                require(r["launches"][name] >= SLICE18_STEPS, f"{path}: rank {rank} launched {name} "
+                        f"{r['launches'][name]} times in {SLICE18_STEPS} steps")
+            require(np.array_equal(r["data"], results[0]["data"]), f"{path}: the ranks return other reconstructions")
+        solo_rate = trials * SLICE18_STEPS / solo["seconds"]
+        # the ranks of a line of the model axis run the same trials, except under "batch"
+        copies = results[0]["part"]["mesh"]["model"] if results[0]["part"]["mode"] != "batch" else 1
+        spread, early_spread = (trajectory_gap(again["trials"], solo["trials"], steps)
+                                for steps in (None, SLICE18_EARLY))
+        print(f"{path}: {trials} trial(s) x {SLICE18_STEPS} steps, {sum(rates) / copies:.1f} it/s of distinct "
+              f"trials over the ranks (solo {solo_rate:.1f} it/s, {solo['seconds']:.2f} s); the largest gap of a "
+              f"trial's loss to solo's {first:.3e} relative at the first step (tol {SLICE18_FIRST_TOL}), {early:.3e} "
+              f"over the first {SLICE18_EARLY} (tol {SLICE18_TOL}; solo again {early_spread:.3e}); {gap:.3e} over "
+              f"the {SLICE18_STEPS} steps beside the second solo run's {spread:.3e} (not held); {NO_MULTI_CARD}",
+              flush=True)
+        require(first <= SLICE18_FIRST_TOL and early <= SLICE18_TOL,
+                f"{path}: the losses are {first:.3e} from solo's at the first step, {early:.3e} over the first "
+                f"{SLICE18_EARLY}")
+        paths[path] = {name: sum(r["launches"][name] for r in results) for name in KERNELS}
+    for rank, r in enumerate(rank[-1] for rank in ranks):
+        start, stop = r["images"]
+        err = float(np.abs(r["grad"] - r["solo"][start:stop]).max()) / float(np.abs(r["solo"]).max())
+        print(f"slice 18b batch rank {rank}: the attack gradient of images {start}:{stop} at the first candidate "
+              f"{err:.3e} of the largest entry from its slice of solo's (tol {SLICE18_GRAD_TOL})", flush=True)
+        require(err <= SLICE18_GRAD_TOL, f"slice 18b: rank {rank}'s gradient is {err:.3e} from solo's slice")
+    silo = [rank[-2] for rank in ranks]
+    cfg, setup, user, server, model = build(breaching, CASE8)
+    true = {k: torch.as_tensor(v, device=DEVICE) for k, v in silo[0]["true"].items()}  # the ranks' images
+    solo, mean32, mean64 = ({k: v.cpu().numpy() for k, v in m.items()} for m in user_means(
+        breaching, cfg, setup, user, server, model, server.distribute_payload(), true, CASE8_USERS, CASE8_IMAGES))
+    for rank, r in enumerate(silo):
+        to_solo, to32, to64 = (relative_gap(r["gradients"], want) for want in (solo, mean32, mean64))
+        print(f"slice 18e case 8 silo rank {rank} of {r['world'][1]} over {r['backend']}: {CASE8_USERS} users x "
+              f"{CASE8_IMAGES} images, {CASE8_USERS // SLICE18_RANKS} a rank; the aggregate {to_solo:.3e} of its "
+              f"largest entry from solo's, {to32:.3e} from the users' float32 gradients averaged in float64 (tol "
+              f"{SILO_SUM} for both), {to64:.3e} from their float64 gradients; launches none; {NO_MULTI_CARD}",
+              flush=True)
+        require(to_solo <= SILO_SUM and to32 <= SILO_SUM, f"slice 18e: rank {rank}'s aggregate is {to_solo:.3e} "
+                f"from solo's, {to32:.3e} from the float64 mean")
+    paths["slice 18e case 8 silo"] = {name: 0 for name in KERNELS}
+    del model, true
+    torch.cuda.empty_cache()
+    return paths
+
+
+def run_torchrun18():
+    """18d: slice 2's preset (10 steps) through ``torchrun`` as a world of one rank, which takes
+    NCCL; its kernel launches from the entry point's log."""
+    with tempfile.TemporaryDirectory() as out:
+        command = [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc-per-node=1", "-m",
+                   "breaching_tpu_torch.simulate_breach", *SLICE2, "attack.optim.max_iterations=10",
+                   "attack.optim.callback=10", "attack.impl.sharding=restarts", f"base_dir={out}"]
+        start = time.perf_counter()
+        proc = subprocess.run(command, cwd=REPO, capture_output=True, text=True, timeout=300)
+        seconds = time.perf_counter() - start
+    log = proc.stdout + proc.stderr
+    launches = next((json.loads(line.split("Kernel launches: ", 1)[1]) for line in log.splitlines()
+                     if "Kernel launches: " in line), None)
+    started = next((line for line in log.splitlines() if line.startswith("Rank 0 of 1 on ")), "no rank's start")
+    print(f"slice 18d torchrun nccl: exit {proc.returncode} in {seconds:.1f} s (process start included); the log: "
+          f"'{started}' (a world of one rank is solo itself); launches {launched(launches or {})}", flush=True)
+    require(proc.returncode == 0, f"slice 18d: torchrun failed:\n{log[-3000:]}")
+    require(" over nccl " in started, "slice 18d: the rank did not start on NCCL")
+    require(launches is not None and launches.get("b4_adam_box_step", 0) >= 10, f"slice 18d: launches {launches}")
+    return {name: launches.get(name, 0) for name in KERNELS}
+
+
+def run_tools18(breaching, ops, keep, decepticon_lab, fleet_probe, measure_asymmetry):
+    """18f: the four tools' counterparts that run the card (the converter reads files only)."""
+    paths = {}
+    ops.reset_launch_counts()
+    start = time.perf_counter()
+    line = fleet_probe.main(["8", "float32", "--iterations", str(SLICE18_STEPS), "--chunk", str(SLICE18_STEPS)],
+                            device=DEVICE)
+    paths["slice 18f fleet_probe"] = ops.launch_counts()
+    print(f"slice 18f fleet_probe (one process, no process group): {json.dumps(line)} "
+          f"({time.perf_counter() - start:.1f} s with the exchanges and the warm-up fleet); launches "
+          f"{launched(paths['slice 18f fleet_probe'])}", flush=True)
+    require(line["fleet"] == 8 and len(line["psnrs"]) == 8 and "vs_baseline" not in line, f"fleet_probe: {line}")
+    require(paths["slice 18f fleet_probe"]["b4_adam_box_step"] >= SLICE18_STEPS, "fleet_probe launched no Adam step")
+    with tempfile.TemporaryDirectory() as out:
+        ops.reset_launch_counts()
+        start = time.perf_counter()
+        result = measure_asymmetry.main(["--iterations", str(SLICE18_STEPS), "--case", "1_single_image_small",
+                                         "--out", out, f"case.data.path={keep}"], device=DEVICE)
+        paths["slice 18f measure_asymmetry"] = ops.launch_counts()
+        written = sorted(os.listdir(out))
+    rows = result["rows"]
+    print(f"slice 18f measure_asymmetry on slice 1 against 17a's checkpoint ({SLICE18_STEPS} steps, "
+          f"{time.perf_counter() - start:.1f} s): random PSNR {rows['random']['metrics']['psnr']:.3f} grad-norm "
+          f"{rows['random']['grad_norm']:.4f}, trained PSNR {rows['trained']['metrics']['psnr']:.3f} grad-norm "
+          f"{rows['trained']['grad_norm']:.4f}, gap {result['gap']:+.3f} dB; wrote {written}; launches "
+          f"{launched(paths['slice 18f measure_asymmetry'])}", flush=True)
+    require(written == ["asymmetry.md", "metrics_asym_random.yaml", "metrics_asym_trained.yaml"],
+            f"measure_asymmetry wrote {written}")
+    require(rows["random"]["grad_norm"] != rows["trained"]["grad_norm"], "measure_asymmetry: one model in both")
+    overrides = SLICE13["slice 13a decepticons_transformer"]
+    with tempfile.TemporaryDirectory() as lab:
+        ops.reset_launch_counts()
+        start = time.perf_counter()
+        decepticon_lab.simulate("13a", overrides, lab, device=DEVICE)
+        cached = decepticon_lab.attack("13a", overrides, lab, device=DEVICE)
+        paths["slice 18f decepticon_lab"] = ops.launch_counts()
+    cfg, setup, user, server, _ = build(breaching, decepticon_lab.PRESETS.get("13a", []) + ["name=lab_13a",
+                                                                                         *overrides])
+    payload = server.distribute_payload()
+    shared, true_data = user.compute_local_updates(payload)
+    attacker = breaching.attacks.prepare_attack(server.model, server.loss, cfg.attack, setup)
+    live, _ = attacker.reconstruct([payload], [shared], server.secrets)
+    same = np.array_equal(cached["reconstruction"], live["data"].cpu().numpy())
+    print(f"slice 18f decepticon_lab on 13a's exchange: simulate and attack in {time.perf_counter() - start:.1f} s, "
+          f"token-bag recall {cached['bag_recall']:.4f}, positional accuracy {cached['metrics']['accuracy']:.4f}; "
+          f"the cached attack's tokens {'equal' if same else 'differ from'} the uncached readout's; launches "
+          f"{launched(paths['slice 18f decepticon_lab'])}", flush=True)
+    require(same, "decepticon_lab: the cached attack's tokens differ from the uncached readout's")
+    return paths
+
+
 # --------------------------------------------------------------------------- slice 17
 # the in-repo trainer (breaching_tpu_torch/train_model.py) on the card: 17a case 1's ConvNet
 # (width 64) at CIFAR-10's 3x32x32 on the synthetic training split, the materialized epoch with
@@ -3558,10 +3815,11 @@ def check_train_reference(breaching, trained):
     require(f64 <= TRAIN_F64, f"slice 17b: float64 steps card against CPU {f64} > {TRAIN_F64}")
 
 
-def run_slice17(breaching, ops):
+def run_slice17(breaching, ops, keep):
     """Phase 5, slice 17: the trainer through ``train_model.train`` on the card (17a, 17c),
     each checkpoint reloaded; 17b on 17a's checkpoint; slice 1's attack on it through
-    ``simulate_breach.main_process``. Returns the launch counts by path."""
+    ``simulate_breach.main_process``. 17a's checkpoint is copied to ``keep/checkpoints`` for
+    slice 18. Returns the launch counts by path."""
     from breaching_tpu_torch.cases.models.model_preparation import dump_flat_state
     from breaching_tpu_torch.simulate_breach import main_process
 
@@ -3575,6 +3833,8 @@ def run_slice17(breaching, ops):
         paths["slice 17a trainer"] = ops.launch_counts()
         report_training("slice 17a ConvNet-64 at 3x32x32", result, seconds, peak, TRAIN17["batch_size"])
         flat = require_round_trip(breaching, "slice 17a", cfg.case.model, cfg.case.data, result["out"])
+        os.makedirs(os.path.join(keep, "checkpoints"), exist_ok=True)
+        shutil.copy(result["out"], os.path.join(keep, "checkpoints", os.path.basename(result["out"])))
         check_train_reference(breaching, flat)
         cfg = breaching.get_config(SLICE + [f"attack.optim.max_iterations={TRAIN17_STEPS}", "attack.optim.callback=50",
                                             "seed=0", "name=trained", f"case.data.path={data}", f"base_dir={data}"])
@@ -4051,7 +4311,7 @@ def under_bound(rows):
 
 
 class LateSlices:
-    """Slices 11-15 and 17 in a child process of this script (``--late OUT``) on the same card,
+    """Slices 11-15, 17 and 18 in a child process of this script (``--late OUT``) on the same card,
     started after phase 4 and run beside slices 1-10 and 16: most paths leave the card
     idle most of the time, so two processes nearly halve phase 5's wall time. The child
     prints to its own log, which ``paths`` prints once it has ended, and writes its paths'
@@ -4070,7 +4330,7 @@ class LateSlices:
         self.log.flush()
         with open(self.log.name) as log:
             print(log.read(), end="", flush=True)
-        require(returncode == 0, f"slices 11-15 and 17 failed in their process ({returncode})")
+        require(returncode == 0, f"slices 11-15, 17 and 18 failed in their process ({returncode})")
         with open(self.out) as out:
             return json.load(out)
 
@@ -4083,7 +4343,7 @@ class LateSlices:
 
 
 def run_late(out):
-    """The child of ``LateSlices``: slices 11-15 and 17, their launch counts by path written to
+    """The child of ``LateSlices``: slices 11-15, 17 and 18, their launch counts by path written to
     ``out``. Exits 1 where a check fails."""
     sys.path.insert(0, REPO)
     import breaching_tpu_torch as breaching
@@ -4092,12 +4352,16 @@ def run_late(out):
     began = time.perf_counter()
     try:
         paths = {}
-        for run in (run_slice11, run_slice12, run_slice13, run_slice14, run_slice15, run_slice17):
+        for run in (run_slice11, run_slice12, run_slice13, run_slice14, run_slice15):
             paths.update(run(breaching, ops))
+        with tempfile.TemporaryDirectory() as keep:
+            paths.update(run_slice17(breaching, ops, keep))
+            paths.update(run_slice18(breaching, ops, keep))
     except CheckFailed as failed:
-        print(f"chip_smoke: FAILED in slices 11-15 and 17: {failed}", flush=True)
+        print(f"chip_smoke: FAILED in slices 11-15, 17 and 18: {failed}", flush=True)
         return 1
-    print(f"chip_smoke: slices 11-15 and 17 in their process in {time.perf_counter() - began:.1f} s", flush=True)
+    print(f"chip_smoke: slices 11-15, 17 and 18 in their process in {time.perf_counter() - began:.1f} s",
+          flush=True)
     with open(out, "w") as fh:
         json.dump(paths, fh)
     return 0
@@ -4145,7 +4409,7 @@ def main():
     for name, overrides in HF_FAMILIES.items():
         check_hf_family(breaching, name, overrides)
     print(f"chip_smoke: phase 4 done at {time.perf_counter() - began:.1f} s", flush=True)
-    late = LateSlices()  # slices 11-15 and 17 beside 1-10 and 16
+    late = LateSlices()  # slices 11-15, 17 and 18 beside 1-10 and 16
     try:
         paths = run_phase5(breaching, ops, late)
     finally:
@@ -4155,7 +4419,7 @@ def main():
 
 
 def run_phase5(breaching, ops, late):
-    """Phase 5 in this process (slices 1-7, 10 and 16) and in ``late``'s (11-15 and 17): the
+    """Phase 5 in this process (slices 1-7, 10 and 16) and in ``late``'s (11-15, 17 and 18): the
     launch counts by path, slice 16's under "slice 16"."""
     fused = ["attack.objective.type=fused-cosine-similarity"]
     mark = [time.perf_counter()]

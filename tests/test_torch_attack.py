@@ -145,14 +145,7 @@ def test_short_signed_reconstructions_match(dryrun, iterations):
 
 @pytest.mark.parametrize("override,name", [
     ("attack.attack_type=permutation-optimization", "permutation-optimization"),
-    ("attack.label_strategy=bias-text case.user.provide_labels=False", "bias-text"),
-    # the attack.impl knob the JAX package acts on and the port does not (yet) is refused
-    # by name rather than ignored: sharding, over a mesh of devices. mixed_precision and
-    # dtype run (tests/test_torch_precision.py), and so do checkpoint_path, checkpoint_every
-    # and trace_dir, with L-BFGS, trials one after the other and the multiscale attack
-    # (tests/test_torch_checkpoint.py)
-    ("attack.impl.sharding=restarts", "sharding"),
-    ("attack.impl.sharding=batch", "sharding")])
+    ("attack.label_strategy=bias-text case.user.provide_labels=False", "bias-text")])
 def test_unported_options_are_refused(override, name):
     cfg = breaching.get_config(SLICE + override.split())
     setup = breaching.utils.system_startup(cfg=cfg, device="cpu")
